@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. device: the card's name and power limit;
+  2. build: compile the CUDA kernels from the sources in this checkout;
+  3. kernels: each kernel against its plain PyTorch version at every
+     flagship call shape (bf16) and at odd shapes (bf16 and fp32), with
+     CUDA-event times of the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call;
+  4. agreement: the TINY search's fitness on the GPU (kernels) against the
+     CPU (plain versions), fp32;
+  5. main path: a StyleGAN2_ffhq_d NSGA-II search at full width
+     (config-f 1024px G + D, CLIP ViT-B/32, pop 16, bf16, random weights
+     from seed 0), init + 3 generations, with the kernels' launch counts.
+The last lines are the kernels' summary (JSON), the card's name and power
+limit, and {"ok": true, "device": {...}}.
+
+Run: python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+# H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32 outside the tensor
+# cores, where all three kernels compute (bf16 inputs widen to fp32)
+MEM_BYTES_PER_S = 3.35e12
+PEAK_FP32_OPS_PER_S = 67e12
+TARGET = "the face of a man with brown eyes"
+POP = 16
+GENERATIONS = 3
+# fp32: the kernel and the plain version differ only in summation order and
+# FMA contraction; bf16: one to two bf16 ulps where roundings fall apart
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def smi_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: int, n_ops: int) -> tuple:
+    """The least time for the work, and whether bytes or operations set it."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# ------------------------------------------------------------ phase 1-2
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    name = torch.cuda.get_device_name(0)
+    log({"phase": "device", "kind": name, "count": torch.cuda.device_count(),
+         "nvidia_smi": smi_line(), "torch": torch.__version__,
+         "cuda": torch.version.cuda})
+    # fp32 comparisons and references run in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return name
+
+
+def phase_build() -> None:
+    from clip_glass_torch.ops import cuda
+
+    t = time.perf_counter()
+    path = cuda.build()
+    cuda.library()
+    log({"phase": "build", "seconds": time.perf_counter() - t,
+         "library": os.path.relpath(path, ROOT)})
+
+
+# ------------------------------------------------------------ phase 3
+
+def flagship_shapes(pop: int = POP):
+    """Per-evaluation call shapes of the three kernels on the main path."""
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = sg2.CONFIG_F
+    nbl, ups, rgb = [], [], []
+    res = cfg.base_size
+    for bi, (_, out_ch, up, n_layers) in enumerate(cfg.block_channels()):
+        if up:
+            res *= 2
+        nbl += [(pop, res, res, out_ch)] * n_layers
+        if bi:
+            ups.append((pop, res // 2, res // 2, cfg.data_channels))
+        rgb.append((pop, res * res, out_ch, cfg.data_channels))
+    return nbl, ups, rgb
+
+
+def _counts(shapes):
+    out = {}
+    for s in shapes:
+        out[s] = out.get(s, 0) + 1
+    return out
+
+
+def _check(name, got, want, dtype, shape):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    if not ok or not math.isfinite(err):
+        raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees with "
+                             f"the plain version, max abs err {err}")
+    return err
+
+
+def _nbl_case(shape, dtype, gen):
+    B, H, W, C = shape
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    noise = torch.randn((H, W), generator=gen, device="cuda").to(dtype)
+    ns = torch.tensor(0.7, device="cuda").to(dtype)
+    bias = torch.randn((C,), generator=gen, device="cuda").to(dtype)
+    return x, noise, ns, bias
+
+
+def _ups_case(shape, dtype, gen):
+    return (torch.randn(shape, generator=gen, device="cuda").to(dtype),)
+
+
+def _rgb_case(shape, dtype, gen, demod: bool = False):
+    B, P, I, O = shape
+    x = torch.randn((B, P, I), generator=gen, device="cuda").to(dtype)
+    style = (1.0 + 0.5 * torch.randn((B, I), generator=gen, device="cuda")).to(dtype)
+    w = (torch.randn((I, O), generator=gen, device="cuda") / math.sqrt(I)).to(dtype)
+    d = ((0.5 + torch.rand((B, O), generator=gen, device="cuda")).to(dtype)
+         if demod else None)
+    bias = torch.randn((O,), generator=gen, device="cuda").to(dtype)
+    return x, style, w, d, bias
+
+
+def _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops, library=None):
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = _check(kernel.__name__, got, want, dtype, shape)
+    iters = int(min(200, max(10, 2e10 / max(n_bytes, 1))))
+    rec = {"kernel": kernel.__name__, "shape": list(shape), "dtype": str(dtype),
+           "max_abs_err": err,
+           "kernel_ms": time_ms(lambda: kernel(*args), iters),
+           "plain_ms": time_ms(lambda: plain(*args), iters)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops)
+    rec["library_ms"] = None
+    if library is not None:
+        lib_fn, lib_check = library
+        lib_check(got)
+        rec["library_ms"] = time_ms(lib_fn, iters)
+    del got, want
+    return rec
+
+
+def phase_kernels():
+    """Kernels vs plain versions; returns per-kernel summaries over one
+    main-path evaluation's call shapes (bf16)."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, upfirdn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nbl_shapes, ups_shapes, rgb_shapes = flagship_shapes()
+    k1 = upfirdn.polyphase_taps()
+    fir_t = torch.tensor([[a * b for b in k1] for a in k1], device="cuda")
+
+    def nbl_cost(shape, args):
+        B, H, W, C = shape
+        return nbytes(*args) + nbytes(args[0]), 5 * B * H * W * C
+
+    def ups_cost(shape, args):
+        B, H, W, C = shape
+        return 5 * nbytes(args[0]), 8 * 4 * B * H * W * C
+
+    def rgb_cost(shape, args):
+        B, P, I, O = shape
+        x, style, w, d, bias = args
+        return (nbytes(x, style, w, d, bias) + B * P * O * x.element_size(),
+                2 * B * P * I * O)
+
+    def ups_library(args):
+        (x,) = args
+        B, H, W, C = x.shape
+        wt = fir_t.flip(0, 1).to(x.dtype)[None, None].expand(C, 1, 4, 4)
+        xn = x.permute(0, 3, 1, 2)
+
+        def fn():
+            return F.conv_transpose2d(xn, wt, stride=2, groups=C)[:, :, :2 * H, :2 * W]
+
+        def check(got):
+            _check("conv_transpose2d", fn().permute(0, 2, 3, 1), got, x.dtype,
+                   tuple(x.shape))
+        return fn, check
+
+    def rgb_library(args):
+        x, style, w, d, bias = args
+        dd = d if d is not None else torch.ones_like(style[:, :1])
+        wb = style[:, :, None] * w[None] * dd[:, None, :]
+
+        def fn():
+            return torch.baddbmm(bias[None, None], x, wb)
+
+        def check(got):
+            # the folded weight rounds s*w*d to bf16 once more: compare at
+            # twice the bf16 tolerance
+            err = (fn().float() - got.float()).abs().max().item()
+            scale = got.float().abs().max().item()
+            if not err <= 2 * TOL[x.dtype] * max(1.0, scale):
+                raise AssertionError(f"baddbmm disagrees: {err}")
+        return fn, check
+
+    specs = [
+        ("noise_bias_lrelu", bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
+         _nbl_case, nbl_cost, None, nbl_shapes, [(3, 5, 7, 20), (2, 3, 5, 7)]),
+        ("upsample2x", upfirdn.upsample2x, upfirdn.upsample2x_plain,
+         _ups_case, ups_cost, ups_library, ups_shapes, [(3, 5, 7, 3), (2, 4, 6, 16)]),
+        ("modulated_matmul", modulated_conv.modulated_matmul,
+         modulated_conv.modulated_matmul_plain, _rgb_case, rgb_cost, rgb_library,
+         rgb_shapes, [(3, 37, 24, 3), (2, 50, 20, 12), (2, 33, 7, 5)]),
+    ]
+    summary = {}
+    for name, kernel, plain, make, cost, library, shapes, odd in specs:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if library else None,
+               "max_abs_err": 0.0}
+        work = [0, 0]  # bytes and operations of one evaluation's calls
+        for shape, count in _counts(shapes).items():
+            args = make(shape, torch.bfloat16, gen)
+            n_bytes, n_ops = cost(shape, args)
+            rec = _measure(kernel, plain, args, torch.bfloat16, shape, n_bytes,
+                           n_ops, library(args) if library else None)
+            rec["launches_per_evaluation"] = count
+            log(rec)
+            tot["ms"] += count * rec["kernel_ms"]
+            tot["plain_ms"] += count * rec["plain_ms"]
+            work[0] += count * n_bytes
+            work[1] += count * n_ops
+            if library:
+                tot["library_ms"] += count * rec["library_ms"]
+            tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+            del args
+        # the largest flagship shape in fp32, and the odd shapes in both types
+        extra = [(max(shapes, key=math.prod), torch.float32)]
+        extra += [(s, dt) for s in odd for dt in (torch.bfloat16, torch.float32)]
+        for shape, dtype in extra:
+            if name == "modulated_matmul" and shape in odd[1:]:
+                args = _rgb_case(shape, dtype, gen, demod=True)
+            else:
+                args = make(shape, dtype, gen)
+            n_bytes, n_ops = cost(shape, args)
+            log(_measure(kernel, plain, args, dtype, shape, n_bytes, n_ops))
+            del args
+        tot["bound_ms"], tot["bound_by"] = bound_ms(*work)
+        summary[name] = tot
+        torch.cuda.empty_cache()
+    return summary
+
+
+# ------------------------------------------------------------ phase 4
+
+def phase_agreement():
+    """TINY problem's fitness on the GPU (kernels) against the CPU (plain
+    versions), fp32; the GPU evaluation launches each kernel at every call
+    site, the CPU one none. tests/test_torch_cuda.py runs this same check."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.ops import bias_act, modulated_conv, upfirdn
+
+    kernels = (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
+               modulated_conv.modulated_matmul)
+
+    cfg = get_config("StyleGAN2_ffhq_d").replace(
+        pop_size=8, dim_z=32, n_var=32, weights="random:0", target=TARGET,
+        compute_dtype="float32")
+    X = torch.randn((8, 32), generator=torch.Generator().manual_seed(1))
+    Fs = {}
+    for dev in ("cpu", "cuda"):
+        p = GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
+                              model_cfg=sg2.TINY)
+        before = [k.launches for k in kernels]
+        Fs[dev] = p.generator.eval_population(X.to(dev)).cpu()
+        moved = tuple(k.launches - n for k, n in zip(kernels, before))
+        # TINY: 5 synthesis layers, 2 skip upsamples, 3 ToRGB
+        if moved != ((5, 2, 3) if dev == "cuda" else (0, 0, 0)):
+            raise AssertionError(f"{dev}: kernel launches {moved}")
+    err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
+    # fp32 on both sides with TF32 off: cuDNN/cuBLAS sum in another order
+    # than the CPU kernels over ~20 layers
+    if not torch.allclose(Fs["cuda"], Fs["cpu"], rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"TINY fitness on the GPU disagrees with the CPU: "
+                             f"{Fs['cuda']} vs {Fs['cpu']}")
+    log({"phase": "agreement", "config": "TINY fp32", "max_abs_err": err})
+
+
+# ------------------------------------------------------------ phase 5
+
+def phase_main(kind: str, smi: str):
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.ops import bias_act, modulated_conv, upfirdn
+
+    kernels = (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
+               modulated_conv.modulated_matmul)
+    config = get_config("StyleGAN2_ffhq_d").replace(
+        target=TARGET, weights="random:0", pop_size=POP)
+    t = time.perf_counter()
+    problem = GenerationProblem(config, device="cuda")
+    algorithm = problem.make_algorithm()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    gen = algorithm.generator(0)
+    t = time.perf_counter()
+    state = algorithm.init(gen)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    init_s = stamps[0] - t
+
+    def on_generation(_state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = minimize(algorithm, GENERATIONS, gen, callback=on_generation,
+                   save_each=1, state=state)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+
+    Fp = res.pop_F
+    if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all():
+        raise AssertionError(f"bad fitness: shape {tuple(Fp.shape)}, {Fp}")
+    if not (Fp[:, 1] >= 0).all():
+        raise AssertionError(f"negative hinge: {Fp[:, 1]}")
+    if not (Fp[:, 0].abs() <= 1.0 + 1e-6).all():
+        raise AssertionError(f"|cos| > 1: {Fp[:, 0]}")
+    n_eval = GENERATIONS + 1
+    per_eval = {"noise_bias_lrelu": 17, "upsample2x": 8, "modulated_matmul": 9}
+    for name, n in per_eval.items():
+        if launches[name] != n * n_eval:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected "
+                                 f"{n} x {n_eval} evaluations")
+    gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    log({"phase": "main", "config": "StyleGAN2_ffhq_d", "model": "CONFIG_F 1024px",
+         "clip": "VIT_B_32", "pop": POP, "compute_dtype": config.compute_dtype,
+         "generations": GENERATIONS, "setup_s": setup_s, "init_eval_s": init_s,
+         "generation_s": gen_s,
+         "candidates_per_s": [POP / s for s in gen_s],
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "best_cos": -Fp[:, 0].min().item(), "hinge_min": Fp[:, 1].min().item(),
+         "launches": launches, "device": kind, "nvidia_smi": smi})
+    return launches
+
+
+KERNEL_META = {
+    "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
+                         "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
+    "upsample2x": ("clip_glass_torch/csrc/upsample2x.cu",
+                   "clip_glass_tpu/ops/pallas/upfirdn2d.py:49"),
+    "modulated_matmul": ("clip_glass_torch/csrc/modulated_matmul.cu",
+                         "clip_glass_tpu/ops/pallas/modulated_matmul.py:35"),
+}
+
+
+def main() -> int:
+    kind = phase_device()
+    smi = smi_line()
+    phase_build()
+    summary = phase_kernels()
+    phase_agreement()
+    launches = phase_main(kind, smi)
+    kernels = []
+    for name, (source, replaces) in KERNEL_META.items():
+        s = summary[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                        "scope": f"sum over the call shapes of one evaluation "
+                                 f"(pop {POP}, bf16)"})
+    log({"kernels": kernels})
+    log(smi)
+    log({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""GenerationProblem: config -> population-fitness function + its search.
+
+Behavioral reference: reference problem.py:7-29.
+"""
+
+from __future__ import annotations
+
+from clip_glass_torch.fitness.generator import Generator
+
+
+class GenerationProblem:
+    def __init__(self, config, device=None, policy=None,
+                 clip_weights: str = "random:0", clip_cfg=None, model_cfg=None,
+                 bundle=None):
+        self.config = config
+        self.generator = Generator(config, device=device, policy=policy,
+                                   clip_weights=clip_weights, clip_cfg=clip_cfg,
+                                   model_cfg=model_cfg, bundle=bundle)
+
+    @property
+    def device(self):
+        return self.generator.device
+
+    def eval_fn(self):
+        """(X [pop, n_var]) -> F [pop, n_obj] (minimized)."""
+        return self.generator.eval_population
+
+    def make_algorithm(self):
+        from clip_glass_torch.evolve.algorithm import make_algorithm
+        return make_algorithm(self.config, self.eval_fn(), self.device)

@@ -1,0 +1,175 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+The sources in `clip_glass_torch/csrc/*.cu` have a plain C interface. At the
+first CUDA use they are compiled for Hopper (`sm_90a`) by `nvcc`, one
+process per source started together, linked into one shared library under
+`build/clip_glass_torch/` beside the package, and bound with `ctypes`. The
+library's name carries a hash of the sources and flags, so an edit
+rebuilds it. A missing `nvcc` or a failed build raises: there is no
+fallback for a CUDA tensor.
+
+Launch status: every C entry point returns `cudaGetLastError()` after its
+launch, and `check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# dtype codes of the C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
+_INT = ctypes.c_int
+_SIGNATURES = {
+    # x, noise, ns, bias, out, n, hw, c, alpha, gain, dtype, vec, stream
+    "cg_noise_bias_lrelu": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F,
+                            _INT, _INT, _P),
+    # x, out, B, H, W, C, k0, k1, k2, k3, dtype, stream
+    "cg_upsample2x": (_P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _F, _INT, _P),
+    # x, style, w, demod, bias, out, B, P, I, O, dtype, vec, stream
+    "cg_modulated_matmul": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            _INT, _INT, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build_dir() -> Path:
+    return CSRC.parent.parent / "build" / "clip_glass_torch"
+
+
+def find_nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        candidates.append(which)
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (neither CUDA_HOME/bin/nvcc nor PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return build_dir() / f"libclip_glass_kernels_{_source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels into the shared library (no-op when the library
+    for these exact sources exists). Returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failures = []
+        for cmd, _, p in procs:
+            stdout, stderr = p.communicate()
+            if p.returncode != 0:
+                failures.append(f"$ {' '.join(cmd)}\n{stdout}{stderr}")
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        tmp_lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib,
+               *[obj for _, obj, _ in procs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"CUDA kernel link failed:\n$ {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp_lib, out)  # atomic: concurrent builders agree
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use; the lock guards only
+    that first build and load)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.cg_error_string.argtypes = [ctypes.c_int]
+            lib.cg_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        msg = library().cg_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
+    """Validate the CUDA-kernel arguments: one device, the kernel's dtype,
+    contiguous. Raises on anything the kernel does not take."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}, not on a CUDA device")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def vector_width(dtype: torch.dtype, n_inner: int, *tensors: torch.Tensor) -> int:
+    """Elements per 16-byte access when the inner extent and every pointer
+    allow it, else 1."""
+    vec = 16 // dtype.itemsize
+    if n_inner % vec or any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec

@@ -1,0 +1,152 @@
+"""StyleGAN2 modulated/demodulated convolution on NHWC tensors.
+
+Behavioral reference: stylegan2/modules.py:920-967 (ConvLayer.forward_mod)
+and 1089-1139 (fused ConvUpLayer). As in the JAX package, the per-sample
+kernels are re-associated into ordinary batched convs:
+
+    conv(x, w * s[b]) == conv(x * s[b], w)     (linearity in channels)
+    demod d[b,o] depends only on (w, s[b]) and commutes with the depthwise
+    FIR, so it scales the conv OUTPUT.
+
+Activations are NHWC at every function boundary; inside, the NCHW view of an
+NHWC tensor is channels_last memory, which is what cuDNN's convs take.
+Conv weights are OIHW (the JAX package's HWIO, transposed at import), with
+the equalized-lr scale already folded in.
+
+`modulated_matmul` is the wrapper of the hand-written CUDA kernel
+(csrc/modulated_matmul.cu) that computes the ToRGB 1x1 modulated conv: a
+CUDA tensor launches the kernel, a CPU tensor takes `modulated_matmul_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from clip_glass_torch.ops import cuda
+from clip_glass_torch.ops.upfirdn import fir, pad_hw, setup_filter_kernel
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0) -> torch.Tensor:
+    """x: [B, H, W, I]; w: [O, I, kh, kw]; correlation with explicit padding."""
+    xn = x.permute(0, 3, 1, 2)
+    if pad0 == pad1:
+        y = F.conv2d(xn, w, stride=stride, padding=pad0)
+    else:
+        y = F.conv2d(pad_hw(xn, pad0, pad1), w, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def style_from_latent(latent, style_w, style_b):
+    """Per-sample channel scales: dense(latent) with bias_init=1 semantics
+    (reference stylegan2/modules.py:874-890; the +1 lives in the bias)."""
+    return latent @ style_w + style_b
+
+
+def demod_coef(w: torch.Tensor, style: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """d[b,o] = rsqrt(sum_{i,k}(w[o,i,k] * s[b,i])^2 + eps), in fp32."""
+    w32 = w.float()
+    w2 = (w32 * w32).sum(dim=(2, 3))                 # [O, I]
+    s2 = style.float().square()                      # [B, I]
+    return torch.rsqrt(s2 @ w2.t() + eps)            # [B, O]
+
+
+def modulated_conv2d(x, w, style, *, demodulate: bool = True, eps: float = 1e-8):
+    """Plain modulated conv. x: [B,H,W,I]; w: [O,I,k,k]; style: [B,I].
+    'SAME' padding of the reference ConvLayer (modules.py:896-903)."""
+    k = w.shape[-1]
+    pad = k - 1
+    pad0 = pad - pad // 2
+    xs = x * style[:, None, None, :].to(x.dtype)
+    y = _conv(xs, w, pad0=pad0, pad1=pad - pad0)
+    if demodulate:
+        y = y * demod_coef(w, style, eps).to(y.dtype)[:, None, None, :]
+    return y
+
+
+def modulated_conv2d_up(x, w, style, *, demodulate: bool = True,
+                        filter_taps=(1, 3, 3, 1), eps: float = 1e-8):
+    """Fused 2x-upsampling modulated conv (reference modules.py:1043-1072,
+    1093-1139, pad_once layout): transposed conv, stride 2, no padding, then
+    the FIR with pad = (fk-2)-(k-1), pad0 = (pad+1)//2+1, pad1 = pad//2+1."""
+    k = w.shape[-1]
+    xs = x * style[:, None, None, :].to(x.dtype)
+    y = F.conv_transpose2d(xs.permute(0, 3, 1, 2), w.transpose(0, 1), stride=2)
+    y = y.permute(0, 2, 3, 1)
+    fk = setup_filter_kernel(tuple(filter_taps), gain=1.0, up_factor=2)
+    pad = (fk.shape[-1] - 2) - (k - 1)
+    y = fir(y, fk, pad0=(pad + 1) // 2 + 1, pad1=pad // 2 + 1)
+    if demodulate:
+        y = y * demod_coef(w, style, eps).to(y.dtype)[:, None, None, :]
+    return y
+
+
+def conv2d(x, w, *, stride=1):
+    """Unmodulated 'SAME' conv (reference ConvLayer without modulation)."""
+    k = w.shape[-1]
+    pad = k - 1
+    pad0 = pad - pad // 2
+    return _conv(x, w, stride=stride, pad0=pad0, pad1=pad - pad0)
+
+
+def conv2d_down(x, w, *, filter_taps=(1, 3, 3, 1)):
+    """FIR + stride-2 conv (reference ConvDownLayer, pad_once=True,
+    modules.py:1197-1232): FIR pad = (fk-2)+(k-1), split ((pad+1)//2,
+    pad//2), then a stride-2 VALID conv."""
+    k = w.shape[-1]
+    fk = setup_filter_kernel(tuple(filter_taps), gain=1.0, up_factor=1)
+    pad = (fk.shape[-1] - 2) + (k - 1)
+    y = fir(x, fk, pad0=(pad + 1) // 2, pad1=pad // 2)
+    return _conv(y, w, stride=2)
+
+
+def modulated_matmul_plain(x: torch.Tensor, style: Optional[torch.Tensor],
+                           w: torch.Tensor, demod: Optional[torch.Tensor],
+                           bias: torch.Tensor) -> torch.Tensor:
+    """y[b,p,o] = (sum_i x[b,p,i] * s[b,i] * w[i,o]) * d[b,o] + bias[o] in
+    fp32, rounded once to x's dtype. style/demod None = ones."""
+    xs = x.float()
+    if style is not None:
+        xs = xs * style.float()[:, None, :]
+    y = xs @ w.float()
+    if demod is not None:
+        y = y * demod.float()[:, None, :]
+    return (y + bias.float()).to(x.dtype)
+
+
+def modulated_matmul(x: torch.Tensor, style: Optional[torch.Tensor],
+                     w: torch.Tensor, demod: Optional[torch.Tensor],
+                     bias: torch.Tensor) -> torch.Tensor:
+    """x: [B, P, I]; style: [B, I] or None; w: [I, O]; demod: [B, O] or None;
+    bias: [O]. Returns [B, P, O]. CUDA: the hand-written kernel (every
+    operand in x's dtype); CPU: `modulated_matmul_plain`."""
+    if x.device.type == "cpu":
+        return modulated_matmul_plain(x, style, w, demod, bias)
+    given = [t for t in (x, style, w, demod, bias) if t is not None]
+    cuda.require_cuda("modulated_matmul", *given, dtype=x.dtype)
+    B, P, I = x.shape
+    O = w.shape[1]
+    if (w.shape != (I, O) or bias.shape != (O,)
+            or (style is not None and style.shape != (B, I))
+            or (demod is not None and demod.shape != (B, O))):
+        raise ValueError("modulated_matmul: inconsistent shapes "
+                         f"{[tuple(t.shape) for t in given]}")
+    if 4 * 4 * I > 48 * 1024:
+        raise ValueError(f"modulated_matmul: I={I} exceeds the kernel's "
+                         "shared-memory weight tile")
+    out = torch.empty((B, P, O), dtype=x.dtype, device=x.device)
+    vec = cuda.vector_width(x.dtype, I, x)
+    lib = cuda.library()
+    status = lib.cg_modulated_matmul(
+        x.data_ptr(), style.data_ptr() if style is not None else None,
+        w.data_ptr(), demod.data_ptr() if demod is not None else None,
+        bias.data_ptr(), out.data_ptr(), B, P, I, O,
+        cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
+    cuda.check(status, "modulated_matmul")
+    modulated_matmul.launches += 1
+    return out
+
+
+modulated_matmul.launches = 0

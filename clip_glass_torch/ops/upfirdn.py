@@ -1,0 +1,113 @@
+"""FIR up/down-sampling (upfirdn2d family) on NHWC tensors.
+
+Behavioral reference: stylegan2/modules.py:459-676 (FilterLayer, Upsample,
+Downsample): depthwise FIR convs around zero-stuffing / striding. Same
+arithmetic as the JAX package's ops/upfirdn.py: a correlation with the
+separable kernel of `setup_filter_kernel`, explicit asymmetric padding.
+
+`upsample2x` is the wrapper of the hand-written CUDA kernel
+(csrc/upsample2x.cu): a CUDA tensor launches the kernel, a CPU tensor takes
+the plain version `upsample2x_plain`.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from clip_glass_torch.ops import cuda
+
+
+@lru_cache(maxsize=None)
+def setup_filter_kernel(filter_taps: tuple = (1, 3, 3, 1), gain: float = 1.0,
+                        up_factor: int = 1) -> np.ndarray:
+    """1-D taps -> normalized separable 2-D kernel * gain * up_factor^2
+    (reference stylegan2/modules.py:169-203)."""
+    k1 = np.asarray(filter_taps, np.float32)
+    k2 = np.outer(k1, k1)
+    k2 /= k2.sum()
+    return (k2 * gain * up_factor ** 2).astype(np.float32)
+
+
+def zero_stuff(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NCHW: insert factor-1 zeros between samples (lhs dilation): H -> (H-1)*f+1."""
+    if factor == 1:
+        return x
+    B, C, H, W = x.shape
+    z = x.new_zeros(B, C, (H - 1) * factor + 1, (W - 1) * factor + 1)
+    z[:, :, ::factor, ::factor] = x
+    return z
+
+
+def pad_hw(x: torch.Tensor, pad0: int, pad1: int) -> torch.Tensor:
+    """NCHW: pad (or, for negative values, crop) both spatial axes."""
+    return F.pad(x, (pad0, pad1, pad0, pad1))
+
+
+def _depthwise(x: torch.Tensor, kernel2d, *, stride=1, lhs_dilation=1,
+               pad0=0, pad1=0) -> torch.Tensor:
+    """x: [B, H, W, C]; kernel2d: [kh, kw] correlated with every channel."""
+    C = x.shape[-1]
+    k = torch.as_tensor(kernel2d, dtype=x.dtype, device=x.device)
+    w = k[None, None].expand(C, 1, *k.shape)
+    xn = pad_hw(zero_stuff(x.permute(0, 3, 1, 2), lhs_dilation), pad0, pad1)
+    y = F.conv2d(xn, w, stride=stride, groups=C)
+    return y.permute(0, 2, 3, 1)
+
+
+def fir(x: torch.Tensor, kernel2d, pad0: int, pad1: int, stride: int = 1):
+    """FilterLayer (reference stylegan2/modules.py:459-527)."""
+    return _depthwise(x, kernel2d, stride=stride, pad0=pad0, pad1=pad1)
+
+
+def upsample2x_plain(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
+                     gain: float = 1.0) -> torch.Tensor:
+    """2x FIR upsample (reference stylegan2/modules.py:549-604): zero-stuff
+    then filter with pad ((k-1+1)//2+1, (k-1)//2); kernel gain x4."""
+    k2 = setup_filter_kernel(tuple(filter_taps), gain, up_factor=2)
+    pad = k2.shape[-1] - 1
+    return _depthwise(x, k2, lhs_dilation=2,
+                      pad0=(pad + 1) // 2 + 1, pad1=pad // 2)
+
+
+def polyphase_taps(filter_taps=(1, 3, 3, 1), gain: float = 1.0):
+    """Per-axis factors (k0..k3) of the 4-tap kernel: normalized taps * 2 *
+    sqrt(gain), so that outer(k, k) == setup_filter_kernel(taps, gain, 2)."""
+    k1d = np.asarray(filter_taps, np.float64)
+    k1d = k1d / k1d.sum() * 2.0 * (gain ** 0.5)
+    return tuple(float(v) for v in k1d)
+
+
+def upsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
+               gain: float = 1.0) -> torch.Tensor:
+    """[B, H, W, C] -> [B, 2H, 2W, C]. CUDA: the hand-written kernel
+    (4 taps only); CPU: `upsample2x_plain`."""
+    if x.device.type == "cpu":
+        return upsample2x_plain(x, filter_taps, gain)
+    if len(filter_taps) != 4:
+        raise ValueError("the CUDA upsample2x kernel takes 4 filter taps, "
+                         f"got {len(filter_taps)}")
+    cuda.require_cuda("upsample2x", x, dtype=x.dtype)
+    B, H, W, C = x.shape
+    out = torch.empty((B, 2 * H, 2 * W, C), dtype=x.dtype, device=x.device)
+    lib = cuda.library()
+    status = lib.cg_upsample2x(x.data_ptr(), out.data_ptr(), B, H, W, C,
+                               *polyphase_taps(filter_taps, gain),
+                               cuda.DTYPE_CODES[x.dtype], cuda.stream_handle(x))
+    cuda.check(status, "upsample2x")
+    upsample2x.launches += 1
+    return out
+
+
+upsample2x.launches = 0
+
+
+def downsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
+                 gain: float = 1.0) -> torch.Tensor:
+    """2x FIR downsample (reference stylegan2/modules.py:608-676)."""
+    k2 = setup_filter_kernel(tuple(filter_taps), gain, up_factor=1)
+    pad = k2.shape[-1] - 2
+    return _depthwise(x, k2, stride=2, pad0=pad // 2, pad1=pad - pad // 2)

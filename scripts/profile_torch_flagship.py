@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Where the time goes in one flagship fitness evaluation of the PyTorch port
+on one GPU: StyleGAN2_ffhq_d (config-f 1024px G + D, CLIP ViT-B/32), pop 16,
+bf16, random weights from seed 0.
+
+Prints JSON lines:
+  - stage times (CUDA events, mean of ITERS warm runs): G (mapping +
+    synthesis + [0,1] scaling), CLIP (resize + image tower + cosine), D,
+    the whole evaluation, and one NSGA-II step with the evaluation replaced
+    by a constant (the evolutionary operators alone);
+  - torch.profiler over one warm evaluation: device time by kernel name (top
+    entries), the sum of device time, the wall time, the device's idle
+    share (1 - device time / wall time; one stream, so kernels never overlap),
+    and the cuDNN convolutions by input shape with the device time of all
+    the kernels each launched;
+  - the card's name and power limit.
+Writes the Chrome trace to --trace (default build/flagship_eval_trace.json).
+
+Run on the card: python3 scripts/profile_torch_flagship.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from clip_glass_torch.config import get_config  # noqa: E402
+from clip_glass_torch.evolve.algorithm import GAState, make_step  # noqa: E402
+from clip_glass_torch.fitness.problem import GenerationProblem  # noqa: E402
+
+OUR_KERNELS = ("noise_bias_lrelu_kernel", "upsample2x_kernel", "modulated_matmul_kernel")
+ITERS = 5  # warm runs per stage time
+TOP = 25  # entries in each profile table
+
+
+def log(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--trace", default=os.path.join(ROOT, "build", "flagship_eval_trace.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+
+    config = get_config("StyleGAN2_ffhq_d").replace(
+        target="the face of a man with brown eyes", weights="random:0", pop_size=16)
+    problem = GenerationProblem(config, device="cuda")
+    gen = problem.generator
+    X = torch.randn((16, config.n_var), generator=torch.Generator(device="cuda")
+                    .manual_seed(0), device="cuda")
+
+    with torch.inference_mode():
+        imgs = gen.generate(X)
+        F0 = gen.eval_population(X)
+        stages = {
+            "G": cuda_ms(lambda: gen.generate(X), ITERS),
+            "CLIP": cuda_ms(lambda: gen.clip_similarity(imgs), ITERS),
+            "D": cuda_ms(lambda: gen.discriminate(imgs), ITERS),
+            "evaluation": cuda_ms(lambda: gen.eval_population(X), ITERS),
+        }
+        step = make_step(problem.make_algorithm().ops, lambda off: F0, 16)
+        state = GAState(X, F0, 0)
+        rng = torch.Generator(device="cuda").manual_seed(0)
+        stages["nsga2_step_without_eval"] = cuda_ms(lambda: step(state, rng), ITERS)
+    log({"stage_ms": stages, "pop": 16, "dtype": "bfloat16", "nvidia_smi": smi})
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t = time.perf_counter()
+            gen.eval_population(X)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+
+    # device-side events only (kernels, memsets, copies): a CPU op's device
+    # time repeats the time of the kernels it launched
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top = [{"name": e.key[:120], "device_ms": e.self_device_time_total / 1e3,
+            "calls": e.count} for e in events[:TOP]]
+    ours = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+            for k in OUR_KERNELS}
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")]
+    convs.sort(key=lambda e: e.device_time_total, reverse=True)
+    top_convs = [{"name": e.key, "input_shapes": e.input_shapes[:2],
+                  "device_ms": e.device_time_total / 1e3, "calls": e.count}
+                 for e in convs[:TOP]]
+    log({"profile": "one evaluation", "wall_ms": wall_ms, "device_ms": total_ms,
+         "idle_share": max(0.0, 1.0 - total_ms / wall_ms),
+         "kernel_launches": sum(e.count for e in events),
+         "hand_written_kernels_ms": ours, "top": top, "top_convs": top_convs,
+         "nvidia_smi": smi})
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

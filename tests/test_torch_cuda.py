@@ -1,0 +1,93 @@
+"""clip_glass_torch's CUDA kernels against their plain PyTorch versions on the
+card, and the TINY search through them. Marked `gpu`: they need a CUDA
+device, nvcc and sm_90a, and skip where there is none. Run on the card with
+`python -m pytest --noconftest -m gpu tests/test_torch_cuda.py` (the card's
+machine has no JAX, which tests/conftest.py imports).
+
+Tolerances: fp32 1e-5 (summation order and FMA contraction only); bf16
+2e-2, one to two bf16 ulps (the kernel rounds once, the plain version at
+other places)."""
+
+import math
+
+import pytest
+
+import torch
+
+from clip_glass_torch.ops import bias_act, modulated_conv, upfirdn
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (3, 5, 7, 20), (2, 3, 5, 7)])
+def test_noise_bias_lrelu_kernel(gpu, dtype, shape):
+    B, H, W, C = shape
+    x, noise = _randn(gpu, *shape, dtype=dtype), _randn(gpu, H, W, dtype=dtype)
+    ns, b = torch.tensor(0.7, device="cuda").to(dtype), _randn(gpu, C, dtype=dtype)
+    n0 = bias_act.noise_bias_lrelu.launches
+    got = bias_act.noise_bias_lrelu(x, noise, ns, b)
+    assert bias_act.noise_bias_lrelu.launches == n0 + 1
+    _close(got, bias_act.noise_bias_lrelu_plain(x, noise, ns, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (1, 32, 8, 8), (3, 5, 7, 3)])
+def test_upsample2x_kernel(gpu, dtype, shape):
+    x = _randn(gpu, *shape, dtype=dtype)
+    _close(upfirdn.upsample2x(x), upfirdn.upsample2x_plain(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,demod", [((2, 16, 32, 3), False), ((2, 16, 8, 12), True),
+                                         ((3, 37, 24, 3), False), ((2, 33, 7, 5), True)])
+def test_modulated_matmul_kernel(gpu, dtype, shape, demod):
+    B, P, I, O = shape
+    x = _randn(gpu, B, P, I, dtype=dtype)
+    s = (1.0 + 0.5 * _randn(gpu, B, I)).to(dtype)
+    w = (_randn(gpu, I, O) / math.sqrt(I)).to(dtype)
+    d = (0.5 + torch.rand((B, O), generator=gpu, device="cuda")).to(dtype) if demod else None
+    b = _randn(gpu, O, dtype=dtype)
+    _close(modulated_conv.modulated_matmul(x, s, w, d, b),
+           modulated_conv.modulated_matmul_plain(x, s, w, d, b), dtype)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    x = _randn(gpu, 2, 4, 4, 8)
+    with pytest.raises(TypeError):
+        bias_act.noise_bias_lrelu(x, _randn(gpu, 4, 4, dtype=torch.bfloat16),
+                                  torch.tensor(0.1, device="cuda"), _randn(gpu, 8))
+    with pytest.raises(ValueError):
+        upfirdn.upsample2x(x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        upfirdn.upsample2x(x.half())
+
+
+def test_tiny_search_fitness_on_gpu_matches_cpu(gpu):
+    """The smoke run's agreement phase: TINY fitness through the kernels on the
+    card against the plain versions on the CPU, fp32, with the launch counts."""
+    import chip_smoke
+
+    chip_smoke.phase_agreement()
