@@ -9,7 +9,13 @@ This slice covers the StyleGAN2 text-to-image branch. Parameters are either
 drawn from seeded torch.Generators (`weights="random:<seed>"`) or handed in
 as a converted bundle (`weights.from_jax.convert_bundle`). The per-layer
 noise is fixed per search and is data: drawn once from a seeded generator,
-or taken from the bundle.
+or taken from the bundle, and folded into the s2d layouts once at staging.
+
+When the model's top level runs in the space-to-depth domain (config-f:
+s2d_min_res = 512), `eval_population` takes the s2d fitness path, as the JAX
+package does: the synthesis hands over the packed image (s4d by default),
+and the 224 px resize and the discriminator read it without the full-res
+image ever being made. `generate` still returns full-resolution images.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
 from clip_glass_torch.fitness import latent as latent_mod
 from clip_glass_torch.models.clip import model as clip_model
 from clip_glass_torch.models.stylegan2 import model as sg2
+from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import resize_bilinear
 from clip_glass_torch.tokenizers import tokenize
 
@@ -97,8 +104,13 @@ class Generator:
 
         self.clip_params = stage(bundle["clip"], clip_model.PRECAST_EXCLUDE)
         self.g_params = stage(bundle["g"], sg2.PRECAST_EXCLUDE)
-        self.d_params = stage(bundle["d"]) if config.use_discriminator else None
-        self.noise = stage(list(bundle["noise"]))
+        # D stays fp32, as in the JAX package: its s2d down-composite folds
+        # compose FIR taps with the raw weights and round once at the end
+        # (its plain branch casts every weight through the policy)
+        self.d_params = (tree_to(bundle["d"], self.device)
+                         if config.use_discriminator else None)
+        self.noise = sg2.pack_noise(stage(list(bundle["noise"])), self.model_cfg,
+                                    self.policy)
         if bundle.get("target") is not None:
             self.text_features = bundle["target"].to(self.device)
         else:
@@ -140,7 +152,58 @@ class Generator:
         return sg2.discriminator_apply(bundle["d"], biggan_denorm(images),
                                        self.model_cfg, policy=self.policy)
 
+    @property
+    def _s2d_active(self) -> bool:
+        """The fitness runs end to end in the space-to-depth domain when the
+        model's top level does (sg2.rgb_domain names the packed image)."""
+        return sg2.top_level_s2d(self.model_cfg)
+
+    def generate_packed(self, X: torch.Tensor, bundle=None) -> torch.Tensor:
+        """Genomes -> the packed [0, 1] image of the s2d path (the layout
+        sg2.rgb_domain(model_cfg) names)."""
+        bundle = bundle if bundle is not None else self.bundle
+        (z,) = latent_mod.decode_stylegan2(X)
+        img = sg2.generator_apply(bundle["g"], z, self.model_cfg,
+                                  noise=bundle["noise"], policy=self.policy,
+                                  output_s2d=True)
+        return biggan_norm(img)
+
+    def clip_similarity_packed(self, img, bundle=None) -> torch.Tensor:
+        """clip_similarity of a packed image: the phase-aware 224 px resize."""
+        bundle = bundle if bundle is not None else self.bundle
+        size = self.clip_cfg.image_resolution
+        if sg2.rgb_domain(self.model_cfg) == "s4d":
+            i224 = s2d_ops.resize_bilinear_from_s4d(img, size)
+        else:
+            i224 = s2d_ops.resize_bilinear_from_s2d(
+                img, size, in_off=sg2.s2d_output_offset(self.model_cfg))
+        feats = clip_model.encode_image(bundle["clip"], i224, self.clip_cfg,
+                                        self.policy)
+        return _cosine(feats, bundle["target"])
+
+    def discriminate_packed(self, img, bundle=None) -> torch.Tensor:
+        """discriminate of a packed image."""
+        bundle = bundle if bundle is not None else self.bundle
+        s4d = sg2.rgb_domain(self.model_cfg) == "s4d"
+        return sg2.discriminator_apply(
+            bundle["d"], biggan_denorm(img), self.model_cfg, policy=self.policy,
+            input_s2d=not s4d, input_offset=sg2.s2d_output_offset(self.model_cfg),
+            input_s4d=s4d)
+
+    def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle) -> torch.Tensor:
+        """s2d-domain fitness: decode -> synthesis (s2d features, packed RGB)
+        -> [0, 1] -> phase-aware 224 px resize -> CLIP; D reads the packed
+        image for the hinge."""
+        img = self.generate_packed(X, bundle)
+        sim = self.clip_similarity_packed(img, bundle)
+        if self.config.n_obj == 2 and self.config.use_discriminator:
+            hinge = torch.relu(1.0 - self.discriminate_packed(img, bundle)[:, 0])
+            return torch.stack([-sim, hinge], dim=1).float()
+        return (-sim[:, None]).float()
+
     def _eval_batch(self, X: torch.Tensor, bundle) -> torch.Tensor:
+        if self._s2d_active:
+            return self._eval_stylegan2_s2d(X, bundle)
         generated = self.generate(X, bundle)
         sim = self.clip_similarity(generated, bundle)
         if self.config.n_obj == 2 and self.config.use_discriminator:

@@ -6,13 +6,20 @@ GeneratorSynthesis 753-1014, Generator truncation 314-324, Discriminator
 channels [32,32,64,128,256,512,512,512,512], base 4x4, skip-G / resnet-D,
 2-layer blocks, 18 style layers at 1024px.
 
-The port runs the JAX package's plain execution domain (its s2d domain is an
-exact rewrite of the same math for the TPU's lane layout). Activations are
-NHWC; parameters come from `weights.from_jax` (OIHW convs, right-multiply
-dense weights, equalized-lr coefficients folded in). Three call sites of the
-synthesis go through hand-written CUDA kernels on a GPU tensor:
-`noise_bias_lrelu` (every layer's epilogue), `upsample2x` (the RGB skip) and
-`modulated_matmul` (ToRGB).
+Two execution domains, as in the JAX package: levels with output resolution
+>= cfg.s2d_min_res (512 and 1024 px for config-f) run in the space-to-depth
+domain (ops/s2d.py: packed tensors, phase-composed kernels, no full-res
+tensor and no standalone FIR), the levels below in the plain domain.
+`dataclasses.replace(cfg, s2d_min_res=2**30)` runs everything plain.
+Activations are NHWC; parameters come from `weights.from_jax` (OIHW convs,
+right-multiply dense weights, equalized-lr coefficients folded in); the two
+domains read the same parameter tree.
+
+Hand-written CUDA kernels on a GPU tensor: `noise_bias_lrelu` (every layer's
+epilogue; at the s2d levels on a view of the packed tensor), `upsample2x`
+(the plain levels' RGB skip), `modulated_matmul` (the plain levels' ToRGB)
+and `s2d_conv2x2` (the s2d levels' same-resolution convs between opposite
+lattices, in G and D).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
+from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.bias_act import bias_act, minibatch_std, noise_bias_lrelu
 from clip_glass_torch.ops.modulated_conv import (
     conv2d,
@@ -53,6 +61,15 @@ class SG2Config:
     modulate_data_out: bool = True
     noise: bool = True
     eps: float = 1e-8
+    # Levels with output resolution >= this run in the space-to-depth
+    # execution domain (ops/s2d.py). 2**30 disables it.
+    s2d_min_res: int = 512
+    # Alternate the s2d lattice offset (0 <-> -1) between consecutive convs,
+    # so every same-res 3x3 folds to a [2,2] kernel (s2d_conv2x2).
+    s2d_offsets: bool = True
+    # Carry the RGB/skip accumulator at the s2d levels in the 4x4
+    # space-to-depth domain (s4d, 16 * data_channels channels).
+    rgb_s4d: bool = True
 
     @property
     def n_blocks(self) -> int:
@@ -89,7 +106,9 @@ class SG2Config:
 CONFIG_F = SG2Config()
 
 # G leaves the forward reads raw in fp32: `truncate` lerps against
-# dlatent_avg. Everything else is cast to the compute dtype once.
+# dlatent_avg. Everything else is cast to the compute dtype once. D is not
+# precast at all: its s2d down-composite folds compose FIR taps with the raw
+# fp32 weights and round once at the end (ops/s2d.s2d_down_kernel).
 PRECAST_EXCLUDE = ("dlatent_avg",)
 # tiny variant for tests: 3 blocks -> 16px, slim channels
 TINY = SG2Config(latent_size=32, mapping_layers=2,
@@ -224,22 +243,123 @@ def distribute_latents(dlatents, num_layers: int):
                      f"{num_layers} are supported (style mixing is not ported)")
 
 
+def _s2d_supported(cfg: SG2Config) -> bool:
+    return cfg.kernel_size == 3 and len(cfg.filter_taps) == 4
+
+
+def noise_layouts(cfg: SG2Config):
+    """Replays synthesis_apply's lattice progression: for each noise layer
+    (in noise_shapes order) the (is_s2d, lattice_offset) of the tensor the
+    noise add sees. Keep in lockstep with the synthesis loop below."""
+    out = []
+    res = cfg.base_size
+    x_s2d, x_off = False, 0
+    for (_in_ch, _out_ch, up, n_layers) in cfg.block_channels():
+        if up:
+            res *= 2
+        use_s2d = _s2d_supported(cfg) and res >= cfg.s2d_min_res
+        for li in range(n_layers):
+            if up and li == 0:
+                if use_s2d:
+                    x_s2d, x_off = True, 0
+            else:
+                if use_s2d and not x_s2d:
+                    x_s2d, x_off = True, 0
+                if x_s2d:
+                    x_off = (0 if x_off else -1) if cfg.s2d_offsets else 0
+            out.append((x_s2d, x_off))
+    return out
+
+
+def pack_noise(noise, cfg: SG2Config, policy: Policy = FP32):
+    """Fold fixed per-layer noise planes into the lattice layouts the
+    synthesis consumes, once: s2d-level planes become [nh, nw, 4]
+    (phase-major, at the layer's lattice offset, phantoms zero) in the
+    compute dtype. An exact reshape/pad; synthesis_apply tells packed
+    planes (3-D) from raw ones (2-D) by ndim."""
+    if noise is None:
+        return None
+    packed = []
+    for nz, (is_s2d, off) in zip(noise, noise_layouts(cfg)):
+        if nz is not None and is_s2d and nz.ndim == 2:
+            nz = s2d_ops.s2d_hw(policy.cast_compute(nz), off)
+        packed.append(nz)
+    return packed
+
+
+def top_level_s2d(cfg: SG2Config) -> bool:
+    """Whether the top (full-resolution) level runs in the s2d domain."""
+    return _s2d_supported(cfg) and cfg.resolution >= cfg.s2d_min_res
+
+
+def s2d_output_offset(cfg: SG2Config) -> int:
+    """Lattice offset of the tensor synthesis_apply(output_s2d=True) returns
+    (and discriminator_apply(input_s2d=True) expects as input_offset).
+    Irrelevant when rgb_domain(cfg) == "s4d" (s4d carries no offset)."""
+    return -1 if cfg.s2d_offsets and top_level_s2d(cfg) else 0
+
+
+def rgb_domain(cfg: SG2Config) -> str:
+    """Layout of the image synthesis_apply(output_s2d=True) returns:
+    "s4d" ([B, H/4, W/4, 16*data_channels], offset-free) when the top level
+    runs s2d with rgb_s4d, else "s2d" (at s2d_output_offset(cfg))."""
+    if cfg.rgb_s4d and top_level_s2d(cfg) and cfg.resolution % 4 == 0:
+        return "s4d"
+    return "s2d"
+
+
+def _epilogue(x, nz, lp, b, x_s2d: bool, x_off: int, policy: Policy):
+    """Noise + bias + leaky ReLU of one synthesis layer. At an s2d level the
+    packed tensor [B, nh, nw, 4C] is, viewed as [B, nh, 4*nw, C], a plain
+    tensor whose per-pixel noise is the packed plane [nh, nw, 4] viewed as
+    [nh, 4*nw]: the same kernel serves both domains. Phantoms of an offset
+    -1 tensor are zeroed after."""
+    x = x.contiguous()
+    B, H, W, C = x.shape
+    if x_s2d:
+        x = x.view(B, H, 4 * W, C // 4)
+    if nz is not None:
+        nz = policy.cast_compute(nz)
+        if x_s2d:
+            nz = (nz if nz.ndim == 3 else s2d_ops.s2d_hw(nz, x_off)).reshape(H, 4 * W)
+        x = noise_bias_lrelu(x, nz, policy.cast_compute(lp["noise_scale"]), b)
+    else:
+        x = bias_act(x, b, act="lrelu")
+    x = x.reshape(B, H, W, C)
+    return s2d_ops.mask_phantoms_(x) if x_off else x
+
+
 def synthesis_apply(params, dlatents, cfg: SG2Config = CONFIG_F,
                     noise: Optional[Sequence[torch.Tensor]] = None,
-                    policy: Policy = FP32):
+                    policy: Policy = FP32, output_s2d: bool = False):
     """dlatents: [B, num_latents, D] -> images [B, C, H, W] in [-1, 1]
-    (reference stylegan2/models.py:969-1014). `noise`: the per-layer [H, W]
-    planes (shared over batch and channels) in `cfg.noise_shapes()` order,
-    or None for no noise."""
+    (reference stylegan2/models.py:969-1014). `noise`: the per-layer planes
+    (shared over batch and channels) in `cfg.noise_shapes()` order, raw
+    [H, W] or packed by `pack_noise`, or None for no noise.
+
+    Levels with output resolution >= cfg.s2d_min_res run in the s2d domain.
+    With output_s2d=True the image is returned packed, in the layout
+    rgb_domain(cfg) names: "s4d" ([B, H/4, W/4, 16*data_ch]) or "s2d"
+    ([B, nh, nw, 4*data_ch] at s2d_output_offset(cfg), zero phantoms)."""
+    allow_s2d = _s2d_supported(cfg)
+    if output_s2d and not allow_s2d:
+        raise ValueError("output_s2d=True requires the s2d domain")
     B = dlatents.shape[0]
     dl = policy.cast_compute(dlatents)
     const = policy.cast_compute(params["const"])
     x = const[None].expand(B, *const.shape)
     y = None
+    x_s2d = False
+    y_dom = "plain"    # layout of the skip accumulator: plain | s2d | s4d
+    x_off = y_off = 0  # lattice offsets (0 or -1), see ops/s2d.py
+    res = cfg.base_size
     layer_idx = 0
     noise_idx = 0
     taps = tuple(cfg.filter_taps)
     for bi, (_, _, up, n_layers) in enumerate(cfg.block_channels()):
+        if up:
+            res *= 2
+        use_s2d = allow_s2d and res >= cfg.s2d_min_res
         bp = params["blocks"][bi]
         for li in range(n_layers):
             lp = bp["layers"][li]
@@ -248,35 +368,94 @@ def synthesis_apply(params, dlatents, cfg: SG2Config = CONFIG_F,
                                       policy.cast_compute(lp["style"]["b"]))
             w = policy.cast_compute(lp["w"])
             if up and li == 0:
-                x = modulated_conv2d_up(x, w, style, demodulate=cfg.demodulate,
-                                        filter_taps=taps, eps=cfg.eps)
+                if use_s2d:
+                    x = s2d_ops.s2d_modulated_conv2d_up(
+                        x, w, style, demodulate=cfg.demodulate, filter_taps=taps,
+                        eps=cfg.eps, input_s2d=x_s2d, in_off=x_off)
+                    x_s2d, x_off = True, 0
+                else:
+                    x = modulated_conv2d_up(x, w, style, demodulate=cfg.demodulate,
+                                            filter_taps=taps, eps=cfg.eps)
             else:
-                x = modulated_conv2d(x, w, style, demodulate=cfg.demodulate,
-                                     eps=cfg.eps)
-            b = policy.cast_compute(lp["b"])
+                if use_s2d and not x_s2d:
+                    x = s2d_ops.s2d(x)
+                    x_s2d, x_off = True, 0
+                if x_s2d:
+                    # alternate the lattice offset: every same-res conv
+                    # between opposite lattices folds to a [2,2] kernel
+                    out_off = (0 if x_off else -1) if cfg.s2d_offsets else 0
+                    x = s2d_ops.s2d_modulated_conv2d(
+                        x, w, style, demodulate=cfg.demodulate, eps=cfg.eps,
+                        in_off=x_off, out_off=out_off)
+                    x_off = out_off
+                else:
+                    x = modulated_conv2d(x, w, style, demodulate=cfg.demodulate,
+                                         eps=cfg.eps)
             nz = noise[noise_idx] if (noise is not None and cfg.noise) else None
-            if nz is not None:
-                x = noise_bias_lrelu(x.contiguous(), policy.cast_compute(nz),
-                                     policy.cast_compute(lp["noise_scale"]), b)
-            else:
-                x = bias_act(x, b, act="lrelu")
+            x = _epilogue(x, nz, lp, policy.cast_compute(lp["b"]), x_s2d, x_off,
+                          policy)
             noise_idx += 1
         layer_idx += n_layers
 
+        use_s4d = x_s2d and cfg.rgb_s4d and res % 4 == 0
         if y is not None:
-            y = upsample2x(y.contiguous(), taps)
+            if use_s4d:
+                if y_dom == "s4d":
+                    y = s2d_ops.s4d_upsample2x(y, taps)
+                else:  # enter s4d from the level below, one stride-2 conv
+                    if y_dom == "s2d":
+                        y = s2d_ops.un_s2d_off(y, y_off)
+                    y = s2d_ops.plain_to_s4d_upsample2x(y, taps)
+            elif x_s2d:
+                if y_dom == "s2d":  # s2d(res/2) -> s2d(res)
+                    y = s2d_ops.un_s2d_off(y, y_off)
+                y = s2d_ops.s2d_upsample2x(y, taps)
+                if x_off:  # match the ToRGB lattice
+                    y = s2d_ops.shift_to_m1(y)
+            else:
+                y = upsample2x(y.contiguous(), taps)
         rp = params["to_rgb"][bi]
+        rw = policy.cast_compute(rp["w"])
+        rb = policy.cast_compute(rp["b"])
         style = None
         if cfg.modulate_data_out:
             lat = dl[:, min(layer_idx, cfg.num_latents - 1)]
             style = style_from_latent(lat, policy.cast_compute(rp["style"]["w"]),
                                       policy.cast_compute(rp["style"]["b"]))
-        Bx, H, W, C = x.shape
-        t = modulated_matmul(x.contiguous().reshape(Bx, H * W, C), style,
-                             policy.cast_compute(rp["w"]), None,
-                             policy.cast_compute(rp["b"]))
-        t = t.reshape(Bx, H, W, -1)
+        if x_s2d:
+            # the 1x1 modulation is an input scale; the fold selects (cell,
+            # phase) per output phase
+            xs = x
+            if style is not None:
+                xs = x * s2d_ops.tile_channels(style).to(x.dtype)[:, None, None, :]
+            if use_s4d:
+                t = s2d_ops.s4d_from_s2d_conv1x1(xs, rw, in_off=x_off)
+                tile, y_dom = 16, "s4d"
+            else:
+                t = s2d_ops.s2d_conv2d(xs, rw.t()[:, :, None, None], x_off, x_off)
+                tile, y_dom, y_off = 4, "s2d", x_off
+            t = bias_act(t, s2d_ops.tile_channels(rb, tile), act="linear")
+        else:
+            Bx, H, W, C = x.shape
+            t = modulated_matmul(x.contiguous().reshape(Bx, H * W, C), style, rw,
+                                 None, rb).reshape(Bx, H, W, -1)
+            y_dom = "plain"
         y = t if y is None else y + t
+
+    if output_s2d:
+        if y_dom == "s4d":  # offset-free; contract: rgb_domain(cfg) == "s4d"
+            return y
+        target = s2d_output_offset(cfg)
+        if y_dom == "plain":
+            y, y_off = s2d_ops.s2d(y), 0
+        if y_off != target:  # only 0 -> -1 can occur (odd-layer blocks)
+            y = s2d_ops.shift_to_m1(y)
+        # contract: phantom entries of the returned image are 0
+        return s2d_ops.mask_phantoms_(y) if target else y
+    if y_dom == "s4d":
+        y = s2d_ops.un_s4d(y)
+    elif y_dom == "s2d":
+        y = s2d_ops.un_s2d_off(y, y_off)
     return y.permute(0, 3, 1, 2)  # NHWC -> NCHW view (reference layout)
 
 
@@ -284,7 +463,7 @@ def generator_apply(params, latents, cfg: SG2Config = CONFIG_F,
                     truncation_psi: float = 1.0,
                     truncation_cutoff: Optional[int] = None,
                     noise: Optional[Sequence[torch.Tensor]] = None,
-                    policy: Policy = FP32):
+                    policy: Policy = FP32, output_s2d: bool = False):
     """Full G: z -> mapping -> distribute to num_latents -> (truncate) ->
     synthesis (reference stylegan2/models.py:326-482). `latents` may be
     [B, D] or one latent per style layer, [B, num_latents, D]."""
@@ -297,21 +476,84 @@ def generator_apply(params, latents, cfg: SG2Config = CONFIG_F,
     dl = distribute_latents(w, cfg.num_latents)
     dl = truncate(dl, params["dlatent_avg"], truncation_psi, truncation_cutoff)
     return synthesis_apply(params["synthesis"], dl, cfg, noise=noise,
-                           policy=policy)
+                           policy=policy, output_s2d=output_s2d)
 
 
 def discriminator_apply(params, images, cfg: SG2Config = CONFIG_F,
-                        policy: Policy = FP32):
+                        policy: Policy = FP32, input_s2d: bool = False,
+                        input_offset: int = 0, input_s4d: bool = False):
     """images: [B, C, H, W] in [-1, 1] -> score logits [B, 1]
-    (reference stylegan2/models.py:1193-1230)."""
+    (reference stylegan2/models.py:1193-1230).
+
+    input_s4d / input_s2d: `images` is the packed NHWC image of
+    synthesis_apply(output_s2d=True) (s4d, or s2d at lattice `input_offset`),
+    and the levels at resolution >= cfg.s2d_min_res run in the s2d domain:
+    fromRGB and conv0 on phase-composed kernels (conv0 between opposite
+    lattices through s2d_conv2x2), the down convs folding FIR and stride
+    into one conv. Those folds read D's raw fp32 weights and round once."""
     taps = tuple(cfg.filter_taps)
     res_scale = 1.0 / math.sqrt(2.0)
-    x = policy.cast_compute(images.permute(0, 2, 3, 1))  # NHWC
     fr = params["from_rgb"]
-    x = conv2d(x, policy.cast_compute(fr["w"]))
-    x = bias_act(x, policy.cast_compute(fr["b"]), act="lrelu")
+    if input_s4d:
+        # fromRGB folds s4d(0) -> s2d at the offset the conv0 chain wants
+        x = policy.cast_compute(images)  # [B, H/4, W/4, 16*data_ch]
+        res = 4 * images.shape[1]
+        x_off = -1 if (cfg.s2d_offsets and res >= cfg.s2d_min_res) else 0
+        x = s2d_ops.s2d_from_s4d_conv1x1(x, fr["w"], out_off=x_off)
+        x = bias_act(x, s2d_ops.tile_channels(policy.cast_compute(fr["b"])),
+                     act="lrelu")
+        if x_off:
+            x = s2d_ops.mask_phantoms_(x)
+        x_s2d = True
+    elif input_s2d:
+        x = policy.cast_compute(images)  # NHWC s2d
+        x_off = input_offset
+        res = s2d_ops.phys_size(images.shape[1], x_off)
+        x_s2d = True
+        if cfg.s2d_offsets and x_off == 0 and res >= cfg.s2d_min_res:
+            # the offset chain wants the first conv0 input at lattice -1
+            x = s2d_ops.shift_to_m1(x)
+            x_off = -1
+        x = s2d_ops.s2d_conv2d(x, fr["w"], x_off, x_off)
+        x = bias_act(x, s2d_ops.tile_channels(policy.cast_compute(fr["b"])),
+                     act="lrelu")
+        if x_off:
+            x = s2d_ops.mask_phantoms_(x)
+    else:
+        x = policy.cast_compute(images.permute(0, 2, 3, 1))  # NHWC
+        res = images.shape[2]
+        x_off = 0
+        x_s2d = False
+        x = conv2d(x, policy.cast_compute(fr["w"]))
+        x = bias_act(x, policy.cast_compute(fr["b"]), act="lrelu")
+
     for bp in params["blocks"]:
+        use_s2d = x_s2d and _s2d_supported(cfg) and res >= cfg.s2d_min_res
+        if x_s2d and not use_s2d:
+            x = s2d_ops.un_s2d_off(x, x_off)
+            x_s2d, x_off = False, 0
         inp = x
+        if use_s2d:
+            next_s2d = _s2d_supported(cfg) and res // 2 >= cfg.s2d_min_res
+            next_off = -1 if (next_s2d and cfg.s2d_offsets) else 0
+            x = s2d_ops.s2d_conv2d(x, bp["conv0"]["w"], x_off, 0)
+            x = bias_act(x, s2d_ops.tile_channels(
+                policy.cast_compute(bp["conv0"]["b"])), act="lrelu")
+            x = s2d_ops.s2d_conv2d_down(x, bp["conv1"]["w"], filter_taps=taps,
+                                        output_s2d=next_s2d, in_off=0,
+                                        out_off=next_off)
+            b1 = policy.cast_compute(bp["conv1"]["b"])
+            x = bias_act(x, s2d_ops.tile_channels(b1) if next_s2d else b1,
+                         act="lrelu")
+            proj = s2d_ops.s2d_conv2d_down(inp, bp["skip"]["w"], filter_taps=taps,
+                                           output_s2d=next_s2d, in_off=x_off,
+                                           out_off=next_off)
+            x = (x + proj) * res_scale
+            if next_off:
+                x = s2d_ops.mask_phantoms_(x)
+            x_s2d, x_off = next_s2d, next_off
+            res //= 2
+            continue
         x = conv2d(x, policy.cast_compute(bp["conv0"]["w"]))
         x = bias_act(x, policy.cast_compute(bp["conv0"]["b"]), act="lrelu")
         x = conv2d_down(x, policy.cast_compute(bp["conv1"]["w"]), filter_taps=taps)
@@ -319,6 +561,10 @@ def discriminator_apply(params, images, cfg: SG2Config = CONFIG_F,
         proj = conv2d_down(inp, policy.cast_compute(bp["skip"]["w"]),
                            filter_taps=taps)
         x = (x + proj) * res_scale
+        res //= 2
+
+    if x_s2d:  # the s2d cutoff reached the base block: plain for the head
+        x = s2d_ops.un_s2d_off(x, x_off)
     if cfg.mbstd_group_size:
         x = minibatch_std(x, cfg.mbstd_group_size, cfg.eps)
     x = conv2d(x, policy.cast_compute(params["final_conv"]["w"]))

@@ -27,10 +27,11 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu")
+SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
+           "s2d_conv2x2.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +49,8 @@ _SIGNATURES = {
     # x, style, w, demod, bias, out, B, P, I, O, dtype, vec, stream
     "cg_modulated_matmul": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                             _INT, _INT, _P),
+    # x, kb, out, B, n, n_out, C, pad0, dtype, vec, stream
+    "cg_s2d_conv2x2": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _P),
 }
 
 _lock = threading.Lock()
@@ -101,11 +104,14 @@ def build() -> Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failures = []
+        failures, log = [], []
         for cmd, _, p in procs:
             stdout, stderr = p.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{stdout}{stderr}")
             if p.returncode != 0:
-                failures.append(f"$ {' '.join(cmd)}\n{stdout}{stderr}")
+                failures.append(log[-1])
+        # ptxas' register, shared-memory and spill report of every kernel
+        out.with_suffix(".log").write_text("\n".join(log))
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
         tmp_lib = os.path.join(tmp, out.name)

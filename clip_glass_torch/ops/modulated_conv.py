@@ -20,23 +20,48 @@ CUDA tensor launches the kernel, a CPU tensor takes `modulated_matmul_plain`.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clip_glass_torch.core.device import constant
 from clip_glass_torch.ops import cuda
 from clip_glass_torch.ops.upfirdn import fir, pad_hw, setup_filter_kernel
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0) -> torch.Tensor:
-    """x: [B, H, W, I]; w: [O, I, kh, kw]; correlation with explicit padding."""
+def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0,
+          lhs_dilation=1) -> torch.Tensor:
+    """x: [B, H, W, I]; w: [O, I, kh, kw]; correlation with explicit padding
+    (pad0 before, pad1 after, on both spatial axes; negative crops) of the
+    input dilated by `lhs_dilation` (lhs_dilation-1 zeros between samples),
+    as the JAX package's lax.conv_general_dilated call."""
     xn = x.permute(0, 3, 1, 2)
-    if pad0 == pad1:
+    if lhs_dilation > 1:
+        y = _conv_dilated(xn, w, lhs_dilation, pad0, pad1)
+    elif pad0 == pad1:
         y = F.conv2d(xn, w, stride=stride, padding=pad0)
     else:
         y = F.conv2d(pad_hw(xn, pad0, pad1), w, stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+def _conv_dilated(xn: torch.Tensor, w: torch.Tensor, d: int, pad0: int,
+                  pad1: int) -> torch.Tensor:
+    """NCHW correlation of the d-dilated input padded by (pad0, pad1), as a
+    transposed conv with the flipped, in/out-swapped kernel (no zero-stuffed
+    copy, no products with the stuffed zeros). conv_transpose2d(stride=d)
+    equals the dilated input padded by k-1 on both sides; the output is
+    then cropped (a view, no copy) or zero-padded by pad - (k-1) at each
+    end."""
+    k = w.shape[-1]
+    y = F.conv_transpose2d(xn, w.transpose(0, 1).flip(2, 3), stride=d)
+    a, b = pad0 - (k - 1), pad1 - (k - 1)
+    if a <= 0 and b <= 0:
+        return y[:, :, -a:y.shape[2] + b, -a:y.shape[3] + b]
+    return pad_hw(y, a, b)
 
 
 def style_from_latent(latent, style_w, style_b):
@@ -81,6 +106,36 @@ def modulated_conv2d_up(x, w, style, *, demodulate: bool = True,
     if demodulate:
         y = y * demod_coef(w, style, eps).to(y.dtype)[:, None, None, :]
     return y
+
+
+@lru_cache(maxsize=None)
+def _up_phase_map(filter_taps):
+    """Constant coefficient tensor A[d, r, t] = sum_{s: s+t=2d+1-r (valid)}
+    k1[s] of the convT+FIR polyphase composition (one per dimension)."""
+    k1 = np.asarray(filter_taps, np.float64)
+    k1 = k1 / k1.sum() * 2.0  # separable 1-D factor (total FIR gain 4)
+    A = np.zeros((3, 2, 3), np.float32)
+    for r in (0, 1):
+        for t in range(3):
+            for s in range(len(k1)):
+                d2 = s + t - 3 + r
+                if d2 % 2 == 0 and -2 <= d2 <= 2:
+                    A[d2 // 2 + 1, r, t] += k1[s]
+    return A
+
+
+def _polyphase_up_kernels(w: torch.Tensor, filter_taps) -> torch.Tensor:
+    """Compose convT(stride 2, k=3) + 4-tap FIR into FOUR 3x3 phase kernels:
+    out[2p+r, 2q+c] = conv(x, K[r,c])[p, q] with
+      K[r,c][di,dj] = sum_{s1+t1=2di+3-r, s2+t2=2dj+3-c} k1[s1] k1[s2] w[2-t1, 2-t2]
+    (the zero-stuffing and padding arithmetic of modulated_conv2d_up).
+    w: [O, I, 3, 3]. Returns the JAX package's layout, [3, 3, I, 4, O]
+    (phases r-major), in fp32 composed and rounded once to w's dtype."""
+    A = constant(_up_phase_map, tuple(filter_taps), device=w.device)
+    wf = w.permute(2, 3, 1, 0).float().flip(0, 1)   # HWIO w[2-t1, 2-t2]
+    Kp = torch.einsum("drt,ecs,tsio->deirco", A, A, wf)
+    d, e, I, r, c, O = Kp.shape
+    return Kp.reshape(d, e, I, r * c, O).to(w.dtype)
 
 
 def conv2d(x, w, *, stride=1):

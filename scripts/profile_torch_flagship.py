@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in one flagship fitness evaluation of the PyTorch port
 on one GPU: StyleGAN2_ffhq_d (config-f 1024px G + D, CLIP ViT-B/32), pop 16,
-bf16, random weights from seed 0.
+bf16, random weights from seed 0, through the evaluation `eval_population`
+runs: by default the s2d fitness path (the 512 and 1024 px levels in the
+space-to-depth domain, the image handed over packed), with --plain the plain
+domain (s2d_min_res=2**30).
 
 Prints JSON lines:
   - stage times (CUDA events, mean of ITERS warm runs): G (mapping +
     synthesis + [0,1] scaling), CLIP (resize + image tower + cosine), D,
     the whole evaluation, and one NSGA-II step with the evaluation replaced
-    by a constant (the evolutionary operators alone);
+    by a constant (the evolutionary operators alone); on the s2d path the
+    stages are the packed-image ones the evaluation chains;
   - torch.profiler over one warm evaluation: device time by kernel name (top
     entries), the sum of device time, the wall time, the device's idle
     share (1 - device time / wall time; one stream, so kernels never overlap),
@@ -16,12 +20,13 @@ Prints JSON lines:
   - the card's name and power limit.
 Writes the Chrome trace to --trace (default build/flagship_eval_trace.json).
 
-Run on the card: python3 scripts/profile_torch_flagship.py
+Run on the card: python3 scripts/profile_torch_flagship.py [--plain]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,8 +41,10 @@ import torch  # noqa: E402
 from clip_glass_torch.config import get_config  # noqa: E402
 from clip_glass_torch.evolve.algorithm import GAState, make_step  # noqa: E402
 from clip_glass_torch.fitness.problem import GenerationProblem  # noqa: E402
+from clip_glass_torch.models.stylegan2 import model as sg2  # noqa: E402
 
-OUR_KERNELS = ("noise_bias_lrelu_kernel", "upsample2x_kernel", "modulated_matmul_kernel")
+OUR_KERNELS = ("noise_bias_lrelu_kernel", "upsample2x_kernel", "modulated_matmul_kernel",
+               "s2d_conv2x2_bf16_kernel")
 ITERS = 5  # warm runs per stage time
 TOP = 25  # entries in each profile table
 
@@ -61,6 +68,8 @@ def cuda_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=os.path.join(ROOT, "build", "flagship_eval_trace.json"))
+    ap.add_argument("--plain", action="store_true",
+                    help="the plain domain throughout (s2d_min_res=2**30)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -70,25 +79,33 @@ def main() -> int:
 
     config = get_config("StyleGAN2_ffhq_d").replace(
         target="the face of a man with brown eyes", weights="random:0", pop_size=16)
-    problem = GenerationProblem(config, device="cuda")
+    model_cfg = (dataclasses.replace(sg2.CONFIG_F, s2d_min_res=2 ** 30) if args.plain
+                 else sg2.CONFIG_F)
+    problem = GenerationProblem(config, device="cuda", model_cfg=model_cfg)
     gen = problem.generator
+    domain = "s2d" if gen._s2d_active else "plain"
+    if domain == "s2d":
+        g, clip, d = gen.generate_packed, gen.clip_similarity_packed, gen.discriminate_packed
+    else:
+        g, clip, d = gen.generate, gen.clip_similarity, gen.discriminate
     X = torch.randn((16, config.n_var), generator=torch.Generator(device="cuda")
                     .manual_seed(0), device="cuda")
 
     with torch.inference_mode():
-        imgs = gen.generate(X)
+        imgs = g(X)
         F0 = gen.eval_population(X)
         stages = {
-            "G": cuda_ms(lambda: gen.generate(X), ITERS),
-            "CLIP": cuda_ms(lambda: gen.clip_similarity(imgs), ITERS),
-            "D": cuda_ms(lambda: gen.discriminate(imgs), ITERS),
+            "G": cuda_ms(lambda: g(X), ITERS),
+            "CLIP": cuda_ms(lambda: clip(imgs), ITERS),
+            "D": cuda_ms(lambda: d(imgs), ITERS),
             "evaluation": cuda_ms(lambda: gen.eval_population(X), ITERS),
         }
         step = make_step(problem.make_algorithm().ops, lambda off: F0, 16)
         state = GAState(X, F0, 0)
         rng = torch.Generator(device="cuda").manual_seed(0)
         stages["nsga2_step_without_eval"] = cuda_ms(lambda: step(state, rng), ITERS)
-    log({"stage_ms": stages, "pop": 16, "dtype": "bfloat16", "nvidia_smi": smi})
+    log({"domain": domain, "stage_ms": stages, "pop": 16, "dtype": "bfloat16",
+         "nvidia_smi": smi})
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -117,7 +134,8 @@ def main() -> int:
     top_convs = [{"name": e.key, "input_shapes": e.input_shapes[:2],
                   "device_ms": e.device_time_total / 1e3, "calls": e.count}
                  for e in convs[:TOP]]
-    log({"profile": "one evaluation", "wall_ms": wall_ms, "device_ms": total_ms,
+    log({"profile": "one evaluation", "domain": domain, "wall_ms": wall_ms,
+         "device_ms": total_ms,
          "idle_share": max(0.0, 1.0 - total_ms / wall_ms),
          "kernel_launches": sum(e.count for e in events),
          "hand_written_kernels_ms": ours, "top": top, "top_convs": top_convs,

@@ -6,7 +6,8 @@ machine has no JAX, which tests/conftest.py imports).
 
 Tolerances: fp32 1e-5 (summation order and FMA contraction only); bf16
 2e-2, one to two bf16 ulps (the kernel rounds once, the plain version at
-other places)."""
+other places). Kernel 4's outputs are sums of 4C' products: its absolute
+tolerance is taken relative to the output's scale."""
 
 import math
 
@@ -14,7 +15,7 @@ import pytest
 
 import torch
 
-from clip_glass_torch.ops import bias_act, modulated_conv, upfirdn
+from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
 
 pytestmark = pytest.mark.gpu
 
@@ -74,6 +75,48 @@ def test_modulated_matmul_kernel(gpu, dtype, shape, demod):
            modulated_conv.modulated_matmul_plain(x, s, w, d, b), dtype)
 
 
+def _s2d_args(gen, B, n, C, modulated, dtype):
+    x = _randn(gen, B, n, n, C, dtype=dtype)
+    K = _randn(gen, 2, 2, C, C) / math.sqrt(4 * C)
+    if modulated:
+        style = 1.0 + 0.5 * _randn(gen, B, C)
+        demod = 0.5 + torch.rand((B, C), generator=gen, device="cuda")
+    else:
+        style = demod = torch.ones((B, C), device="cuda")
+    return x, K, style, demod
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [20, 64, 128])
+@pytest.mark.parametrize("pad0,n", [(1, 13), (0, 11), (1, 11), (0, 13)])
+@pytest.mark.parametrize("modulated", [True, False])
+def test_s2d_conv2x2_kernel(gpu, dtype, C, pad0, n, modulated):
+    x, K, style, demod = _s2d_args(gpu, 2, n, C, modulated, dtype)
+    n0 = s2d.s2d_conv2x2.launches
+    got = s2d.s2d_conv2x2(x, K, style, demod, pad0)
+    assert s2d.s2d_conv2x2.launches == n0 + 1
+    want = s2d.s2d_conv2x2_plain(x, K, style, demod, pad0)
+    assert got.shape == want.shape == (2, n + 2 * pad0 - 1, n + 2 * pad0 - 1, C)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype] * scale)
+
+
+def test_s2d_conv2x2_rejects_what_the_kernel_does_not_take(gpu):
+    x, K, style, demod = _s2d_args(gpu, 2, 9, 16, True, torch.float32)
+    with pytest.raises(ValueError):        # CPU/CUDA mix
+        s2d.s2d_conv2x2(x, K.cpu(), style, demod, 1)
+    with pytest.raises(TypeError):         # a dtype the kernel does not take
+        s2d.s2d_conv2x2(x.half(), K, style, demod, 1)
+    with pytest.raises(ValueError):        # not contiguous
+        s2d.s2d_conv2x2(x.transpose(1, 2), K, style, demod, 1)
+    with pytest.raises(ValueError):        # not a [2,2] fold on x's channels
+        s2d.s2d_conv2x2(x, K[:, :, :8], style, demod, 1)
+    with pytest.raises(ValueError):
+        s2d.s2d_conv2x2(x, K, style, demod, 2)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
     x = _randn(gpu, 2, 4, 4, 8)
     with pytest.raises(TypeError):
@@ -87,7 +130,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
 
 def test_tiny_search_fitness_on_gpu_matches_cpu(gpu):
     """The smoke run's agreement phase: TINY fitness through the kernels on the
-    card against the plain versions on the CPU, fp32, with the launch counts."""
+    card against the plain versions on the CPU, fp32, with the launch counts,
+    in the plain domain (TINY) and the s2d domain (TINY_S2D: 4 launches of
+    kernel 4 per evaluation)."""
     import chip_smoke
 
     chip_smoke.phase_agreement()

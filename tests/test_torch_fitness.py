@@ -2,7 +2,15 @@
 (built as in tests/test_end_to_end.py) from clip_glass_torch against the JAX
 package's Generator.eval_population, with the JAX weights, noise planes and
 target carried across by weights/from_jax.py. fp32 on both sides; tolerance
-1e-4 relative to each objective's scale (G, D and CLIP in sequence)."""
+1e-4 relative to each objective's scale (G, D and CLIP in sequence).
+
+The s2d fitness path (TINY with s2d_min_res=8, with and without lattice
+offsets and the s4d RGB path) runs on the same converted bundle: against
+the JAX s2d fitness at 1e-4 and against the port's plain fitness at 2e-3
+(the JAX package's own s2d-vs-plain tolerance)."""
+
+import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -18,6 +26,8 @@ from clip_glass_tpu.models.clip import model as jclip
 from clip_glass_tpu.models.stylegan2 import model as jsg2
 
 from clip_glass_torch.config import get_config
+from clip_glass_torch.core.dtypes import BF16
+from clip_glass_torch.fitness.generator import Generator
 from clip_glass_torch.fitness.problem import GenerationProblem
 from clip_glass_torch.models.clip import model as tclip
 from clip_glass_torch.models.stylegan2 import model as tsg2
@@ -133,3 +143,83 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
         GenerationProblem(_config(get_config).replace(weights="./weights/x"),
                           device="cpu", clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
+
+
+# ------------------------------------------------------------ s2d fitness
+
+S2D_VARIANTS = {name: kw for name, kw in [
+    ("offsets_s4d", {}), ("no_offsets", {"s2d_offsets": False}),
+    ("no_s4d", {"rgb_s4d": False})]}
+
+
+def _s2d_problems(problems, variant):
+    """The JAX and port problems on the s2d TINY config, the port's built
+    from the converted bundle of the plain TINY problem (the same weights,
+    raw noise planes and target; the s2d domain reads the same tree)."""
+    kw = S2D_VARIANTS[variant]
+    jcfg = dataclasses.replace(jsg2.TINY, s2d_min_res=8, **kw)
+    tcfg = dataclasses.replace(tsg2.TINY, s2d_min_res=8, **kw)
+    _, jbundle, tplain, tbundle = problems
+    jprob = JProblem(_config(jget_config), clip_cfg=jclip.TINY, model_cfg=jcfg)
+    tprob = GenerationProblem(_config(get_config), device="cpu", clip_cfg=tclip.TINY,
+                              model_cfg=tcfg, bundle=tbundle)
+    return jprob, jbundle, tprob, tplain
+
+
+@pytest.mark.parametrize("variant", sorted(S2D_VARIANTS))
+def test_s2d_eval_population_matches_jax_and_port_plain(problems, variant):
+    jprob, jbundle, tprob, tplain = _s2d_problems(problems, variant)
+    assert jprob.generator._s2d_active and tprob.generator._s2d_active
+    assert not tplain.generator._s2d_active
+    X = _X(4)
+    want = np.asarray(jax.jit(jprob.generator.eval_population)(jnp.asarray(X), jbundle))
+    got = N(tprob.generator.eval_population(T(X)))
+    plain = N(tplain.generator.eval_population(T(X)))
+    assert got.shape == (POP, 2) and np.isfinite(got).all() and (got[:, 1] >= 0).all()
+    for j in range(2):
+        assert_close_scaled(got[:, j], want[:, j], 1e-4)
+        assert_close_scaled(got[:, j], plain[:, j], 2e-3)
+
+
+def test_s2d_generate_returns_full_resolution(problems):
+    jprob, jbundle, tprob, tplain = _s2d_problems(problems, "offsets_s4d")
+    X = _X(5)
+    got = N(tprob.generator.generate(T(X)))
+    assert got.shape == (POP, 3, 16, 16)
+    want = np.asarray(jax.jit(jprob.generator.generate)(jnp.asarray(X), jbundle))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, N(tplain.generator.generate(T(X))), rtol=2e-3, atol=2e-3)
+    # the staged noise is packed once for the s2d levels (8 and 16 px)
+    assert [nz.ndim for nz in tprob.generator.noise] == [2, 3, 3, 3, 3]
+
+
+def test_s2d_path_is_the_flagship_default():
+    """CONFIG_F takes the s2d fitness path; the plain domain is reached
+    through the config's own switch, s2d_min_res."""
+    def active(cfg):
+        return Generator._s2d_active.fget(types.SimpleNamespace(model_cfg=cfg))
+    assert active(tsg2.CONFIG_F)
+    assert not active(dataclasses.replace(tsg2.CONFIG_F, s2d_min_res=2 ** 30))
+    assert tsg2.rgb_domain(tsg2.CONFIG_F) == "s4d"
+
+
+def test_discriminator_stays_fp32_after_staging(problems, rng):
+    """bf16 policy: G is precast (but dlatent_avg), D stays fp32, and the
+    plain D forward is bitwise the same as with a precast D."""
+    from clip_glass_torch.core.dtypes import map_tree, precast_params
+
+    *_, tbundle = problems
+    tprob = GenerationProblem(_config(get_config).replace(compute_dtype="bfloat16"),
+                              device="cpu", clip_cfg=tclip.TINY, model_cfg=tsg2.TINY,
+                              bundle=tbundle)
+    gen = tprob.generator
+    d_dtypes, g_dtypes = set(), set()
+    map_tree(lambda _, t: d_dtypes.add(t.dtype), gen.d_params)
+    map_tree(lambda p, t: g_dtypes.add(t.dtype) if "dlatent_avg" not in p else None,
+             gen.g_params)
+    assert d_dtypes == {torch.float32} and g_dtypes == {torch.bfloat16}
+    img = T(rng.uniform(-1, 1, size=(4, 3, 16, 16)).astype(np.float32))
+    a = tsg2.discriminator_apply(gen.d_params, img, tsg2.TINY, policy=BF16)
+    b = tsg2.discriminator_apply(precast_params(gen.d_params, BF16), img, tsg2.TINY,
+                                 policy=BF16)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -17,7 +17,7 @@ import torch
 
 import clip_glass_torch
 from clip_glass_torch import config as tconfig
-from clip_glass_torch.ops import bias_act, cuda, modulated_conv, upfirdn
+from clip_glass_torch.ops import bias_act, cuda, modulated_conv, s2d, upfirdn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "clip_glass_torch"
@@ -82,7 +82,7 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
     counts = (bias_act.noise_bias_lrelu.launches, upfirdn.upsample2x.launches,
-              modulated_conv.modulated_matmul.launches)
+              modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches)
     x = torch.from_numpy(rng.normal(size=(2, 4, 5, 8)).astype(np.float32))
     noise, ns, b = torch.randn(4, 5), torch.tensor(0.3), torch.randn(8)
     torch.testing.assert_close(bias_act.noise_bias_lrelu(x, noise, ns, b),
@@ -95,8 +95,14 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
     torch.testing.assert_close(modulated_conv.modulated_matmul(xm, s, w, d, bo),
                                modulated_conv.modulated_matmul_plain(xm, s, w, d, bo),
                                rtol=0, atol=0)
+    xs, K, st, dm = (torch.randn(2, 5, 5, 8), torch.randn(2, 2, 8, 8), torch.randn(2, 8),
+                     torch.randn(2, 8))
+    for pad0 in (0, 1):
+        torch.testing.assert_close(s2d.s2d_conv2x2(xs, K, st, dm, pad0),
+                                   s2d.s2d_conv2x2_plain(xs, K, st, dm, pad0),
+                                   rtol=0, atol=0)
     assert counts == (bias_act.noise_bias_lrelu.launches, upfirdn.upsample2x.launches,
-                      modulated_conv.modulated_matmul.launches)
+                      modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

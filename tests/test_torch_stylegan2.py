@@ -1,6 +1,9 @@
 """clip_glass_torch StyleGAN2 G and D against the JAX package's, on TINY in
-fp32: against the JAX plain domain (s2d=False) and against its s2d domain
-(TINY with s2d_min_res=8), which is an exact rewrite of the same math.
+fp32: the port's plain domain against the JAX plain domain (s2d=False) and
+against its s2d domain (TINY with s2d_min_res=8), which is an exact rewrite
+of the same math; the port's s2d domain against the JAX s2d domain (1e-4,
+with and without lattice offsets and the s4d RGB path) and against the
+port's own plain domain (2e-3).
 
 The JAX weights (random init, with random biases and noise scales so that
 every term of the synthesis epilogue counts) and the JAX noise planes are
@@ -25,6 +28,7 @@ from clip_glass_tpu.ops import s2d as S
 
 from clip_glass_torch.core.dtypes import FP32
 from clip_glass_torch.models.stylegan2 import model as tsg2
+from clip_glass_torch.ops import s2d as TS
 from clip_glass_torch.weights import from_jax
 
 from torch_parity import N, T, assert_close_scaled
@@ -32,6 +36,12 @@ from torch_parity import N, T, assert_close_scaled
 TINY = jsg2.TINY
 TINY_S2D = dataclasses.replace(TINY, s2d_min_res=8)
 PORT_TINY = tsg2.TINY
+# the s2d variants, as (JAX config, port config)
+S2D_VARIANTS = {
+    name: (dataclasses.replace(TINY_S2D, **kw),
+           dataclasses.replace(PORT_TINY, s2d_min_res=8, **kw))
+    for name, kw in [("offsets_s4d", {}), ("no_offsets", {"s2d_offsets": False}),
+                     ("no_s4d", {"rgb_s4d": False})]}
 
 
 def _perturb(tree, rng):
@@ -214,3 +224,92 @@ def _flat(tree, path=()):
             yield from _flat(v, path + (i,))
     else:
         yield path, tree
+
+
+# ------------------------------------------------------------ s2d domain
+
+
+@pytest.mark.parametrize("variant", sorted(S2D_VARIANTS))
+def test_s2d_generator_matches_jax_s2d_and_port_plain(params, rng, variant):
+    jcfg, tcfg = S2D_VARIANTS[variant]
+    z = rng.normal(size=(4, TINY.latent_size)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, zz, nz: jsg2.generator_apply(
+        p, zz, jcfg, noise=nz, policy=JFP32))(params["jg"], jnp.asarray(z),
+                                              params["jnoise"]))
+    got = N(tsg2.generator_apply(params["tg"], T(z), tcfg, noise=params["tnoise"],
+                                 policy=FP32))
+    assert got.shape == (4, 3, 16, 16)
+    assert_close_scaled(got, want, 1e-4)
+    plain = N(tsg2.generator_apply(params["tg"], T(z),
+                                   dataclasses.replace(tcfg, s2d_min_res=2 ** 30),
+                                   noise=params["tnoise"], policy=FP32))
+    assert_close_scaled(got, plain, 2e-3)
+
+
+@pytest.mark.parametrize("variant", sorted(S2D_VARIANTS))
+def test_s2d_generator_packed_output_matches_jax(params, rng, variant):
+    """output_s2d=True: the packed image (s4d, or s2d at the output offset
+    with zero phantoms), from packed noise, against JAX's."""
+    jcfg, tcfg = S2D_VARIANTS[variant]
+    assert tsg2.rgb_domain(tcfg) == jsg2.rgb_domain(jcfg)
+    assert tsg2.s2d_output_offset(tcfg) == jsg2.s2d_output_offset(jcfg)
+    z = rng.normal(size=(4, TINY.latent_size)).astype(np.float32)
+    want = np.asarray(jsg2.generator_apply(params["jg"], jnp.asarray(z), jcfg,
+                                           noise=params["jnoise"], policy=JFP32,
+                                           output_s2d=True))
+    got = N(tsg2.generator_apply(params["tg"], T(z), tcfg,
+                                 noise=tsg2.pack_noise(params["tnoise"], tcfg, FP32),
+                                 policy=FP32, output_s2d=True))
+    assert_close_scaled(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("variant", sorted(S2D_VARIANTS))
+def test_noise_layouts_and_packing_match_jax(params, rng, variant):
+    jcfg, tcfg = S2D_VARIANTS[variant]
+    assert tsg2.noise_layouts(tcfg) == jsg2.noise_layouts(jcfg)
+    jp = jsg2.pack_noise(params["jnoise"], jcfg, JFP32)
+    tp = tsg2.pack_noise(params["tnoise"], tcfg, FP32)
+    for a, b in zip(tp, jp):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    # packed planes give exactly the output of raw planes folded in the loop
+    z = T(rng.normal(size=(2, TINY.latent_size)).astype(np.float32))
+    np.testing.assert_array_equal(
+        N(tsg2.generator_apply(params["tg"], z, tcfg, noise=tp, policy=FP32)),
+        N(tsg2.generator_apply(params["tg"], z, tcfg, noise=params["tnoise"], policy=FP32)))
+
+
+@pytest.mark.parametrize("domain", ["s4d", "s2d", "s2d_off"])
+@pytest.mark.parametrize("variant", ["offsets_s4d", "no_offsets"])
+def test_s2d_discriminator_matches_jax_s2d_and_port_plain(params, rng, domain, variant):
+    jcfg, tcfg = S2D_VARIANTS[variant]
+    img = rng.uniform(-1, 1, size=(4, 3, 16, 16)).astype(np.float32)
+    nhwc = np.transpose(img, (0, 2, 3, 1))
+    if domain == "s4d":
+        jin, tin, kw = S.s4d(jnp.asarray(nhwc)), TS.s4d(T(nhwc)), {"input_s4d": True}
+    else:
+        off = -1 if domain == "s2d_off" else 0
+        jin, tin = S.s2d(jnp.asarray(nhwc)), TS.s2d(T(nhwc))
+        if off:
+            jin, tin = S.shift_to_m1(jin), TS.shift_to_m1(tin)
+        kw = {"input_s2d": True, "input_offset": off}
+    want = np.asarray(jsg2.discriminator_apply(params["jd"], jin, jcfg, policy=JFP32, **kw))
+    got = N(tsg2.discriminator_apply(params["td"], tin, tcfg, policy=FP32, **kw))
+    assert got.shape == (4, 1)
+    assert_close_scaled(got, want, 1e-4)
+    plain = N(tsg2.discriminator_apply(params["td"], T(img), PORT_TINY, policy=FP32))
+    assert_close_scaled(got, plain, 2e-3)
+
+
+def test_output_s2d_needs_the_s2d_domain(params):
+    """A config the s2d folds do not cover (a 3-tap FIR) has no packed
+    output; below s2d_min_res the packed output is the plain image packed."""
+    z = T(np.zeros((1, TINY.latent_size), np.float32))
+    unsupported = dataclasses.replace(PORT_TINY, filter_taps=(1, 2, 1))
+    assert not tsg2.top_level_s2d(unsupported)
+    with pytest.raises(ValueError, match="requires the s2d domain"):
+        tsg2.generator_apply(params["tg"], z, unsupported, output_s2d=True)
+    plain = dataclasses.replace(PORT_TINY, s2d_min_res=2 ** 30)
+    assert not tsg2.top_level_s2d(plain) and tsg2.rgb_domain(plain) == "s2d"
+    packed = tsg2.generator_apply(params["tg"], z, plain, output_s2d=True)
+    np.testing.assert_array_equal(
+        N(packed), N(TS.s2d(tsg2.generator_apply(params["tg"], z, plain).permute(0, 2, 3, 1))))
