@@ -8,7 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      shape of both flagship paths of phase 5 (bf16), at the largest of them
      in fp32 and at odd shapes (bf16 and fp32), with
      CUDA-event times of the kernel, the plain version and, where one
-     PyTorch call computes the same function, that call;
+     PyTorch call computes the same function, that call; kernel 4 also
+     records the variant each shape took (every flagship shape must take
+     the TMA/wgmma one) and, at the flagship shapes, the time of the first
+     design's bf16 kernel (`previous_ms`);
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
      domain (TINY with s2d_min_res=8);
@@ -202,8 +205,8 @@ def _s2d_case(shape, dtype, gen):
     if modulated:
         style = 1.0 + 0.5 * torch.randn((B, C), generator=gen, device="cuda")
         demod = 0.5 + torch.rand((B, C), generator=gen, device="cuda")
-    else:
-        style = demod = torch.ones((B, C), device="cuda")
+    else:  # one weight set for every sample, as D calls it
+        style = demod = None
     return x, K, style, demod, pad0
 
 
@@ -222,8 +225,8 @@ def _s2d_library(args):
 
     x, K, style, demod, pad0 = args
     B, n, _, C = x.shape
-    Kb = s2d._fold_style(K, style, demod).to(x.dtype)      # [B,2,2,C,C]
-    if bool((style == 1).all()) and bool((demod == 1).all()):
+    Kb = s2d._fold_style(K, style, demod).to(x.dtype)      # [B or 1,2,2,C,C]
+    if style is None and demod is None:
         w = Kb[0].permute(3, 2, 0, 1).contiguous()          # OIHW
         xn = x.permute(0, 3, 1, 2)
 
@@ -242,13 +245,32 @@ def _s2d_library(args):
     return fn, check
 
 
+def _s2d_previous(args):
+    """The first design's bf16 kernel (wmma) on the same call, weights
+    folded as it takes them: kept in the library for other widths, timed
+    beside the wgmma variant at the flagship shapes."""
+    from clip_glass_torch.ops import s2d
+
+    x, K, style, demod, pad0 = args
+
+    def fn():
+        Kb = s2d.conv2x2_weights(K, style, demod, x.dtype, "wmma")
+        return s2d.conv2x2_launch(x, Kb, pad0, "wmma")
+    return fn
+
+
+def _iters(n_bytes: int) -> int:
+    """Launches per timing: about 20 GB of traffic, 10 to 200 launches."""
+    return int(min(200, max(10, 2e10 / max(n_bytes, 1))))
+
+
 def _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops, library=None,
              scaled=False, peak=PEAK_FP32_OPS_PER_S):
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     err = _check(kernel.__name__, got, want, dtype, shape, scaled)
-    iters = int(min(200, max(10, 2e10 / max(n_bytes, 1))))
+    iters = _iters(n_bytes)
     rec = {"kernel": kernel.__name__, "shape": list(shape), "dtype": str(dtype),
            "max_abs_err": err,
            "kernel_ms": time_ms(lambda: kernel(*args), iters),
@@ -268,6 +290,8 @@ def _path_sum(counts, recs, has_library: bool, peak: float):
     the launches at each shape, and the bound of the summed work."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if has_library else None,
            "max_abs_err": 0.0}
+    if any("previous_ms" in rec for rec, _, _ in recs.values()):
+        tot["previous_ms"] = 0.0
     work = [0, 0]  # bytes and operations
     for shape, count in counts.items():
         rec, n_bytes, n_ops = recs[shape]
@@ -275,6 +299,8 @@ def _path_sum(counts, recs, has_library: bool, peak: float):
         tot["plain_ms"] += count * rec["plain_ms"]
         if has_library:
             tot["library_ms"] += count * rec["library_ms"]
+        if "previous_ms" in tot:
+            tot["previous_ms"] += count * rec["previous_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
         work[0] += count * n_bytes
         work[1] += count * n_ops
@@ -350,7 +376,11 @@ def phase_kernels():
         ("s2d_conv2x2", s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain, _s2d_case, _s2d_cost,
          _s2d_library, 3,
          [(3, 13, 20, 1, True), (2, 11, 20, 0, False), (2, 13, 64, 0, True),
-          (3, 11, 64, 1, False), (2, 13, 128, 1, False), (2, 11, 128, 0, True)]),
+          (3, 11, 64, 1, False), (2, 13, 128, 1, False), (2, 11, 128, 0, True),
+          # ragged rows of 32-cell tiles (n_out 69-71, 128-130), both widths
+          # of the wgmma variant, both halos, B of 1 and 3, both weight kinds
+          (1, 70, 64, 1, True), (3, 70, 128, 0, False), (3, 129, 64, 0, False),
+          (1, 129, 128, 1, True)]),
     ]
     summary = {}
     for name, kernel, plain, make, cost, library, idx, odd in specs:
@@ -367,9 +397,19 @@ def phase_kernels():
         for shape in shapes:
             args = make(shape, torch.bfloat16, gen)
             n_bytes, n_ops = cost(shape, args)
+            before = _variant_counts()
             rec = _measure(kernel, plain, args, torch.bfloat16, shape, n_bytes,
                            n_ops, library(args) if library else None, scaled,
                            peak(torch.bfloat16))
+            if name == "s2d_conv2x2":
+                rec["variant"] = _moved(before, _variant_counts())
+                if rec["variant"] != "wgmma":
+                    raise AssertionError(f"s2d_conv2x2 {shape}: a flagship shape took "
+                                         f"{rec['variant']}, not wgmma")
+                previous = _s2d_previous(args)
+                _check("s2d_conv2x2 (wmma)", previous(), plain(*args), torch.bfloat16,
+                       shape, scaled=True)
+                rec["previous_ms"] = time_ms(previous, _iters(n_bytes))
             rec["launches_per_evaluation"] = {p: counts[p].get(shape, 0)
                                               for p in PER_EVAL}
             log(rec)
@@ -386,11 +426,26 @@ def phase_kernels():
             else:
                 args = make(shape, dtype, gen)
             n_bytes, n_ops = cost(shape, args)
-            log(_measure(kernel, plain, args, dtype, shape, n_bytes, n_ops,
-                         scaled=scaled, peak=peak(dtype)))
+            before = _variant_counts()
+            rec = _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops,
+                           scaled=scaled, peak=peak(dtype))
+            if name == "s2d_conv2x2":
+                rec["variant"] = _moved(before, _variant_counts())
+            log(rec)
             del args
         torch.cuda.empty_cache()
     return summary
+
+
+def _variant_counts() -> dict:
+    from clip_glass_torch.ops import s2d
+
+    return dict(s2d.s2d_conv2x2.launches_by_variant)
+
+
+def _moved(before: dict, after: dict) -> str:
+    """The kernel-4 variants launched between two counts, joined by '+'."""
+    return "+".join(v for v in after if after[v] != before[v])
 
 
 # ------------------------------------------------------------ phase 4
@@ -484,6 +539,9 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
     gen = algorithm.generator(0)
     for k in kernels:
         k.launches = 0
+    by_variant = kernels[-1].launches_by_variant
+    for v in by_variant:
+        by_variant[v] = 0
     t = time.perf_counter()
     state = algorithm.init(gen)
     torch.cuda.synchronize()
@@ -498,6 +556,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
                    save_each=1, state=state)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    variants = dict(by_variant)
 
     Fp = res.pop_F
     if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all():
@@ -511,6 +570,8 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
         if launches[name] != n * n_eval:
             raise AssertionError(f"{path}: {name}: {launches[name]} launches, "
                                  f"expected {n} x {n_eval} evaluations")
+    if variants["wgmma"] != launches["s2d_conv2x2"]:
+        raise AssertionError(f"{path}: s2d_conv2x2 launches by variant {variants}")
     gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
     log({"phase": "main", "path": path, "config": "StyleGAN2_ffhq_d",
          "model": "CONFIG_F 1024px" + ("" if path == "s2d" else ", s2d_min_res=2**30"),
@@ -520,10 +581,11 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
          "candidates_per_s": [POP / s for s in gen_s],
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "best_cos": -Fp[:, 0].min().item(), "hinge_min": Fp[:, 1].min().item(),
-         "launches": launches, "device": kind, "nvidia_smi": smi})
+         "launches": launches, "s2d_conv2x2_launches_by_variant": variants,
+         "device": kind, "nvidia_smi": smi})
     del problem, algorithm, res, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, variants
 
 
 # ------------------------------------------------------------ phase 6
@@ -570,17 +632,22 @@ def main() -> int:
     phase_build()
     summary = phase_kernels()
     phase_agreement()
-    launches = phase_main(kind, smi, "s2d", GENERATIONS)
-    plain_launches = phase_main(kind, smi, "plain", GENERATIONS)
+    launches, variants = phase_main(kind, smi, "s2d", GENERATIONS)
+    plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS)
     phase_domains()
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        extra = {"variant": None}
+        if name == "s2d_conv2x2":  # the variant the main path ran, and the
+            # first design's bf16 kernel at the same shapes
+            extra = {"variant": "+".join(v for v, n in variants.items() if n),
+                     "previous_ms": s["previous_ms"]}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max(s["max_abs_err"], p["max_abs_err"]),
-                        **{k: s[k] for k in keys},
+                        **{k: s[k] for k in keys}, **extra,
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
                         "scope": f"launches: init + {GENERATIONS} generations of each "

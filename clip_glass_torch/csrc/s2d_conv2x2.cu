@@ -2,37 +2,73 @@
 //
 //   y[b,v,w,:] = sum_{a,c in {0,1}} x[b, v+a-pad0, w+c-pad0, :] @ Kb[b,a,c]
 //
-// x: [B,n,n,C], Kb: [B,2,2,C,C] (per-sample K * style * demod, folded by the
-// wrapper in fp32 and rounded to x's dtype), y: [B,n_out,n_out,C] with
-// n_out = n+1 (pad0 = 1) or n-1 (pad0 = 0). Cells outside x read zero. fp32
+// x: [B,n,n,C], Kb: per-sample K * style * demod, folded by the wrapper in
+// fp32 and rounded once to x's dtype, or one set round(K) shared by every
+// sample when the call is unmodulated; y: [B,n_out,n_out,C] with n_out = n+1
+// (pad0 = 1) or n-1 (pad0 = 0). Cells outside x read zero. fp32
 // accumulation, one rounding to x's dtype.
 //
 // Replaces the TPU kernel clip_glass_tpu/ops/pallas/s2d_conv2x2.py, function
-// s2d_conv2x2_pallas: the same-resolution 3x3 convs of StyleGAN2's 512 and
-// 1024 px levels, folded onto 4C = 128 channels between opposite lattices.
+// s2d_conv2x2_pallas (pallas_call at :108): the same-resolution 3x3 convs of
+// StyleGAN2's 512 and 1024 px levels, folded onto 4C = 128 channels between
+// opposite lattices.
 //
 // Bound: per sample this is a dense GEMM, M = n_out^2 output cells, N = C,
 // K = 4C. At the flagship (C = 128, bf16, pop 16) one 1024 px launch moves
 // ~2.15e9 bytes (0.64 ms at 3.35 TB/s) and does 5.5e11 operations (0.56 ms
 // at the 989 TFLOP/s bf16 tensor-core peak): bytes bind, narrowly, and only
-// if the products run on the tensor cores (fp32 CUDA cores would take ~8 ms).
+// if the products run at the tensor cores' full rate.
 //
-// Design (simple and right first; no wgmma/TMA yet): an implicit GEMM. A
-// block owns BM consecutive output cells (row-major over v, w, so its rows
-// of x are mostly contiguous) and BN output channels, and walks K as four
-// taps times C in steps of BK. While staging the A tile each thread gathers
-// its cell's shifted row of x for the current tap (zeros outside x: the
-// halo, and the ragged last cells); the B tile is Kb[b, tap] rows k0..k0+BK.
-// - bf16: tensor cores through nvcuda::wmma 16x16x16 bf16 fragments with fp32
-//   accumulators; 8 warps, each a 32x32 sub-tile of the 64x128 block tile;
-//   the fp32 tile goes through shared memory for a masked, rounded store.
-// - fp32: a CUDA-core tile of 64x64, 4x4 outputs per thread, so that the
-//   fp32 comparisons hold at 1e-5.
-// C need not be a multiple of the tile: loads beyond C are zero and stores
-// are masked. Loads are 16 bytes per thread when C allows (vec > 1).
+// Three variants; the wrapper picks one from dtype and C alone.
+//
+// 1. wgmma (bf16, C in {64, 128}: every flagship launch). A persistent,
+//    warp-specialised implicit GEMM:
+//    - Weights stay in shared memory. A block serves one sample and loads
+//      that sample's weights (or the shared set) once by TMA, 4 taps x C x C
+//      (128 KB at C = 128), in the 128-byte-swizzled K-major layout that the
+//      wgmma B descriptor reads; the wrapper writes each tap as [out, in]
+//      while it folds. About one block per SM: B x (SMs / B) blocks, each
+//      walking a contiguous run of the sample's output tiles, so the
+//      weights cross L2 once per block rather than once per tile.
+//    - A tiles come by TMA with the hardware's zero fill. One 4-D tensor
+//      map over x [B,n,n,C]; an output tile is 4 rows x 32 cells (M = 128).
+//      One box of 5 rows x 32 cells x 64 channels, shifted by (-pad0,
+//      c-pad0), serves both taps (0,c) and (1,c): tap a reads it from row
+//      a. The halo, the negative coordinates and the ragged edge read zeros
+//      with no address arithmetic per element, and each tile pulls 80 KB
+//      (C = 128) through L2 rather than 128 KB for one box per tap.
+//      32-cell rows waste 6% (n_out = 513) and 12% (257) of the MMA work on
+//      cells past the edge, and no bytes.
+//    - A ring of 20 KB A stages under full/empty mbarriers: one producer
+//      thread keeps TMA loads in flight while two consumer warpgroups (64
+//      rows each) issue wgmma m64nCk16 from shared memory into fp32
+//      registers, one stage's batch kept in flight.
+//    - Epilogue: each consumer warpgroup rounds its 64 x C tile to bf16 in
+//      registers, stages it swizzled in shared memory (conflict-free stores)
+//      and issues one TMA store per 64 channels; the store box is clipped at
+//      y's edge, so ragged tiles need no masks.
+//    - Shared weights (D's unmodulated calls) are one tensor read by every
+//      block, not B identical copies.
+//    Shared memory at C = 128: 128 KB weights + 3 x 20 KB stages + 32 KB
+//    output staging + barriers, under the 227 KB opt-in; 102 registers a
+//    thread, no spills.
+// 2. wmma (bf16, any other C; first design, kept for C = 20 and the like):
+//    a block owns BM consecutive output cells and BN output channels, and
+//    walks K as four taps times C in steps of BK; each thread gathers its
+//    cell's shifted row of x per tap (zeros outside x) into shared memory,
+//    synchronously; nvcuda::wmma 16x16x16 fragments with fp32 accumulators;
+//    8 warps of 32x32 on a 64x128 tile; a masked store through shared memory.
+// 3. fp32: the same implicit GEMM on the CUDA cores, a 64x64 tile with 4x4
+//    outputs per thread, so that fp32 comparisons hold at 1e-5.
+// Variants 2 and 3 take one weight set per sample ([B,2,2,C,C], [in, out])
+// and any C: loads beyond C are zero and stores are masked; 16-byte loads
+// when C allows (vec > 1).
 #include "common.cuh"
 
+#include <cuda.h>
 #include <mma.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -283,6 +319,395 @@ extern "C" int cg_s2d_conv2x2(const void* x, const void* kb, void* y, int64_t B,
   } else {
     status = static_cast<int>(cudaErrorInvalidValue);
   }
+  if (status != 0) return status;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ bf16, wgmma + TMA
+
+namespace {
+
+namespace wg {
+
+constexpr int TW = 32, TV = 4;                  // output tile: TV rows of TW cells
+constexpr int KCH = 64;                         // channels per 128-byte swizzle row
+constexpr int ROW_BYTES = KCH * 2;
+// One A stage: TV + 1 rows of TW cells x 64 channels (20 KB), the rows of
+// both taps a = 0, 1 of one column shift c: tap a reads stage rows from a TW.
+constexpr int STAGE_BYTES = (TV + 1) * TW * ROW_BYTES;
+constexpr int CONSUMERS = 2;                    // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // and one producer warpgroup
+
+// Shared-memory plan of one block at C channels (offsets from a 1024-byte
+// aligned base: 128-byte swizzle atoms must sit on 1024-byte boundaries).
+template <int C>
+struct Plan {
+  static constexpr int CHUNKS = C / KCH;       // 64-channel chunks of one tap's K
+  static constexpr int STEPS = 2 * CHUNKS;     // A stages per output tile: (c, chunk)
+  static constexpr int STAGES = C == 128 ? 3 : 8;
+  static constexpr int W_STEP = C * ROW_BYTES;  // one (tap, chunk): C out rows x 64 in
+  static constexpr int W_BYTES = 4 * CHUNKS * W_STEP;
+  static constexpr int O_HALF = 64 * ROW_BYTES;  // 64 rows x 64 channels of output
+  static constexpr int O_GROUP = CHUNKS * O_HALF;
+  static constexpr int A_OFF = W_BYTES;
+  static constexpr int O_OFF = A_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = O_OFF + CONSUMERS * O_GROUP;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "over the 227 KB shared-memory opt-in");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`. A wait of more than
+// 10 s traps (the next synchronisation reports a launch failure) rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (spin == 0) {
+        t0 = t;
+      } else if (t - t0 > 10000000000ull) {
+        __trap();
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// wgmma operand in shared memory, K-major with the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); a k16 step inside the row
+// adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define CG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define CG_F16(i) CG_F4(i), CG_F4(i + 4), CG_F4(i + 8), CG_F4(i + 12)
+
+// d (+)= A[64 x 16] B[16 x N], A and B bf16 in shared memory, d fp32 in
+// registers; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CG_F16(0), CG_F16(16), CG_F16(32), CG_F16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CG_F16(0), CG_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef CG_F16
+#undef CG_F4
+
+// Block = (sample b, part of its tiles). Tile t = (row group t / tiles_w,
+// column group t % tiles_w), TV x TW output cells; tile row r of the A
+// stage and of the accumulators is cell (v0 + r / TW, w0 + r % TW).
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    s2d_conv2x2_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             const __grid_constant__ CUtensorMap ymap, int pad0, int tiles_w,
+                             int tiles, int blocks_per_sample, int shared_weights) {
+  using P = Plan<C>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t w_s = base, a_s = base + P::A_OFF, o_s = base + P::O_OFF;
+  const uint32_t full = base + P::BAR_OFF;  // STAGES barriers of 8 bytes: A stage loaded
+  const uint32_t empty = full + 8 * P::STAGES;  // A stage consumed by both warpgroups
+  const uint32_t wbar = empty + 8 * P::STAGES;  // weights loaded
+
+  const int b = blockIdx.x / blocks_per_sample;
+  const int part = blockIdx.x % blocks_per_sample;
+  const int t_begin = static_cast<int>(static_cast<int64_t>(tiles) * part / blocks_per_sample);
+  const int t_end = static_cast<int>(static_cast<int64_t>(tiles) * (part + 1) / blocks_per_sample);
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == CONSUMERS) {
+    // producer: one thread issues every TMA load of the block
+    if (threadIdx.x != CONSUMERS * 128) return;
+    const int wset = shared_weights ? 0 : b;
+    mbar_expect_tx(wbar, P::W_BYTES);
+#pragma unroll
+    for (int s = 0; s < 4 * P::CHUNKS; ++s)  // s = tap * CHUNKS + chunk
+      tma_load_3d(w_s + s * P::W_STEP, &wmap, wbar, (s % P::CHUNKS) * KCH, 0,
+                  wset * 4 + s / P::CHUNKS);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int v0 = (t / tiles_w) * TV, w0 = (t % tiles_w) * TW;
+#pragma unroll
+      for (int s = 0; s < P::STEPS; ++s) {  // s = c * CHUNKS + chunk
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full + 8 * stage, STAGE_BYTES);
+        tma_load_4d(a_s + stage * STAGE_BYTES, &xmap, full + 8 * stage, (s % P::CHUNKS) * KCH,
+                    w0 + s / P::CHUNKS - pad0, v0 - pad0, b);
+        if (++stage == P::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `group` owns tile rows [64 group, 64 group + 64)
+  float acc[C / 2] = {};
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t out = o_s + group * P::O_GROUP;
+  unsigned char* out_p = smem + P::O_OFF + group * P::O_GROUP;
+  mbar_wait(wbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    int prev = 0;
+#pragma unroll
+    for (int s = 0; s < P::STEPS; ++s) {
+      mbar_wait(full + 8 * stage, phase);
+      const int c = s / P::CHUNKS, chunk = s % P::CHUNKS;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ta = 0; ta < 2; ++ta) {  // tap (ta, c)
+        const uint32_t a = a_s + stage * STAGE_BYTES + (ta * TW + group * 64) * ROW_BYTES;
+        const uint32_t w = w_s + ((2 * ta + c) * P::CHUNKS + chunk) * P::W_STEP;
+#pragma unroll
+        for (int k = 0; k < KCH / 16; ++k)
+          wgmma(acc, sw128_desc(a + 32 * k), sw128_desc(w + 32 * k), s > 0 || ta > 0 || k > 0);
+      }
+      wgmma_commit();
+      fence_operands(acc);
+      if (s > 0) {
+        wgmma_wait<1>();  // the previous stage's products are done with it
+        if (leader) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (leader) mbar_arrive(empty + 8 * prev);
+
+    // epilogue: round to bf16 in registers, stage in the swizzled layout of
+    // the output map, one TMA store per 64 channels
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    named_sync(1 + group);  // the previous tile's store has read the staging tile
+    const int r0 = warp * 16 + lane / 4;  // accumulator rows r0 and r0 + 8
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        const int off = (j / 8) * P::O_HALF + row * ROW_BYTES + (((j % 8) ^ (row % 8)) * 16) +
+                        (lane % 4) * 4;
+        *reinterpret_cast<__nv_bfloat162*>(out_p + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1 + group);
+    if (leader) {
+      const int v0 = (t / tiles_w) * TV + 2 * group, w0 = (t % tiles_w) * TW;
+#pragma unroll
+      for (int h = 0; h < P::CHUNKS; ++h) tma_store_4d(&ymap, out + h * P::O_HALF, h * KCH, w0, v0, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the library does not link libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 tensor map: dims innermost first, strides in bytes of dims 1.., the
+// 128-byte swizzle, zeros for every element outside the tensor.
+bool encode(CUtensorMap* map, const void* ptr, uint32_t rank, const uint64_t* dims,
+            const uint64_t* strides, const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const uint32_t elem[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int C>
+int launch_wgmma(const void* x, const void* kt, void* y, int64_t B, int64_t n, int64_t n_out,
+                 int pad0, int64_t kt_sets, cudaStream_t st) {
+  using P = Plan<C>;
+  const uint64_t row = C * 2;
+  const uint64_t xd[4] = {C, uint64_t(n), uint64_t(n), uint64_t(B)};
+  const uint64_t xs[3] = {row, row * n, row * n * n};
+  const uint32_t xb[4] = {KCH, TW, TV + 1, 1};
+  const uint64_t yd[4] = {C, uint64_t(n_out), uint64_t(n_out), uint64_t(B)};
+  const uint64_t ys[3] = {row, row * n_out, row * n_out * n_out};
+  const uint32_t yb[4] = {KCH, TW, TV / CONSUMERS, 1};  // one consumer warpgroup's rows
+  const uint64_t wd[3] = {C, C, uint64_t(4 * kt_sets)};  // [sets x taps, out, in]
+  const uint64_t ws[2] = {row, row * C};
+  const uint32_t wb[3] = {KCH, C, 1};
+  CUtensorMap xmap, ymap, wmap;
+  if (!encode(&xmap, x, 4, xd, xs, xb) || !encode(&ymap, y, 4, yd, ys, yb) ||
+      !encode(&wmap, kt, 3, wd, ws, wb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(s2d_conv2x2_wgmma_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_w = static_cast<int>((n_out + TW - 1) / TW);
+  const int tiles = tiles_w * static_cast<int>((n_out + TV - 1) / TV);
+  // about one block per SM, each on a contiguous run of one sample's tiles
+  const int per_sample = static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(tiles, sms / B)));
+  s2d_conv2x2_wgmma_kernel<C><<<static_cast<unsigned>(B * per_sample), THREADS, P::BYTES, st>>>(
+      xmap, wmap, ymap, pad0, tiles_w, tiles, per_sample, kt_sets == 1 ? 1 : 0);
+  return 0;
+}
+
+}  // namespace wg
+
+}  // namespace
+
+// The wgmma variant: bf16, C in {64, 128}. kt: [kt_sets, 2, 2, C, C] bf16
+// with each tap stored [out, in]; kt_sets = B (per-sample weights) or 1 (one
+// set for every sample). x, kt and y contiguous and 16-byte aligned.
+extern "C" int cg_s2d_conv2x2_wgmma(const void* x, const void* kt, void* y, int64_t B, int64_t n,
+                                    int64_t n_out, int64_t C, int pad0, int64_t kt_sets,
+                                    void* stream) {
+  if (B * n_out == 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if ((C != 64 && C != 128) || (kt_sets != 1 && kt_sets != B) || B > (1 << 24) ||
+      n > (1 << 15) || (pad0 != 0 && pad0 != 1) || n_out != (pad0 ? n + 1 : n - 1) ||
+      misaligned(x) || misaligned(kt) || misaligned(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int status = C == 128 ? wg::launch_wgmma<128>(x, kt, y, B, n, n_out, pad0, kt_sets, st)
+                              : wg::launch_wgmma<64>(x, kt, y, B, n, n_out, pad0, kt_sets, st);
   if (status != 0) return status;
   return static_cast<int>(cudaGetLastError());
 }

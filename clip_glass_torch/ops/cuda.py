@@ -10,6 +10,11 @@ fallback for a CUDA tensor.
 
 Launch status: every C entry point returns `cudaGetLastError()` after its
 launch, and `check` raises on anything but 0.
+
+TMA: kernels that load by the Tensor Memory Accelerator encode their tensor
+maps on the host at each call, through `cuTensorMapEncodeTiled`, which they
+look up at run time by `cudaGetDriverEntryPoint`; the library links no
+libcuda.
 """
 
 from __future__ import annotations
@@ -49,8 +54,13 @@ _SIGNATURES = {
     # x, style, w, demod, bias, out, B, P, I, O, dtype, vec, stream
     "cg_modulated_matmul": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                             _INT, _INT, _P),
-    # x, kb, out, B, n, n_out, C, pad0, dtype, vec, stream
+    # x, kb, out, B, n, n_out, C, pad0, dtype, vec, stream (kernel 4: the
+    # wmma and fp32 variants, one weight set per sample, each tap [in, out])
     "cg_s2d_conv2x2": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _P),
+    # x, kt, out, B, n, n_out, C, pad0, kt_sets, stream (kernel 4: the wgmma
+    # variant, bf16, C in {64, 128}; kt_sets = B, or 1 shared by every
+    # sample; each tap [out, in])
+    "cg_s2d_conv2x2_wgmma": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -314,17 +314,19 @@ def s2d_upsample2x(y: torch.Tensor, filter_taps=(1, 3, 3, 1),
 # ------------------------------------------------------------ kernel 4
 
 
-def s2d_conv2x2_plain(x: torch.Tensor, K: torch.Tensor, style: torch.Tensor,
-                      demod: torch.Tensor, pad0: int) -> torch.Tensor:
+def s2d_conv2x2_plain(x: torch.Tensor, K: torch.Tensor, style, demod,
+                      pad0: int) -> torch.Tensor:
     """y[b,v,w] = sum_{a,c in {0,1}} x[b, v+a-pad0, w+c-pad0] @ Kb[b,a,c] with
     Kb[b] = K * style[b][:, None] * demod[b][None, :] folded in fp32 and
     rounded to x's dtype; out-of-range cells read zero; the four shifted
     products are summed in fp32 and rounded once. pad0=1: n_out = n+1;
     pad0=0: n_out = n-1. x: [B,n,n,C']; K: [2,2,C',C'] (HWIO);
-    style/demod: [B,C']."""
+    style/demod: [B,C'], or None for ones."""
     B, n, _, C = x.shape
     n_out = n + 1 if pad0 else n - 1
     Kb = _fold_style(K, style, demod).to(x.dtype).float()
+    if Kb.shape[0] != B:  # one shared set: the same layout as B folded copies
+        Kb = Kb.expand(B, -1, -1, -1, -1).contiguous()
     xp = F.pad(x, (0, 0, pad0, n_out + 1 - n - pad0, pad0, n_out + 1 - n - pad0))
     y = None
     for a in range(2):
@@ -337,41 +339,91 @@ def s2d_conv2x2_plain(x: torch.Tensor, K: torch.Tensor, style: torch.Tensor,
 
 def _fold_style(K, style, demod):
     """Kb[b] = K * style[b][:, None] * demod[b][None, :] in fp32 (the
-    per-sample weight modulation of the reference, modules.py:920-967)."""
-    return (K.float()[None] * style.float()[:, None, None, :, None]
-            * demod.float()[:, None, None, None, :])
+    per-sample weight modulation of the reference, modules.py:920-967):
+    [B,2,2,C',C']. None stands for ones and skips its product; with neither,
+    one set [1,2,2,C',C'] = K in fp32 serves every sample."""
+    Kb = K.float()[None]
+    if style is not None:
+        Kb = Kb * style.float()[:, None, None, :, None]
+    if demod is not None:
+        Kb = Kb * demod.float()[:, None, None, None, :]
+    return Kb
 
 
-def s2d_conv2x2(x: torch.Tensor, K: torch.Tensor, style: torch.Tensor,
-                demod: torch.Tensor, pad0: int) -> torch.Tensor:
-    """The offset-lattice [2,2] conv of `s2d_conv2x2_plain`. CUDA: the
-    hand-written kernel (csrc/s2d_conv2x2.cu) on x's dtype, with Kb folded
-    here in fp32 and rounded to x's dtype; CPU: `s2d_conv2x2_plain`."""
+def conv2x2_variant(dtype: torch.dtype, C: int) -> str:
+    """The kernel that s2d_conv2x2 launches, from x's dtype and channels
+    alone (csrc/s2d_conv2x2.cu): "wgmma" for bf16 with C' of 64 or 128 (TMA
+    and wgmma, every flagship launch), "wmma" for any other bf16 C', "fp32"
+    for fp32."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if C in (64, 128) else "wmma"
+
+
+def conv2x2_weights(K, style, demod, dtype: torch.dtype, variant: str):
+    """The kernel's weight operand: Kb (`_fold_style`, fp32) rounded once to
+    `dtype`, [sets, 2, 2, C', C'] with sets = B, or 1 when style and demod
+    are both None. "wgmma" stores each tap [out, in], the K-major B operand
+    of wgmma; the other variants [in, out]. One pass: the copy rounds."""
+    Kb = _fold_style(K, style, demod)
+    if variant == "wgmma":
+        Kb = Kb.transpose(-1, -2)
+    return torch.empty(Kb.shape, dtype=dtype, device=Kb.device).copy_(Kb)
+
+
+def s2d_conv2x2(x: torch.Tensor, K: torch.Tensor, style, demod,
+                pad0: int) -> torch.Tensor:
+    """The offset-lattice [2,2] conv of `s2d_conv2x2_plain` (style/demod
+    [B,C'] or None for ones). CUDA: the hand-written kernel
+    (csrc/s2d_conv2x2.cu) on x's dtype, the variant `conv2x2_variant` picks,
+    with the weights from `conv2x2_weights`; an unmodulated call (both None)
+    hands it one weight set for every sample. CPU: `s2d_conv2x2_plain`."""
     if x.device.type == "cpu":
         return s2d_conv2x2_plain(x, K, style, demod, pad0)
     cuda.require_cuda("s2d_conv2x2", x, dtype=x.dtype)
     B, n, n2, C = x.shape
-    if (n != n2 or tuple(K.shape) != (2, 2, C, C) or tuple(style.shape) != (B, C)
-            or tuple(demod.shape) != (B, C) or pad0 not in (0, 1)):
+    scales = [t for t in (style, demod) if t is not None]
+    if (n != n2 or tuple(K.shape) != (2, 2, C, C) or pad0 not in (0, 1)
+            or any(tuple(t.shape) != (B, C) for t in scales)):
         raise ValueError(f"s2d_conv2x2: x {tuple(x.shape)}, K {tuple(K.shape)}, "
-                         f"style {tuple(style.shape)}, demod {tuple(demod.shape)}, "
-                         f"pad0 {pad0}")
-    for t in (K, style, demod):
+                         f"style/demod {[tuple(t.shape) for t in scales]}, pad0 {pad0}")
+    for t in (K, *scales):
         if t.device != x.device:
             raise ValueError(f"s2d_conv2x2: tensors on {t.device} and {x.device}")
+    variant = conv2x2_variant(x.dtype, C)
+    return conv2x2_launch(x, conv2x2_weights(K, style, demod, x.dtype, variant), pad0,
+                          variant)
+
+
+def conv2x2_launch(x: torch.Tensor, Kb: torch.Tensor, pad0: int,
+                   variant: str) -> torch.Tensor:
+    """Launch kernel variant `variant` on x and its weight operand Kb from
+    `conv2x2_weights` (x checked by the caller); counts the launch."""
+    B, n, _, C = x.shape
     n_out = n + 1 if pad0 else n - 1
-    Kb = _fold_style(K, style, demod).to(x.dtype).contiguous()
     out = torch.empty((B, n_out, n_out, C), dtype=x.dtype, device=x.device)
-    vec = cuda.vector_width(x.dtype, C, x, Kb, out)
-    status = cuda.library().cg_s2d_conv2x2(
-        x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
-        cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
+    lib = cuda.library()
+    if variant == "wgmma":
+        if any(t.data_ptr() % 16 for t in (x, Kb, out)):
+            raise ValueError("s2d_conv2x2: the TMA kernel needs 16-byte aligned tensors")
+        status = lib.cg_s2d_conv2x2_wgmma(
+            x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
+            Kb.shape[0], cuda.stream_handle(x))
+    else:
+        if Kb.shape[0] != B:  # the first design reads one weight set per sample
+            Kb = Kb.expand(B, -1, -1, -1, -1).contiguous()
+        vec = cuda.vector_width(x.dtype, C, x, Kb, out)
+        status = lib.cg_s2d_conv2x2(
+            x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
+            cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
     cuda.check(status, "s2d_conv2x2")
     s2d_conv2x2.launches += 1
+    s2d_conv2x2.launches_by_variant[variant] += 1
     return out
 
 
 s2d_conv2x2.launches = 0
+s2d_conv2x2.launches_by_variant = {"wgmma": 0, "wmma": 0, "fp32": 0}
 
 
 def _takes_conv2x2(K: torch.Tensor, x: torch.Tensor) -> bool:
@@ -391,10 +443,8 @@ def s2d_modulated_conv2d(x_s2d, w, style, *, demodulate: bool = True,
     folds onto the lattice pair. A [2,2] fold runs `s2d_conv2x2`."""
     Kp, pad0 = s2d_same_kernel(w, in_off, out_off)
     if _takes_conv2x2(Kp, x_s2d):
-        d = demod_coef(w, style, eps) if demodulate else \
-            torch.ones(style.shape, device=style.device)
-        return s2d_conv2x2(x_s2d.contiguous(), Kp, tile_channels(style),
-                           tile_channels(d), pad0)
+        d = tile_channels(demod_coef(w, style, eps)) if demodulate else None
+        return s2d_conv2x2(x_s2d.contiguous(), Kp, tile_channels(style), d, pad0)
     n_out = n_cells(phys_size(x_s2d.shape[1], in_off), out_off)
     pad1 = _pad1_for(x_s2d.shape[1], n_out, Kp.shape[0], 1, pad0)
     xs = x_s2d * tile_channels(style).to(x_s2d.dtype)[:, None, None, :]
@@ -431,11 +481,11 @@ def s2d_modulated_conv2d_up(x, w, style, *, demodulate: bool = True,
 
 def s2d_conv2d(x_s2d, w, in_off: int = 0, out_off: int = 0):
     """Unmodulated stride-1 'SAME' conv on an s2d tensor (D fromRGB/conv0).
-    A [2,2] fold runs `s2d_conv2x2` with unit style and demod."""
+    A [2,2] fold runs `s2d_conv2x2` with one weight set for every sample
+    (style and demod None)."""
     Kp, pad0 = s2d_same_kernel(w, in_off, out_off)
     if _takes_conv2x2(Kp, x_s2d):
-        ones = torch.ones((x_s2d.shape[0], x_s2d.shape[-1]), device=x_s2d.device)
-        return s2d_conv2x2(x_s2d.contiguous(), Kp, ones, ones, pad0)
+        return s2d_conv2x2(x_s2d.contiguous(), Kp, None, None, pad0)
     n_out = n_cells(phys_size(x_s2d.shape[1], in_off), out_off)
     pad1 = _pad1_for(x_s2d.shape[1], n_out, Kp.shape[0], 1, pad0)
     return _conv_hwio(x_s2d, Kp, pad0=pad0, pad1=pad1)

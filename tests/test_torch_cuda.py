@@ -92,15 +92,52 @@ def _s2d_args(gen, B, n, C, modulated, dtype):
 @pytest.mark.parametrize("modulated", [True, False])
 def test_s2d_conv2x2_kernel(gpu, dtype, C, pad0, n, modulated):
     x, K, style, demod = _s2d_args(gpu, 2, n, C, modulated, dtype)
-    n0 = s2d.s2d_conv2x2.launches
+    variant = s2d.conv2x2_variant(dtype, C)
+    n0, v0 = s2d.s2d_conv2x2.launches, s2d.s2d_conv2x2.launches_by_variant[variant]
     got = s2d.s2d_conv2x2(x, K, style, demod, pad0)
     assert s2d.s2d_conv2x2.launches == n0 + 1
+    assert s2d.s2d_conv2x2.launches_by_variant[variant] == v0 + 1
     want = s2d.s2d_conv2x2_plain(x, K, style, demod, pad0)
     assert got.shape == want.shape == (2, n + 2 * pad0 - 1, n + 2 * pad0 - 1, C)
+    _close_scaled(got, want, dtype)
+
+
+def _close_scaled(got, want, dtype):
     torch.cuda.synchronize()
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", [11, 70, 129])
+@pytest.mark.parametrize("pad0", [0, 1])
+@pytest.mark.parametrize("C", [64, 128])
+def test_s2d_conv2x2_wgmma_kernel(gpu, C, pad0, n, B, shared):
+    """The TMA/wgmma variant against the plain version: n_out below one
+    32-cell tile row (n = 11), ragged rows (70), one past a multiple of 64
+    (129, 130) and the halo at both pad0; per-sample and shared weights."""
+    x, K, style, demod = _s2d_args(gpu, B, n, C, True, torch.bfloat16)
+    if shared:
+        style = demod = None
+    v0 = s2d.s2d_conv2x2.launches_by_variant["wgmma"]
+    got = s2d.s2d_conv2x2(x, K, style, demod, pad0)
+    assert s2d.s2d_conv2x2.launches_by_variant["wgmma"] == v0 + 1
+    want = s2d.s2d_conv2x2_plain(x, K, style, demod, pad0)
+    assert got.shape == want.shape == (B, n + 2 * pad0 - 1, n + 2 * pad0 - 1, C)
+    _close_scaled(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 128), (torch.bfloat16, 20),
+                                     (torch.float32, 64)])
+def test_s2d_conv2x2_shared_weights_equal_folded_ones(gpu, dtype, C):
+    """One shared weight set (style = demod = None) gives bitwise the output
+    of B folded copies with unit style and demod, in every variant."""
+    x, K, ones, _ = _s2d_args(gpu, 3, 12, C, False, dtype)
+    got = s2d.s2d_conv2x2(x, K, None, None, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, s2d.s2d_conv2x2(x, K, ones, ones, 1))
 
 
 def test_s2d_conv2x2_rejects_what_the_kernel_does_not_take(gpu):

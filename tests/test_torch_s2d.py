@@ -329,3 +329,53 @@ def test_s2d_conv2x2_plain_rounds_kb_once_in_bf16(rng):
     want = sum(torch.einsum("bhwi,bio->bhwo", xp[:, a:a + n + 1, c:c + n + 1], Kb[:, a, c])
                for a in range(2) for c in range(2))
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad0", [1, 0])
+@pytest.mark.parametrize("modulated", [False, True])
+def test_s2d_conv2x2_none_is_bitwise_ones(rng, dtype, pad0, modulated):
+    """style/demod None stand for ones: demod None beside a style, or both
+    None (one weight set shared by every sample, as D passes it), give
+    bitwise the output of folding with ones, in the plain version and
+    through the wrapper on the CPU."""
+    Bc, n, C = 3, 6, 8
+    x = torch.from_numpy(_x(rng, Bc, n, n, C)).to(dtype)
+    K = torch.from_numpy(_x(rng, 2, 2, C, C))
+    ones = torch.ones((Bc, C))
+    style = torch.from_numpy(_x(rng, Bc, C)) if modulated else None
+    want = S.s2d_conv2x2_plain(x, K, ones if style is None else style, ones, pad0)
+    for fn in (S.s2d_conv2x2_plain, S.s2d_conv2x2):
+        assert torch.equal(fn(x, K, style, None, pad0), want)
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "wmma", "fp32"])
+@pytest.mark.parametrize("shared", [False, True])
+def test_conv2x2_weights_hold_the_folded_values(rng, variant, shared):
+    """The kernel's weight operand holds `_fold_style(...).to(dtype)`, each
+    tap [out, in] for wgmma and [in, out] otherwise, contiguous; one shared
+    copy, round(K), for style = demod = None."""
+    Bc, C = 3, 16
+    dtype = torch.float32 if variant == "fp32" else torch.bfloat16
+    K = torch.from_numpy(_x(rng, 2, 2, C, C))
+    style, demod = (None, None) if shared else (
+        torch.from_numpy(_x(rng, Bc, C)), torch.from_numpy(_x(rng, Bc, C)))
+    got = S.conv2x2_weights(K, style, demod, dtype, variant)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert got.shape == (1 if shared else Bc, 2, 2, C, C)
+    if variant == "wgmma":
+        got = got.transpose(-1, -2)
+    assert torch.equal(got, S._fold_style(K, style, demod).to(dtype))
+    if shared:
+        assert torch.equal(got[0], K.to(dtype))
+
+
+@pytest.mark.parametrize("dtype,C,variant", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 20, "wmma"), (torch.bfloat16, 32, "wmma"),
+    (torch.bfloat16, 256, "wmma"), (torch.float32, 128, "fp32"),
+    (torch.float32, 20, "fp32")])
+def test_conv2x2_variant_rule(dtype, C, variant):
+    """bf16 with C' of 64 or 128 (every flagship launch) takes the TMA/wgmma
+    kernel; other bf16 widths and fp32 keep the first design's kernels."""
+    assert S.conv2x2_variant(dtype, C) == variant
