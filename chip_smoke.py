@@ -6,12 +6,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compile the CUDA kernels from the sources in this checkout;
   3. kernels: each kernel against its plain PyTorch version at every call
      shape of both flagship paths of phase 5 (bf16), at the largest of them
-     in fp32 and at odd shapes (bf16 and fp32), with
-     CUDA-event times of the kernel, the plain version and, where one
-     PyTorch call computes the same function, that call; kernel 4 also
-     records the variant each shape took (every flagship shape must take
-     the TMA/wgmma one) and, at the flagship shapes, the time of the first
-     design's bf16 kernel (`previous_ms`);
+     in fp32 and at odd shapes (bf16 and fp32). Per flagship shape two
+     times of the kernel: `kernel_ms`, back-to-back calls of the wrapper
+     between CUDA events (the slower of the host's issue rate and the
+     device), and `device_ms`, the same calls captured into a CUDA graph
+     and replayed (the device alone); beside them the plain version, the
+     one PyTorch call that computes the same function where there is one,
+     and the bound. Kernels 2-4 also record the variant each shape took,
+     which must be the one `expected_variant` names for it (phase 5 must
+     launch those), and the first design's kernel at the same shape,
+     checked and timed the same two ways (`previous_ms`,
+     `previous_device_ms`): where the wrapper launches another kernel than
+     the first design's, its `device_ms` may be at most 10% above that
+     one's. Kernel 3's variants must fold their weights in fp32. Then the
+     host's cost of one call of the wrappers of kernels 2 and 3 at their
+     4 px shapes (`host_us_per_call`);
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
      domain (TINY with s2d_min_res=8);
@@ -82,6 +91,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call of `fn`: `iters` calls captured into a CUDA
+    graph (the wrappers launch on the current stream, which is the capture
+    stream) and the replay timed, so that no host work sits between two
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, 3, warmup=1) / iters
+    del graph
+    return ms
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time of one call of `fn` in microseconds: the wall clock over
+    `calls` calls with no synchronisation inside the loop and one after."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def bound_ms(n_bytes: int, n_ops: int, peak: float = PEAK_FP32_OPS_PER_S) -> tuple:
@@ -259,13 +298,60 @@ def _s2d_previous(args):
     return fn
 
 
+def _ups_previous(args):
+    """Kernel 2's first design ("rows": one thread per output value)."""
+    from clip_glass_torch.ops import upfirdn
+
+    (x,) = args
+    taps = upfirdn.polyphase_taps()
+    return lambda: upfirdn.upsample2x_launch(x, taps, "rows")
+
+
+def _rgb_previous(args):
+    """Kernel 3's first design ("chunked": weights in shared memory)."""
+    from clip_glass_torch.ops import modulated_conv
+
+    return lambda: modulated_conv.modulated_matmul_launch(*args, "chunked")
+
+
+def _rgb_fold_is_fp32(widths) -> None:
+    """Kernel 3 folds s*w in fp32, as its plain version does, in both
+    variants: with s = 1 + 2^-7 on even k (1 on odd), w = 1 + 2^-7 and
+    x = +1, -1 alternating, the sum is I/2 * (2^-7 + 2^-14), a bf16 value
+    that folds rounded to bf16 (I/2 * 2^-7) would miss."""
+    from clip_glass_torch.ops import modulated_conv
+
+    e = 2.0 ** -7
+    for I in widths:
+        k = torch.arange(I, device="cuda")
+        x = (1.0 - 2.0 * (k % 2)).expand(POP, 1031, I).contiguous().bfloat16()
+        s = (1.0 + e * (1 - k % 2)).expand(POP, I).contiguous().bfloat16()
+        w = torch.full((I, 3), 1.0 + e, device="cuda").bfloat16()
+        bias = torch.zeros(3, device="cuda").bfloat16()
+        want = modulated_conv.modulated_matmul_plain(x, s, w, None, bias)
+        if not (want.float() == I / 2 * (e + e * e)).all():
+            raise AssertionError(f"modulated_matmul_plain I={I}: not the fp32 fold")
+        for variant in ("mma", "chunked"):
+            got = modulated_conv.modulated_matmul_launch(x, s, w, None, bias, variant)
+            if not torch.equal(got, want):
+                raise AssertionError(f"modulated_matmul {variant} I={I}: folded weights "
+                                     "lose precision against the fp32 fold")
+    log({"phase": "kernels", "check": "modulated_matmul folds s*w in fp32",
+         "variants": ["mma", "chunked"], "I": list(widths), "max_abs_err": 0.0})
+
+
 def _iters(n_bytes: int) -> int:
     """Launches per timing: about 20 GB of traffic, 10 to 200 launches."""
     return int(min(200, max(10, 2e10 / max(n_bytes, 1))))
 
 
 def _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops, library=None,
-             scaled=False, peak=PEAK_FP32_OPS_PER_S):
+             scaled=False, peak=PEAK_FP32_OPS_PER_S, previous=None,
+             device_time=False):
+    """One shape: the kernel checked against the plain version and timed;
+    with `device_time` also through a CUDA graph; `previous` (a callable:
+    the first design's kernel on the same operands) checked and timed the
+    same ways."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -275,32 +361,40 @@ def _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops, library=None,
            "max_abs_err": err,
            "kernel_ms": time_ms(lambda: kernel(*args), iters),
            "plain_ms": time_ms(lambda: plain(*args), iters)}
+    if device_time:
+        rec["device_ms"] = graph_ms(lambda: kernel(*args), iters)
+        rec["previous_ms"] = rec["previous_device_ms"] = None
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops, peak)
     rec["library_ms"] = None
     if library is not None:
         lib_fn, lib_check = library
         lib_check(got)
         rec["library_ms"] = time_ms(lib_fn, iters)
+    if previous is not None:
+        _check(f"{kernel.__name__} (first design)", previous(), want, dtype, shape,
+               scaled)
+        rec["previous_ms"] = time_ms(previous, iters)
+        rec["previous_device_ms"] = graph_ms(previous, iters)
     del got, want
     return rec
 
 
-def _path_sum(counts, recs, has_library: bool, peak: float):
+SUM_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "previous_ms",
+            "previous_device_ms")
+
+
+def _path_sum(counts, recs, peak: float):
     """One evaluation's sums over a path's call shapes: times weighted by
     the launches at each shape, and the bound of the summed work."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if has_library else None,
-           "max_abs_err": 0.0}
-    if any("previous_ms" in rec for rec, _, _ in recs.values()):
-        tot["previous_ms"] = 0.0
+    tot = {"max_abs_err": 0.0}
     work = [0, 0]  # bytes and operations
+    for key in SUM_KEYS:  # a time that some shape lacks has no sum
+        rec_key = "kernel_ms" if key == "ms" else key
+        times = [count * recs[shape][0][rec_key] for shape, count in counts.items()
+                 if recs[shape][0][rec_key] is not None]
+        tot[key] = sum(times) if len(times) == len(counts) else None
     for shape, count in counts.items():
         rec, n_bytes, n_ops = recs[shape]
-        tot["ms"] += count * rec["kernel_ms"]
-        tot["plain_ms"] += count * rec["plain_ms"]
-        if has_library:
-            tot["library_ms"] += count * rec["library_ms"]
-        if "previous_ms" in tot:
-            tot["previous_ms"] += count * rec["previous_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
         work[0] += count * n_bytes
         work[1] += count * n_ops
@@ -364,17 +458,27 @@ def phase_kernels():
                 raise AssertionError(f"baddbmm disagrees: {err}")
         return fn, check
 
-    # (name, kernel, plain, case, cost, library, index in flagship_shapes, odd shapes)
+    # (name, kernel, plain, case, cost, library, first design, index in
+    # flagship_shapes, odd shapes)
     specs = [
         ("noise_bias_lrelu", bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
-         _nbl_case, nbl_cost, None, 0, [(3, 5, 7, 20), (2, 3, 5, 7)]),
+         _nbl_case, nbl_cost, None, None, 0, [(3, 5, 7, 20), (2, 3, 5, 7)]),
+        # odd shapes: ragged rows, C = 3 and not, a tile's last rows (H = 21:
+        # 8 + 8 + 5), rows of 16-byte multiples (W*C = 24, 96, 128) and not
         ("upsample2x", upfirdn.upsample2x, upfirdn.upsample2x_plain,
-         _ups_case, ups_cost, ups_library, 1, [(3, 5, 7, 3), (2, 4, 6, 16)]),
+         _ups_case, ups_cost, ups_library, _ups_previous, 1,
+         [(3, 5, 7, 3), (2, 4, 6, 16), (1, 21, 8, 3), (3, 9, 32, 3), (2, 11, 8, 16),
+          (1, 13, 5, 7)]),
+        # odd shapes: O = 3 on scalar rows and on rows of 3 vectors, O != 3,
+        # launch-sized runs that end inside a warp's tile, and the same
+        # above 2 Mi input values (bf16: the tensor-core variant)
         ("modulated_matmul", modulated_conv.modulated_matmul,
          modulated_conv.modulated_matmul_plain, _rgb_case, rgb_cost, rgb_library,
-         2, [(3, 37, 24, 3), (2, 50, 20, 12), (2, 33, 7, 5)]),
+         _rgb_previous, 2,
+         [(3, 37, 24, 3), (2, 50, 20, 12), (2, 33, 7, 5), (3, 1037, 32, 3),
+          (1, 77, 512, 3), (3, 30011, 32, 3), (1, 4099, 512, 3), (2, 16411, 64, 3)]),
         ("s2d_conv2x2", s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain, _s2d_case, _s2d_cost,
-         _s2d_library, 3,
+         _s2d_library, _s2d_previous, 3,
          [(3, 13, 20, 1, True), (2, 11, 20, 0, False), (2, 13, 64, 0, True),
           (3, 11, 64, 1, False), (2, 13, 128, 1, False), (2, 11, 128, 0, True),
           # ragged rows of 32-cell tiles (n_out 69-71, 128-130), both widths
@@ -383,7 +487,7 @@ def phase_kernels():
           (1, 129, 128, 1, True)]),
     ]
     summary = {}
-    for name, kernel, plain, make, cost, library, idx, odd in specs:
+    for name, kernel, plain, make, cost, library, previous, idx, odd in specs:
         # kernel 4: outputs checked relative to their scale; bf16 on the
         # tensor cores, fp32 on the CUDA cores
         scaled = name == "s2d_conv2x2"
@@ -397,26 +501,26 @@ def phase_kernels():
         for shape in shapes:
             args = make(shape, torch.bfloat16, gen)
             n_bytes, n_ops = cost(shape, args)
-            before = _variant_counts()
             rec = _measure(kernel, plain, args, torch.bfloat16, shape, n_bytes,
                            n_ops, library(args) if library else None, scaled,
-                           peak(torch.bfloat16))
-            if name == "s2d_conv2x2":
-                rec["variant"] = _moved(before, _variant_counts())
-                if rec["variant"] != "wgmma":
-                    raise AssertionError(f"s2d_conv2x2 {shape}: a flagship shape took "
-                                         f"{rec['variant']}, not wgmma")
-                previous = _s2d_previous(args)
-                _check("s2d_conv2x2 (wmma)", previous(), plain(*args), torch.bfloat16,
-                       shape, scaled=True)
-                rec["previous_ms"] = time_ms(previous, _iters(n_bytes))
+                           peak(torch.bfloat16), previous(args) if previous else None,
+                           device_time=True)
+            if name in FIRST_DESIGN:
+                rec["variant"] = _variant_of(kernel, args)
+                _check_variant(name, shape, rec)
             rec["launches_per_evaluation"] = {p: counts[p].get(shape, 0)
                                               for p in PER_EVAL}
             log(rec)
             recs[shape] = (rec, n_bytes, n_ops)
             del args
-        summary[name] = {p: _path_sum(counts[p], recs, library is not None,
-                                      peak(torch.bfloat16)) for p in PER_EVAL}
+        summary[name] = {p: _path_sum(counts[p], recs, peak(torch.bfloat16))
+                         for p in PER_EVAL}
+        if name in FIRST_DESIGN:
+            for p in PER_EVAL:  # launches per evaluation by variant
+                by = summary[name][p]["launches_by_variant"] = {}
+                for shape, count in counts[p].items():
+                    v = recs[shape][0]["variant"]
+                    by[v] = by.get(v, 0) + count
         # the largest flagship shape in fp32, and the odd shapes in both types
         extra = [(max(shapes, key=lambda s: math.prod(s[:3])), torch.float32)]
         extra += [(s, dt) for s in odd for dt in (torch.bfloat16, torch.float32)]
@@ -426,26 +530,67 @@ def phase_kernels():
             else:
                 args = make(shape, dtype, gen)
             n_bytes, n_ops = cost(shape, args)
-            before = _variant_counts()
             rec = _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops,
                            scaled=scaled, peak=peak(dtype))
-            if name == "s2d_conv2x2":
-                rec["variant"] = _moved(before, _variant_counts())
+            if name in FIRST_DESIGN:
+                rec["variant"] = _variant_of(kernel, args)
             log(rec)
             del args
         torch.cuda.empty_cache()
+    _rgb_fold_is_fp32(sorted({s[2] for s in path_shapes["plain"][2]}))
     return summary
 
 
-def _variant_counts() -> dict:
-    from clip_glass_torch.ops import s2d
-
-    return dict(s2d.s2d_conv2x2.launches_by_variant)
+# the first design's variant of each kernel that was redesigned
+FIRST_DESIGN = {"upsample2x": "rows", "modulated_matmul": "chunked", "s2d_conv2x2": "wmma"}
 
 
-def _moved(before: dict, after: dict) -> str:
-    """The kernel-4 variants launched between two counts, joined by '+'."""
-    return "+".join(v for v in after if after[v] != before[v])
+def expected_variant(name: str, shape) -> str:
+    """The variant a flagship call shape must take: the redesigned one from
+    32 px up (kernel 2: the input's height; kernel 3: the pixels), the first
+    design's on launch-sized inputs below; kernel 4's redesign everywhere."""
+    if name == "s2d_conv2x2":
+        return "wgmma"
+    if name == "upsample2x":
+        return "tiled" if shape[1] >= 32 else "rows"
+    return "mma" if shape[1] >= 32 * 32 else "chunked"
+
+
+def _check_variant(name: str, shape, rec: dict) -> None:
+    """A flagship shape took the variant expected of it, and where that is
+    not the first design's kernel, it is at most 10% slower on the device
+    than that kernel at the same shape."""
+    if rec["variant"] != expected_variant(name, shape):
+        raise AssertionError(f"{name} {shape}: took {rec['variant']}, not "
+                             f"{expected_variant(name, shape)}")
+    if (rec["variant"] != FIRST_DESIGN[name]
+            and rec["device_ms"] > 1.1 * rec["previous_device_ms"]):
+        raise AssertionError(f"{name} {shape}: {rec['variant']} takes "
+                             f"{rec['device_ms']} ms on the device, the first design "
+                             f"{rec['previous_device_ms']} ms")
+
+
+def _variant_of(kernel, args) -> str:
+    """The variant that one call of the wrapper launches."""
+    before = dict(kernel.launches_by_variant)
+    kernel(*args)
+    return "+".join(v for v, n in kernel.launches_by_variant.items() if n != before[v])
+
+
+def phase_host():
+    """The host's cost of one call of the wrappers of kernels 2 and 3, at
+    the 4 px shapes of the flagship, where the device has next to nothing
+    to do: what a launch-sized call costs to issue."""
+    from clip_glass_torch.ops import modulated_conv, upfirdn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ups = _ups_case((POP, 4, 4, 3), torch.bfloat16, gen)
+    rgb = _rgb_case((POP, 16, 512, 3), torch.bfloat16, gen)
+    out = {"upsample2x": host_us(lambda: upfirdn.upsample2x(*ups)),
+           "modulated_matmul": host_us(lambda: modulated_conv.modulated_matmul(*rgb))}
+    log({"phase": "host", "host_us_per_call": out, "calls": 1000,
+         "shapes": {"upsample2x": [POP, 4, 4, 3], "modulated_matmul": [POP, 16, 512, 3]}})
+    return out
 
 
 # ------------------------------------------------------------ phase 4
@@ -517,9 +662,11 @@ def _model_cfg(path: str):
         sg2.CONFIG_F, s2d_min_res=2 ** 30)
 
 
-def phase_main(kind: str, smi: str, path: str, generations: int):
+def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
     """The flagship search on one path; returns the kernels' launch counts
-    of that run (counts set to 0 just before it, read just after)."""
+    of that run (counts set to 0 just before it, read just after). Each
+    kernel with variants must have launched them as the kernel phase saw
+    the wrapper choose at the path's call shapes (`summary`)."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.algorithm import minimize
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -539,9 +686,8 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
     gen = algorithm.generator(0)
     for k in kernels:
         k.launches = 0
-    by_variant = kernels[-1].launches_by_variant
-    for v in by_variant:
-        by_variant[v] = 0
+        for v in getattr(k, "launches_by_variant", {}):
+            k.launches_by_variant[v] = 0
     t = time.perf_counter()
     state = algorithm.init(gen)
     torch.cuda.synchronize()
@@ -556,7 +702,8 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
                    save_each=1, state=state)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
-    variants = dict(by_variant)
+    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
+                if k.__name__ in FIRST_DESIGN}
 
     Fp = res.pop_F
     if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all():
@@ -570,8 +717,12 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
         if launches[name] != n * n_eval:
             raise AssertionError(f"{path}: {name}: {launches[name]} launches, "
                                  f"expected {n} x {n_eval} evaluations")
-    if variants["wgmma"] != launches["s2d_conv2x2"]:
-        raise AssertionError(f"{path}: s2d_conv2x2 launches by variant {variants}")
+    for name in FIRST_DESIGN:
+        want = {v: n * n_eval
+                for v, n in summary[name][path]["launches_by_variant"].items()}
+        if {v: n for v, n in variants[name].items() if n} != want:
+            raise AssertionError(f"{path}: {name} launches by variant "
+                                 f"{variants[name]}, expected {want}")
     gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
     log({"phase": "main", "path": path, "config": "StyleGAN2_ffhq_d",
          "model": "CONFIG_F 1024px" + ("" if path == "s2d" else ", s2d_min_res=2**30"),
@@ -581,7 +732,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int):
          "candidates_per_s": [POP / s for s in gen_s],
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "best_cos": -Fp[:, 0].min().item(), "hinge_min": Fp[:, 1].min().item(),
-         "launches": launches, "s2d_conv2x2_launches_by_variant": variants,
+         "launches": launches, "launches_by_variant": variants,
          "device": kind, "nvidia_smi": smi})
     del problem, algorithm, res, state
     torch.cuda.empty_cache()
@@ -631,30 +782,34 @@ def main() -> int:
     smi = smi_line()
     phase_build()
     summary = phase_kernels()
+    host = phase_host()
     phase_agreement()
-    launches, variants = phase_main(kind, smi, "s2d", GENERATIONS)
-    plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS)
+    launches, variants = phase_main(kind, smi, "s2d", GENERATIONS, summary)
+    plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
     phase_domains()
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        extra = {"variant": None}
-        if name == "s2d_conv2x2":  # the variant the main path ran, and the
-            # first design's bf16 kernel at the same shapes
-            extra = {"variant": "+".join(v for v, n in variants.items() if n),
-                     "previous_ms": s["previous_ms"]}
+        keys = [k for k in s if k.endswith("ms") or k == "bound_by"]
+        # the variant the main path ran (kernel 1 has one design)
+        variant = ("+".join(v for v, n in variants[name].items() if n)
+                   if name in variants else None)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max(s["max_abs_err"], p["max_abs_err"]),
-                        **{k: s[k] for k in keys}, **extra,
+                        **{k: s[k] for k in keys}, "variant": variant,
+                        "host_us_per_call": host.get(name),
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
                         "scope": f"launches: init + {GENERATIONS} generations of each "
                                  f"path (main: s2d; plain_path: s2d_min_res=2**30); "
                                  f"times: sum over the call shapes of one evaluation "
-                                 f"(pop {POP}, bf16); max_abs_err: over both paths' "
-                                 f"shapes"})
+                                 f"(pop {POP}, bf16); ms: back-to-back wrapper calls; "
+                                 f"device_ms: the same calls replayed from a CUDA "
+                                 f"graph; previous_ms, previous_device_ms: the first "
+                                 f"design's kernel, the same two ways; "
+                                 f"host_us_per_call: the wrapper's host time at its "
+                                 f"4 px shape; max_abs_err: over both paths' shapes"})
     log({"kernels": kernels})
     log(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

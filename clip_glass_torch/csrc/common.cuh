@@ -1,5 +1,7 @@
 // Shared helpers of the clip_glass_torch CUDA kernels: dtype codes of the
-// plain C interface, fp32 conversion of the storage types, packed vectors.
+// plain C interface, fp32 conversion of the storage types, packed vectors,
+// the device's SM count, shared-memory barriers (mbarrier) for asynchronous
+// copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +34,89 @@ inline unsigned grid_blocks(int64_t n, int threads, int64_t cap = 1 << 20) {
   if (b > cap) b = cap;
   if (b < 1) b = 1;
   return static_cast<unsigned>(b);
+}
+
+// Streaming multiprocessors of the current device (asked once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) {
+      n = 132;  // H100 SXM
+    }
+  }
+  return n;
+}
+
+// One 16-byte access of T widened to fp32: 8 bf16 or 4 fp32 values.
+template <typename T> struct Pack16;
+template <> struct Pack16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const int4& v, float (&f)[8]) {
+    const unsigned w[4] = {static_cast<unsigned>(v.x), static_cast<unsigned>(v.y),
+                           static_cast<unsigned>(v.z), static_cast<unsigned>(v.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the upper half of its fp32
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Pack16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const int4& v, float (&f)[4]) {
+    f[0] = __int_as_float(v.x);
+    f[1] = __int_as_float(v.y);
+    f[2] = __int_as_float(v.z);
+    f[3] = __int_as_float(v.w);
+  }
+};
+
+// ---- mbarriers in shared memory, as the asynchronous copies signal them
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`. A wait of more than
+// 10 s traps (the next synchronisation reports a launch failure) rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (spin == 0) {
+        t0 = t;
+      } else if (t - t0 > 10000000000ull) {
+        __trap();
+      }
+    }
+  }
 }
 
 }  // namespace cg

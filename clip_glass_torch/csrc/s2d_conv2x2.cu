@@ -356,49 +356,11 @@ struct Plan {
   static_assert(BYTES <= 232448, "over the 227 KB shared-memory opt-in");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase differs from `parity`. A wait of more than
-// 10 s traps (the next synchronisation reports a launch failure) rather
-// than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((spin & 1023) == 0) {
-      uint64_t t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      if (spin == 0) {
-        t0 = t;
-      } else if (t - t0 > 10000000000ull) {
-        __trap();
-      }
-    }
-  }
-}
+using cg::mbar_arrive;
+using cg::mbar_expect_tx;
+using cg::mbar_init;
+using cg::mbar_wait;
+using cg::smem_addr;
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2) {

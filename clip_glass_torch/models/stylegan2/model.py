@@ -413,7 +413,9 @@ def synthesis_apply(params, dlatents, cfg: SG2Config = CONFIG_F,
                 if x_off:  # match the ToRGB lattice
                     y = s2d_ops.shift_to_m1(y)
             else:
-                y = upsample2x(y.contiguous(), taps)
+                # y is a kernel's output, or the sum of two: contiguous on
+                # the card (the CPU's plain version takes any strides)
+                y = upsample2x(y, taps)
         rp = params["to_rgb"][bi]
         rw = policy.cast_compute(rp["w"])
         rb = policy.cast_compute(rp["b"])
@@ -437,7 +439,8 @@ def synthesis_apply(params, dlatents, cfg: SG2Config = CONFIG_F,
             t = bias_act(t, s2d_ops.tile_channels(rb, tile), act="linear")
         else:
             Bx, H, W, C = x.shape
-            t = modulated_matmul(x.contiguous().reshape(Bx, H * W, C), style, rw,
+            # x is contiguous out of _epilogue
+            t = modulated_matmul(x.reshape(Bx, H * W, C), style, rw,
                                  None, rb).reshape(Bx, H, W, -1)
             y_dom = "plain"
         y = t if y is None else y + t

@@ -49,11 +49,18 @@ _SIGNATURES = {
     # x, noise, ns, bias, out, n, hw, c, alpha, gain, dtype, vec, stream
     "cg_noise_bias_lrelu": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F,
                             _INT, _INT, _P),
-    # x, out, B, H, W, C, k0, k1, k2, k3, dtype, stream
+    # x, out, B, H, W, C, k0, k1, k2, k3, dtype, stream (kernel 2: the "rows"
+    # variant, then the "tiled" one)
     "cg_upsample2x": (_P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _F, _INT, _P),
-    # x, style, w, demod, bias, out, B, P, I, O, dtype, vec, stream
+    "cg_upsample2x_tiled": (_P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _F,
+                            _INT, _P),
+    # x, style, w, demod, bias, out, B, P, I, O, dtype, vec, stream (kernel 3:
+    # the "chunked" variant)
     "cg_modulated_matmul": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                             _INT, _INT, _P),
+    # x, style, w, demod, bias, out, B, P, I, stream (kernel 3: the "mma"
+    # variant, bf16, O = 3, I in {32, 64, 128, 256, 512})
+    "cg_modulated_matmul_mma": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # x, kb, out, B, n, n_out, C, pad0, dtype, vec, stream (kernel 4: the
     # wmma and fp32 variants, one weight set per sample, each tap [in, out])
     "cg_s2d_conv2x2": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _P),
@@ -160,13 +167,33 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status} ({msg})")
 
 
+# the current stream's handle as an int, without building a Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_handle(t: torch.Tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
-    """Validate the CUDA-kernel arguments: one device, the kernel's dtype,
-    contiguous. Raises on anything the kernel does not take."""
+def require_cuda(name: str, *tensors: Optional[torch.Tensor],
+                 dtype: torch.dtype) -> None:
+    """Validate the CUDA-kernel arguments in one pass: one CUDA device, the
+    kernel's dtype, contiguous (None entries are skipped). Raises on
+    anything the kernel does not take."""
+    dev = tensors[0].device
+    ok = dtype in DTYPE_CODES and dev.type == "cuda"
+    for t in tensors:
+        if t is not None and not (t.dtype == dtype and t.device == dev
+                                  and t.is_contiguous()):
+            ok = False
+    if not ok:
+        _raise_invalid(name, [t for t in tensors if t is not None], dtype)
+
+
+def _raise_invalid(name: str, tensors, dtype: torch.dtype) -> None:
+    """The error for arguments that `require_cuda` refused."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, not on a CUDA device")
@@ -180,6 +207,7 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    raise AssertionError(f"{name}: refused arguments that pass every check")
 
 
 def vector_width(dtype: torch.dtype, n_inner: int, *tensors: torch.Tensor) -> int:

@@ -171,37 +171,87 @@ def modulated_matmul_plain(x: torch.Tensor, style: Optional[torch.Tensor],
     return (y + bias.float()).to(x.dtype)
 
 
+# the C entry point of each kernel variant (csrc/modulated_matmul.cu)
+MODULATED_MATMUL_ENTRY = {"mma": "cg_modulated_matmul_mma",
+                          "chunked": "cg_modulated_matmul"}
+_entries: dict = {}  # variant -> bound C function, filled at first CUDA use
+_LAUNCH_SIZED = 2 * 1024 * 1024  # input values up to which the launch is the cost
+
+
+@lru_cache(maxsize=None)
+def modulated_matmul_variant(dtype: torch.dtype, B: int, P: int, I: int, O: int,
+                             vec: int) -> str:
+    """The kernel that modulated_matmul launches, from x's dtype and shape,
+    O, and the access width `vec` that x's row length and alignment allow
+    (`cuda.vector_width`): "mma" (the loaded 16-byte vectors are the
+    tensor cores' A fragments, the folded weights, split exactly into two
+    bf16 values each, their B fragments) for bf16 with O = 3 and I of 32,
+    64, 128, 256 or 512 on more than 2 Mi input values, the ToRGB calls of
+    the flagship from 32 px up; "chunked" (weights in shared memory, outputs
+    4 at a time) for everything else: fp32, other O and I, scalar rows, and
+    launch-sized bf16 inputs that "mma" would take, the flagship's calls at
+    4, 8 and 16 px (its one round of loads beats the eight of a 512-wide row
+    there)."""
+    if (dtype == torch.bfloat16 and O == 3 and vec == 8
+            and I in (32, 64, 128, 256, 512) and B * P * I > _LAUNCH_SIZED):
+        return "mma"
+    return "chunked"
+
+
 def modulated_matmul(x: torch.Tensor, style: Optional[torch.Tensor],
                      w: torch.Tensor, demod: Optional[torch.Tensor],
                      bias: torch.Tensor) -> torch.Tensor:
     """x: [B, P, I]; style: [B, I] or None; w: [I, O]; demod: [B, O] or None;
     bias: [O]. Returns [B, P, O]. CUDA: the hand-written kernel (every
-    operand in x's dtype); CPU: `modulated_matmul_plain`."""
+    operand in x's dtype), the variant `modulated_matmul_variant` picks; CPU:
+    `modulated_matmul_plain`."""
     if x.device.type == "cpu":
         return modulated_matmul_plain(x, style, w, demod, bias)
-    given = [t for t in (x, style, w, demod, bias) if t is not None]
-    cuda.require_cuda("modulated_matmul", *given, dtype=x.dtype)
+    cuda.require_cuda("modulated_matmul", x, style, w, demod, bias, dtype=x.dtype)
     B, P, I = x.shape
     O = w.shape[1]
     if (w.shape != (I, O) or bias.shape != (O,)
             or (style is not None and style.shape != (B, I))
             or (demod is not None and demod.shape != (B, O))):
+        given = [t for t in (x, style, w, demod, bias) if t is not None]
         raise ValueError("modulated_matmul: inconsistent shapes "
                          f"{[tuple(t.shape) for t in given]}")
-    if 4 * 4 * I > 48 * 1024:
-        raise ValueError(f"modulated_matmul: I={I} exceeds the kernel's "
-                         "shared-memory weight tile")
-    out = torch.empty((B, P, O), dtype=x.dtype, device=x.device)
     vec = cuda.vector_width(x.dtype, I, x)
-    lib = cuda.library()
-    status = lib.cg_modulated_matmul(
-        x.data_ptr(), style.data_ptr() if style is not None else None,
-        w.data_ptr(), demod.data_ptr() if demod is not None else None,
-        bias.data_ptr(), out.data_ptr(), B, P, I, O,
-        cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
-    cuda.check(status, "modulated_matmul")
+    return modulated_matmul_launch(
+        x, style, w, demod, bias,
+        modulated_matmul_variant(x.dtype, B, P, I, O, vec))
+
+
+def modulated_matmul_launch(x, style, w, demod, bias, variant: str) -> torch.Tensor:
+    """Launch kernel variant `variant` on operands checked by the caller;
+    counts the launch. "mma" takes bf16 with O = 3 only."""
+    B, P, I = x.shape
+    O = w.shape[1]
+    if variant == "mma" and (O != 3 or x.dtype != torch.bfloat16):
+        raise ValueError(f"modulated_matmul: variant {variant} does not take "
+                         f"O={O}, {x.dtype}")
+    out = x.new_empty((B, P, O))
+    fn = _entries.get(variant)
+    if fn is None:
+        fn = _entries[variant] = getattr(cuda.library(),
+                                         MODULATED_MATMUL_ENTRY[variant])
+    ptrs = (x.data_ptr(), style.data_ptr() if style is not None else None,
+            w.data_ptr(), demod.data_ptr() if demod is not None else None,
+            bias.data_ptr(), out.data_ptr())
+    if variant == "mma":
+        status = fn(*ptrs, B, P, I, cuda.stream_handle(x))
+    else:
+        if 4 * 4 * I > 48 * 1024:
+            raise ValueError(f"modulated_matmul: I={I} exceeds the kernel's "
+                             "shared-memory weight tile")
+        status = fn(*ptrs, B, P, I, O, cuda.DTYPE_CODES[x.dtype],
+                    cuda.vector_width(x.dtype, I, x), cuda.stream_handle(x))
+    if status:
+        cuda.check(status, "modulated_matmul")
     modulated_matmul.launches += 1
+    modulated_matmul.launches_by_variant[variant] += 1
     return out
 
 
 modulated_matmul.launches = 0
+modulated_matmul.launches_by_variant = {"mma": 0, "chunked": 0}

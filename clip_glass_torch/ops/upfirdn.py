@@ -73,36 +73,74 @@ def upsample2x_plain(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
                       pad0=(pad + 1) // 2 + 1, pad1=pad // 2)
 
 
-def polyphase_taps(filter_taps=(1, 3, 3, 1), gain: float = 1.0):
-    """Per-axis factors (k0..k3) of the 4-tap kernel: normalized taps * 2 *
-    sqrt(gain), so that outer(k, k) == setup_filter_kernel(taps, gain, 2)."""
+@lru_cache(maxsize=None)
+def _polyphase_taps(filter_taps: tuple, gain: float) -> tuple:
     k1d = np.asarray(filter_taps, np.float64)
     k1d = k1d / k1d.sum() * 2.0 * (gain ** 0.5)
     return tuple(float(v) for v in k1d)
 
 
+def polyphase_taps(filter_taps=(1, 3, 3, 1), gain: float = 1.0) -> tuple:
+    """Per-axis factors (k0..k3) of the 4-tap kernel: normalized taps * 2 *
+    sqrt(gain), so that outer(k, k) == setup_filter_kernel(taps, gain, 2).
+    Computed once per (taps, gain)."""
+    return _polyphase_taps(tuple(filter_taps), float(gain))
+
+
+# the C entry point of each kernel variant (csrc/upsample2x.cu)
+UPSAMPLE2X_ENTRY = {"tiled": "cg_upsample2x_tiled", "rows": "cg_upsample2x"}
+_TILED_STAGE_BYTES = 32 * 1024
+_LAUNCH_SIZED = 16 * 1024  # input values up to which the launch is the cost
+_entries: dict = {}  # variant -> bound C function, filled at first CUDA use
+
+
+def upsample2x_variant(dtype: torch.dtype, B: int, H: int, W: int, C: int) -> str:
+    """The kernel that upsample2x launches, from x's dtype and shape alone:
+    "tiled" (whole input rows staged in shared memory, 16-byte loads and
+    stores, a persistent grid) where five input rows fit one 32 KB stage,
+    the RGB-skip calls of the flagship from 32 px up; "rows" (one thread per
+    output value, one round trip to memory instead of two) for longer rows
+    and for launch-sized inputs of at most 16384 values, the flagship's
+    calls at 4, 8 and 16 px."""
+    if B * H * W * C <= _LAUNCH_SIZED:
+        return "rows"
+    return "tiled" if 5 * W * C * dtype.itemsize <= _TILED_STAGE_BYTES else "rows"
+
+
 def upsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
                gain: float = 1.0) -> torch.Tensor:
     """[B, H, W, C] -> [B, 2H, 2W, C]. CUDA: the hand-written kernel
-    (4 taps only); CPU: `upsample2x_plain`."""
+    (4 taps only), the variant `upsample2x_variant` picks; CPU:
+    `upsample2x_plain`."""
     if x.device.type == "cpu":
         return upsample2x_plain(x, filter_taps, gain)
     if len(filter_taps) != 4:
         raise ValueError("the CUDA upsample2x kernel takes 4 filter taps, "
                          f"got {len(filter_taps)}")
     cuda.require_cuda("upsample2x", x, dtype=x.dtype)
+    return upsample2x_launch(x, polyphase_taps(filter_taps, gain),
+                             upsample2x_variant(x.dtype, *x.shape))
+
+
+def upsample2x_launch(x: torch.Tensor, taps: tuple, variant: str) -> torch.Tensor:
+    """Launch kernel variant `variant` on x (checked by the caller) with the
+    per-axis factors `taps` from `polyphase_taps`; counts the launch."""
     B, H, W, C = x.shape
-    out = torch.empty((B, 2 * H, 2 * W, C), dtype=x.dtype, device=x.device)
-    lib = cuda.library()
-    status = lib.cg_upsample2x(x.data_ptr(), out.data_ptr(), B, H, W, C,
-                               *polyphase_taps(filter_taps, gain),
-                               cuda.DTYPE_CODES[x.dtype], cuda.stream_handle(x))
-    cuda.check(status, "upsample2x")
+    out = x.new_empty((B, 2 * H, 2 * W, C))
+    fn = _entries.get(variant)
+    if fn is None:
+        fn = _entries[variant] = getattr(cuda.library(), UPSAMPLE2X_ENTRY[variant])
+    status = fn(x.data_ptr(), out.data_ptr(), B, H, W, C, *taps,
+                cuda.DTYPE_CODES[x.dtype], cuda.stream_handle(x))
+    if status:
+        cuda.check(status, "upsample2x")
     upsample2x.launches += 1
+    upsample2x.launches_by_variant[variant] += 1
     return out
 
 
 upsample2x.launches = 0
+upsample2x.launches_by_variant = {"tiled": 0, "rows": 0}
 
 
 def downsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),

@@ -43,7 +43,8 @@ from clip_glass_torch.evolve.algorithm import GAState, make_step  # noqa: E402
 from clip_glass_torch.fitness.problem import GenerationProblem  # noqa: E402
 from clip_glass_torch.models.stylegan2 import model as sg2  # noqa: E402
 
-OUR_KERNELS = ("noise_bias_lrelu_kernel", "upsample2x_kernel", "modulated_matmul_kernel",
+OUR_KERNELS = ("noise_bias_lrelu_kernel", "upsample2x_kernel", "upsample2x_tiled_kernel",
+               "modulated_matmul_kernel", "modulated_matmul_mma_kernel",
                "s2d_conv2x2_wgmma_kernel", "s2d_conv2x2_bf16_kernel")
 ITERS = 5  # warm runs per stage time
 TOP = 25  # entries in each profile table

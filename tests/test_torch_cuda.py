@@ -75,6 +75,189 @@ def test_modulated_matmul_kernel(gpu, dtype, shape, demod):
            modulated_conv.modulated_matmul_plain(x, s, w, d, b), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    (1, 21, 8, 3),    # rows of 48 B (16-byte copies), tiles of 8 + 8 + 5 rows
+    (3, 9, 32, 3),    # H != W, one row past a tile, B = 3
+    (1, 8, 4, 3),     # rows of 24 B in bf16: plain loads, exactly one tile
+    (3, 13, 5, 7),    # C != 3, ragged rows and a ragged last output vector
+    (2, 11, 8, 16),   # C = 16: one output vector inside one pixel
+    (1, 5, 256, 3),   # long rows, a last segment of one row
+    (2, 6, 544, 3),   # 5 rows fill a stage in fp32: tiles of 4 + 2 rows
+    (1, 70, 64, 3),   # more tiles than one block's two stages
+])
+def test_upsample2x_tiled_kernel(gpu, dtype, shape):
+    """The tiled variant across its tile, segment and vector edges."""
+    x = _randn(gpu, *shape, dtype=dtype)
+    v0 = upfirdn.upsample2x.launches_by_variant["tiled"]
+    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(), "tiled")
+    assert upfirdn.upsample2x.launches_by_variant["tiled"] == v0 + 1
+    _close(got, upfirdn.upsample2x_plain(x), dtype)
+
+
+@pytest.mark.parametrize("shape,variant", [((2, 16, 16, 3), "rows"), ((16, 32, 32, 3), "tiled"),
+                                           ((1, 3, 16, 512), "rows")])
+def test_upsample2x_takes_the_variant_of_its_rule(gpu, shape, variant):
+    """Launch-sized inputs and rows too long for a stage take "rows"."""
+    x = _randn(gpu, *shape)
+    assert upfirdn.upsample2x_variant(x.dtype, *shape) == variant
+    v0 = upfirdn.upsample2x.launches_by_variant[variant]
+    got = upfirdn.upsample2x(x)
+    assert upfirdn.upsample2x.launches_by_variant[variant] == v0 + 1
+    _close(got, upfirdn.upsample2x_plain(x), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("taps,gain", [((1, 3, 3, 1), 1.0), ((1, 2, 4, 1), 2.0)])
+@pytest.mark.parametrize("variant", ["tiled", "rows"])
+def test_upsample2x_variants_agree_with_plain(gpu, dtype, taps, gain, variant):
+    """Both variants on one input, through `upsample2x_launch`, with an
+    asymmetric filter and a gain; "rows" is also what long rows take."""
+    x = _randn(gpu, 2, 6, 10, 3, dtype=dtype)
+    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(taps, gain), variant)
+    _close(got, upfirdn.upsample2x_plain(x, taps, gain), dtype)
+
+
+def test_upsample2x_edges_stay_exact_beside_infinities(gpu):
+    """The zero column and row are zeros, not products with a neighbour:
+    an infinity at the edge gives the plain version's infinities and no NaN."""
+    x = _randn(gpu, 1, 4, 4, 3)
+    x[0, 0, 0, 0] = float("inf")
+    x[0, 2, 3, 1] = float("-inf")
+    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(), "tiled")
+    # every tap is positive: the outputs an infinity reaches are those that
+    # the indicator of the infinities reaches
+    reached = upfirdn.upsample2x_plain(torch.isinf(x).float()) > 0
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isinf(got), reached)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("I", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("P", [1, 77, 1037])
+def test_modulated_matmul_flagship_widths(gpu, dtype, I, P):
+    """O = 3 ("mma" in bf16, "chunked" in fp32) at every flagship
+    width, with pixel counts that end inside a warp's run and inside a
+    block's tile; style given, demod given for odd P."""
+    B = 3
+    x = _randn(gpu, B, P, I, dtype=dtype)
+    s = (1.0 + 0.5 * _randn(gpu, B, I)).to(dtype)
+    w = (_randn(gpu, I, 3) / math.sqrt(I)).to(dtype)
+    d = (0.5 + torch.rand((B, 3), generator=gpu, device="cuda")).to(dtype) if P % 2 else None
+    b = _randn(gpu, 3, dtype=dtype)
+    variant = "mma" if dtype == torch.bfloat16 else "chunked"
+    v0 = modulated_conv.modulated_matmul.launches_by_variant[variant]
+    got = modulated_conv.modulated_matmul_launch(x, s, w, d, b, variant)
+    assert modulated_conv.modulated_matmul.launches_by_variant[variant] == v0 + 1
+    _close(got, modulated_conv.modulated_matmul_plain(x, s, w, d, b), dtype)
+
+
+@pytest.mark.parametrize("dtype,shape,variant", [
+    (torch.bfloat16, (2, 40000, 32, 3), "mma"),      # above 2 Mi input values
+    (torch.bfloat16, (3, 1400, 512, 3), "mma"),
+    (torch.bfloat16, (16, 256, 512, 3), "chunked"),  # launch-sized
+    (torch.bfloat16, (2, 50, 16, 3), "chunked"), (torch.float32, (2, 40000, 32, 3), "chunked"),
+    (torch.bfloat16, (2, 50, 24, 3), "chunked"), (torch.float32, (2, 50, 64, 5), "chunked"),
+])
+def test_modulated_matmul_takes_the_variant_of_its_rule(gpu, dtype, shape, variant):
+    B, P, I, O = shape
+    x = _randn(gpu, B, P, I, dtype=dtype)
+    s = (1.0 + 0.5 * _randn(gpu, B, I)).to(dtype)
+    w = (_randn(gpu, I, O) / math.sqrt(I)).to(dtype)
+    b = _randn(gpu, O, dtype=dtype)
+    v0 = modulated_conv.modulated_matmul.launches_by_variant[variant]
+    got = modulated_conv.modulated_matmul(x, s, w, None, b)
+    assert modulated_conv.modulated_matmul.launches_by_variant[variant] == v0 + 1
+    _close(got, modulated_conv.modulated_matmul_plain(x, s, w, None, b), dtype)
+
+
+@pytest.mark.parametrize("I", [32, 128, 512])
+@pytest.mark.parametrize("variant", ["mma", "chunked"])
+def test_modulated_matmul_variants_on_one_input(gpu, I, variant):
+    """Both variants take a bf16 ToRGB call; each agrees with the plain
+    version on the same operands (through `modulated_matmul_launch`)."""
+    x = _randn(gpu, 2, 300, I, dtype=torch.bfloat16)
+    s = (1.0 + 0.5 * _randn(gpu, 2, I)).bfloat16()
+    w = (_randn(gpu, I, 3) / math.sqrt(I)).bfloat16()
+    b = _randn(gpu, 3, dtype=torch.bfloat16)
+    got = modulated_conv.modulated_matmul_launch(x, s, w, None, b, variant)
+    _close(got, modulated_conv.modulated_matmul_plain(x, s, w, None, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("style", [True, False])
+@pytest.mark.parametrize("demod", [True, False])
+@pytest.mark.parametrize("I,O,variant", [(64, 3, "mma"), (16, 3, "chunked"), (20, 3, "chunked"),
+                                         (7, 3, "chunked"), (64, 5, "chunked")])
+def test_modulated_matmul_variants(gpu, dtype, style, demod, I, O, variant):
+    """style and demod each given and None, on both variants with O = 3, on
+    rows that are no whole 16-byte vectors (vec = 1, or 2.5 vectors in
+    bf16), and on O != 3; an output run that starts off a 16-byte line
+    (B = 2, P = 35)."""
+    B, P = 2, 35
+    if dtype == torch.float32:
+        variant = "chunked"
+    x = _randn(gpu, B, P, I, dtype=dtype)
+    s = (1.0 + 0.5 * _randn(gpu, B, I)).to(dtype) if style else None
+    w = (_randn(gpu, I, O) / math.sqrt(I)).to(dtype)
+    d = (0.5 + torch.rand((B, O), generator=gpu, device="cuda")).to(dtype) if demod else None
+    b = _randn(gpu, O, dtype=dtype)
+    got = modulated_conv.modulated_matmul_launch(x, s, w, d, b, variant)
+    _close(got, modulated_conv.modulated_matmul_plain(x, s, w, d, b), dtype)
+
+
+@pytest.mark.parametrize("I", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("variant", ["mma", "chunked"])
+def test_modulated_matmul_folds_the_weights_in_fp32(gpu, I, variant):
+    """The folded weights s*w are not rounded to bf16. With s = 1 + 2^-7 on
+    even k (1 on odd), w = 1 + 2^-7 and x = +1, -1 alternating, the fp32
+    folds 1 + 2^-6 + 2^-14 and 1 + 2^-7 sum to I/2 * (2^-7 + 2^-14), a bf16
+    value; folds rounded to bf16 would lose the 2^-14 and give I/2 * 2^-7."""
+    e = 2.0 ** -7
+    k = torch.arange(I, device="cuda")
+    x = (1.0 - 2.0 * (k % 2)).expand(2, 70, I).contiguous().bfloat16()
+    s = (1.0 + e * (1 - k % 2)).expand(2, I).contiguous().bfloat16()
+    w = torch.full((I, 3), 1.0 + e, device="cuda").bfloat16()
+    b = torch.zeros(3, device="cuda").bfloat16()
+    got = modulated_conv.modulated_matmul_launch(x, s, w, None, b, variant)
+    torch.cuda.synchronize()
+    want = I / 2 * (e + e * e)
+    assert torch.equal(got.float(), torch.full_like(got, want).float())
+    assert torch.equal(got, modulated_conv.modulated_matmul_plain(x, s, w, None, b))
+
+
+def test_modulated_matmul_unaligned_x_takes_scalar_rows(gpu):
+    """A view that starts off a 16-byte line: vec = 1, the chunked variant."""
+    base = _randn(gpu, 2 * 16 * 32 + 1, dtype=torch.bfloat16)
+    x = base[1:].view(2, 16, 32)
+    s, w, b = (_randn(gpu, 2, 32, dtype=torch.bfloat16),
+               _randn(gpu, 32, 3, dtype=torch.bfloat16), _randn(gpu, 3, dtype=torch.bfloat16))
+    v0 = modulated_conv.modulated_matmul.launches_by_variant["chunked"]
+    got = modulated_conv.modulated_matmul(x, s, w, None, b)
+    assert modulated_conv.modulated_matmul.launches_by_variant["chunked"] == v0 + 1
+    _close(got, modulated_conv.modulated_matmul_plain(x, s, w, None, b), torch.bfloat16)
+
+
+def test_modulated_matmul_rejects_what_the_kernel_does_not_take(gpu):
+    x, s = _randn(gpu, 2, 16, 32), _randn(gpu, 2, 32)
+    w, b = _randn(gpu, 32, 3), _randn(gpu, 3)
+    with pytest.raises(ValueError):        # style of another batch
+        modulated_conv.modulated_matmul(x, s[:1], w, None, b)
+    with pytest.raises(TypeError):         # operands of two dtypes
+        modulated_conv.modulated_matmul(x, s.bfloat16(), w, None, b)
+    with pytest.raises(ValueError):        # not contiguous
+        modulated_conv.modulated_matmul(x.transpose(0, 1), s, w, None, b)
+    with pytest.raises(ValueError):        # CPU/CUDA mix
+        modulated_conv.modulated_matmul(x, s, w.cpu(), None, b)
+    with pytest.raises(ValueError):        # the tensor-core variant is bf16 only
+        modulated_conv.modulated_matmul_launch(x, s, w, None, b, "mma")
+    with pytest.raises(ValueError):        # nor any other O
+        modulated_conv.modulated_matmul_launch(
+            x.bfloat16(), s.bfloat16(), _randn(gpu, 32, 5, dtype=torch.bfloat16), None,
+            _randn(gpu, 5, dtype=torch.bfloat16), "mma")
+
+
 def _s2d_args(gen, B, n, C, modulated, dtype):
     x = _randn(gen, B, n, n, C, dtype=dtype)
     K = _randn(gen, 2, 2, C, C) / math.sqrt(4 * C)

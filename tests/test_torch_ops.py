@@ -189,3 +189,92 @@ def test_modulated_matmul_plain_matches_pallas(rng, demod):
     got = N(tmc.modulated_matmul_plain(T(x), T(style), T(w),
                                        T(d) if demod else None, T(bias)))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------- what the kernels' wrappers decide in Python
+
+@pytest.mark.parametrize("taps,gain,want", [
+    ((1, 3, 3, 1), 1.0, (0.25, 0.75, 0.75, 0.25)),
+    ((1, 2, 4, 1), 4.0, (0.5, 1.0, 2.0, 0.5)),
+])
+def test_polyphase_taps_cached_values(taps, gain, want):
+    """The cached factors are normalized taps * 2 * sqrt(gain), whether the
+    taps come as a tuple or a list and the gain as an int or a float, and a
+    second call hands back the same tuple."""
+    got = tup.polyphase_taps(taps, gain)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert tup.polyphase_taps(list(taps), int(gain)) is got
+    k1 = np.asarray(taps, np.float64)
+    assert got == tuple(float(v) for v in k1 / k1.sum() * 2.0 * gain ** 0.5)
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    # the flagship's RGB-skip calls: launch-sized up to 16 px, then tiled
+    (torch.bfloat16, (16, 4, 4, 3), "rows"), (torch.bfloat16, (16, 16, 16, 3), "rows"),
+    (torch.bfloat16, (16, 32, 32, 3), "tiled"), (torch.bfloat16, (16, 512, 512, 3), "tiled"),
+    (torch.float32, (16, 512, 512, 3), "tiled"),    # 5 rows of 6144 B fit 32 KB
+    (torch.float32, (1, 64, 546, 3), "tiled"),      # 5 * 6552 = 32760
+    (torch.float32, (1, 64, 547, 3), "rows"),       # 5 * 6564 = 32820
+    (torch.bfloat16, (1, 16, 1024, 3), "tiled"), (torch.bfloat16, (1, 16, 1024, 16), "rows"),
+    (torch.float32, (1, 64, 64, 4), "rows"), (torch.float32, (1, 64, 65, 4), "tiled"),
+])
+def test_upsample2x_variant_rule(dtype, shape, want):
+    assert tup.upsample2x_variant(dtype, *shape) == want
+    assert want in tup.UPSAMPLE2X_ENTRY and want in tup.upsample2x.launches_by_variant
+
+
+@pytest.mark.parametrize("dtype,P,I,O,vec,want", [
+    # the ToRGB calls of the flagship (B = 16, bf16 rows of whole 16-byte
+    # vectors): launch-sized up to 16 px, then the tensor cores
+    (torch.bfloat16, 16, 512, 3, 8, "chunked"), (torch.bfloat16, 256, 512, 3, 8, "chunked"),
+    (torch.bfloat16, 1024, 512, 3, 8, "mma"), (torch.bfloat16, 4096, 256, 3, 8, "mma"),
+    (torch.bfloat16, 2 ** 14, 128, 3, 8, "mma"), (torch.bfloat16, 2 ** 16, 64, 3, 8, "mma"),
+    (torch.bfloat16, 2 ** 20, 32, 3, 8, "mma"),
+    (torch.bfloat16, 2 ** 20, 8, 3, 8, "chunked"), (torch.bfloat16, 2 ** 20, 16, 3, 8, "chunked"),
+    (torch.bfloat16, 2 ** 20, 96, 3, 8, "chunked"),   # no power of two
+    (torch.bfloat16, 2 ** 20, 24, 3, 8, "chunked"),
+    (torch.bfloat16, 2 ** 20, 1024, 3, 8, "chunked"),  # wider than the widest ToRGB
+    (torch.bfloat16, 2 ** 20, 32, 3, 1, "chunked"),    # an unaligned x
+    (torch.bfloat16, 2 ** 20, 64, 5, 8, "chunked"), (torch.bfloat16, 2 ** 20, 64, 12, 8, "chunked"),
+    # fp32 has one kernel
+    (torch.float32, 16, 512, 3, 4, "chunked"), (torch.float32, 2 ** 20, 32, 3, 4, "chunked"),
+    (torch.float32, 50, 12, 3, 4, "chunked"), (torch.float32, 50, 96, 3, 4, "chunked"),
+    (torch.float32, 50, 20, 3, 4, "chunked"), (torch.float32, 50, 1024, 3, 4, "chunked"),
+    (torch.float32, 50, 7, 3, 1, "chunked"),
+])
+def test_modulated_matmul_variant_rule(dtype, P, I, O, vec, want):
+    assert tmc.modulated_matmul_variant(dtype, 16, P, I, O, vec) == want
+    assert want in tmc.MODULATED_MATMUL_ENTRY
+    assert want in tmc.modulated_matmul.launches_by_variant
+
+
+def test_kernel_wrappers_take_the_plain_version_on_the_cpu(rng):
+    """A CPU tensor goes to the plain version, counts no launch and needs no
+    contiguous input (the skip accumulator of the CPU path is a permuted
+    view)."""
+    before = (tup.upsample2x.launches, dict(tup.upsample2x.launches_by_variant),
+              tmc.modulated_matmul.launches,
+              dict(tmc.modulated_matmul.launches_by_variant))
+    y = T(_x(rng, 2, 3, 4, 4)).permute(0, 2, 3, 1)      # NHWC view of NCHW
+    assert not y.is_contiguous()
+    np.testing.assert_array_equal(N(tup.upsample2x(y)),
+                                  N(tup.upsample2x_plain(y.contiguous())))
+    x, s, w, b = T(_x(rng, 2, 9, 8)), T(_x(rng, 2, 8)), T(_x(rng, 8, 3)), T(_x(rng, 3))
+    np.testing.assert_array_equal(N(tmc.modulated_matmul(x, s, w, None, b)),
+                                  N(tmc.modulated_matmul_plain(x, s, w, None, b)))
+    assert before == (tup.upsample2x.launches, tup.upsample2x.launches_by_variant,
+                      tmc.modulated_matmul.launches,
+                      tmc.modulated_matmul.launches_by_variant)
+
+
+def test_require_cuda_refuses_cpu_tensors_in_one_pass():
+    """The kernels' argument check, where it can run without a card: a CPU
+    tensor is refused with the error of the first failing check, None
+    entries are skipped."""
+    from clip_glass_torch.ops import cuda
+
+    x = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        cuda.require_cuda("kernel", x, None, x, dtype=x.dtype)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        cuda.require_cuda("kernel", x.half(), dtype=torch.float16)
