@@ -30,7 +30,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      first the default path (the 512 and 1024 px levels in the s2d domain),
      then the plain domain (s2d_min_res=2**30);
   6. domains: one fp32 full-width evaluation of one population in both
-     domains, and their largest difference (printed, not asserted).
+     domains, and their largest difference (printed, not asserted);
+  7. cli: the CLI (`clip_glass_torch.cli.main`, what run_torch.py runs)
+     in-process at full width (config-f 1024px, ViT-B/32, pop 16, bf16,
+     random weights from seed 0, --device cuda), five runs, each in its own
+     folder: A1 StyleGAN2_ffhq_d for 2 generations; A2 A1's folder resumed
+     to 4; B 4 uninterrupted, whose ga_state.npz must equal A2's bitwise; C
+     as A1 but from converted checkpoints written here (the same seeded
+     draws in the JAX layout: Gs.npz, Gs_cfg.json, D.npz, Gs_noise.npz and a
+     CLIP .npz with its sidecar), whose ga_state.npz must equal A1's
+     bitwise; D StyleGAN2_ffhq_nod (the GA) for 2 generations. Every run
+     must write the artifact set, and launch every kernel on the variants
+     phase 3 saw the main path take; one line per run with the `wallclock:`
+     phases, seconds per generation and the periodic dumps' times.
 The last lines are the kernels' summary (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}.
 
@@ -765,6 +777,163 @@ def phase_domains():
          "objective_scale": Fs["plain"].abs().max(dim=0).values.tolist()})
 
 
+# ------------------------------------------------------------ phase 7
+
+CLI_ARTIFACTS = {"genetic-it-final.jpg", "genetic_result", "ls_result.npz",
+                 "output.jpg", "ga_state.npz"}
+
+
+def _npz(path):
+    import numpy as np
+
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def _same_state(label, got, want) -> None:
+    """Two ga_state.npz contents equal bitwise, field by field."""
+    import numpy as np
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: fields {sorted(got)} vs {sorted(want)}")
+    for k in got:
+        if not np.array_equal(got[k], want[k]):
+            diff = (np.abs(got[k].astype(np.float64) - want[k].astype(np.float64)).max()
+                    if got[k].dtype.kind == "f" else "-")
+            raise AssertionError(f"{label}: {k} differs (max abs {diff})")
+
+
+def _write_converted(root: str) -> None:
+    """The seeded random weights of `random:0` in the converted layout: G and
+    D drawn from one generator seeded 0 (fitness.generator.load_bundle), the
+    noise planes from NOISE_SEED, CLIP from its own generator seeded 0."""
+    from clip_glass_torch.core import pytree
+    from clip_glass_torch.fitness.generator import NOISE_SEED
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = sg2.CONFIG_F
+    gm = torch.Generator().manual_seed(0)
+    pytree.save_npz(os.path.join(root, "Gs.npz"), sg2.generator_tree(gm, cfg))
+    pytree.save_npz(os.path.join(root, "D.npz"), sg2.discriminator_tree(gm, cfg))
+    gn = torch.Generator().manual_seed(NOISE_SEED)
+    pytree.save_npz(os.path.join(root, "Gs_noise.npz"),
+                    {str(i): torch.randn(s, generator=gn)
+                     for i, s in enumerate(cfg.noise_shapes())})
+    pytree.save_npz(os.path.join(root, "clip.npz"),
+                    clip_model.init_tree(torch.Generator().manual_seed(0),
+                                         clip_model.VIT_B_32))
+    for name, c in (("Gs_cfg.json", cfg), ("clip_cfg.json", clip_model.VIT_B_32)):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(dataclasses.asdict(c), f)
+
+
+def _cli_run(label: str, folder: str, config: str, generations: int, summary: dict,
+             *extra, first_gen: int = 0) -> dict:
+    """One in-process CLI run with the kernels' counts set to 0 just before
+    it; checks its artifacts and that every kernel launched on the variants
+    the main path took (phase 3's choice at the flagship's shapes)."""
+    import contextlib
+    import io
+    import pickle
+
+    from clip_glass_torch import cli
+
+    kernels = _kernels()
+    for k in kernels:
+        k.launches = 0
+        for v in getattr(k, "launches_by_variant", {}):
+            k.launches_by_variant[v] = 0
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--config", config, "--target", TARGET, "--generations", str(generations),
+            "--save-each", "2", "--tmp-folder", folder, "--pop-size", str(POP),
+            "--device", "cuda", "--seed", "0", *extra]
+    if "--weights" not in extra:
+        argv += ["--weights", "random:0", "--clip-weights", "random:0"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"cli {label}: exit {rc}: {lines[-5:]}")
+    # a periodic dump per 2 generations run, the last one named "final"
+    want = CLI_ARTIFACTS | {f"genetic-it-{g}.jpg" for g in range(first_gen + 2, generations, 2)}
+    if config.endswith("_d"):
+        want.add("F.jpg")
+    if set(os.listdir(folder)) != want:
+        raise AssertionError(f"cli {label}: artifacts {sorted(os.listdir(folder))}")
+    with open(os.path.join(folder, "genetic_result"), "rb") as f:
+        res = pickle.load(f)
+    if set(res) != {"X", "F", "G", "CV"}:
+        raise AssertionError(f"cli {label}: genetic_result holds {sorted(res)}")
+    launches = {k.__name__: k.launches for k in kernels}
+    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
+                if k.__name__ in FIRST_DESIGN}
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"cli {label}: {name} never launched")
+    for name in FIRST_DESIGN:
+        missing = [v for v, n in summary[name]["s2d"]["launches_by_variant"].items()
+                   if n and not variants[name].get(v)]
+        if missing:
+            raise AssertionError(f"cli {label}: {name} did not launch {missing}")
+    wall = next(line for line in lines if line.startswith("wallclock:"))
+    phases = {k: float(v.rstrip("s")) for k, v in
+              (part.split("=") for part in wall.split()[1:])}
+    dumps = [line for line in lines if line.startswith("dump ")]
+    run_gens = generations - first_gen
+    rec = {"phase": "cli", "run": label, "config": config, "extra_args": list(extra),
+           "wallclock": phases, "generations": [first_gen, generations],
+           "search_s_per_generation": phases["search+dumps"] / run_gens,
+           "dumps": dumps, "rate": [line.strip() for line in lines if "rate:" in line],
+           "launches": launches, "launches_by_variant": variants,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(rec)
+    return rec
+
+
+def phase_cli(summary: dict) -> None:
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, c, d, w = (os.path.join(tmp, x) for x in "abcdw")
+        _cli_run("A1", a, "StyleGAN2_ffhq_d", 2, summary)
+        a1 = _npz(os.path.join(a, "ga_state.npz"))
+        _cli_run("A2", a, "StyleGAN2_ffhq_d", 4, summary, "--resume", first_gen=2)
+        _cli_run("B", b, "StyleGAN2_ffhq_d", 4, summary)
+        a2, sb = _npz(os.path.join(a, "ga_state.npz")), _npz(os.path.join(b, "ga_state.npz"))
+        if int(a2["gen"]) != 4 or int(sb["gen"]) != 4:
+            raise AssertionError(f"cli: gen {a2['gen']} / {sb['gen']}, expected 4")
+        _same_state("cli: resumed A2 vs uninterrupted B", a2, sb)
+        os.makedirs(w)
+        t = time.perf_counter()
+        _write_converted(w)
+        write_s = time.perf_counter() - t
+        _cli_run("C", c, "StyleGAN2_ffhq_d", 2, summary, "--weights", w,
+                 "--clip-weights", os.path.join(w, "clip.npz"))
+        _same_state("cli: converted checkpoints C vs random:0 A1",
+                    _npz(os.path.join(c, "ga_state.npz")), a1)
+        _cli_run("D", d, "StyleGAN2_ffhq_nod", 2, summary)
+        sd = _npz(os.path.join(d, "ga_state.npz"))
+        with open(os.path.join(d, "genetic_result"), "rb") as f:
+            res = pickle.load(f)
+        ls = _npz(os.path.join(d, "ls_result.npz"))
+        order = np.argsort(sd["F"][:, 0], kind="stable")
+        if not np.array_equal(ls["z"], sd["X"][order]):
+            raise AssertionError("cli D: ls_result is not the population sorted by fitness")
+        if res["X"].shape != (sd["X"].shape[1],) or res["F"].shape != (1,):
+            raise AssertionError(f"cli D: genetic_result X {res['X'].shape}, "
+                                 f"F {res['F'].shape}: not a single row")
+        log({"phase": "cli", "check": "A2 == B and C == A1 bitwise; D's GA artifacts",
+             "converted_write_s": write_s, "converted_bytes": sum(
+                 os.path.getsize(os.path.join(w, f)) for f in os.listdir(w))})
+    torch.cuda.empty_cache()
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -787,6 +956,7 @@ def main() -> int:
     launches, variants = phase_main(kind, smi, "s2d", GENERATIONS, summary)
     plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
     phase_domains()
+    phase_cli(summary)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]

@@ -1,10 +1,11 @@
-"""NSGA-II generation step + search driver, on the population's device.
+"""GA / NSGA-II generation step + search loop, on the population's device.
 
 One generation: tournament selection, SBX, polynomial mutation, duplicate
-resampling, fitness evaluation, rank-and-crowding survival (reference
-run.py:53-76 with pymoo). The genomes and fitness stay on the device; all
-randomness comes from one explicit torch.Generator, drawn in a fixed order,
-so a seed fixes the whole search.
+resampling, fitness evaluation, survival (reference run.py:53-76 with pymoo):
+by fitness for the GA, by rank and crowding for NSGA-II. The genomes and
+fitness stay on the device; all randomness comes from one explicit
+torch.Generator, drawn in a fixed order, so a seed and the generator's state
+fix the whole search.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ from clip_glass_torch.evolve import crossover as xo
 from clip_glass_torch.evolve import mutation as mut
 from clip_glass_torch.evolve import sampling as smp
 from clip_glass_torch.evolve.nds import crowding_distance, non_dominated_rank
-from clip_glass_torch.evolve.selection import tournament_nsga2
-from clip_glass_torch.evolve.survival import nsga2_survival
+from clip_glass_torch.evolve.selection import tournament_ga, tournament_nsga2
+from clip_glass_torch.evolve.survival import fitness_survival, nsga2_survival
+
+# model families still to be ported, and the ROADMAP item that ports each
+UNPORTED = {"biggan": "ROADMAP item 9", "gpt2": "ROADMAP item 10"}
 
 
 class GAState(NamedTuple):
@@ -40,9 +44,10 @@ class Operators(NamedTuple):
 def operators_for_config(config) -> Operators:
     """The reference's operator set for the StyleGAN2 configs (reference
     operators.py:66-72)."""
-    if not config.name.startswith("StyleGAN2"):
+    if config.model in UNPORTED:
         raise NotImplementedError(
-            f"config {config.name!r}: only the StyleGAN2 operators are ported")
+            f"config {config.name!r}: only the StyleGAN2 operators are ported "
+            f"({UNPORTED[config.model]})")
     return Operators(
         sample=lambda g, n: smp.normal_sampling(g, n, config.n_var),
         cross=lambda g, x1, x2: xo.sbx(g, x1, x2, config.xl, config.xu,
@@ -75,25 +80,30 @@ def resample_duplicates(gen: torch.Generator, off: torch.Tensor,
 def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
               algorithm: str = "nsga2") -> Callable:
     """`step(state, gen) -> state`: mating -> variation -> dedup -> eval ->
-    survival."""
-    if algorithm != "nsga2":
-        raise NotImplementedError(
-            f"algorithm {algorithm!r}: only NSGA-II is ported (the GA's "
-            "tournament_ga and fitness_survival are not)")
+    survival. `algorithm`: "ga" (one objective) or "nsga2"."""
+    if algorithm not in ("ga", "nsga2"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     if pop_size % 2:
         raise ValueError("pop_size must be even")
     n_matings = pop_size // 2
+    is_nsga2 = algorithm == "nsga2"
 
     def step(state: GAState, gen: torch.Generator) -> GAState:
-        rank = non_dominated_rank(state.F)
-        crowd = crowding_distance(state.F, rank)
-        pairs = tournament_nsga2(gen, state.F, crowd, n_matings)
+        if is_nsga2:
+            rank = non_dominated_rank(state.F)
+            crowd = crowding_distance(state.F, rank)
+            pairs = tournament_nsga2(gen, state.F, crowd, n_matings)
+        else:
+            pairs = tournament_ga(gen, state.F, n_matings)
         o1, o2 = ops.cross(gen, state.X[pairs[:, 0]], state.X[pairs[:, 1]])
         off = ops.mutate(gen, torch.cat([o1, o2], dim=0))
         off = resample_duplicates(gen, off, state.X, ops.sample)
         F_off = eval_fn(off)
-        X_new, F_new, _, _ = nsga2_survival(torch.cat([state.X, off]),
-                                            torch.cat([state.F, F_off]), pop_size)
+        X_all, F_all = torch.cat([state.X, off]), torch.cat([state.F, F_off])
+        if is_nsga2:
+            X_new, F_new, _, _ = nsga2_survival(X_all, F_all, pop_size)
+        else:
+            X_new, F_new = fitness_survival(X_all, F_all, pop_size)
         return GAState(X_new, F_new, state.gen + 1)
 
     return step
@@ -110,7 +120,7 @@ def make_algorithm(config, eval_fn: Callable, device=None) -> "Algorithm":
 class Result:
     """pymoo-shaped result (reference run.py:79-96): optimum X/F plus the
     final population; G/CV are identically zero (reference problem.py:29).
-    Tensors are on the CPU."""
+    Tensors are on the CPU. For the GA, X and F are the single best row."""
     X: torch.Tensor
     F: torch.Tensor
     G: torch.Tensor
@@ -142,30 +152,34 @@ class Algorithm:
 
 def extract_result(pop_X: torch.Tensor, pop_F: torch.Tensor,
                    algorithm_name: str, state: GAState) -> Result:
-    """The optimum is NSGA-II's rank-0 front; G/CV identically zero
+    """The optimum is NSGA-II's rank-0 front, or the GA's single best row
+    (the first argmin); G/CV identically zero, float64 as the JAX package's
     (reference run.py:79-96)."""
-    if algorithm_name != "nsga2":
-        raise NotImplementedError(f"algorithm {algorithm_name!r}: only NSGA-II "
-                                  "is ported")
-    opt = non_dominated_rank(pop_F) == 0
-    X_opt, F_opt = pop_X[opt], pop_F[opt]
-    n_opt = X_opt.shape[0]
-    return Result(X=X_opt, F=F_opt, G=torch.zeros(n_opt),
-                  CV=torch.zeros(n_opt, 1), pop_X=pop_X, pop_F=pop_F,
-                  state=state)
+    if algorithm_name == "nsga2":
+        opt = non_dominated_rank(pop_F) == 0
+        X_opt, F_opt = pop_X[opt], pop_F[opt]
+        n_opt = X_opt.shape[0]
+    else:
+        best = pop_F[:, 0].argmin()
+        X_opt, F_opt = pop_X[best], pop_F[best]
+        n_opt = 1
+    return Result(X=X_opt, F=F_opt, G=torch.zeros(n_opt, dtype=torch.float64),
+                  CV=torch.zeros(n_opt, 1, dtype=torch.float64), pop_X=pop_X,
+                  pop_F=pop_F, state=state)
 
 
 @torch.inference_mode()
 def minimize(algorithm: Algorithm, n_gen: int,
              generator: Union[int, torch.Generator] = 0,
              callback: Optional[Callable] = None, save_each: int = 50,
-             state: Optional[GAState] = None) -> Result:
+             verbose: bool = False, state: Optional[GAState] = None) -> Result:
     """Run the search (reference run.py:70-76 `minimize`).
 
     `generator`: a torch.Generator on the algorithm's device, or an int seed
     for one. Without `state`, the search starts with `algorithm.init`.
-    `callback(state)` fires after every `save_each` generations (the
-    reference's save cadence, run.py:29-51)."""
+    `callback(state)` fires after every `save_each` generations and after
+    the last (the reference's save cadence, run.py:29-51); `verbose` prints
+    the best and mean fitness there."""
     gen = (algorithm.generator(generator) if isinstance(generator, int)
            else generator)
     if state is None:
@@ -173,6 +187,11 @@ def minimize(algorithm: Algorithm, n_gen: int,
     step = algorithm.step_fn()
     for done in range(1, n_gen + 1):
         state = step(state, gen)
-        if callback is not None and (done % save_each == 0 or done == n_gen):
+        if done % save_each and done != n_gen:
+            continue
+        if verbose:
+            F = state.F.cpu().numpy()
+            print(f"gen {state.gen:5d}  best={F.min(0)}  mean={F.mean(0)}")
+        if callback is not None:
             callback(state)
     return extract_result(state.X.cpu(), state.F.cpu(), algorithm.algorithm, state)

@@ -1,12 +1,20 @@
-"""NSGA-II rank-and-crowding survival (pymoo RankAndCrowdingSurvival): whole
-fronts until overflow, the splitting front by descending crowding, as one
-lexicographic sort."""
+"""Survival of the merged parents and offspring. GA: the best `pop_size` by
+scalar fitness (pymoo FitnessSurvival). NSGA-II: rank and crowding (pymoo
+RankAndCrowdingSurvival), whole fronts until overflow, the splitting front
+by descending crowding. Each is one sort."""
 
 from __future__ import annotations
 
 import torch
 
 from clip_glass_torch.evolve.nds import crowding_distance, lexsort, non_dominated_rank
+
+
+def fitness_survival(X: torch.Tensor, F: torch.Tensor, pop_size: int):
+    """Keep the `pop_size` individuals with the smallest scalar fitness; the
+    sort is stable, so ties keep their order (as the JAX package's)."""
+    keep = torch.argsort(F[:, 0], stable=True)[:pop_size]
+    return X[keep], F[keep]
 
 
 def nsga2_survival(X: torch.Tensor, F: torch.Tensor, pop_size: int):

@@ -5,11 +5,14 @@ CLIP ViT-B/32 and the config's model, encodes the target text once, and
 scores candidates by CLIP cosine similarity, plus the discriminator hinge
 for the `*_d` configs.
 
-This slice covers the StyleGAN2 text-to-image branch. Parameters are either
-drawn from seeded torch.Generators (`weights="random:<seed>"`) or handed in
-as a converted bundle (`weights.from_jax.convert_bundle`). The per-layer
+This slice covers the StyleGAN2 text-to-image branch. Parameters are drawn
+from seeded torch.Generators (`weights="random:<seed>"`), read from
+converted checkpoints (the npz trees and `_cfg.json` sidecars the JAX
+package's converters write, carried across by `weights.from_jax`), or handed
+in as a converted bundle (`weights.from_jax.convert_bundle`). The per-layer
 noise is fixed per search and is data: drawn once from a seeded generator,
-or taken from the bundle, and folded into the s2d layouts once at staging.
+or read from `<stem>_noise.npz`, or taken from the bundle, and folded into
+the s2d layouts once at staging.
 
 When the model's top level runs in the space-to-depth domain (config-f:
 s2d_min_res = 512), `eval_population` takes the s2d fitness path, as the JAX
@@ -20,10 +23,15 @@ image ever being made. `generate` still returns full-resolution images.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
+from clip_glass_torch.core import pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
 from clip_glass_torch.fitness import latent as latent_mod
@@ -32,6 +40,7 @@ from clip_glass_torch.models.stylegan2 import model as sg2
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import resize_bilinear
 from clip_glass_torch.tokenizers import tokenize
+from clip_glass_torch.weights import from_jax
 
 NOISE_SEED = 7
 
@@ -46,12 +55,29 @@ def biggan_denorm(images):
     return images * 2.0 - 1.0
 
 
+def _is_random(weights: str) -> bool:
+    return isinstance(weights, str) and weights.startswith("random")
+
+
 def _random_seed(weights: str) -> int:
-    if not (isinstance(weights, str) and weights.startswith("random")):
-        raise NotImplementedError(
-            f"weights {weights!r}: checkpoint loading is not ported yet; use "
-            "'random:<seed>' or pass a converted bundle")
     return int(weights.split(":")[1]) if ":" in weights else 0
+
+
+def _read_cfg_sidecar(npz_path: str, cfg_cls):
+    """The `<stem>_cfg.json` sidecar the JAX package's converters write next
+    to a converted npz, as an instance of `cfg_cls` (fields it does not know
+    are dropped, JSON lists become tuples); None when there is none."""
+    path = os.path.splitext(npz_path)[0] + "_cfg.json"
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        d = json.load(f)
+
+    def detuple(v):
+        return tuple(detuple(x) for x in v) if isinstance(v, list) else v
+
+    known = {f.name for f in dataclasses.fields(cfg_cls)}
+    return cfg_cls(**{k: detuple(v) for k, v in d.items() if k in known})
 
 
 def _cosine(a, b):
@@ -61,20 +87,94 @@ def _cosine(a, b):
     return num / den.clamp_min(1e-12)
 
 
-def random_bundle(config, clip_cfg, model_cfg, clip_weights: str = "random:0"):
-    """Seeded random CLIP, G, D and noise planes (fp32, CPU). Draws happen on
-    the CPU so one seed gives the same weights on every device."""
-    gc = torch.Generator().manual_seed(_random_seed(clip_weights))
-    gm = torch.Generator().manual_seed(_random_seed(config.weights))
-    gn = torch.Generator().manual_seed(NOISE_SEED)
-    bundle = {
-        "clip": clip_model.init(gc, clip_cfg),
-        "g": sg2.generator_init(gm, model_cfg),
-        "noise": [torch.randn(s, generator=gn) for s in model_cfg.noise_shapes()],
-    }
+def _load_clip(clip_weights: str, clip_cfg):
+    """CLIP parameters and config: seeded random draws, or a converted
+    `.npz` with its `_cfg.json` sidecar (the JAX package's torch-free path,
+    weights/convert_clip.py:127-145)."""
+    if _is_random(clip_weights):
+        gen = torch.Generator().manual_seed(_random_seed(clip_weights))
+        cfg = clip_cfg or clip_model.VIT_B_32
+        return clip_model.init(gen, cfg), cfg
+    if not clip_weights.endswith(".npz"):
+        raise NotImplementedError(
+            f"CLIP weights {clip_weights!r}: only converted .npz checkpoints "
+            "load here; the OpenAI .pt format is ROADMAP item 14")
+    if not os.path.exists(clip_weights):
+        raise FileNotFoundError(f"CLIP weights not found at {clip_weights!r}")
+    cfg = _read_cfg_sidecar(clip_weights, clip_model.CLIPConfig)
+    if cfg is None:
+        raise FileNotFoundError(f"{clip_weights}: its _cfg.json sidecar is missing")
+    if not isinstance(cfg.vision_layers, int):  # per-stage counts: a ResNet
+        raise NotImplementedError(
+            f"CLIP weights {clip_weights!r}: the ResNet towers are ROADMAP item 11")
+    return from_jax.convert_clip(pytree.load_npz(clip_weights)), cfg
+
+
+def _load_stylegan2(config, model_cfg):
+    """G, D (for the `*_d` configs), noise planes (None: draw them) and the
+    model config. `config.weights`: 'random:<seed>', or a directory of
+    converted checkpoints: `Gs.npz` (the EMA generator, preferred, as the
+    reference evaluates it) or `G.npz`, each with `<stem>_cfg.json`, `D.npz`,
+    and optionally `<stem>_noise.npz` (JAX package: generator.py:358-420)."""
+    if _is_random(config.weights):
+        gen = torch.Generator().manual_seed(_random_seed(config.weights))
+        cfg = model_cfg or sg2.CONFIG_F
+        g = sg2.generator_init(gen, cfg)
+        d = sg2.discriminator_init(gen, cfg) if config.use_discriminator else None
+        return g, d, None, cfg
+    root = config.weights
+    stem = next((s for s in ("Gs", "G")
+                 if os.path.exists(os.path.join(root, f"{s}.npz"))), None)
+    if stem is None:
+        if any(os.path.exists(os.path.join(root, f"{s}.pth")) for s in ("Gs", "G")):
+            raise NotImplementedError(
+                f"StyleGAN2 weights under {root!r} are in the reference's .pth "
+                "format; loading it is ROADMAP item 14 (convert them to npz with "
+                "scripts/convert_weights.py)")
+        raise FileNotFoundError(
+            f"StyleGAN2 weights not found under {root!r} (Gs/G .npz); convert "
+            "the reference checkpoints (scripts/convert_weights.py) or use "
+            "weights='random:<seed>'")
+    g_path = os.path.join(root, f"{stem}.npz")
+    cfg = _read_cfg_sidecar(g_path, sg2.SG2Config)
+    if cfg is None:
+        raise FileNotFoundError(f"{g_path}: its {stem}_cfg.json sidecar is missing")
+    g = from_jax.convert_generator(pytree.restore_lists(pytree.load_npz(g_path)))
+    d = None
     if config.use_discriminator:
-        bundle["d"] = sg2.discriminator_init(gm, model_cfg)
-    return bundle
+        d = from_jax.convert_discriminator(pytree.restore_lists(
+            pytree.load_npz(os.path.join(root, "D.npz"))))
+    noise = None
+    n_path = os.path.join(root, f"{stem}_noise.npz")
+    if os.path.exists(n_path):
+        with np.load(n_path) as data:
+            noise = from_jax.convert_noise([data[k] for k in sorted(data.files, key=int)])
+    return g, d, noise, cfg
+
+
+def load_bundle(config, clip_cfg=None, model_cfg=None, clip_weights: str = "random:0"):
+    """CLIP, G, D and noise planes (fp32, CPU) as `config.weights` and
+    `clip_weights` name them, with the CLIP and model configs (a checkpoint's
+    sidecar wins over the one passed in). Random draws happen on the CPU, so
+    one seed gives the same weights on every device; noise planes a
+    checkpoint does not hold are drawn from NOISE_SEED."""
+    clip, clip_cfg = _load_clip(clip_weights, clip_cfg)
+    g, d, noise, model_cfg = _load_stylegan2(config, model_cfg)
+    if noise is None:
+        gn = torch.Generator().manual_seed(NOISE_SEED)
+        noise = [torch.randn(s, generator=gn) for s in model_cfg.noise_shapes()]
+    bundle = {"clip": clip, "g": g, "noise": noise}
+    if d is not None:
+        bundle["d"] = d
+    return bundle, clip_cfg, model_cfg
+
+
+@torch.inference_mode()
+def quantize_u8(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] images -> uint8 on their own device, rounding as the JPEG
+    writer does ((x*255 + 0.5) truncated), so the copy to the host is 4x
+    smaller than fp32's."""
+    return (images.float() * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
 
 
 class Generator:
@@ -90,11 +190,12 @@ class Generator:
         self.config = config
         self.device = resolve_device(device)
         self.policy = policy or Policy.make(config.param_dtype, config.compute_dtype)
-        self.clip_cfg = clip_cfg or clip_model.VIT_B_32
-        self.model_cfg = model_cfg or sg2.CONFIG_F
         if bundle is None:
-            bundle = random_bundle(config, self.clip_cfg, self.model_cfg,
-                                   clip_weights)
+            bundle, self.clip_cfg, self.model_cfg = load_bundle(
+                config, clip_cfg, model_cfg, clip_weights)
+        else:
+            self.clip_cfg = clip_cfg or clip_model.VIT_B_32
+            self.model_cfg = model_cfg or sg2.CONFIG_F
         if config.use_discriminator and bundle.get("d") is None:
             raise ValueError(f"config {config.name!r} needs discriminator weights")
 
@@ -228,3 +329,11 @@ class Generator:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
         return torch.cat([self._eval_batch(X[i:i + mb], bundle)
                           for i in range(0, pop, mb)], dim=0)
+
+    def save(self, generated: np.ndarray, path: str):
+        """Artifact dump (reference generator.py:63-72): an image grid, or
+        the image itself for one, from uint8 [B, 3, H, W] that the caller
+        quantized on the device (`quantize_u8(...).cpu().numpy()`)."""
+        from clip_glass_torch.utils.image import save_grid
+
+        save_grid(generated, path)

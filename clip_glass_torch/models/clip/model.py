@@ -97,8 +97,9 @@ def _stack(blocks):
     return torch.stack(blocks)
 
 
-def init(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
-    """Random parameters (the JAX package's distributions and scales)."""
+def init_tree(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
+    """Random parameters (the JAX package's distributions and scales) in the
+    JAX layout (what a converted CLIP `.npz` holds)."""
     w, tw = cfg.vision_width, cfg.transformer_width
     scale_v, scale_t = w ** -0.5, tw ** -0.5
     n_tok = cfg.grid ** 2 + 1
@@ -120,10 +121,13 @@ def init(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
         "ln_final": {"scale": torch.ones(tw), "bias": torch.zeros(tw)},
         "text_projection": scale_t * _randn(gen, tw, cfg.embed_dim),
     }
-    return from_jax.convert_clip({
-        "visual": visual, "text": text,
-        "logit_scale": torch.tensor(float(torch.log(torch.tensor(1 / 0.07)))),
-    })
+    return {"visual": visual, "text": text,
+            "logit_scale": torch.tensor(float(torch.log(torch.tensor(1 / 0.07))))}
+
+
+def init(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
+    """Random parameters in the port's layout."""
+    return from_jax.convert_clip(init_tree(gen, cfg))
 
 
 # ---------------------------------------------------------------- forward

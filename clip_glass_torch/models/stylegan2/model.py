@@ -150,7 +150,9 @@ def _conv_init(gen, in_ch, out_ch, k, latent=None, lr_mul=1.0, noise=False):
     return p
 
 
-def _generator_tree(gen, cfg: SG2Config):
+def generator_tree(gen, cfg: SG2Config = CONFIG_F):
+    """Random G parameters in the JAX layout (what a converted `Gs.npz`
+    holds)."""
     mapping = {"dense": [
         _dense_init(gen, cfg.latent_size, cfg.latent_size, cfg.mapping_lr_mul)
         for _ in range(cfg.mapping_layers)]}
@@ -171,7 +173,9 @@ def _generator_tree(gen, cfg: SG2Config):
             "dlatent_avg": torch.zeros(cfg.latent_size)}
 
 
-def _discriminator_tree(gen, cfg: SG2Config):
+def discriminator_tree(gen, cfg: SG2Config = CONFIG_F):
+    """Random D parameters in the JAX layout (what a converted `D.npz`
+    holds)."""
     ch = list(cfg.channels)
     tree = {"from_rgb": _conv_init(gen, cfg.data_channels, ch[0], 1),
             "blocks": []}
@@ -191,12 +195,12 @@ def _discriminator_tree(gen, cfg: SG2Config):
 
 def generator_init(gen: torch.Generator, cfg: SG2Config = CONFIG_F):
     """Random G parameters (the JAX package's distributions and scales)."""
-    return from_jax.convert_generator(_generator_tree(gen, cfg))
+    return from_jax.convert_generator(generator_tree(gen, cfg))
 
 
 def discriminator_init(gen: torch.Generator, cfg: SG2Config = CONFIG_F):
     """Random D parameters (the JAX package's distributions and scales)."""
-    return from_jax.convert_discriminator(_discriminator_tree(gen, cfg))
+    return from_jax.convert_discriminator(discriminator_tree(gen, cfg))
 
 
 # ---------------------------------------------------------------- forward

@@ -1,5 +1,5 @@
-"""clip_glass_torch's NSGA-II operators, sort and survival against the JAX
-package's. The JAX operators split their keys and draw their uniforms and
+"""clip_glass_torch's GA and NSGA-II operators, sort, survival, result and
+decision against the JAX package's. The JAX operators split their keys and draw their uniforms and
 permutations; the tests draw exactly those arrays with jax.random and feed
 them to the port's core functions, so both sides see the same randomness.
 
@@ -19,20 +19,26 @@ from clip_glass_tpu.evolve import crossover as jxo
 from clip_glass_tpu.evolve import mutation as jmut
 from clip_glass_tpu.evolve import sampling as jsmp
 from clip_glass_tpu.evolve import selection as jsel
+from clip_glass_tpu.evolve import decision as jdecision
+from clip_glass_tpu.evolve.algorithm import extract_result as jextract
 from clip_glass_tpu.evolve.algorithm import resample_duplicates as jresample
 from clip_glass_tpu.evolve.nds import crowding_distance as jcrowd
 from clip_glass_tpu.evolve.nds import non_dominated_rank as jrank
+from clip_glass_tpu.evolve.survival import fitness_survival as jfitness_survival
 from clip_glass_tpu.evolve.survival import nsga2_survival as jsurvival
 
 from clip_glass_torch.config import get_config
 from clip_glass_torch.evolve import crossover as txo
+from clip_glass_torch.evolve import decision as tdecision
 from clip_glass_torch.evolve import mutation as tmut
 from clip_glass_torch.evolve import sampling as tsmp
 from clip_glass_torch.evolve import selection as tsel
-from clip_glass_torch.evolve.algorithm import minimize, resample_duplicates_core
+from clip_glass_torch.evolve.algorithm import (extract_result, minimize,
+                                               resample_duplicates_core)
 from clip_glass_torch.evolve.nds import crowding_distance as tcrowd
 from clip_glass_torch.evolve.nds import domination_matrix
 from clip_glass_torch.evolve.nds import non_dominated_rank as trank
+from clip_glass_torch.evolve.survival import fitness_survival as tfitness_survival
 from clip_glass_torch.evolve.survival import nsga2_survival as tsurvival
 from clip_glass_torch.fitness.problem import GenerationProblem
 from clip_glass_torch.models.clip import model as tclip
@@ -150,6 +156,76 @@ def test_tournament_nsga2_matches_jax(rng, dup):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dup", [False, True])
+def test_tournament_ga_matches_jax(rng, dup):
+    """Equal indices, with tied fitness values when dup (the coin decides)."""
+    n, n_select = 16, 8
+    F = _F(rng, n, 1, dup)
+    if dup:
+        F[:6] = F[0]
+    key = jax.random.PRNGKey(10)
+    want = np.asarray(jsel.tournament_ga(key, jnp.asarray(F), n_select))
+    k_pairs, k_tie = jax.random.split(key)
+    cand = jsel._permutation_pairs(k_pairs, n, n_select * 2)
+    tie = jax.random.bernoulli(k_tie, 0.5, (n_select * 2,))
+    got = tsel.tournament_ga_core(T(F), torch.as_tensor(np.array(cand)),
+                                  torch.as_tensor(np.array(tie)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the port's own draw: [n_select, 2] members of the population
+    pairs = tsel.tournament_ga(torch.Generator().manual_seed(0), T(F), n_select)
+    assert pairs.shape == (n_select, 2) and 0 <= pairs.min() and pairs.max() < n
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_fitness_survival_matches_jax(rng, dup):
+    """Stable sort: tied fitness keeps the JAX order; X and F equal."""
+    n, pop = 32, 16
+    F = _F(rng, n, 1, dup)
+    if dup:
+        F[::3] = F[0]
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    want = jfitness_survival(jnp.asarray(X), jnp.asarray(F), pop)
+    got = tfitness_survival(T(X), T(F), pop)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(N(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("algorithm", ["ga", "nsga2"])
+def test_extract_result_matches_jax(rng, algorithm):
+    """The GA's single best row (the first of tied minima) and NSGA-II's
+    rank-0 front; G and CV zeros of the same shapes: equal."""
+    n_obj = 1 if algorithm == "ga" else 2
+    F = _F(rng, 16, n_obj, dup=True)
+    F[5, 0] = F[11, 0] = F[:, 0].min() - 1.0
+    X = rng.normal(size=(16, 6)).astype(np.float32)
+    want = jextract(X, F, algorithm, None)
+    got = extract_result(T(X), T(F), algorithm, None)
+    for name in ("X", "F", "G", "CV", "pop_X", "pop_F"):
+        w, g = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w)
+    if algorithm == "ga":
+        np.testing.assert_array_equal(got.X.numpy(), X[5])
+
+
+@pytest.mark.parametrize("case", ["front0", "front1", "front2", "degenerate", "single"])
+def test_decision_pick_matches_jax(rng, case):
+    """Same index: pseudo-weights on random Pareto fronts, the ASF
+    fallback on a front whose first objective has no range, and one row."""
+    if case == "degenerate":
+        F = np.array([[0.3, 1.0], [0.3, 0.2], [0.3, 0.5]], np.float32)
+    elif case == "single":
+        F = np.array([[0.1, 0.4]], np.float32)
+    else:
+        u = np.random.default_rng(int(case[-1])).normal(size=(9, 2))
+        F = np.stack([np.sort(u[:, 0]), np.sort(u[:, 1])[::-1]], 1).astype(np.float32)
+    assert tdecision.pick(F, (0, 1)) == jdecision.pick(F, (0, 1))
+    if case == "degenerate":
+        with pytest.raises(ValueError):
+            tdecision.pseudo_weights(F, (0, 1))
+        assert tdecision.pick(F, (0, 1)) == tdecision.asf(F, (0, 1)) == 1
+
+
 def test_resample_duplicates_matches_jax(rng):
     n, n_var = 8, 5
     pop_X = rng.normal(size=(n, n_var)).astype(np.float32)
@@ -199,3 +275,32 @@ def test_tiny_search_is_deterministic_and_valid():
     assert (trank(a.pop_F) == 0).sum() == a.F.shape[0] == a.X.shape[0]
     c, _, _ = _tiny_search(1)
     assert not torch.equal(a.pop_X, c.pop_X)
+
+
+@pytest.mark.parametrize("name,item", [("DeepMindBigGAN256", "item 9"),
+                                       ("GPT2", "item 10")])
+def test_operators_refuse_unported_families(name, item):
+    from clip_glass_torch.evolve.algorithm import operators_for_config
+
+    with pytest.raises(NotImplementedError, match=item):
+        operators_for_config(get_config(name))
+
+
+def test_tiny_ga_search_is_elitist_and_valid():
+    """The GA branch (the _nod configs): best fitness never rises, the
+    result is the population's first best row."""
+    cfg = get_config("StyleGAN2_ffhq_nod").replace(
+        pop_size=8, dim_z=32, n_var=32, weights="random:0",
+        target="a red flower", compute_dtype="float32")
+    problem = GenerationProblem(cfg, device="cpu", clip_cfg=tclip.TINY,
+                                model_cfg=tsg2.TINY)
+    algorithm = problem.make_algorithm()
+    assert algorithm.algorithm == "ga"
+    best = []
+    res = minimize(algorithm, 3, 0, save_each=1,
+                   callback=lambda s: best.append(s.F[:, 0].min().item()))
+    assert best == sorted(best, reverse=True) and res.state.gen == 3
+    assert res.pop_F.shape == (8, 1) and torch.isfinite(res.pop_F).all()
+    i = int(res.pop_F[:, 0].argmin())
+    assert torch.equal(res.X, res.pop_X[i]) and torch.equal(res.F, res.pop_F[i])
+    assert res.G.shape == (1,) and res.CV.shape == (1, 1)

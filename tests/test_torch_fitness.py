@@ -138,9 +138,11 @@ def test_port_random_problem_is_seeded():
 
 
 def test_unported_configs_raise():
+    """GPT-2 is not ported; a checkpoint directory that does not exist
+    raises FileNotFoundError, as in the JAX package."""
     with pytest.raises(NotImplementedError):
         GenerationProblem(get_config("GPT2"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         GenerationProblem(_config(get_config).replace(weights="./weights/x"),
                           device="cpu", clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
 

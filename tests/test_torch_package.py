@@ -33,7 +33,7 @@ def _port_modules():
 def test_importing_every_module_leaves_out_jax():
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
-            "import chip_smoke\n"
+            "import chip_smoke, run_torch\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(len(sys.modules)); print(bad)\n"
             "assert not bad, bad\n")
@@ -58,7 +58,8 @@ def _imported_names(path: pathlib.Path):
             yield node.args[0].value
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                               ROOT / "run_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN]
