@@ -43,8 +43,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      must write the artifact set, and launch every kernel on the variants
      phase 3 saw the main path take; one line per run with the `wallclock:`
      phases, seconds per generation and the periodic dumps' times.
-The last lines are the kernels' summary (JSON), the card's name and power
-limit, and {"ok": true, "device": {...}}.
+Then the BigGAN-deep paths, whose one kernel is kernel 4 at the bottleneck
+blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample):
+  8. biggan kernels: kernel 4 at every call shape of DeepMindBigGAN256
+     (pop 64) and DeepMindBigGAN512 (pop 32) (`biggan_shapes`), bf16, as
+     phase 3 measures the flagship's, on the variant `expected_variant`
+     names (wmma at C' = 256, wgmma at 128);
+  9. biggan agreement: the TINY BigGAN GA fitness on the GPU against the
+     CPU, fp32, plain (bg.TINY) and with both blocks' mid segments in the
+     s2d domain (s2d_min_res=4);
+ 10. biggan main: both configs' GA at full width (bf16, CLIP ViT-B/32,
+     random weights from seed 0), init + 2 generations each, with kernel
+     4's launches by variant, then G and CLIP stage times (CUDA events);
+ 11. biggan domains: one fp32 DeepMindBigGAN256 evaluation of one
+     population in both domains, and their largest difference (printed);
+ 12. biggan cli: `cli.main` with no --config (DeepMindBigGAN512), random
+     weights, 2 generations: the artifact set, ls_result.npz with z and
+     class_labels.
+The last lines are the kernels' summary (JSON; kernel 4's entry carries a
+`biggan` record per config), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -558,11 +576,13 @@ FIRST_DESIGN = {"upsample2x": "rows", "modulated_matmul": "chunked", "s2d_conv2x
 
 
 def expected_variant(name: str, shape) -> str:
-    """The variant a flagship call shape must take: the redesigned one from
-    32 px up (kernel 2: the input's height; kernel 3: the pixels), the first
-    design's on launch-sized inputs below; kernel 4's redesign everywhere."""
+    """The variant a call shape must take: the redesigned one from 32 px up
+    (kernel 2: the input's height; kernel 3: the pixels), the first design's
+    on launch-sized inputs below; kernel 4's redesign at C' = 64 and 128
+    (every flagship call, BigGAN-deep-512's last blocks), its first design
+    at BigGAN-deep's C' = 256, whose weights do not fit shared memory."""
     if name == "s2d_conv2x2":
-        return "wgmma"
+        return "wgmma" if shape[2] in (64, 128) else "wmma"
     if name == "upsample2x":
         return "tiled" if shape[1] >= 32 else "rows"
     return "mma" if shape[1] >= 32 * 32 else "chunked"
@@ -615,17 +635,50 @@ def _kernels():
             modulated_conv.modulated_matmul, s2d.s2d_conv2x2)
 
 
+def _zero_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        for v in getattr(k, "launches_by_variant", {}):
+            k.launches_by_variant[v] = 0
+
+
+def _agreement(family: str, cfg, X, models: dict, bundle=None) -> None:
+    """The fitness of `X` on the GPU (kernels) against the CPU (plain
+    versions) for each model config of `models` (label -> (config, the four
+    kernels' launches per GPU evaluation)); the CPU evaluation launches none.
+    fp32 on both sides with TF32 off: cuDNN/cuBLAS sum in another order than
+    the CPU kernels over ~20 layers, hence rtol 1e-3, atol 1e-4."""
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+
+    kernels = _kernels()
+    for label, (model_cfg, want) in models.items():
+        Fs = {}
+        for dev in ("cpu", "cuda"):
+            p = GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
+                                  model_cfg=model_cfg, bundle=bundle)
+            before = [k.launches for k in kernels]
+            Fs[dev] = p.generator.eval_population(X.to(dev)).cpu()
+            moved = tuple(k.launches - n for k, n in zip(kernels, before))
+            if moved != (want if dev == "cuda" else (0, 0, 0, 0)):
+                raise AssertionError(f"{family} {label} {dev}: kernel launches {moved}")
+        err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
+        if not torch.allclose(Fs["cuda"], Fs["cpu"], rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"{family} {label} fitness on the GPU disagrees with the "
+                                 f"CPU: {Fs['cuda']} vs {Fs['cpu']}")
+        log({"phase": "agreement", "config": f"{family} {label} fp32", "max_abs_err": err,
+             "fitness_spread": (Fs["cpu"].max(0).values - Fs["cpu"].min(0).values).tolist(),
+             "launches": dict(zip([k.__name__ for k in kernels], want))})
+
+
 def phase_agreement():
     """TINY problem's fitness on the GPU (kernels) against the CPU (plain
     versions), fp32, in both domains; the GPU evaluation launches each
     kernel at every call site, the CPU one none. tests/test_torch_cuda.py
     runs this same check."""
     from clip_glass_torch.config import get_config
-    from clip_glass_torch.fitness.problem import GenerationProblem
-    from clip_glass_torch.models.clip import model as clip_model
     from clip_glass_torch.models.stylegan2 import model as sg2
 
-    kernels = _kernels()
     cfg = get_config("StyleGAN2_ffhq_d").replace(
         pop_size=8, dim_z=32, n_var=32, weights="random:0", target=TARGET,
         compute_dtype="float32")
@@ -633,26 +686,9 @@ def phase_agreement():
     # launches per evaluation. TINY (plain): 5 synthesis layers, 2 skip
     # upsamples, 3 ToRGB. TINY_S2D (levels 8 and 16 in the s2d domain): 5
     # layer epilogues, ToRGB at 4 px only, two [2,2] folds in G and two in D
-    models = {"TINY": (sg2.TINY, (5, 2, 3, 0)),
-              "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))}
-    for label, (model_cfg, want) in models.items():
-        Fs = {}
-        for dev in ("cpu", "cuda"):
-            p = GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
-                                  model_cfg=model_cfg)
-            before = [k.launches for k in kernels]
-            Fs[dev] = p.generator.eval_population(X.to(dev)).cpu()
-            moved = tuple(k.launches - n for k, n in zip(kernels, before))
-            if moved != (want if dev == "cuda" else (0, 0, 0, 0)):
-                raise AssertionError(f"{label} {dev}: kernel launches {moved}")
-        err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
-        # fp32 on both sides with TF32 off: cuDNN/cuBLAS sum in another order
-        # than the CPU kernels over ~20 layers
-        if not torch.allclose(Fs["cuda"], Fs["cpu"], rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"{label} fitness on the GPU disagrees with the CPU: "
-                                 f"{Fs['cuda']} vs {Fs['cpu']}")
-        log({"phase": "agreement", "config": f"{label} fp32", "max_abs_err": err,
-             "launches": dict(zip([k.__name__ for k in kernels], want))})
+    _agreement("StyleGAN2", cfg, X, {
+        "TINY": (sg2.TINY, (5, 2, 3, 0)),
+        "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))})
 
 
 # ------------------------------------------------------------ phase 5
@@ -696,10 +732,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
 
     torch.cuda.reset_peak_memory_stats()
     gen = algorithm.generator(0)
-    for k in kernels:
-        k.launches = 0
-        for v in getattr(k, "launches_by_variant", {}):
-            k.launches_by_variant[v] = 0
+    _zero_counts(kernels)
     t = time.perf_counter()
     state = algorithm.init(gen)
     torch.cuda.synchronize()
@@ -828,11 +861,13 @@ def _write_converted(root: str) -> None:
             json.dump(dataclasses.asdict(c), f)
 
 
-def _cli_run(label: str, folder: str, config: str, generations: int, summary: dict,
-             *extra, first_gen: int = 0) -> dict:
+def _cli_run(label: str, folder: str, config, generations: int, want_variants: dict,
+             *extra, first_gen: int = 0, pop=POP) -> dict:
     """One in-process CLI run with the kernels' counts set to 0 just before
-    it; checks its artifacts and that every kernel launched on the variants
-    the main path took (phase 3's choice at the flagship's shapes)."""
+    it; checks its artifacts and that each kernel of `want_variants` (name
+    -> the variants it must launch, or None for a kernel without variants)
+    launched on those variants, and no other kernel. `config` None runs
+    the CLI's default config, `pop` None the config's population."""
     import contextlib
     import io
     import pickle
@@ -840,14 +875,14 @@ def _cli_run(label: str, folder: str, config: str, generations: int, summary: di
     from clip_glass_torch import cli
 
     kernels = _kernels()
-    for k in kernels:
-        k.launches = 0
-        for v in getattr(k, "launches_by_variant", {}):
-            k.launches_by_variant[v] = 0
+    _zero_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--config", config, "--target", TARGET, "--generations", str(generations),
-            "--save-each", "2", "--tmp-folder", folder, "--pop-size", str(POP),
-            "--device", "cuda", "--seed", "0", *extra]
+    argv = ["--target", TARGET, "--generations", str(generations), "--save-each", "2",
+            "--tmp-folder", folder, "--device", "cuda", "--seed", "0", *extra]
+    if config is not None:
+        argv += ["--config", config]
+    if pop is not None:
+        argv += ["--pop-size", str(pop)]
     if "--weights" not in extra:
         argv += ["--weights", "random:0", "--clip-weights", "random:0"]
     out = io.StringIO()
@@ -859,7 +894,7 @@ def _cli_run(label: str, folder: str, config: str, generations: int, summary: di
         raise AssertionError(f"cli {label}: exit {rc}: {lines[-5:]}")
     # a periodic dump per 2 generations run, the last one named "final"
     want = CLI_ARTIFACTS | {f"genetic-it-{g}.jpg" for g in range(first_gen + 2, generations, 2)}
-    if config.endswith("_d"):
+    if (config or "").endswith("_d"):
         want.add("F.jpg")
     if set(os.listdir(folder)) != want:
         raise AssertionError(f"cli {label}: artifacts {sorted(os.listdir(folder))}")
@@ -871,11 +906,10 @@ def _cli_run(label: str, folder: str, config: str, generations: int, summary: di
     variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
                 if k.__name__ in FIRST_DESIGN}
     for name, n in launches.items():
-        if not n:
-            raise AssertionError(f"cli {label}: {name} never launched")
-    for name in FIRST_DESIGN:
-        missing = [v for v, n in summary[name]["s2d"]["launches_by_variant"].items()
-                   if n and not variants[name].get(v)]
+        if bool(n) != (name in want_variants):
+            raise AssertionError(f"cli {label}: {name} launched {n} times, expected "
+                                 f"{'some' if name in want_variants else 'none'}")
+        missing = [v for v in want_variants.get(name) or () if not variants[name].get(v)]
         if missing:
             raise AssertionError(f"cli {label}: {name} did not launch {missing}")
     wall = next(line for line in lines if line.startswith("wallclock:"))
@@ -883,8 +917,8 @@ def _cli_run(label: str, folder: str, config: str, generations: int, summary: di
               (part.split("=") for part in wall.split()[1:])}
     dumps = [line for line in lines if line.startswith("dump ")]
     run_gens = generations - first_gen
-    rec = {"phase": "cli", "run": label, "config": config, "extra_args": list(extra),
-           "wallclock": phases, "generations": [first_gen, generations],
+    rec = {"phase": "cli", "run": label, "config": config or "(default)",
+           "extra_args": list(extra), "wallclock": phases, "generations": [first_gen, generations],
            "search_s_per_generation": phases["search+dumps"] / run_gens,
            "dumps": dumps, "rate": [line.strip() for line in lines if "rate:" in line],
            "launches": launches, "launches_by_variant": variants,
@@ -893,18 +927,26 @@ def _cli_run(label: str, folder: str, config: str, generations: int, summary: di
     return rec
 
 
+def _flagship_variants(summary: dict) -> dict:
+    """Every kernel, on the variants phase 3 saw the flagship's s2d path
+    take."""
+    return {name: ({v for v, n in summary[name]["s2d"]["launches_by_variant"].items() if n}
+                   if name in FIRST_DESIGN else None) for name in KERNEL_META}
+
+
 def phase_cli(summary: dict) -> None:
     import pickle
     import tempfile
 
     import numpy as np
 
+    want = _flagship_variants(summary)
     with tempfile.TemporaryDirectory() as tmp:
         a, b, c, d, w = (os.path.join(tmp, x) for x in "abcdw")
-        _cli_run("A1", a, "StyleGAN2_ffhq_d", 2, summary)
+        _cli_run("A1", a, "StyleGAN2_ffhq_d", 2, want)
         a1 = _npz(os.path.join(a, "ga_state.npz"))
-        _cli_run("A2", a, "StyleGAN2_ffhq_d", 4, summary, "--resume", first_gen=2)
-        _cli_run("B", b, "StyleGAN2_ffhq_d", 4, summary)
+        _cli_run("A2", a, "StyleGAN2_ffhq_d", 4, want, "--resume", first_gen=2)
+        _cli_run("B", b, "StyleGAN2_ffhq_d", 4, want)
         a2, sb = _npz(os.path.join(a, "ga_state.npz")), _npz(os.path.join(b, "ga_state.npz"))
         if int(a2["gen"]) != 4 or int(sb["gen"]) != 4:
             raise AssertionError(f"cli: gen {a2['gen']} / {sb['gen']}, expected 4")
@@ -913,11 +955,11 @@ def phase_cli(summary: dict) -> None:
         t = time.perf_counter()
         _write_converted(w)
         write_s = time.perf_counter() - t
-        _cli_run("C", c, "StyleGAN2_ffhq_d", 2, summary, "--weights", w,
+        _cli_run("C", c, "StyleGAN2_ffhq_d", 2, want, "--weights", w,
                  "--clip-weights", os.path.join(w, "clip.npz"))
         _same_state("cli: converted checkpoints C vs random:0 A1",
                     _npz(os.path.join(c, "ga_state.npz")), a1)
-        _cli_run("D", d, "StyleGAN2_ffhq_nod", 2, summary)
+        _cli_run("D", d, "StyleGAN2_ffhq_nod", 2, want)
         sd = _npz(os.path.join(d, "ga_state.npz"))
         with open(os.path.join(d, "genetic_result"), "rb") as f:
             res = pickle.load(f)
@@ -931,6 +973,251 @@ def phase_cli(summary: dict) -> None:
         log({"phase": "cli", "check": "A2 == B and C == A1 bitwise; D's GA artifacts",
              "converted_write_s": write_s, "converted_bytes": sum(
                  os.path.getsize(os.path.join(w, f)) for f in os.listdir(w))})
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phases 8-12: BigGAN-deep
+
+# the configs' own populations (clip_glass_torch/config.py)
+BIGGAN_POP = {"DeepMindBigGAN256": 64, "DeepMindBigGAN512": 32}
+BIGGAN_GENERATIONS = 2
+
+
+def _biggan_cfg(name: str):
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.models.biggan import model as bg
+
+    return bg.CONFIGS[f"biggan-deep-{get_config(name).resolution}"]
+
+
+def biggan_shapes(cfg, pop: int):
+    """Per-evaluation call shapes of kernel 4 for BigGAN-deep config `cfg`,
+    (B, n, C', pad0, modulated): the [2,2] folds of each block whose mid
+    segment runs in the s2d domain (output resolution >= s2d_min_res and
+    4 * mid <= 512; C' = 4 * mid), one weight set for every sample. A
+    same-resolution block folds conv_1 (lattice 0 -> -1, pad0 1) and conv_2
+    (-1 -> 0, pad0 0); an up block only conv_2 (-1 -> 0): its conv_1 is the
+    nearest-up fold, a cuDNN conv."""
+    shapes = []
+    res = 4
+    for up, in_m, _ in cfg.layers:
+        out_res = 2 * res if up else res
+        mid = cfg.channel_width * in_m // 4
+        if out_res >= cfg.s2d_min_res and 4 * mid <= 512:
+            n = out_res // 2
+            if not up:
+                shapes.append((pop, n, 4 * mid, 1, False))
+            shapes.append((pop, n + 1, 4 * mid, 0, False))
+        res = out_res
+    return shapes
+
+
+def phase_kernels_biggan(summary: dict) -> None:
+    """Kernel 4 at every BigGAN call shape, bf16, measured as phase 3
+    measures the flagship's (the first design beside the wgmma variant);
+    the per-evaluation sums of each config go to summary["s2d_conv2x2"]
+    ["biggan"]."""
+    from clip_glass_torch.ops import s2d
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k4 = s2d.s2d_conv2x2
+    out = {}
+    for name, pop in BIGGAN_POP.items():
+        counts = _counts(biggan_shapes(_biggan_cfg(name), pop))
+        recs = {}
+        for shape in counts:
+            args = _s2d_case(shape, torch.bfloat16, gen)
+            n_bytes, n_ops = _s2d_cost(shape, args)
+            first = expected_variant("s2d_conv2x2", shape) == FIRST_DESIGN["s2d_conv2x2"]
+            rec = _measure(k4, s2d.s2d_conv2x2_plain, args, torch.bfloat16, shape, n_bytes,
+                           n_ops, _s2d_library(args), scaled=True,
+                           peak=PEAK_BF16_TC_OPS_PER_S,
+                           previous=None if first else _s2d_previous(args), device_time=True)
+            rec["variant"] = _variant_of(k4, args)
+            _check_variant("s2d_conv2x2", shape, rec)
+            rec.update(config=name, launches_per_evaluation=counts[shape])
+            log(rec)
+            recs[shape] = (rec, n_bytes, n_ops)
+            del args
+            torch.cuda.empty_cache()
+        tot = _path_sum(counts, recs, PEAK_BF16_TC_OPS_PER_S)
+        tot["launches_by_variant"] = {}
+        for shape, count in counts.items():
+            v = recs[shape][0]["variant"]
+            tot["launches_by_variant"][v] = tot["launches_by_variant"].get(v, 0) + count
+        out[name] = tot
+    summary["s2d_conv2x2"]["biggan"] = out
+
+
+def lively_biggan(cfg, seed: int):
+    """BigGAN weights with no near-flat term, for comparisons: the random
+    tree's leaves redrawn from a generator seeded `seed` (weights at
+    1/sqrt(fan_in), running variances in [0.5, 1.5), BN gains around 1,
+    running means, biases and the attention gain at 0.3 N(0, 1))."""
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.weights import from_jax
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(t, key=""):
+        if isinstance(t, dict):
+            return {k: draw(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [draw(v) for v in t]
+        r = torch.randn(t.shape, generator=g)
+        if key == "w":
+            return r / math.sqrt(math.prod(t.shape[:-1]))
+        if key == "running_vars":
+            return 0.5 + torch.rand(t.shape, generator=g)
+        return 1.0 + 0.2 * r if key == "weight" else 0.3 * r
+
+    return from_jax.convert_biggan(draw(bg.init_tree(g, cfg)))
+
+
+def phase_agreement_biggan() -> None:
+    """The TINY BigGAN GA fitness on the GPU (kernels) against the CPU
+    (plain versions), fp32, on lively weights: plain (bg.TINY, no kernel)
+    and with both blocks' mid segments in the s2d domain (s2d_min_res=4:
+    kernel 4 twice in the 4 px block, once in the up block).
+    tests/test_torch_cuda.py runs this same check."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import mixed_biggan_sampling
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.models.clip import model as clip_model
+
+    cfg = get_config("DeepMindBigGAN512").replace(
+        pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8, weights="random:0",
+        target=TARGET, compute_dtype="float32")
+    X = mixed_biggan_sampling(torch.Generator().manual_seed(1), 8, 16, 10, bool_prob=0.3)
+    bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
+              "g": lively_biggan(bg.TINY, 1)}
+    _agreement("BigGAN", cfg, X, {
+        "TINY": (bg.TINY, (0, 0, 0, 0)),
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3))}, bundle)
+
+
+def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
+    """The config's GA at full width (its own population, bf16, ViT-B/32,
+    random weights from seed 0), init + BIGGAN_GENERATIONS generations,
+    with kernel 4's counts set to 0 just before and read just after: it must
+    launch as phase 8 saw the wrapper choose at the config's call shapes,
+    and kernels 1-3 never. Then the G and CLIP stage times of one
+    evaluation of the final population (CUDA events, mean of 3)."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    config = get_config(name).replace(target=TARGET, weights="random:0")
+    pop = config.pop_size
+    t = time.perf_counter()
+    problem = GenerationProblem(config, device="cuda")
+    algorithm = problem.make_algorithm()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = algorithm.generator(0)
+    _zero_counts(kernels)
+    t = time.perf_counter()
+    state = algorithm.init(gen)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    init_s = stamps[0] - t
+
+    def on_generation(_state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = minimize(algorithm, BIGGAN_GENERATIONS, gen, callback=on_generation, save_each=1,
+                   state=state)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    variants = dict(kernels[3].launches_by_variant)
+    peak = torch.cuda.max_memory_allocated()
+
+    Fp = res.pop_F
+    if tuple(Fp.shape) != (pop, 1) or not torch.isfinite(Fp).all():
+        raise AssertionError(f"{name}: bad fitness: shape {tuple(Fp.shape)}, {Fp}")
+    if not (Fp[:, 0].abs() <= 1.0 + 1e-6).all():
+        raise AssertionError(f"{name}: |cos| > 1: {Fp[:, 0]}")
+    n_eval = BIGGAN_GENERATIONS + 1
+    want = {v: n * n_eval
+            for v, n in summary["s2d_conv2x2"]["biggan"][name]["launches_by_variant"].items()}
+    if {v: n for v, n in variants.items() if n} != want:
+        raise AssertionError(f"{name}: s2d_conv2x2 launches by variant {variants}, "
+                             f"expected {want}")
+    if any(launches[k.__name__] for k in kernels[:3]):
+        raise AssertionError(f"{name}: a StyleGAN2 kernel launched: {launches}")
+
+    X = res.pop_X.cuda()
+    with torch.inference_mode():
+        imgs = problem.generator.generate(X)
+        stage_ms = {"G": time_ms(lambda: problem.generator.generate(X), 3, warmup=1),
+                    "CLIP": time_ms(lambda: problem.generator.clip_similarity(imgs), 3,
+                                    warmup=1),
+                    "evaluation": time_ms(lambda: problem.generator.eval_population(X), 3,
+                                          warmup=1)}
+    gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    log({"phase": "main", "path": "biggan", "config": name,
+         "model": f"BigGAN-deep {config.resolution}px (s2d mid segments from "
+                  f"{_biggan_cfg(name).s2d_min_res} px)",
+         "clip": "VIT_B_32", "pop": pop, "compute_dtype": config.compute_dtype,
+         "generations": BIGGAN_GENERATIONS, "setup_s": setup_s, "init_eval_s": init_s,
+         "generation_s": gen_s, "candidates_per_s": [pop / s for s in gen_s],
+         "stage_ms": stage_ms, "max_memory_allocated_bytes": peak,
+         "best_cos": -Fp[:, 0].min().item(), "launches": launches,
+         "launches_by_variant": {"s2d_conv2x2": variants},
+         "launches_by_variant_per_evaluation": {v: n // n_eval for v, n in want.items()},
+         "device": kind, "nvidia_smi": smi})
+    del problem, algorithm, res, state, X, imgs
+    torch.cuda.empty_cache()
+    return launches["s2d_conv2x2"], variants
+
+
+def phase_domains_biggan() -> None:
+    """One fp32 DeepMindBigGAN256 evaluation (random weights from seed 0,
+    its pop 64) of one population in both domains (s2d mid segment at 256
+    px; s2d_min_res=2**30), TF32 off: exact rewrites of each other, so they
+    differ by summation order only. Printed, not asserted."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import mixed_biggan_sampling
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    config = get_config("DeepMindBigGAN256").replace(
+        target=TARGET, weights="random:0", compute_dtype="float32")
+    X = mixed_biggan_sampling(torch.Generator().manual_seed(2), config.pop_size)
+    base = _biggan_cfg("DeepMindBigGAN256")
+    Fs = {}
+    for path, model_cfg in (("s2d", base),
+                            ("plain", dataclasses.replace(base, s2d_min_res=2 ** 30))):
+        problem = GenerationProblem(config, device="cuda", model_cfg=model_cfg)
+        Fs[path] = problem.generator.eval_population(X.cuda()).cpu().double()
+        del problem
+        torch.cuda.empty_cache()
+    diff = (Fs["s2d"] - Fs["plain"]).abs()
+    log({"phase": "domains", "config": "DeepMindBigGAN256 fp32", "pop": config.pop_size,
+         "max_abs_diff": diff.max().item(),
+         "max_rel_diff_to_scale": (diff.max() / Fs["plain"].abs().max()).item(),
+         "objective_scale": Fs["plain"].abs().max().item(),
+         "objective_spread": (Fs["plain"].max() - Fs["plain"].min()).item()})
+
+
+def phase_cli_biggan() -> None:
+    """`cli.main` with no --config: DeepMindBigGAN512 at full width, its
+    pop 32, random weights from seed 0, 2 generations; only kernel 4
+    launches, on both variants."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "e")
+        _cli_run("E", folder, None, 2, {"s2d_conv2x2": {"wmma", "wgmma"}}, pop=None)
+        ls = _npz(os.path.join(folder, "ls_result.npz"))
+        shapes = {k: v.shape for k, v in ls.items()}
+        if shapes != {"z": (32, 128), "class_labels": (32, 1000)}:
+            raise AssertionError(f"cli E: ls_result.npz holds {shapes}")
+        if not abs(float(ls["class_labels"].sum()) - 32.0) < 1e-3:
+            raise AssertionError("cli E: class_labels are not softmax rows")
     torch.cuda.empty_cache()
 
 
@@ -957,6 +1244,11 @@ def main() -> int:
     plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
     phase_domains()
     phase_cli(summary)
+    phase_kernels_biggan(summary)
+    phase_agreement_biggan()
+    biggan = {name: phase_main_biggan(name, kind, smi, summary) for name in BIGGAN_POP}
+    phase_domains_biggan()
+    phase_cli_biggan()
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -971,6 +1263,13 @@ def main() -> int:
                         "host_us_per_call": host.get(name),
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
+                        **({"biggan": {
+                            cfg: {"launches": biggan[cfg][0],
+                                  "launches_by_variant": biggan[cfg][1],
+                                  "launches_per_evaluation": bs["launches_by_variant"],
+                                  **{k: bs[k] for k in keys}, "max_abs_err": bs["max_abs_err"]}
+                            for cfg, bs in summary[name]["biggan"].items()}}
+                           if name == "s2d_conv2x2" else {}),
                         "scope": f"launches: init + {GENERATIONS} generations of each "
                                  f"path (main: s2d; plain_path: s2d_min_res=2**30); "
                                  f"times: sum over the call shapes of one evaluation "
@@ -979,7 +1278,10 @@ def main() -> int:
                                  f"graph; previous_ms, previous_device_ms: the first "
                                  f"design's kernel, the same two ways; "
                                  f"host_us_per_call: the wrapper's host time at its "
-                                 f"4 px shape; max_abs_err: over both paths' shapes"})
+                                 f"4 px shape; max_abs_err: over both paths' shapes; "
+                                 f"biggan: each config's GA, init + "
+                                 f"{BIGGAN_GENERATIONS} generations (launches), sums over "
+                                 f"its call shapes of one evaluation (its pop, bf16)"})
     log({"kernels": kernels})
     log(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -66,9 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
                    help="not ported: " + REFUSED["quantize"])
     p.add_argument("--weights", type=str, default=None,
-                   help="override config weights: a directory of converted "
-                        "checkpoints (Gs.npz + Gs_cfg.json, D.npz, optional "
-                        "Gs_noise.npz), or 'random:<seed>' for random init")
+                   help="override config weights: for StyleGAN2 a directory of "
+                        "converted checkpoints (Gs.npz + Gs_cfg.json, D.npz, "
+                        "optional Gs_noise.npz), for BigGAN a converted .npz (with "
+                        "its _cfg.json), or 'random:<seed>' for random init")
     p.add_argument("--clip-weights", type=str, default=None,
                    help="a converted CLIP ViT-B/32 .npz (with its _cfg.json), or "
                         "'random:<seed>'; default: ./weights/clip/ViT-B-32.npz "
@@ -110,17 +111,29 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
 
 def _tinyfy(config):
     """Shrink a config to the TINY model variants (CPU-runnable smoke mode)."""
+    from clip_glass_torch.models.biggan import model as bg
     from clip_glass_torch.models.clip import model as clip_model
     from clip_glass_torch.models.stylegan2 import model as sg2
 
+    if config.model == "biggan":
+        return (config.replace(dim_z=16, num_classes=10, n_var=26, resolution=8,
+                               weights="random:0"),
+                clip_model.TINY, bg.TINY)
     return (config.replace(dim_z=32, n_var=32, weights="random:0"),
             clip_model.TINY, sg2.TINY)
 
 
 def decode_latents_npz(config, X: np.ndarray):
     """ls_result content (reference run.py:92-101 saves the latent module's
-    state dict; here: the decoded latent arrays; StyleGAN2's decode is the
-    identity)."""
+    state dict; here: the decoded latent arrays: BigGAN's z and class
+    vector, StyleGAN2's latents as they are)."""
+    if config.latent == "biggan":
+        import torch
+
+        from clip_glass_torch.fitness.latent import decode_biggan
+
+        z, cv = decode_biggan(torch.as_tensor(np.asarray(X)), config.dim_z)
+        return {"z": z.numpy(), "class_labels": cv.numpy()}
     return {"z": np.asarray(X)}
 
 

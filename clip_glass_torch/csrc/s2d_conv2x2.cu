@@ -60,9 +60,10 @@
 //    8 warps of 32x32 on a 64x128 tile; a masked store through shared memory.
 // 3. fp32: the same implicit GEMM on the CUDA cores, a 64x64 tile with 4x4
 //    outputs per thread, so that fp32 comparisons hold at 1e-5.
-// Variants 2 and 3 take one weight set per sample ([B,2,2,C,C], [in, out])
-// and any C: loads beyond C are zero and stores are masked; 16-byte loads
-// when C allows (vec > 1).
+// Variants 2 and 3 take one weight set per sample or one shared by every
+// sample ([sets,2,2,C,C], [in, out]; a block reads its sample's set, or set
+// 0) and any C: loads beyond C are zero and stores are masked; 16-byte
+// loads when C allows (vec > 1).
 #include "common.cuh"
 
 #include <cuda.h>
@@ -112,7 +113,8 @@ constexpr int SMEM_BF16 = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
     s2d_conv2x2_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kb,
-                            bf16* __restrict__ y, int n, int n_out, int C, int pad0) {
+                            bf16* __restrict__ y, int n, int n_out, int C, int pad0,
+                            int64_t kb_stride) {
   using namespace nvcuda;
   __shared__ __align__(128) unsigned char smem[SMEM_BF16];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -126,7 +128,7 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 32 x 32
   const bf16* xb = x + static_cast<int64_t>(b) * n * n * C;
-  const bf16* kbb = kb + static_cast<int64_t>(b) * 4 * C * C;
+  const bf16* kbb = kb + b * kb_stride;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -201,7 +203,8 @@ constexpr int FM = 64, FN = 64, FK = 16;
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
     s2d_conv2x2_f32_kernel(const float* __restrict__ x, const float* __restrict__ kb,
-                           float* __restrict__ y, int n, int n_out, int C, int pad0) {
+                           float* __restrict__ y, int n, int n_out, int C, int pad0,
+                           int64_t kb_stride) {
   __shared__ float As[FK][FM + 4];  // A transposed: As[k][cell]
   __shared__ float Bs[FK][FN + 4];
 
@@ -211,7 +214,7 @@ __global__ void __launch_bounds__(THREADS)
   const int n0 = blockIdx.y * FN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 4x4 outputs each
   const float* xb = x + static_cast<int64_t>(b) * n * n * C;
-  const float* kbb = kb + static_cast<int64_t>(b) * 4 * C * C;
+  const float* kbb = kb + b * kb_stride;
 
   float acc[4][4];
 #pragma unroll
@@ -271,51 +274,57 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// kb_stride: elements between two samples' weight sets, 4*C*C, or 0 when
+// one set serves every sample.
 template <int VEC>
 int launch_bf16(const void* x, const void* kb, void* y, int64_t B, int64_t n, int64_t n_out,
-                int64_t C, int pad0, cudaStream_t st) {
+                int64_t C, int pad0, int64_t kb_stride, cudaStream_t st) {
   const int64_t M = n_out * n_out;
   dim3 grid(static_cast<unsigned>((M + BM - 1) / BM), static_cast<unsigned>((C + BN - 1) / BN),
             static_cast<unsigned>(B));
   s2d_conv2x2_bf16_kernel<VEC><<<grid, THREADS, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(kb), static_cast<bf16*>(y),
-      static_cast<int>(n), static_cast<int>(n_out), static_cast<int>(C), pad0);
+      static_cast<int>(n), static_cast<int>(n_out), static_cast<int>(C), pad0, kb_stride);
   return 0;
 }
 
 template <int VEC>
 int launch_f32(const void* x, const void* kb, void* y, int64_t B, int64_t n, int64_t n_out,
-               int64_t C, int pad0, cudaStream_t st) {
+               int64_t C, int pad0, int64_t kb_stride, cudaStream_t st) {
   const int64_t M = n_out * n_out;
   dim3 grid(static_cast<unsigned>((M + FM - 1) / FM), static_cast<unsigned>((C + FN - 1) / FN),
             static_cast<unsigned>(B));
   s2d_conv2x2_f32_kernel<VEC><<<grid, THREADS, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(kb), static_cast<float*>(y),
-      static_cast<int>(n), static_cast<int>(n_out), static_cast<int>(C), pad0);
+      static_cast<int>(n), static_cast<int>(n_out), static_cast<int>(C), pad0, kb_stride);
   return 0;
 }
 
 }  // namespace
 
-// vec = elements per 16-byte access (the caller guarantees C % vec == 0 and
+// The wmma and fp32 variants. kb: [kb_sets, 2, 2, C, C], each tap [in, out];
+// kb_sets = B (per-sample weights) or 1 (one set for every sample). vec =
+// elements per 16-byte access (the caller guarantees C % vec == 0 and
 // 16-byte aligned x, kb and y for vec > 1).
 extern "C" int cg_s2d_conv2x2(const void* x, const void* kb, void* y, int64_t B, int64_t n,
-                              int64_t n_out, int64_t C, int pad0, int dtype, int vec,
-                              void* stream) {
+                              int64_t n_out, int64_t C, int pad0, int64_t kb_sets, int dtype,
+                              int vec, void* stream) {
   if (B * n_out * C == 0) return 0;
   if (B > 65535 || n_out * n_out > (int64_t(1) << 31) - BM || n > (1 << 30) ||
-      (pad0 != 0 && pad0 != 1) || n_out != (pad0 ? n + 1 : n - 1))
+      (pad0 != 0 && pad0 != 1) || n_out != (pad0 ? n + 1 : n - 1) ||
+      (kb_sets != 1 && kb_sets != B))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t kb_stride = kb_sets == 1 ? 0 : 4 * C * C;
   int status;
   if (dtype == cg::kBFloat16 && vec == 8) {
-    status = launch_bf16<8>(x, kb, y, B, n, n_out, C, pad0, st);
+    status = launch_bf16<8>(x, kb, y, B, n, n_out, C, pad0, kb_stride, st);
   } else if (dtype == cg::kBFloat16 && vec == 1) {
-    status = launch_bf16<1>(x, kb, y, B, n, n_out, C, pad0, st);
+    status = launch_bf16<1>(x, kb, y, B, n, n_out, C, pad0, kb_stride, st);
   } else if (dtype == cg::kFloat32 && vec == 4) {
-    status = launch_f32<4>(x, kb, y, B, n, n_out, C, pad0, st);
+    status = launch_f32<4>(x, kb, y, B, n, n_out, C, pad0, kb_stride, st);
   } else if (dtype == cg::kFloat32 && vec == 1) {
-    status = launch_f32<1>(x, kb, y, B, n, n_out, C, pad0, st);
+    status = launch_f32<1>(x, kb, y, B, n, n_out, C, pad0, kb_stride, st);
   } else {
     status = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,9 +13,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
-from clip_glass_torch.core.device import resolve_device
+from clip_glass_torch.core.device import constant, resolve_device
 from clip_glass_torch.evolve import crossover as xo
 from clip_glass_torch.evolve import mutation as mut
 from clip_glass_torch.evolve import sampling as smp
@@ -24,7 +25,7 @@ from clip_glass_torch.evolve.selection import tournament_ga, tournament_nsga2
 from clip_glass_torch.evolve.survival import fitness_survival, nsga2_survival
 
 # model families still to be ported, and the ROADMAP item that ports each
-UNPORTED = {"biggan": "ROADMAP item 9", "gpt2": "ROADMAP item 10"}
+UNPORTED = {"gpt2": "ROADMAP item 10"}
 
 
 class GAState(NamedTuple):
@@ -42,12 +43,27 @@ class Operators(NamedTuple):
 
 
 def operators_for_config(config) -> Operators:
-    """The reference's operator set for the StyleGAN2 configs (reference
-    operators.py:66-72)."""
+    """The reference's operator set for the BigGAN and StyleGAN2 configs
+    (reference operators.py:44-72)."""
     if config.model in UNPORTED:
         raise NotImplementedError(
-            f"config {config.name!r}: only the StyleGAN2 operators are ported "
-            f"({UNPORTED[config.model]})")
+            f"config {config.name!r}: only the BigGAN and StyleGAN2 operators are "
+            f"ported ({UNPORTED[config.model]})")
+    if config.name.startswith("DeepMindBigGAN"):
+        def mask(x):
+            return constant(_real_mask, config.dim_z, config.num_classes,
+                            device=x.device, dtype=torch.bool)
+
+        return Operators(
+            sample=lambda g, n: smp.mixed_biggan_sampling(
+                g, n, config.dim_z, config.num_classes, bool_prob=5 / 1000),
+            cross=lambda g, x1, x2: xo.mixed_crossover(
+                g, x1, x2, mask(x1), config.xl, config.xu, eta=3.0, real_prob=1.0,
+                bool_prob=0.2),
+            mutate=lambda g, x: mut.mixed_mutation(
+                g, x, mask(x), config.xl, config.xu, eta=3.0, real_prob=0.5,
+                bool_prob=10 / 1000),
+        )
     return Operators(
         sample=lambda g, n: smp.normal_sampling(g, n, config.n_var),
         cross=lambda g, x1, x2: xo.sbx(g, x1, x2, config.xl, config.xu,
@@ -55,6 +71,11 @@ def operators_for_config(config) -> Operators:
         mutate=lambda g, x: mut.polynomial_mutation(g, x, config.xl, config.xu,
                                                     eta=3.0, prob=0.5),
     )
+
+
+def _real_mask(dim_z: int, num_classes: int) -> np.ndarray:
+    """The BigGAN genome's real genes: z first, then the class bits."""
+    return np.arange(dim_z + num_classes) < dim_z
 
 
 def resample_duplicates_core(off: torch.Tensor, pop_X: torch.Tensor,

@@ -1,9 +1,13 @@
-"""Simulated binary crossover (SBX) with pymoo-0.4.2 semantics: per-mating
-prob, per-variable prob 0.5, 1e-14 equal-parent skip, per-variable child
-swap, bound clipping.
+"""Crossover with pymoo-0.4.2 semantics (reference operators.py:54-77).
 
-`sbx_core` takes its four uniform draws as tensors (the JAX package splits
-its key 4 ways for them); `sbx` draws them from a torch.Generator.
+Simulated binary crossover (SBX): per-mating prob, per-variable prob 0.5,
+1e-14 equal-parent skip, per-variable child swap, bound clipping. Half-
+uniform crossover (HUX) on 0/1 genes: exactly ceil(n_diff/2) of the
+differing bits swap. The BigGAN genome mixes the two by a per-gene mask.
+
+Each `_core` function takes its uniform draws as tensors (the JAX package
+splits its key for them, in the order of the arguments); the functions
+without the suffix draw them from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -49,11 +53,55 @@ def sbx_core(x1: torch.Tensor, x2: torch.Tensor, xl, xu, u_mate, u_var,
 def sbx(gen: torch.Generator, x1: torch.Tensor, x2: torch.Tensor, xl, xu,
         eta: float = 3.0, prob: float = 1.0, prob_per_variable: float = 0.5):
     """SBX on parent matrices [m, n_var] -> two children."""
-    m, n_var = x1.shape
-
-    def u(*shape):
-        return torch.rand(shape, generator=gen, device=gen.device).to(x1.device)
-
-    return sbx_core(x1, x2, xl, xu, u(m, 1), u(m, n_var), u(m, n_var),
-                    u(m, n_var), eta=eta, prob=prob,
+    return sbx_core(x1, x2, xl, xu, *_sbx_uniforms(gen, x1), eta=eta, prob=prob,
                     prob_per_variable=prob_per_variable)
+
+
+def hux_core(x1: torch.Tensor, x2: torch.Tensor, u_mate, u_score, prob: float = 0.2):
+    """HUX on 0/1 genomes [m, n_var]: each differing position gets the
+    score u_score, and in a mating (u_mate [m, 1] < prob) those ranked below
+    ceil(n_diff/2) among the row's differing positions swap (the rank is the
+    JAX package's argsort of the argsort, both stable)."""
+    diff = x1 != x2
+    n_swap = torch.ceil(diff.sum(dim=1, keepdim=True) / 2.0)
+    score = torch.where(diff, u_score, torch.full_like(u_score, float("inf")))
+    rank = torch.argsort(torch.argsort(score, dim=1, stable=True), dim=1, stable=True)
+    swap = diff & (rank < n_swap) & (u_mate < prob)
+    return torch.where(swap, x2, x1), torch.where(swap, x1, x2)
+
+
+def _sbx_uniforms(gen, x):
+    m, n_var = x.shape
+    return tuple(_rand(gen, x, *s) for s in ((m, 1), (m, n_var), (m, n_var), (m, n_var)))
+
+
+def _hux_uniforms(gen, x):
+    m, n_var = x.shape
+    return _rand(gen, x, m, 1), _rand(gen, x, m, n_var)
+
+
+def _rand(gen, like, *shape):
+    return torch.rand(shape, generator=gen, device=gen.device).to(like.device)
+
+
+def hux(gen: torch.Generator, x1: torch.Tensor, x2: torch.Tensor, prob: float = 0.2):
+    """HUX on parent matrices [m, n_var] -> two children."""
+    return hux_core(x1, x2, *_hux_uniforms(gen, x1), prob=prob)
+
+
+def mixed_crossover_core(x1, x2, real_mask, xl, xu, u_sbx, u_hux, eta: float = 3.0,
+                         real_prob: float = 1.0, bool_prob: float = 0.2):
+    """SBX on the genes where real_mask [n_var] holds, HUX on the others
+    (reference operators.py:54-58); u_sbx: sbx_core's four uniforms, u_hux:
+    hux_core's two."""
+    r1, r2 = sbx_core(x1, x2, xl, xu, *u_sbx, eta=eta, prob=real_prob)
+    b1, b2 = hux_core(x1, x2, *u_hux, prob=bool_prob)
+    return torch.where(real_mask, r1, b1), torch.where(real_mask, r2, b2)
+
+
+def mixed_crossover(gen: torch.Generator, x1, x2, real_mask, xl, xu, eta: float = 3.0,
+                    real_prob: float = 1.0, bool_prob: float = 0.2):
+    """The BigGAN mixed-genome crossover on parent matrices [m, n_var]."""
+    u_sbx = _sbx_uniforms(gen, x1)
+    return mixed_crossover_core(x1, x2, real_mask, xl, xu, u_sbx, _hux_uniforms(gen, x1),
+                                eta=eta, real_prob=real_prob, bool_prob=bool_prob)

@@ -1,8 +1,12 @@
-"""Polynomial mutation in Deb's bounded formulation, as in pymoo 0.4.2
-(delta1/delta2 split at rand 0.5, eta+1 powers, bound clamp).
+"""Mutation with pymoo-0.4.2 semantics (reference operators.py:60-77).
 
-`polynomial_mutation_core` takes its two uniform draws as tensors;
-`polynomial_mutation` draws them from a torch.Generator.
+Polynomial mutation in Deb's bounded formulation (delta1/delta2 split at
+rand 0.5, eta+1 powers, bound clamp); bitflip on 0/1 genes; the BigGAN
+genome mixes the two by a per-gene mask.
+
+Each `_core` function takes its uniform draws as tensors (the JAX package
+splits its key for them, in the order of the arguments); the functions
+without the suffix draw them from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -34,7 +38,37 @@ def polynomial_mutation_core(x: torch.Tensor, xl, xu, u_do, u_rand,
 
 def polynomial_mutation(gen: torch.Generator, x: torch.Tensor, xl, xu,
                         eta: float = 3.0, prob: float = 0.5) -> torch.Tensor:
-    def u():
-        return torch.rand(x.shape, generator=gen, device=gen.device).to(x.device)
+    return polynomial_mutation_core(x, xl, xu, _rand(gen, x), _rand(gen, x), eta=eta,
+                                    prob=prob)
 
-    return polynomial_mutation_core(x, xl, xu, u(), u(), eta=eta, prob=prob)
+
+def _rand(gen, x):
+    return torch.rand(x.shape, generator=gen, device=gen.device).to(x.device)
+
+
+def bitflip_core(x: torch.Tensor, u_flip, prob: float) -> torch.Tensor:
+    """Flip the 0/1 genes whose uniform is below `prob` (pymoo
+    BinaryBitflipMutation; the reference's prob is 10/1000,
+    operators.py:63)."""
+    return torch.where(u_flip < prob, 1.0 - x, x)
+
+
+def bitflip_mutation(gen: torch.Generator, x: torch.Tensor, prob: float) -> torch.Tensor:
+    return bitflip_core(x, _rand(gen, x), prob)
+
+
+def mixed_mutation_core(x, real_mask, xl, xu, u_pm, u_flip, eta: float = 3.0,
+                        real_prob: float = 0.5, bool_prob: float = 10 / 1000):
+    """Polynomial mutation where real_mask [n_var] holds, bitflip elsewhere
+    (reference operators.py:60-64); u_pm: polynomial_mutation_core's two
+    uniforms."""
+    r = polynomial_mutation_core(x, xl, xu, *u_pm, eta=eta, prob=real_prob)
+    return torch.where(real_mask, r, bitflip_core(x, u_flip, bool_prob))
+
+
+def mixed_mutation(gen: torch.Generator, x, real_mask, xl, xu, eta: float = 3.0,
+                   real_prob: float = 0.5, bool_prob: float = 10 / 1000):
+    """The BigGAN mixed-genome mutation."""
+    u_pm = (_rand(gen, x), _rand(gen, x))
+    return mixed_mutation_core(x, real_mask, xl, xu, u_pm, _rand(gen, x), eta=eta,
+                               real_prob=real_prob, bool_prob=bool_prob)

@@ -1,24 +1,28 @@
-"""Generator facade: frozen CLIP + frozen StyleGAN2 G (+ D) + fitness.
+"""Generator facade: frozen CLIP + the config's frozen generator (+ D) +
+fitness.
 
 Behavioral reference: reference generator.py:11-72 (class Generator): loads
 CLIP ViT-B/32 and the config's model, encodes the target text once, and
 scores candidates by CLIP cosine similarity, plus the discriminator hinge
-for the `*_d` configs.
+for the StyleGAN2 `*_d` configs.
 
-This slice covers the StyleGAN2 text-to-image branch. Parameters are drawn
-from seeded torch.Generators (`weights="random:<seed>"`), read from
-converted checkpoints (the npz trees and `_cfg.json` sidecars the JAX
-package's converters write, carried across by `weights.from_jax`), or handed
-in as a converted bundle (`weights.from_jax.convert_bundle`). The per-layer
-noise is fixed per search and is data: drawn once from a seeded generator,
-or read from `<stem>_noise.npz`, or taken from the bundle, and folded into
-the s2d layouts once at staging.
+This slice covers the text-to-image branch: StyleGAN2 and BigGAN-deep.
+Parameters are drawn from seeded torch.Generators (`weights="random:<seed>"`),
+read from converted checkpoints (the npz trees and `_cfg.json` sidecars the
+JAX package's converters write, carried across by `weights.from_jax`), or
+handed in as a converted bundle (`weights.from_jax.convert_bundle`).
+StyleGAN2's per-layer noise is fixed per search and is data: drawn once from
+a seeded generator, or read from `<stem>_noise.npz`, or taken from the
+bundle, and folded into the s2d layouts once at staging. BigGAN has no D
+and no noise planes.
 
-When the model's top level runs in the space-to-depth domain (config-f:
+When StyleGAN2's top level runs in the space-to-depth domain (config-f:
 s2d_min_res = 512), `eval_population` takes the s2d fitness path, as the JAX
 package does: the synthesis hands over the packed image (s4d by default),
 and the 224 px resize and the discriminator read it without the full-res
 image ever being made. `generate` still returns full-resolution images.
+BigGAN's fitness takes the plain path, as in the JAX package (its s2d mid
+segments live inside the model): the full image, resized to 224 and scored.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from clip_glass_torch.core import pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
 from clip_glass_torch.fitness import latent as latent_mod
+from clip_glass_torch.models.biggan import model as bg
 from clip_glass_torch.models.clip import model as clip_model
 from clip_glass_torch.models.stylegan2 import model as sg2
 from clip_glass_torch.ops import s2d as s2d_ops
@@ -152,13 +157,44 @@ def _load_stylegan2(config, model_cfg):
     return g, d, noise, cfg
 
 
+def _biggan_default_cfg(config):
+    return bg.CONFIGS[f"biggan-deep-{config.resolution}"]
+
+
+def _load_biggan(config, model_cfg):
+    """G and the model config. `config.weights`: 'random:<seed>' (the
+    config's resolution names `bg.CONFIGS`' entry), or a converted `.npz`
+    with its `_cfg.json` sidecar; a config passed in wins over the sidecar,
+    as in the JAX package (generator.py:294-320)."""
+    w = config.weights
+    if _is_random(w):
+        gen = torch.Generator().manual_seed(_random_seed(w))
+        cfg = model_cfg or _biggan_default_cfg(config)
+        return bg.init(gen, cfg), cfg
+    if not os.path.exists(w):
+        raise FileNotFoundError(
+            f"BigGAN weights not found at {w!r}; provide a converted .npz (with its "
+            "_cfg.json) or weights='random:<seed>'")
+    if not w.endswith(".npz"):
+        raise NotImplementedError(
+            f"BigGAN weights {w!r}: only converted .npz checkpoints load here; the "
+            "package's pytorch_model.bin is ROADMAP item 14")
+    cfg = (model_cfg or _read_cfg_sidecar(w, bg.BigGANConfig)
+           or _biggan_default_cfg(config))
+    return from_jax.convert_biggan(pytree.restore_lists(pytree.load_npz(w))), cfg
+
+
 def load_bundle(config, clip_cfg=None, model_cfg=None, clip_weights: str = "random:0"):
-    """CLIP, G, D and noise planes (fp32, CPU) as `config.weights` and
-    `clip_weights` name them, with the CLIP and model configs (a checkpoint's
-    sidecar wins over the one passed in). Random draws happen on the CPU, so
-    one seed gives the same weights on every device; noise planes a
-    checkpoint does not hold are drawn from NOISE_SEED."""
+    """CLIP, G, and for StyleGAN2 D and the noise planes (fp32, CPU) as
+    `config.weights` and `clip_weights` name them, with the CLIP and model
+    configs (a StyleGAN2 checkpoint's sidecar wins over the one passed in).
+    Random draws happen on the CPU, so one seed gives the same weights on
+    every device; noise planes a checkpoint does not hold are drawn from
+    NOISE_SEED."""
     clip, clip_cfg = _load_clip(clip_weights, clip_cfg)
+    if config.model == "biggan":
+        g, model_cfg = _load_biggan(config, model_cfg)
+        return {"clip": clip, "g": g}, clip_cfg, model_cfg
     g, d, noise, model_cfg = _load_stylegan2(config, model_cfg)
     if noise is None:
         gn = torch.Generator().manual_seed(NOISE_SEED)
@@ -178,15 +214,15 @@ def quantize_u8(images: torch.Tensor) -> torch.Tensor:
 
 
 class Generator:
-    """Owns CLIP + the StyleGAN2 parameters and computes the fitness."""
+    """Owns CLIP + the generator's parameters and computes the fitness."""
 
     def __init__(self, config, device=None, policy: Optional[Policy] = None,
                  clip_weights: str = "random:0", clip_cfg=None, model_cfg=None,
                  bundle=None):
-        if config.model != "stylegan2" or config.task != "txt2img":
+        if config.model not in ("stylegan2", "biggan") or config.task != "txt2img":
             raise NotImplementedError(
-                f"config {config.name!r}: only the StyleGAN2 text-to-image "
-                "branch is ported")
+                f"config {config.name!r}: only the StyleGAN2 and BigGAN text-to-image "
+                "branches are ported (GPT-2 is ROADMAP item 10)")
         self.config = config
         self.device = resolve_device(device)
         self.policy = policy or Policy.make(config.param_dtype, config.compute_dtype)
@@ -195,7 +231,8 @@ class Generator:
                 config, clip_cfg, model_cfg, clip_weights)
         else:
             self.clip_cfg = clip_cfg or clip_model.VIT_B_32
-            self.model_cfg = model_cfg or sg2.CONFIG_F
+            self.model_cfg = model_cfg or (_biggan_default_cfg(config)
+                                           if config.model == "biggan" else sg2.CONFIG_F)
         if config.use_discriminator and bundle.get("d") is None:
             raise ValueError(f"config {config.name!r} needs discriminator weights")
 
@@ -204,14 +241,19 @@ class Generator:
             return tree_to(precast_params(tree, self.policy, exclude), self.device)
 
         self.clip_params = stage(bundle["clip"], clip_model.PRECAST_EXCLUDE)
-        self.g_params = stage(bundle["g"], sg2.PRECAST_EXCLUDE)
-        # D stays fp32, as in the JAX package: its s2d down-composite folds
-        # compose FIR taps with the raw weights and round once at the end
-        # (its plain branch casts every weight through the policy)
-        self.d_params = (tree_to(bundle["d"], self.device)
-                         if config.use_discriminator else None)
-        self.noise = sg2.pack_noise(stage(list(bundle["noise"])), self.model_cfg,
-                                    self.policy)
+        if config.model == "biggan":
+            # the BN running statistics stay fp32 (bg.PRECAST_EXCLUDE)
+            self.g_params = stage(bundle["g"], bg.PRECAST_EXCLUDE)
+            self.d_params = self.noise = None
+        else:
+            self.g_params = stage(bundle["g"], sg2.PRECAST_EXCLUDE)
+            # D stays fp32, as in the JAX package: its s2d down-composite
+            # folds compose FIR taps with the raw weights and round once at
+            # the end (its plain branch casts every weight through the policy)
+            self.d_params = (tree_to(bundle["d"], self.device)
+                             if config.use_discriminator else None)
+            self.noise = sg2.pack_noise(stage(list(bundle["noise"])), self.model_cfg,
+                                        self.policy)
         if bundle.get("target") is not None:
             self.text_features = bundle["target"].to(self.device)
         else:
@@ -223,8 +265,9 @@ class Generator:
     @property
     def bundle(self):
         """All device-resident state of the fitness computation."""
-        b = {"clip": self.clip_params, "g": self.g_params, "noise": self.noise,
-             "target": self.text_features}
+        b = {"clip": self.clip_params, "g": self.g_params, "target": self.text_features}
+        if self.noise is not None:
+            b["noise"] = self.noise
         if self.d_params is not None:
             b["d"] = self.d_params
         return b
@@ -232,6 +275,11 @@ class Generator:
     def generate(self, X: torch.Tensor, bundle=None) -> torch.Tensor:
         """Genomes [pop, n_var] -> images [pop, 3, H, W] in [0, 1]."""
         bundle = bundle if bundle is not None else self.bundle
+        if self.config.model == "biggan":
+            z, cv = latent_mod.decode_biggan(X, self.config.dim_z)
+            imgs = bg.apply(bundle["g"], z, cv, self.config.truncation, self.model_cfg,
+                            self.policy)
+            return biggan_norm(imgs)
         (z,) = latent_mod.decode_stylegan2(X)
         imgs = sg2.generator_apply(bundle["g"], z, self.model_cfg,
                                    noise=bundle["noise"], policy=self.policy)
@@ -255,9 +303,10 @@ class Generator:
 
     @property
     def _s2d_active(self) -> bool:
-        """The fitness runs end to end in the space-to-depth domain when the
-        model's top level does (sg2.rgb_domain names the packed image)."""
-        return sg2.top_level_s2d(self.model_cfg)
+        """The StyleGAN2 fitness runs end to end in the space-to-depth
+        domain when the model's top level does (sg2.rgb_domain names the
+        packed image); BigGAN's never does, as in the JAX package."""
+        return isinstance(self.model_cfg, sg2.SG2Config) and sg2.top_level_s2d(self.model_cfg)
 
     def generate_packed(self, X: torch.Tensor, bundle=None) -> torch.Tensor:
         """Genomes -> the packed [0, 1] image of the s2d path (the layout

@@ -5,6 +5,12 @@ from __future__ import annotations
 import torch
 
 
+def decode_biggan(x: torch.Tensor, dim_z: int = 128):
+    """[pop, dim_z + classes] -> (z clipped to [-2, 2], the softmax class
+    vector) (reference latent.py:20-24)."""
+    return x[:, :dim_z].clamp(-2.0, 2.0), torch.softmax(x[:, dim_z:], dim=1)
+
+
 def decode_stylegan2(x: torch.Tensor):
     """Identity (reference latent.py:40-41)."""
     return (x,)

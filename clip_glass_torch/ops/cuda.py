@@ -61,9 +61,10 @@ _SIGNATURES = {
     # x, style, w, demod, bias, out, B, P, I, stream (kernel 3: the "mma"
     # variant, bf16, O = 3, I in {32, 64, 128, 256, 512})
     "cg_modulated_matmul_mma": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    # x, kb, out, B, n, n_out, C, pad0, dtype, vec, stream (kernel 4: the
-    # wmma and fp32 variants, one weight set per sample, each tap [in, out])
-    "cg_s2d_conv2x2": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _P),
+    # x, kb, out, B, n, n_out, C, pad0, kb_sets, dtype, vec, stream (kernel
+    # 4: the wmma and fp32 variants; kb_sets = B, or 1 shared by every
+    # sample; each tap [in, out])
+    "cg_s2d_conv2x2": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _I64, _INT, _INT, _P),
     # x, kt, out, B, n, n_out, C, pad0, kt_sets, stream (kernel 4: the wgmma
     # variant, bf16, C in {64, 128}; kt_sets = B, or 1 shared by every
     # sample; each tap [out, in])

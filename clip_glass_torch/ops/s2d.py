@@ -1,13 +1,15 @@
-"""Space-to-depth (s2d) execution domain of the StyleGAN2 fitness path.
+"""Space-to-depth (s2d) execution domain of the StyleGAN2 and BigGAN-deep
+fitness paths.
 
-The JAX package's ops/s2d.py, StyleGAN2 half: the top levels of config-f
-(32-64 channels at 512-1024 px) run on tensors laid out as [B, H/2, W/2, 4C]
+The JAX package's ops/s2d.py. StyleGAN2: the top levels of config-f (32-64
+channels at 512-1024 px) run on tensors laid out as [B, H/2, W/2, 4C]
 (phase-major: s2d(x)[b, p, q, (2r+c)*C + i] = x[b, 2p+r, 2q+c, i]). Every op
 of those levels (modulated 3x3 conv, fused 2x-up conv, ToRGB, the RGB skip
 upsample, D's FIR + stride-2 convs, the 224 px resize) is re-expressed
 exactly as an ordinary conv on the packed tensor with a phase-composed
 kernel, so no full-resolution tensor is made and no standalone depthwise FIR
-runs at those levels.
+runs at those levels. BigGAN-deep: the mid segment of the bottleneck blocks
+at 256-512 px (the "BigGAN ops" below).
 
 Lattice offsets: an s2d tensor at offset -1 stores cell v' as full-res rows
 (2v'-1, 2v'), with one extra cell row/col whose phantom rows -1 and H are
@@ -15,6 +17,14 @@ zero. A same-res 3x3 conv between opposite lattices folds to a [2,2] kernel
 on 4C channels; those convs go through the hand-written kernel
 `s2d_conv2x2` (csrc/s2d_conv2x2.cu). Phantom entries must be zero wherever a
 conv consumes them (`mask_phantoms_`).
+
+Dispatch rule: every square [2,2] fold on the input's channels goes to
+`s2d_conv2x2`, in both families (StyleGAN2's modulated convs and D's, and
+BigGAN's unmodulated mid-segment convs with one shared weight set). The JAX
+package sends these folds to its Pallas kernel only under
+CLIP_GLASS_PALLAS_S2D=1 and to XLA's conv otherwise; the port has no such
+switch, since both compute the same function. The other folds stay cuDNN
+convs.
 
 The RGB path at those levels is carried in the 4x4 space-to-depth domain
 (s4d, [B, H/4, W/4, 16C], offset-free).
@@ -410,12 +420,10 @@ def conv2x2_launch(x: torch.Tensor, Kb: torch.Tensor, pad0: int,
             x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
             Kb.shape[0], cuda.stream_handle(x))
     else:
-        if Kb.shape[0] != B:  # the first design reads one weight set per sample
-            Kb = Kb.expand(B, -1, -1, -1, -1).contiguous()
         vec = cuda.vector_width(x.dtype, C, x, Kb, out)
         status = lib.cg_s2d_conv2x2(
             x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
-            cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
+            Kb.shape[0], cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
     cuda.check(status, "s2d_conv2x2")
     s2d_conv2x2.launches += 1
     s2d_conv2x2.launches_by_variant[variant] += 1
@@ -502,6 +510,120 @@ def s2d_conv2d_down(x_s2d, w, *, filter_taps=(1, 3, 3, 1),
     n_out = n_cells(H // 2, out_off) if output_s2d else H // 2
     pad1 = _pad1_for(x_s2d.shape[1], n_out, Kp.shape[0], stride, pad0)
     return _conv_hwio(x_s2d, Kp, stride=stride, pad0=pad0, pad1=pad1)
+
+
+# ------------------------------------------------------------ BigGAN ops
+#
+# BigGAN-deep's bottleneck blocks run mid = in/4 channels at 256-512 px. The
+# mid segment (conv0 1x1 -> [nearest up] -> conv1 3x3 -> conv2 3x3 -> conv3
+# 1x1) maps onto the s2d domain with no standalone layout transposes: conv0
+# folds plain -> s2d, the nearest-neighbour upsample composes into conv1, and
+# conv3 folds s2d -> plain (with the block's nearest-up residual fused into
+# it in up blocks). Weights: OIHW, in the compute dtype.
+
+
+def s2d_enter_conv1x1(x_plain, w, out_off: int = 0):
+    """1x1 conv [I -> O] from a PLAIN tensor straight into s2d form at
+    lattice `out_off`: a stride-2 conv with the per-phase kernel. w:
+    [O, I, 1, 1]. Exact."""
+    assert w.shape[2] == w.shape[3] == 1
+    Kp, pad0, kh = _fold(_hwio(w), 0, 1, False, True, 0, out_off)
+    H = x_plain.shape[1]
+    pad1 = _pad1_for(H, n_cells(H, out_off), kh, 2, pad0)
+    return _conv_hwio(x_plain, Kp, stride=2, pad0=pad0, pad1=pad1)
+
+
+def _exit_kernel(w, extra: int = 0):
+    """[2,2,4I+extra,O] HWIO fp32 kernel of the s2d -> plain 1x1 exit: the
+    dilated tap (1-rjh, 1-rjw) reads phase (rjh, rjw) (the pad0 = 1 + in_off
+    that the exits use puts each phase's tap there at either offset)."""
+    O, I = w.shape[:2]
+    w32 = w[:, :, 0, 0].t().float()
+    K = torch.zeros((2, 2, 4 * I + extra, O), device=w.device)
+    for rjh in range(2):
+        for rjw in range(2):
+            ci = (rjh * 2 + rjw) * I
+            K[1 - rjh, 1 - rjw, ci:ci + I] = w32
+    return K
+
+
+def s2d_exit_conv1x1(x_s2d, w, in_off: int = 0):
+    """1x1 conv [I -> O] from an s2d tensor (lattice `in_off`) back to PLAIN
+    full resolution: a lhs_dilation=2 conv whose [2,2] taps pick the phase
+    of each output pixel. w: [O, I, 1, 1]. Exact."""
+    assert w.shape[2] == w.shape[3] == 1
+    pad0 = 1 + in_off
+    n_in = x_s2d.shape[1]
+    pad1 = _pad1_for(2 * n_in - 1, phys_size(n_in, in_off), 2, 1, pad0)
+    return _conv_hwio(x_s2d, _exit_kernel(w), pad0=pad0, pad1=pad1, lhs_dilation=2)
+
+
+@lru_cache(maxsize=None)
+def _nearest_up_fold_map(kh: int, in_off: int, out_off: int = 0):
+    """Mapping tensor M[tau, a, rj, rv] of conv(k=kh, pad (kh-1)//2, the
+    BigGAN convention) composed with a 2x NEAREST upsample of its input,
+    from s2d(H, in_off) to s2d(2H, out_off) as a lhs_dilation=2 conv:
+    y[2v'+oo+rv] = sum_a K[a] x_up[2v'+oo+rv+a-p0], x_up[i] = x_plain[i//2].
+    Both phases of an input cell appear, each at its own dilated tap.
+    Returns (M, pad0)."""
+    p0 = (kh - 1) // 2
+    entries = []
+    for rv in range(2):
+        for a in range(kh):
+            du = (out_off + rv + a - p0) // 2   # + v' (the 2v' term floors away)
+            for rj in range(2):
+                entries.append((du, rj, rv, a))
+    taus = [du - in_off - rj for (du, rj, _, _) in entries]
+    tmin = min(taus)
+    M = np.zeros((max(taus) - tmin + 1, kh, 2, 2), np.float32)
+    for (du, rj, rv, a) in entries:
+        M[du - in_off - rj - tmin, a, rj, rv] += 1.0
+    return M, -tmin
+
+
+def _nearest_up_fold_matrix(*args):
+    return _nearest_up_fold_map(*args)[0]
+
+
+def s2d_nearest_up_conv(x_s2d, w, in_off: int = 0, out_off: int = 0):
+    """conv2d 'SAME' (pad (k-1)//2) of the 2x NEAREST-upsampled input, from
+    the s2d input straight to the s2d(2H, out_off) output as one
+    lhs_dilation=2 conv. w: [O, I, k, k]. Exact. out_off=-1 emits phantom
+    cells (garbage until mask_phantoms_): the first link of the up blocks'
+    offset chain 0 -> -1 -> 0."""
+    kh = w.shape[-1]
+    _, pad0 = _nearest_up_fold_map(kh, in_off, out_off)
+    M = constant(_nearest_up_fold_matrix, kh, in_off, out_off, device=w.device)
+    K = _hwio(w)
+    Kp = torch.einsum("DaJR,EbKS,abio->DEJKiRSo", M, M, K)
+    kt = Kp.shape[0]
+    Kp = Kp.reshape(kt, kt, 4 * K.shape[2], 4 * K.shape[3])
+    n_in = x_s2d.shape[1]
+    n_out = n_cells(2 * phys_size(n_in, in_off), out_off)
+    pad1 = _pad1_for(2 * n_in - 1, n_out, kt, 1, pad0)
+    return _conv_hwio(x_s2d, Kp, pad0=pad0, pad1=pad1, lhs_dilation=2)
+
+
+def s2d_exit_conv1x1_skip(x_s2d, w, skip, in_off: int = 0):
+    """s2d_exit_conv1x1 with the up block's residual fused in: returns
+    plain(conv1x1(x_s2d)) + nearest_up_2x(skip) as ONE lhs_dilation=2 conv.
+    skip: [B, n, n, O] at the pre-up resolution, which at in_off = 0 is the
+    cell lattice of x_s2d; it is concatenated onto the s2d channels and the
+    kernel carries identity taps at all four [2,2] positions, of which the
+    dilation zeros select the containing cell per output pixel. Exact;
+    in_off must be 0 (at -1 a cell's two rows straddle two skip cells)."""
+    assert in_off == 0, "skip fusion requires the offset-0 exit lattice"
+    O = w.shape[0]
+    assert w.shape[2] == w.shape[3] == 1 and skip.shape[-1] == O
+    K = _exit_kernel(w, O)
+    eye = torch.eye(O, device=w.device)
+    for rjh in range(2):
+        for rjw in range(2):
+            K[rjh, rjw, -O:] = eye
+    xin = torch.cat([x_s2d, skip.to(x_s2d.dtype)], dim=-1)
+    n_in = x_s2d.shape[1]
+    pad1 = _pad1_for(2 * n_in - 1, phys_size(n_in, 0), 2, 1, 1)
+    return _conv_hwio(xin, K, pad0=1, pad1=pad1, lhs_dilation=2)
 
 
 # ------------------------------------------------------------ s4d RGB domain

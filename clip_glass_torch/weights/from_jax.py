@@ -12,7 +12,8 @@ Layout traps handled here:
   kernel's operand);
 - dense and attention weights stay right-multiply [in, out];
 - CLIP transformer blocks, stacked on a leading layer axis in JAX, become a
-  list of per-layer dicts.
+  list of per-layer dicts;
+- BigGAN's batch norms keep their [n_stats, C] running statistics.
 
 The port's own random init builds the same JAX-layout trees and passes them
 through these converters, so the two structures cannot drift apart.
@@ -156,8 +157,45 @@ def convert_noise(noise) -> list:
     return out
 
 
+def _stats_bn(p) -> Dict[str, Any]:
+    """A BigGAN batch norm: the [n_stats, C] running statistics and either the
+    conditional gain/bias projections or the plain affine pair."""
+    return {k: (_bias_free(v) if k in ("scale", "offset") else to_tensor(v))
+            for k, v in p.items()}
+
+
+def _bias_free(p) -> Dict[str, torch.Tensor]:
+    return {"w": to_tensor(p["w"])}
+
+
+def convert_biggan(tree) -> Dict[str, Any]:
+    """BigGAN-deep G. The `blocks` list keeps its order, with the attention
+    entry {"attn": ...} in place beside the {"block": ...} entries."""
+    blocks = []
+    for entry in tree["blocks"]:
+        if "attn" in entry:
+            a = entry["attn"]
+            blocks.append({"attn": {**{k: _conv(a[k]) for k in ("theta", "phi", "g", "o_conv")},
+                                    "gamma": to_tensor(a["gamma"])}})
+        else:
+            b = entry["block"]
+            blocks.append({"block": {k: (_conv(v) if k.startswith("conv") else _stats_bn(v))
+                                     for k, v in b.items()}})
+    return {
+        "embeddings": _bias_free(tree["embeddings"]),    # [num_classes, z_dim]
+        "gen_z": _dense(tree["gen_z"]),
+        "blocks": blocks,
+        "bn": _stats_bn(tree["bn"]),
+        "conv_to_rgb": _conv(tree["conv_to_rgb"]),
+    }
+
+
 def convert_bundle(bundle) -> Dict[str, Any]:
-    """A StyleGAN2 fitness bundle {clip, g, d?, noise, target} -> the port's."""
+    """A fitness bundle -> the port's: StyleGAN2 {clip, g, d?, noise,
+    target}, or BigGAN {clip, g, target}, told apart by the noise planes."""
+    if "noise" not in bundle:
+        return {"clip": convert_clip(bundle["clip"]), "g": convert_biggan(bundle["g"]),
+                "target": to_tensor(bundle["target"])}
     out = {
         "clip": convert_clip(bundle["clip"]),
         "g": convert_generator(bundle["g"]),

@@ -101,7 +101,7 @@ def test_cli_tiny_end_to_end(tmp_path, config):
     assert Image.open(tmp_path / "output.jpg").size == (16, 16)
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["DeepMindBigGAN512"])
 def test_cli_resume_is_bit_exact(tmp_path, config, capsys):
     """2 generations, then --resume to 4, against 4 uninterrupted."""
     a, b = tmp_path / "a", tmp_path / "b"
@@ -227,15 +227,25 @@ def test_scatter_without_matplotlib(tmp_path):
     (["--quantize", "int8"], "item 13"),
     (["--mesh"], "item 16"),
     (["--distributed", "auto"], "item 16"),
-    (["--config", "DeepMindBigGAN512"], "item 9"),
-    (["--config", "DeepMindBigGAN256"], "item 9"),
+    # item 9 is ported: these two configs now run (why = None)
+    pytest.param(["--config", "DeepMindBigGAN512"], None, id="config_DeepMindBigGAN512-item 9"),
+    pytest.param(["--config", "DeepMindBigGAN256"], None, id="config_DeepMindBigGAN256-item 9"),
     (["--config", "GPT2"], "item 10"),
     (["--config", "StyleGAN3"], "unknown"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, why):
+    """Exit 2 naming the ROADMAP item, or, for the configs of a ported item,
+    a run that writes the artifact set."""
+    base = ["--config", "StyleGAN2_ffhq_d", "--tiny", "--device", "cpu",
+            "--tmp-folder", str(tmp_path)]
+    if why is None:
+        assert cli.main([*base, "--generations", "1", "--save-each", "1",
+                         "--no-verbose", *argv]) == 0
+        assert set(os.listdir(tmp_path)) == ARTIFACTS - {"genetic-it-2.jpg"}
+        assert str(_npz(tmp_path / "ga_state.npz")["config"]) == argv[1]
+        return
     with pytest.raises(SystemExit) as e:
-        cli.main(["--config", "StyleGAN2_ffhq_d", "--tiny", "--device", "cpu",
-                  "--tmp-folder", str(tmp_path), *argv])
+        cli.main([*base, *argv])
     assert e.value.code == 2
     assert why in capsys.readouterr().err
     assert not os.listdir(tmp_path)
@@ -278,3 +288,104 @@ def test_cli_without_a_card_raises(tmp_path, monkeypatch):
         cli.main(["--config", "StyleGAN2_ffhq_nod", "--tiny",
                   "--tmp-folder", str(tmp_path)])
     assert not (tmp_path / "ga_state.npz").exists()
+
+
+# ------------------------------------------------------------ BigGAN
+
+
+def test_cli_default_config_is_biggan512(tmp_path):
+    """No --config: DeepMindBigGAN512 (the reference's default) with the
+    TINY BigGAN, the GA's artifact set; ls_result holds z (clipped) and the
+    class vector (the softmax of the class genes), sorted by fitness."""
+    from PIL import Image
+
+    assert cli.main(["--tiny", "--device", "cpu", "--generations", "2", "--save-each", "1",
+                     "--tmp-folder", str(tmp_path), "--no-verbose"]) == 0
+    assert set(os.listdir(tmp_path)) == {
+        "genetic-it-1.jpg", "genetic-it-final.jpg", "genetic_result", "ls_result.npz",
+        "output.jpg", "ga_state.npz"}
+    state = _npz(tmp_path / "ga_state.npz")
+    assert str(state["config"]) == "DeepMindBigGAN512" and int(state["gen"]) == 2
+    X = state["X"][np.argsort(state["F"][:, 0], kind="stable")]
+    assert X.shape == (32, 26)   # DeepMindBigGAN512's pop; the TINY genome, 16 + 10
+    ls = _npz(tmp_path / "ls_result.npz")
+    assert set(ls) == {"z", "class_labels"}
+    np.testing.assert_array_equal(ls["z"], np.clip(X[:, :16], -2, 2))
+    e = np.exp(X[:, 16:] - X[:, 16:].max(1, keepdims=True))
+    np.testing.assert_allclose(ls["class_labels"], e / e.sum(1, keepdims=True), rtol=1e-6)
+    res = _result(tmp_path)
+    assert res["X"].shape == (26,) and res["F"].shape == (1,)
+    assert Image.open(tmp_path / "output.jpg").size == (8, 8)
+
+
+def test_cli_biggan_npz_weights_give_the_same_search(tmp_path, monkeypatch):
+    """A converted npz + _cfg.json of the same seeded tree that random:0
+    draws (bg.init_tree from a generator seeded 0) gives a bitwise-equal
+    search: the whole ga_state.npz, the result and the latents."""
+    import dataclasses
+    import json
+
+    from clip_glass_torch.core import pytree
+    from clip_glass_torch.models.biggan import model as tbg
+
+    w = tmp_path / "w"
+    pytree.save_npz(str(w / "G.npz"), tbg.init_tree(torch.Generator().manual_seed(0), tbg.TINY))
+    with open(w / "G_cfg.json", "w") as f:
+        json.dump(dataclasses.asdict(tbg.TINY), f)
+    argv = ["--config", "DeepMindBigGAN256", "--tiny", "--device", "cpu", "--generations",
+            "2", "--save-each", "2", "--no-verbose", "--pop-size", str(POP)]
+    assert cli.main([*argv, "--tmp-folder", str(tmp_path / "a")]) == 0
+    tinyfy = cli._tinyfy
+    # --tiny draws random:0; keep the TINY sizes and read the npz instead
+    monkeypatch.setattr(cli, "_tinyfy", lambda c: (tinyfy(c)[0].replace(
+        weights=str(w / "G.npz")), *tinyfy(c)[1:]))
+    assert cli.main([*argv, "--tmp-folder", str(tmp_path / "b")]) == 0
+    a, b = tmp_path / "a", tmp_path / "b"
+    for load in (lambda d: _npz(d / "ga_state.npz"), _result,
+                 lambda d: _npz(d / "ls_result.npz")):
+        got, want = load(b), load(a)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_final_artifacts_match_jax_biggan(tmp_path):
+    """`_final_artifacts` of both packages for the TINY DeepMindBigGAN512
+    GA from the same final population and weights: genetic_result equal,
+    ls_result's z equal and class_labels at rtol 1e-6 (two softmaxes), the
+    rendered output at the fitness tests' 1e-4."""
+    from clip_glass_tpu.models.biggan import model as jbg
+
+    from clip_glass_torch.models.biggan import model as tbg
+
+    kw = dict(pop_size=POP, dim_z=16, num_classes=10, n_var=26, resolution=8,
+              weights="random:0", target="a red flower", compute_dtype="float32")
+    jcfg = jget_config("DeepMindBigGAN512").replace(**kw)
+    tcfg = get_config("DeepMindBigGAN512").replace(**kw)
+    jprob = JProblem(jcfg, clip_cfg=jclip.TINY, model_cfg=jbg.TINY)
+    tprob = GenerationProblem(
+        tcfg, device="cpu", clip_cfg=tclip.TINY, model_cfg=tbg.TINY,
+        bundle=from_jax.convert_bundle(jax.tree.map(np.asarray, jprob.generator.bundle)))
+    rng = np.random.default_rng(8)
+    pop_X = np.concatenate([rng.normal(size=(POP, 16)), rng.uniform(size=(POP, 10)) < 0.3],
+                           1).astype(np.float32)
+    pop_F = rng.normal(size=(POP, 1)).astype(np.float32)
+    rendered = {}
+    jprob.generator.save = lambda g, path: rendered.setdefault("jax", np.asarray(g))
+    generate = tprob.generator.generate
+    tprob.generator.generate = lambda X: rendered.setdefault("port", generate(X))
+    tprob.generator.save = lambda u8, path: None
+    fj, ft = tmp_path / "jax", tmp_path / "port"
+    fj.mkdir(), ft.mkdir()
+    gen_fn = jax.jit(lambda X, ctx: jprob.generator.generate(X, ctx))
+    jcli._final_artifacts(jprob, jcfg, jextract(pop_X, pop_F, "ga", None), str(fj), gen_fn)
+    cli._final_artifacts(tprob, tcfg, extract_result(T(pop_X), T(pop_F), "ga", None), str(ft))
+    rj, rt = _result(fj), _result(ft)
+    for k in rj:
+        np.testing.assert_array_equal(rt[k], rj[k])
+    lj, lt = _npz(fj / "ls_result.npz"), _npz(ft / "ls_result.npz")
+    assert lj.keys() == lt.keys() == {"z", "class_labels"}
+    np.testing.assert_array_equal(lt["z"], lj["z"])
+    np.testing.assert_allclose(lt["class_labels"], lj["class_labels"], rtol=1e-6, atol=1e-7)
+    assert rendered["port"].shape == rendered["jax"].shape == (1, 3, 8, 8)
+    np.testing.assert_allclose(rendered["port"].numpy(), rendered["jax"], rtol=1e-4, atol=1e-4)

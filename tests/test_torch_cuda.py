@@ -323,6 +323,24 @@ def test_s2d_conv2x2_shared_weights_equal_folded_ones(gpu, dtype, C):
     assert torch.equal(got, s2d.s2d_conv2x2(x, K, ones, ones, 1))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad0,n", [(0, 17), (1, 16)])
+def test_s2d_conv2x2_shared_weights_at_c256(gpu, dtype, pad0, n):
+    """C' = 256, BigGAN-deep's 256 px fold (one shared weight set): the
+    wmma (bf16) and fp32 variants read set 0 for every sample; against the
+    plain version, and bitwise equal to B folded copies of unit scales."""
+    x, K, ones, _ = _s2d_args(gpu, 3, n, 256, False, dtype)
+    variant = s2d.conv2x2_variant(dtype, 256)
+    assert variant == ("wmma" if dtype == torch.bfloat16 else "fp32")
+    v0 = s2d.s2d_conv2x2.launches_by_variant[variant]
+    got = s2d.s2d_conv2x2(x, K, None, None, pad0)
+    assert s2d.s2d_conv2x2.launches_by_variant[variant] == v0 + 1
+    want = s2d.s2d_conv2x2_plain(x, K, None, None, pad0)
+    assert got.shape == want.shape == (3, n + 2 * pad0 - 1, n + 2 * pad0 - 1, 256)
+    _close_scaled(got, want, dtype)
+    assert torch.equal(got, s2d.s2d_conv2x2(x, K, ones, ones, pad0))
+
+
 def test_s2d_conv2x2_rejects_what_the_kernel_does_not_take(gpu):
     x, K, style, demod = _s2d_args(gpu, 2, 9, 16, True, torch.float32)
     with pytest.raises(ValueError):        # CPU/CUDA mix
@@ -356,3 +374,13 @@ def test_tiny_search_fitness_on_gpu_matches_cpu(gpu):
     import chip_smoke
 
     chip_smoke.phase_agreement()
+
+
+def test_tiny_biggan_fitness_on_gpu_matches_cpu(gpu):
+    """The smoke run's BigGAN agreement phase: the TINY BigGAN fitness
+    through kernel 4 on the card against the plain versions on the CPU,
+    fp32, plain and with both blocks' mid segments in the s2d domain (3
+    launches per evaluation)."""
+    import chip_smoke
+
+    chip_smoke.phase_agreement_biggan()

@@ -280,10 +280,152 @@ def test_tiny_search_is_deterministic_and_valid():
 @pytest.mark.parametrize("name,item", [("DeepMindBigGAN256", "item 9"),
                                        ("GPT2", "item 10")])
 def test_operators_refuse_unported_families(name, item):
+    """GPT-2 (item 10) is refused; BigGAN (item 9) is ported and gets the
+    mixed-genome operators: truncnorm z in (-2, 2) and 0/1 class bits."""
     from clip_glass_torch.evolve.algorithm import operators_for_config
 
-    with pytest.raises(NotImplementedError, match=item):
-        operators_for_config(get_config(name))
+    config = get_config(name)
+    if item != "item 9":
+        with pytest.raises(NotImplementedError, match=item):
+            operators_for_config(config)
+        return
+    ops = operators_for_config(config)
+    gen = torch.Generator().manual_seed(0)
+    X = ops.sample(gen, 8)
+    assert X.shape == (8, config.n_var) == (8, 1128)
+    z, bits = X[:, :128], X[:, 128:]
+    assert z.abs().max() < 2 and set(bits.unique().tolist()) <= {0.0, 1.0}
+    o1, o2 = ops.cross(gen, X[:4], X[4:])
+    M = ops.mutate(gen, torch.cat([o1, o2]))
+    assert set(M[:, 128:].unique().tolist()) <= {0.0, 1.0}
+    assert (M[:, :128].abs() <= 2).all()
+
+
+# ------------------------------------------------------------ BigGAN operators
+
+
+def _bits(rng, m, n_var, p):
+    return (rng.uniform(size=(m, n_var)) < p).astype(np.float32)
+
+
+@pytest.mark.parametrize("prob", [0.2, 1.0])
+def test_hux_matches_jax(rng, prob):
+    """Equal children: the swapped positions are the same bits."""
+    m, n_var = 16, 40
+    x1, x2 = _bits(rng, m, n_var, 0.3), _bits(rng, m, n_var, 0.3)
+    x2[0] = x1[0]            # no differing bit
+    x2[1] = x1[1]
+    x2[1, 5] = 1 - x1[1, 5]  # one differing bit: ceil(1/2) = 1 swap
+    key = jax.random.PRNGKey(11)
+    want = jxo.hux(key, jnp.asarray(x1), jnp.asarray(x2), prob=prob)
+    k_mate, k_score = jax.random.split(key)
+    got = txo.hux_core(T(x1), T(x2), _u(k_mate, (m, 1)), _u(k_score, (m, n_var)),
+                       prob=prob)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(N(g), np.asarray(w))
+    if prob == 1.0:  # every mating swaps exactly ceil(n_diff / 2) bits
+        n_diff = (x1 != x2).sum(1)
+        np.testing.assert_array_equal((N(got[0]) != x1).sum(1), np.ceil(n_diff / 2))
+
+
+@pytest.mark.parametrize("prob", [0.01, 0.5])
+def test_bitflip_matches_jax(rng, prob):
+    x = _bits(rng, 16, 40, 0.5)
+    key = jax.random.PRNGKey(12)
+    want = jmut.bitflip_mutation(key, jnp.asarray(x), prob)
+    got = tmut.bitflip_core(T(x), _u(key, x.shape), prob)
+    np.testing.assert_array_equal(N(got), np.asarray(want))
+
+
+def _mixed(rng, m, dim_z=8, n_cls=12):
+    z = rng.uniform(-2, 2, size=(m, dim_z)).astype(np.float32)
+    x = np.concatenate([z, _bits(rng, m, n_cls, 0.3)], axis=1)
+    mask = np.arange(dim_z + n_cls) < dim_z
+    return x, mask
+
+
+def test_mixed_crossover_matches_jax(rng):
+    """SBX on the real genes (rtol 1e-5), HUX on the bits (equal)."""
+    m = 16
+    x1, mask = _mixed(rng, m)
+    x2, _ = _mixed(rng, m)
+    n_var = x1.shape[1]
+    key = jax.random.PRNGKey(13)
+    want = jxo.mixed_crossover(key, jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask),
+                               -2.0, 2.0, eta=3.0, real_prob=1.0, bool_prob=0.2)
+    k1, k2 = jax.random.split(key)
+    u_sbx = [_u(k, s) for k, s in zip(jax.random.split(k1, 4),
+                                      [(m, 1), (m, n_var), (m, n_var), (m, n_var)])]
+    ks = jax.random.split(k2)
+    u_hux = (_u(ks[0], (m, 1)), _u(ks[1], (m, n_var)))
+    got = txo.mixed_crossover_core(T(x1), T(x2), torch.as_tensor(mask), -2.0, 2.0,
+                                   u_sbx, u_hux, eta=3.0, real_prob=1.0, bool_prob=0.2)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(N(g)[:, mask], w[:, mask], **FTOL)
+        np.testing.assert_array_equal(N(g)[:, ~mask], w[:, ~mask])
+
+
+def test_mixed_mutation_matches_jax(rng):
+    x, mask = _mixed(rng, 16)
+    key = jax.random.PRNGKey(14)
+    want = np.asarray(jmut.mixed_mutation(key, jnp.asarray(x), jnp.asarray(mask), -2.0,
+                                          2.0, eta=3.0, real_prob=0.5, bool_prob=0.1))
+    k1, k2 = jax.random.split(key)
+    u_pm = [_u(k, x.shape) for k in jax.random.split(k1)]
+    got = N(tmut.mixed_mutation_core(T(x), torch.as_tensor(mask), -2.0, 2.0, u_pm,
+                                     _u(k2, x.shape), eta=3.0, real_prob=0.5,
+                                     bool_prob=0.1))
+    np.testing.assert_allclose(got[:, mask], want[:, mask], **FTOL)
+    np.testing.assert_array_equal(got[:, ~mask], want[:, ~mask])
+
+
+def test_truncnorm_core_matches_jax():
+    key = jax.random.PRNGKey(15)
+    want = np.asarray(jsmp.truncnorm_sampling(key, 64, 128))
+    got = N(tsmp.truncnorm_core(_u(key, (64, 128))))
+    np.testing.assert_allclose(got, want, **FTOL)
+    assert np.abs(got).max() < 2.0
+
+
+def test_binary_and_mixed_sampling_match_jax():
+    """The JAX package's Bernoulli is a uniform below p: equal bits; the
+    mixed genome is its truncnorm z ++ the class bits."""
+    key = jax.random.PRNGKey(16)
+    want = np.asarray(jsmp.binary_sampling(key, 32, 100, 0.05))
+    got = (_u(key, (32, 100)) < 0.05).float()
+    np.testing.assert_array_equal(N(got), want)
+    X = tsmp.mixed_biggan_sampling(torch.Generator().manual_seed(0), 256, 16, 1000)
+    assert X.shape == (256, 1016) and X.dtype == torch.float32
+    assert set(X[:, 16:].unique().tolist()) == {0.0, 1.0}
+    assert abs(X[:, 16:].mean().item() - 0.005) < 0.001   # bool_prob 5/1000
+    assert X[:, :16].abs().max() < 2
+
+
+def test_tiny_biggan_ga_search_is_deterministic_and_valid():
+    """The DeepMindBigGAN GA on the TINY model (CPU): seeded, elitist, the
+    class genes stay 0/1 and z within [xl, xu]."""
+    from clip_glass_torch.models.biggan import model as tbg
+
+    cfg = get_config("DeepMindBigGAN512").replace(
+        pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8,
+        weights="random:0", target="a red flower", compute_dtype="float32")
+
+    def run(seed):
+        problem = GenerationProblem(cfg, device="cpu", clip_cfg=tclip.TINY,
+                                    model_cfg=tbg.TINY)
+        best = []
+        res = minimize(problem.make_algorithm(), 3, seed, save_each=1,
+                       callback=lambda s: best.append(s.F[:, 0].min().item()))
+        return res, best
+
+    a, best = run(0)
+    b, _ = run(0)
+    assert torch.equal(a.pop_X, b.pop_X) and torch.equal(a.pop_F, b.pop_F)
+    assert best == sorted(best, reverse=True) and a.state.gen == 3
+    assert a.pop_X.shape == (8, 26) and a.pop_F.shape == (8, 1)
+    assert set(a.pop_X[:, 16:].unique().tolist()) <= {0.0, 1.0}
+    assert (a.pop_X[:, :16].abs() <= 2).all() and torch.isfinite(a.pop_F).all()
 
 
 def test_tiny_ga_search_is_elitist_and_valid():

@@ -138,9 +138,9 @@ def test_port_random_problem_is_seeded():
 
 
 def test_unported_configs_raise():
-    """GPT-2 is not ported; a checkpoint directory that does not exist
-    raises FileNotFoundError, as in the JAX package."""
-    with pytest.raises(NotImplementedError):
+    """GPT-2 is not ported (item 10); a checkpoint directory that does not
+    exist raises FileNotFoundError, as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="item 10"):
         GenerationProblem(get_config("GPT2"), device="cpu")
     with pytest.raises(FileNotFoundError):
         GenerationProblem(_config(get_config).replace(weights="./weights/x"),
@@ -225,3 +225,106 @@ def test_discriminator_stays_fp32_after_staging(problems, rng):
     b = tsg2.discriminator_apply(precast_params(gen.d_params, BF16), img, tsg2.TINY,
                                  policy=BF16)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ BigGAN fitness
+
+
+def _bg_config(get, **kw):
+    return get("DeepMindBigGAN512").replace(
+        pop_size=POP, dim_z=16, num_classes=10, n_var=26, resolution=8,
+        weights="random:0", target="a red flower", compute_dtype="float32", **kw)
+
+
+@pytest.fixture(scope="module")
+def bg_problems():
+    """The JAX TINY BigGAN problem with its G redrawn (test_torch_biggan's
+    random_tree: no zero term), and the port's on the converted bundle."""
+    from clip_glass_tpu.models.biggan import model as jbg
+    from test_torch_biggan import random_tree
+
+    jprob = JProblem(_bg_config(jget_config), clip_cfg=jclip.TINY, model_cfg=jbg.TINY)
+    jbundle = dict(jprob.generator.bundle)
+    jbundle["g"] = jax.tree.map(jnp.asarray, random_tree(jbg.TINY, 5))
+    tbundle = from_jax.convert_bundle(jax.tree.map(np.asarray, jbundle))
+    assert set(tbundle) == {"clip", "g", "target"}
+    return jprob, jbundle, tbundle
+
+
+def _bg_X(seed):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(POP, 16))
+    return np.concatenate([z, rng.uniform(size=(POP, 10)) < 0.3], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("s2d_min_res", [2 ** 30, 4])
+def test_biggan_eval_population_matches_jax(bg_problems, s2d_min_res):
+    """F = -cos of the TINY BigGAN problem, plain (as the configs run it at
+    8 px) and with both blocks' mid segments in the s2d domain, against the
+    JAX package's fitness on the same bundle (the JAX side plain: its model
+    config is the TINY one; the domains are exact rewrites)."""
+    from clip_glass_torch.models.biggan import model as tbg
+
+    jprob, jbundle, tbundle = bg_problems
+    tprob = GenerationProblem(_bg_config(get_config), device="cpu", clip_cfg=tclip.TINY,
+                              model_cfg=dataclasses.replace(tbg.TINY, s2d_min_res=s2d_min_res),
+                              bundle=tbundle)
+    assert not tprob.generator._s2d_active and tprob.generator.noise is None
+    X = _bg_X(6)
+    want = np.asarray(jax.jit(jprob.generator.eval_population)(jnp.asarray(X), jbundle))
+    got = N(tprob.generator.eval_population(T(X)))
+    assert got.shape == (POP, 1) and np.isfinite(got).all()
+    assert_close_scaled(got, want, 1e-4)
+    imgs = N(tprob.generator.generate(T(X)))
+    assert imgs.shape == (POP, 3, 8, 8)
+    np.testing.assert_allclose(
+        imgs, np.asarray(jax.jit(jprob.generator.generate)(jnp.asarray(X), jbundle)),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_biggan_decode_matches_jax(rng):
+    from clip_glass_tpu.fitness import latent as jlatent
+
+    from clip_glass_torch.fitness import latent as tlatent
+
+    X = (3 * rng.normal(size=(POP, 26))).astype(np.float32)
+    want = jlatent.decode_biggan(jnp.asarray(X), 16)
+    got = tlatent.decode_biggan(T(X), 16)
+    np.testing.assert_array_equal(N(got[0]), np.asarray(want[0]))
+    np.testing.assert_allclose(N(got[1]), np.asarray(want[1]), rtol=1e-6, atol=1e-7)
+
+
+def test_biggan_loaders(tmp_path):
+    """random:<seed> draws bg.CONFIGS' entry for the config's resolution; a
+    converted npz with its _cfg.json gives the same weights; a missing path
+    raises FileNotFoundError; a .bin raises naming ROADMAP item 14. Staging
+    keeps the running statistics fp32 under bf16."""
+    import json
+
+    from clip_glass_torch.core import pytree
+    from clip_glass_torch.fitness.generator import _load_biggan, load_bundle
+    from clip_glass_torch.models.biggan import model as tbg
+
+    cfg = _bg_config(get_config)
+    g, mcfg = _load_biggan(cfg.replace(resolution=256), None)
+    assert mcfg == tbg.BIGGAN_DEEP_256
+    path = tmp_path / "G.npz"
+    pytree.save_npz(str(path), tbg.init_tree(torch.Generator().manual_seed(3), tbg.TINY))
+    with open(tmp_path / "G_cfg.json", "w") as f:
+        json.dump(dataclasses.asdict(tbg.TINY), f)
+    bundle, _, got_cfg = load_bundle(cfg.replace(weights=str(path)), clip_cfg=tclip.TINY)
+    assert got_cfg == tbg.TINY and set(bundle) == {"clip", "g"}
+    want, _ = _load_biggan(cfg.replace(weights="random:3"), tbg.TINY)
+    jax.tree.map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+                 bundle["g"], want)
+    with pytest.raises(FileNotFoundError):
+        _load_biggan(cfg.replace(weights=str(tmp_path / "missing.npz")), None)
+    (tmp_path / "pytorch_model.bin").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        _load_biggan(cfg.replace(weights=str(tmp_path / "pytorch_model.bin")), None)
+    gen = Generator(cfg.replace(compute_dtype="bfloat16"), device="cpu",
+                    clip_cfg=tclip.TINY, model_cfg=tbg.TINY)
+    blk = gen.g_params["blocks"][1]["block"]   # TINY: attention first
+    assert blk["bn_0"]["running_vars"].dtype == torch.float32
+    assert blk["conv_0"]["w"].dtype == torch.bfloat16
+    assert set(gen.bundle) == {"clip", "g", "target"}

@@ -225,6 +225,67 @@ def test_s2d_upsample2x_matches_jax(rng):
     assert_close_scaled(N(S.s2d_upsample2x(T(y))), np.asarray(J.s2d_upsample2x(_j(y))), RTOL)
 
 
+# ------------------------------------------------------------ BigGAN ops
+
+
+@pytest.mark.parametrize("out_off", [0, -1])
+def test_s2d_enter_conv1x1_matches_jax(rng, out_off):
+    x, w = _x(rng, B, H, H, I), _x(rng, 1, 1, I, O)
+    want = J.s2d_enter_conv1x1(_j(x), _j(w), out_off=out_off)
+    got = S.s2d_enter_conv1x1(T(x), oihw(w), out_off=out_off)
+    assert_close_scaled(N(got), np.asarray(want), RTOL)
+    if out_off:  # the entry writes zero phantoms
+        np.testing.assert_array_equal(N(S.mask_phantoms_(got.clone())), N(got))
+
+
+@pytest.mark.parametrize("in_off", [0, -1])
+def test_s2d_exit_conv1x1_matches_jax(rng, in_off):
+    x, w = _x(rng, B, H, H, I), _x(rng, 1, 1, I, O)
+    want = J.s2d_exit_conv1x1(_to_off(_j(x), in_off, J), _j(w), in_off=in_off)
+    got = S.s2d_exit_conv1x1(_to_off(T(x), in_off, S), oihw(w), in_off=in_off)
+    assert got.shape == (B, H, H, O)
+    assert_close_scaled(N(got), np.asarray(want), RTOL)
+
+
+@pytest.mark.parametrize("in_off,out_off", [(0, 0), (-1, 0), (0, -1), (-1, -1)])
+@pytest.mark.parametrize("k", [3, 1])
+def test_nearest_up_fold_map_matches_jax(k, in_off, out_off):
+    M, pad0 = S._nearest_up_fold_map(k, in_off, out_off)
+    Mj, pad0j = J._nearest_up_fold_map(k, in_off, out_off)
+    np.testing.assert_array_equal(M, Mj)
+    assert pad0 == pad0j
+
+
+@pytest.mark.parametrize("in_off,out_off", [(0, 0), (-1, 0), (0, -1), (-1, -1)])
+def test_s2d_nearest_up_conv_matches_jax(rng, in_off, out_off):
+    """Against JAX on the whole tensor (phantoms included: both folds are
+    the same exact rewrite), and, phantoms masked, against the plain
+    nearest upsample + 'SAME' 3x3 conv."""
+    x, w = _x(rng, B, H, H, I), _x(rng, 3, 3, I, O)
+    want = J.s2d_nearest_up_conv(_to_off(_j(x), in_off, J), _j(w), in_off=in_off,
+                                 out_off=out_off)
+    got = S.s2d_nearest_up_conv(_to_off(T(x), in_off, S), oihw(w), in_off=in_off,
+                                out_off=out_off)
+    assert_close_scaled(N(got), np.asarray(want), RTOL)
+    up = T(x).repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    plain = tmc._conv(up, oihw(w), pad0=1, pad1=1)
+    if out_off:
+        got = S.mask_phantoms_(got)
+    assert_close_scaled(N(S.un_s2d_off(got, out_off)), N(plain), RTOL)
+
+
+def test_s2d_exit_conv1x1_skip_matches_jax(rng):
+    x, w = _x(rng, B, H, H, I), _x(rng, 1, 1, I, O)
+    skip = _x(rng, B, H // 2, H // 2, O)   # the pre-up resolution: x's cells
+    want = J.s2d_exit_conv1x1_skip(J.s2d(_j(x)), _j(w), _j(skip), in_off=0)
+    got = S.s2d_exit_conv1x1_skip(S.s2d(T(x)), oihw(w), T(skip), in_off=0)
+    assert_close_scaled(N(got), np.asarray(want), RTOL)
+    plain = tmc._conv(T(x), oihw(w)) + T(skip).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    assert_close_scaled(N(got), N(plain), RTOL)
+    with pytest.raises(AssertionError, match="offset-0"):
+        S.s2d_exit_conv1x1_skip(_to_off(T(x), -1, S), oihw(w), T(skip), in_off=-1)
+
+
 # ------------------------------------------------------------ s4d RGB domain
 
 
