@@ -60,6 +60,22 @@ blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample):
  12. biggan cli: `cli.main` with no --config (DeepMindBigGAN512), random
      weights, 2 generations: the artifact set, ls_result.npz with z and
      class_labels.
+Then GPT-2's image-to-text search, which runs no kernel of the package
+(GPT-2 and CLIP's text tower are cuBLAS matmuls and PyTorch ops, with the
+BPE round trip on the host between them):
+ 13. gpt2 agreement: the TINY GPT2 fitness and sample_sequence on the GPU
+     against the CPU, fp32: the ids token-exact, F within 1e-6; both
+     tokenizers took the native merge core;
+ 14. gpt2 main: GPT2 at full width (GPT-2 124M, CLIP ViT-B/32, pop 100,
+     bf16, random weights from seed 0, the example dog photo as target),
+     init + 2 generations: per evaluation the decode, host round trip and
+     text tower times, seconds a generation, peak memory, the evaluations
+     that an overflow zeroed, the decode's launches a token (profiler) and
+     its bounds from the shapes, the round trip on the native merge core
+     against the Python loop; no kernel of the package launches;
+ 15. gpt2 cli: `cli.main --config GPT2` at full width: F1 2 generations, F2
+     F1's folder resumed to 4, G 4 straight; the .txt artifact set, and F2's
+     ga_state.npz equal to G's bitwise.
 The last lines are the kernels' summary (JSON; kernel 4's entry carries a
 `biggan` record per config), the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -862,7 +878,7 @@ def _write_converted(root: str) -> None:
 
 
 def _cli_run(label: str, folder: str, config, generations: int, want_variants: dict,
-             *extra, first_gen: int = 0, pop=POP) -> dict:
+             *extra, first_gen: int = 0, pop=POP, target: str = TARGET) -> dict:
     """One in-process CLI run with the kernels' counts set to 0 just before
     it; checks its artifacts and that each kernel of `want_variants` (name
     -> the variants it must launch, or None for a kernel without variants)
@@ -877,7 +893,7 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
     kernels = _kernels()
     _zero_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--target", TARGET, "--generations", str(generations), "--save-each", "2",
+    argv = ["--target", target, "--generations", str(generations), "--save-each", "2",
             "--tmp-folder", folder, "--device", "cuda", "--seed", "0", *extra]
     if config is not None:
         argv += ["--config", config]
@@ -892,8 +908,11 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
     lines = out.getvalue().splitlines()
     if rc != 0:
         raise AssertionError(f"cli {label}: exit {rc}: {lines[-5:]}")
-    # a periodic dump per 2 generations run, the last one named "final"
-    want = CLI_ARTIFACTS | {f"genetic-it-{g}.jpg" for g in range(first_gen + 2, generations, 2)}
+    # a periodic dump per 2 generations run, the last one named "final";
+    # GPT-2's captions are text
+    ext = "txt" if config == "GPT2" else "jpg"
+    want = {a.replace(".jpg", f".{ext}") for a in CLI_ARTIFACTS} | {
+        f"genetic-it-{g}.{ext}" for g in range(first_gen + 2, generations, 2)}
     if (config or "").endswith("_d"):
         want.add("F.jpg")
     if set(os.listdir(folder)) != want:
@@ -964,7 +983,7 @@ def phase_cli(summary: dict) -> None:
         with open(os.path.join(d, "genetic_result"), "rb") as f:
             res = pickle.load(f)
         ls = _npz(os.path.join(d, "ls_result.npz"))
-        order = np.argsort(sd["F"][:, 0], kind="stable")
+        order = np.argsort(sd["F"][:, 0])
         if not np.array_equal(ls["z"], sd["X"][order]):
             raise AssertionError("cli D: ls_result is not the population sorted by fitness")
         if res["X"].shape != (sd["X"].shape[1],) or res["F"].shape != (1,):
@@ -1221,6 +1240,281 @@ def phase_cli_biggan() -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 13-15: GPT-2 img2txt
+
+DOG = os.path.join(ROOT, "examples", "gpt2_images", "dog.jpeg")
+GPT2_GENERATIONS = 2
+
+
+def _gpt2_tiny_config():
+    from clip_glass_torch.config import get_config
+
+    return get_config("GPT2").replace(pop_size=8, dim_z=6, n_var=6, max_tokens_len=5,
+                                      weights="random:0", target=DOG, compute_dtype="float32")
+
+
+def phase_agreement_gpt2() -> None:
+    """The TINY GPT2 problem (random weights drawn on the CPU, so the same on
+    both devices) on the GPU against the CPU, fp32, TF32 off: the decoded
+    ids of `generate` and of a longer `sample_sequence` token-exact, the
+    fitness within 1e-6; both tokenizers on the native merge core; no kernel
+    of the package launches. tests/test_torch_cuda.py runs this same check."""
+    from clip_glass_torch.evolve.sampling import int_random_sampling
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
+    from clip_glass_torch.tokenizers import get_clip_tokenizer, get_gpt2_tokenizer
+
+    routes = {"gpt2": get_gpt2_tokenizer().native is not None,
+              "clip": get_clip_tokenizer().native is not None}
+    if not all(routes.values()):
+        raise AssertionError(f"a tokenizer fell back to the Python merge loop: {routes}")
+    cfg = _gpt2_tiny_config()
+    X = int_random_sampling(torch.Generator().manual_seed(1), 8, 6, 0, 50256)
+    kernels = _kernels()
+    _zero_counts(kernels)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gen = GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
+                                model_cfg=g2.TINY).generator
+        Xd = X.to(dev)
+        with torch.inference_mode():
+            ctx = torch.cat([Xd[:, :3].to(torch.int32), gen.init_tokens.expand(8, -1)], 1)
+            out[dev] = (gen.generate(Xd).cpu(), gen.eval_population(Xd).cpu(),
+                        g2.sample_sequence(gen.g_params, ctx, 24, g2.TINY).cpu())
+    launches = {k.__name__: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"gpt2 agreement: a kernel launched: {launches}")
+    for i, what in ((0, "generate"), (2, "sample_sequence")):
+        if not torch.equal(out["cuda"][i], out["cpu"][i]):
+            raise AssertionError(f"gpt2 {what}: ids on the GPU differ from the CPU: "
+                                 f"{out['cuda'][i]} vs {out['cpu'][i]}")
+    err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    if not err <= 1e-6:
+        raise AssertionError(f"gpt2 fitness: GPU {out['cuda'][1]} vs CPU {out['cpu'][1]}")
+    log({"phase": "agreement", "config": "GPT2 TINY fp32", "max_abs_err": err,
+         "ids_equal": True, "native_bpe": routes,
+         "fitness": out["cpu"][1][:, 0].tolist()})
+
+
+def gpt2_bounds(cfg, pop: int, T0: int, length: int, itemsize: int = 2) -> dict:
+    """The least times of one decode from the shapes (bytes over 3.35 TB/s,
+    operations over 989 TFLOP/s bf16): a decode step reads every block
+    weight and the tied embedding once and the cache written so far; the
+    prefill does 2 operations a parameter a token (the LM head included)."""
+    D, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    block = L * (12 * D * D + 13 * D)               # attn + mlp weights and biases, LNs
+    params = block + V * D + cfg.n_positions * D + 2 * D
+    step_bytes = (block + V * D) * itemsize
+    cache_bytes = L * 2 * pop * (T0 + length) * D * itemsize
+    steps_ms = sum(bound_ms(step_bytes + cache_bytes * (T0 + s) // (T0 + length),
+                            2 * (block + V * D) * pop, PEAK_BF16_TC_OPS_PER_S)[0]
+                   for s in range(1, length))
+    prefill_ops = 2 * (block + V * D) * pop * T0
+    prefill = bound_ms(step_bytes + cache_bytes * T0 // (T0 + length), prefill_ops,
+                       PEAK_BF16_TC_OPS_PER_S)
+    return {"parameters": params, "weights_bf16_bytes": params * itemsize,
+            "decode_step_bytes": step_bytes, "kv_cache_bytes": cache_bytes,
+            "decode_step_ms": bound_ms(step_bytes, 0)[0],
+            "decode_steps": length - 1, "decode_steps_ms": steps_ms,
+            "prefill_tokens": pop * T0, "prefill_ops": prefill_ops,
+            "prefill_ms": prefill[0], "prefill_bound_by": prefill[1],
+            "decode_ms": prefill[0] + steps_ms}
+
+
+def _decode_launches(generator, X) -> dict:
+    """Kernels on the device and kernel launches issued by the host over one
+    decode (torch.profiler), per generated token; the device's busy time
+    (the kernels' durations) and its idle share between the first kernel's
+    start and the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        generator.generate(X)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.time_range for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                               "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    n = generator.config.max_tokens_len
+    out = {"device_kernels": len(kernels), "host_launch_calls": host, "tokens": n,
+           "device_kernels_per_token": len(kernels) / n, "host_launch_calls_per_token": host / n,
+           "device_busy_ms": None, "device_span_ms": None, "idle_share": None}
+    if kernels:
+        busy = sum(r.end - r.start for r in kernels) / 1e3
+        span = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
+        out.update(device_busy_ms=busy, device_span_ms=span, idle_share=1.0 - busy / span)
+    return out
+
+
+def _round_trip_routes(gen, ids, reps: int = 3) -> dict:
+    """The host round trip (`_texts_to_clip_tokens`) on one population's
+    decoded ids by each merge route, on the host clock: `cold` with the
+    tokenizers' per-token caches emptied first (a search's first
+    evaluation), `warm` right after on the same ids (every pre-token
+    cached). Both routes must give the same CLIP tokens."""
+    import numpy as np
+
+    from clip_glass_torch.tokenizers import get_clip_tokenizer, get_gpt2_tokenizer
+    from clip_glass_torch.tokenizers.clip_bpe import SPECIALS
+
+    toks = (get_gpt2_tokenizer(), get_clip_tokenizer())
+    native = [t.native for t in toks]
+    out, want = {}, None
+    try:
+        for route in ("native", "python"):
+            rec = {"cold_ms": [], "warm_ms": []}
+            for _ in range(reps):
+                for t, n in zip(toks, native):
+                    t.native = n if route == "native" else None
+                    t._id_cache = {}
+                toks[1]._cache = {s: s for s in SPECIALS}
+                for phase in ("cold_ms", "warm_ms"):
+                    t0 = time.perf_counter()
+                    got = gen._texts_to_clip_tokens(ids)
+                    rec[phase].append((time.perf_counter() - t0) * 1e3)
+                    want = got if want is None else want
+                    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+                        raise AssertionError(f"round trip: the {route} route's tokens differ")
+            out[route] = rec
+    finally:
+        for t, n in zip(toks, native):
+            t.native = n
+    return out
+
+
+def phase_main_gpt2(kind: str, smi: str) -> None:
+    """GPT2 at full width: GPT-2 124M and CLIP ViT-B/32 (random weights from
+    seed 0), pop 100, bf16, init + GPT2_GENERATIONS generations with the
+    kernels' counts set to 0 just before (none may launch). Each evaluation
+    records whether an overflow zeroed it. Then, on the final population,
+    three evaluations split with CUDA events and the host clock: the
+    decode (prefill + 29 steps), the host round trip (copy, GPT-2 decode,
+    CLIP encode, copy back) and the CLIP text tower; and the round trip on
+    the native merge core against the Python loop, on the same ids."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    config = get_config("GPT2").replace(target=DOG, weights="random:0")
+    pop = config.pop_size
+    t = time.perf_counter()
+    problem = GenerationProblem(config, device="cuda")
+    algorithm = problem.make_algorithm()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    gen = problem.generator
+    zeroed = []
+    evaluate = algorithm.eval_fn
+
+    def recording_eval(X):
+        F = evaluate(X)
+        zeroed.append(bool((F == 0).all().item()))
+        return F
+
+    algorithm.eval_fn = recording_eval
+    torch.cuda.reset_peak_memory_stats()
+    rng = algorithm.generator(0)
+    _zero_counts(kernels)
+    t = time.perf_counter()
+    state = algorithm.init(rng)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    init_s = stamps[0] - t
+
+    def on_generation(_state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = minimize(algorithm, GPT2_GENERATIONS, rng, callback=on_generation, save_each=1,
+                   state=state)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"gpt2 main: a kernel launched: {launches}")
+    Fp = res.pop_F
+    if tuple(Fp.shape) != (pop, 1) or not torch.isfinite(Fp).all() \
+            or not (Fp.abs() <= 1.0 + 1e-6).all():
+        raise AssertionError(f"gpt2 main: bad fitness {tuple(Fp.shape)}: {Fp}")
+    X = res.pop_X.cuda()
+    if not torch.equal(X, X.round()) or X.min() < 0 or X.max() > 50256:
+        raise AssertionError("gpt2 main: genes are not token ids")
+
+    bundle = gen.bundle
+    split = []
+    with torch.inference_mode():
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            ids = gen.generate(X)
+            ev[1].record()
+            ev[1].synchronize()
+            t1 = time.perf_counter()
+            toks, ok = gen._place_like(X, *gen._texts_to_clip_tokens(ids.cpu().numpy()))
+            t2 = time.perf_counter()
+            ev[2].record()
+            gen._text_similarity(toks, ok, bundle)
+            ev[3].record()
+            ev[3].synchronize()
+            split.append({"decode_ms": ev[0].elapsed_time(ev[1]),
+                          "decode_host_ms": (t1 - t0) * 1e3,
+                          "host_round_trip_ms": (t2 - t1) * 1e3,
+                          "clip_text_ms": ev[2].elapsed_time(ev[3]),
+                          "evaluation_ms": (time.perf_counter() - t0) * 1e3})
+        split = split[1:]   # the first is a warm-up
+        texts = gen.decode_texts(ids.cpu().numpy())
+        routes = _round_trip_routes(gen, ids.cpu().numpy())
+    launch = _decode_launches(gen, X)
+    gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    T0 = config.dim_z + len(gen.init_tokens)
+    log({"phase": "main", "path": "gpt2", "config": "GPT2",
+         "model": "GPT-2 124M, argmax decode of 30 tokens", "clip": "VIT_B_32", "pop": pop,
+         "compute_dtype": config.compute_dtype, "generations": GPT2_GENERATIONS,
+         "setup_s": setup_s, "init_eval_s": init_s, "generation_s": gen_s,
+         "candidates_per_s": [pop / s for s in gen_s], "evaluation_split": split,
+         "round_trip_by_route": routes,
+         "overflow_zeroed_evaluations": zeroed, "max_memory_allocated_bytes": peak,
+         "best_cos": -Fp[:, 0].min().item(), "decode_launches": launch,
+         "bounds": gpt2_bounds(gen.model_cfg, pop, T0, config.max_tokens_len),
+         "captions_sample": texts[:3], "launches": launches, "device": kind,
+         "nvidia_smi": smi})
+    del problem, algorithm, res, state, X, gen, bundle
+    torch.cuda.empty_cache()
+
+
+def phase_cli_gpt2() -> None:
+    """`cli.main --config GPT2` at full width (its pop 100, random weights):
+    F1 2 generations, F2 F1's folder resumed to 4, G 4 straight; the .txt
+    artifact set, int32 ids in ls_result.npz, and F2's whole ga_state.npz
+    equal to G's bitwise. No kernel of the package launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        f, g = os.path.join(tmp, "f"), os.path.join(tmp, "g")
+        _cli_run("F1", f, "GPT2", 2, {}, pop=None, target=DOG)
+        _cli_run("F2", f, "GPT2", 4, {}, "--resume", first_gen=2, pop=None, target=DOG)
+        _cli_run("G", g, "GPT2", 4, {}, pop=None, target=DOG)
+        sf, sg = _npz(os.path.join(f, "ga_state.npz")), _npz(os.path.join(g, "ga_state.npz"))
+        if int(sf["gen"]) != 4 or int(sg["gen"]) != 4:
+            raise AssertionError(f"cli gpt2: gen {sf['gen']} / {sg['gen']}, expected 4")
+        _same_state("cli: resumed F2 vs uninterrupted G", sf, sg)
+        ls = _npz(os.path.join(g, "ls_result.npz"))["z"]
+        if ls.dtype.name != "int32" or ls.shape != (100, 20):
+            raise AssertionError(f"cli G: ls_result z {ls.dtype} {ls.shape}")
+        with open(os.path.join(g, "genetic-it-final.txt")) as fh:
+            lines = fh.read().split("\n")
+        if len(lines) != 100 or not all(t.startswith("the picture of") for t in lines):
+            raise AssertionError(f"cli G: genetic-it-final.txt holds {lines[:3]}...")
+        log({"phase": "cli", "check": "GPT2: F2 == G bitwise; the .txt artifact set",
+             "captions_sample": lines[:3]})
+    torch.cuda.empty_cache()
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -1249,6 +1543,9 @@ def main() -> int:
     biggan = {name: phase_main_biggan(name, kind, smi, summary) for name in BIGGAN_POP}
     phase_domains_biggan()
     phase_cli_biggan()
+    phase_agreement_gpt2()
+    phase_main_gpt2(kind, smi)
+    phase_cli_gpt2()
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]

@@ -3,13 +3,18 @@
 Reference behavior mirrored (reference run.py):
 - flags --config --target --generations --save-each --tmp-folder --device
   (run.py:15-24); --device defaults to "cuda", and "cpu" runs on the host
-- periodic artifact dumps `genetic-it-<N>.jpg` every save-each generations,
-  final dump `genetic-it-final.jpg`, GA populations sorted by fitness
-  (run.py:29-51)
+- periodic artifact dumps `genetic-it-<N>.<ext>` every save-each
+  generations, final dump `genetic-it-final.<ext>`, GA populations sorted by
+  fitness (run.py:29-51); <ext> is jpg for txt2img, txt (captions) for
+  GPT-2's img2txt
 - `genetic_result` pickle of {X, F, G, CV} (run.py:79-84)
 - Pareto scatter `F.jpg` for two-objective runs (run.py:86-89)
 - `ls_result` latent dump (run.py:92-101; npz of decoded latents here)
-- pseudo-weights/ASF decision -> `output.jpg` (run.py:103-125)
+- pseudo-weights/ASF decision -> `output.<ext>` (run.py:103-125)
+
+The GA's sort by fitness is numpy's default `np.argsort` on the host copy of
+F, as in the JAX CLI, so tied fitnesses (every row of a GPT-2 population
+whose captions overflowed CLIP's context) order the artifacts the same way.
 
 Additions, as in the JAX package's CLI: --pop-size/--seed overrides,
 --weights (a directory of converted checkpoints, or `random:<seed>`),
@@ -49,9 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-each", type=int, default=50)
     p.add_argument("--tmp-folder", type=str, default="./tmp")
     p.add_argument("--target", type=str, action="append", default=None,
-                   help="search target (text prompt). Default: 'a wolf at night "
-                        "with the moon in the background' (reference run.py:22). "
-                        "One only: several targets are ROADMAP item 12")
+                   help="search target: a text prompt, or for GPT2 an image path. "
+                        "Default: 'a wolf at night with the moon in the background' "
+                        "(reference run.py:22). One only: several targets are ROADMAP "
+                        "item 12")
     p.add_argument("--pop-size", type=int, default=None)
     p.add_argument("--eval-microbatch", type=int, default=None,
                    help="evaluate the population in sequential chunks of this "
@@ -68,8 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights", type=str, default=None,
                    help="override config weights: for StyleGAN2 a directory of "
                         "converted checkpoints (Gs.npz + Gs_cfg.json, D.npz, "
-                        "optional Gs_noise.npz), for BigGAN a converted .npz (with "
-                        "its _cfg.json), or 'random:<seed>' for random init")
+                        "optional Gs_noise.npz), for BigGAN and GPT-2 a converted .npz "
+                        "(with its _cfg.json), or 'random:<seed>' for random init")
     p.add_argument("--clip-weights", type=str, default=None,
                    help="a converted CLIP ViT-B/32 .npz (with its _cfg.json), or "
                         "'random:<seed>'; default: ./weights/clip/ViT-B-32.npz "
@@ -98,27 +104,26 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
             parser.error(f"--{dest.replace('_', '-')}: {why}")
     if args.target and len(args.target) > 1:
         parser.error("more than one --target: multi-search batching is ROADMAP item 12")
-    from clip_glass_torch.config import get_config, list_configs
-    from clip_glass_torch.evolve.algorithm import UNPORTED
+    from clip_glass_torch.config import list_configs
 
     if args.config not in list_configs():
         parser.error(f"--config {args.config}: unknown; choose from {list_configs()}")
-    model = get_config(args.config).model
-    if model in UNPORTED:
-        parser.error(f"--config {args.config}: the {model} configs are not ported "
-                     f"yet ({UNPORTED[model]})")
 
 
 def _tinyfy(config):
     """Shrink a config to the TINY model variants (CPU-runnable smoke mode)."""
     from clip_glass_torch.models.biggan import model as bg
     from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
     from clip_glass_torch.models.stylegan2 import model as sg2
 
     if config.model == "biggan":
         return (config.replace(dim_z=16, num_classes=10, n_var=26, resolution=8,
                                weights="random:0"),
                 clip_model.TINY, bg.TINY)
+    if config.model == "gpt2":
+        return (config.replace(dim_z=6, n_var=6, max_tokens_len=5, weights="random:0"),
+                clip_model.TINY, g2.TINY)
     return (config.replace(dim_z=32, n_var=32, weights="random:0"),
             clip_model.TINY, sg2.TINY)
 
@@ -126,24 +131,37 @@ def _tinyfy(config):
 def decode_latents_npz(config, X: np.ndarray):
     """ls_result content (reference run.py:92-101 saves the latent module's
     state dict; here: the decoded latent arrays: BigGAN's z and class
-    vector, StyleGAN2's latents as they are)."""
+    vector, StyleGAN2's latents as they are, GPT-2's int32 token ids)."""
+    import torch
+
+    from clip_glass_torch.fitness.latent import decode_biggan, decode_gpt2
+
     if config.latent == "biggan":
-        import torch
-
-        from clip_glass_torch.fitness.latent import decode_biggan
-
         z, cv = decode_biggan(torch.as_tensor(np.asarray(X)), config.dim_z)
         return {"z": z.numpy(), "class_labels": cv.numpy()}
+    if config.latent == "gpt2":
+        return {"z": decode_gpt2(torch.as_tensor(np.asarray(X)))[0].numpy()}
     return {"z": np.asarray(X)}
+
+
+def artifact_ext(config) -> str:
+    """The extension of the dumps and of `output.*` (JAX CLI: cli.py:145)."""
+    return "jpg" if config.task == "txt2img" else "txt"
+
+
+def fitness_order(F: np.ndarray) -> np.ndarray:
+    """The GA's dump and ls_result order: numpy's default argsort of the
+    first objective on the host, the JAX CLI's call (cli.py:162, :390), so
+    ties fall the same way in both packages."""
+    return np.argsort(F[:, 0])
 
 
 def _final_artifacts(problem, config, res, folder):
     """Result artifacts (reference run.py:79-125): genetic_result pickle,
-    Pareto scatter F.jpg (2-obj), ls_result latents, decision -> output.jpg."""
+    Pareto scatter F.jpg (2-obj), ls_result latents, decision -> output.<ext>."""
     import torch
 
     from clip_glass_torch.evolve.decision import pick
-    from clip_glass_torch.fitness.generator import quantize_u8
     from clip_glass_torch.utils.plotting import save_scatter
 
     res_X, res_F = res.X.numpy(), res.F.numpy()
@@ -158,16 +176,13 @@ def _final_artifacts(problem, config, res, folder):
                  **decode_latents_npz(config, pop_X))
         X_best = np.atleast_2d(np.atleast_2d(res_X)[pick(res_F, (0, 1))])
     else:  # sorted by fitness (reference run.py:96-101)
-        pop_sorted = pop_X[np.argsort(pop_F[:, 0], kind="stable")]
+        pop_sorted = pop_X[fitness_order(pop_F)]
         np.savez(os.path.join(folder, "ls_result"),
                  **decode_latents_npz(config, pop_sorted))
         X_best = np.atleast_2d(res_X)
 
-    with torch.inference_mode():
-        generated = problem.generator.generate(
-            torch.from_numpy(X_best).to(problem.device))
-        u8 = quantize_u8(generated).cpu().numpy()
-    problem.generator.save(u8, os.path.join(folder, "output.jpg"))
+    rendered = problem.generator.render(torch.from_numpy(X_best).to(problem.device))
+    problem.generator.save(rendered, os.path.join(folder, f"output.{artifact_ext(config)}"))
 
 
 def main(argv=None) -> int:
@@ -186,7 +201,6 @@ def main(argv=None) -> int:
                                                   save_state)
     from clip_glass_torch.core.profiling import GenerationMeter, Timer, device_trace
     from clip_glass_torch.evolve.algorithm import minimize
-    from clip_glass_torch.fitness.generator import quantize_u8
     from clip_glass_torch.fitness.problem import GenerationProblem
 
     phases["imports"] = time.perf_counter() - t0
@@ -228,27 +242,30 @@ def main(argv=None) -> int:
     meter = GenerationMeter(config.pop_size)
     # artifact dumps: the device work (render, quantize, copy to the host)
     # runs here on the main thread; a one-worker saver thread (`saver`,
-    # below) assembles the grid and encodes the JPEG while the next chunk of
-    # generations runs
+    # below) assembles the grid and encodes the JPEG (or decodes the
+    # captions) while the next chunk of generations runs
     from concurrent.futures import ThreadPoolExecutor
     pending = []   # (name, render seconds, future of the write's seconds)
 
-    def _write(u8, path):
+    def _write(rendered, path):
         with Timer() as write:
-            problem.generator.save(u8, path)
+            problem.generator.save(rendered, path)
         return write.seconds
+
+    ext = artifact_ext(config)
 
     @torch.inference_mode()
     def _dump(state):
         with Timer() as render:
             X = state.X
             if config.n_obj == 1:  # sorted by fitness (reference run.py:36-38)
-                X = X[torch.argsort(state.F[:, 0], stable=True)]
-            u8 = quantize_u8(problem.generator.generate(X)).cpu().numpy()
-        name = (f"genetic-it-{state.gen}.jpg" if state.gen < config.generations
-                else "genetic-it-final.jpg")
+                order = fitness_order(state.F.cpu().numpy())
+                X = X[torch.from_numpy(order).to(X.device)]
+            rendered = problem.generator.render(X)
+        name = (f"genetic-it-{state.gen}.{ext}" if state.gen < config.generations
+                else f"genetic-it-final.{ext}")
         pending.append((name, render.seconds, saver.submit(
-            _write, u8, os.path.join(config.tmp_folder, name))))
+            _write, rendered, os.path.join(config.tmp_folder, name))))
 
     def save_callback(state):
         _dump(state)

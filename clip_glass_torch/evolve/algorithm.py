@@ -24,9 +24,6 @@ from clip_glass_torch.evolve.nds import crowding_distance, non_dominated_rank
 from clip_glass_torch.evolve.selection import tournament_ga, tournament_nsga2
 from clip_glass_torch.evolve.survival import fitness_survival, nsga2_survival
 
-# model families still to be ported, and the ROADMAP item that ports each
-UNPORTED = {"gpt2": "ROADMAP item 10"}
-
 
 class GAState(NamedTuple):
     X: torch.Tensor     # [pop, n_var] genomes (float32)
@@ -43,12 +40,18 @@ class Operators(NamedTuple):
 
 
 def operators_for_config(config) -> Operators:
-    """The reference's operator set for the BigGAN and StyleGAN2 configs
-    (reference operators.py:44-72)."""
-    if config.model in UNPORTED:
-        raise NotImplementedError(
-            f"config {config.name!r}: only the BigGAN and StyleGAN2 operators are "
-            f"ported ({UNPORTED[config.model]})")
+    """The reference's operator set for each config family (reference
+    operators.py:37-81): BigGAN's mixed genome, StyleGAN2's reals, GPT-2's
+    integer token ids."""
+    if config.name == "GPT2":
+        return Operators(
+            sample=lambda g, n: smp.int_random_sampling(g, n, config.n_var, config.xl,
+                                                        config.xu),
+            cross=lambda g, x1, x2: xo.sbx(g, x1, x2, config.xl, config.xu, eta=3.0,
+                                           prob=1.0, round_int=True),
+            mutate=lambda g, x: mut.polynomial_mutation(g, x, config.xl, config.xu,
+                                                        eta=3.0, prob=0.5, round_int=True),
+        )
     if config.name.startswith("DeepMindBigGAN"):
         def mask(x):
             return constant(_real_mask, config.dim_z, config.num_classes,

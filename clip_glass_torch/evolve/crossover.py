@@ -1,7 +1,8 @@
 """Crossover with pymoo-0.4.2 semantics (reference operators.py:54-77).
 
 Simulated binary crossover (SBX): per-mating prob, per-variable prob 0.5,
-1e-14 equal-parent skip, per-variable child swap, bound clipping. Half-
+1e-14 equal-parent skip, per-variable child swap, bound clipping, and for
+integer genes rounding half to even (jnp.rint's rule). Half-
 uniform crossover (HUX) on 0/1 genes: exactly ceil(n_diff/2) of the
 differing bits swap. The BigGAN genome mixes the two by a per-gene mask.
 
@@ -19,7 +20,7 @@ _EPS = 1.0e-14
 
 def sbx_core(x1: torch.Tensor, x2: torch.Tensor, xl, xu, u_mate, u_var,
              u_beta, u_swap, eta: float = 3.0, prob: float = 1.0,
-             prob_per_variable: float = 0.5):
+             prob_per_variable: float = 0.5, round_int: bool = False):
     """x1, x2: [m, n_var] parents; u_mate: [m, 1]; u_var, u_beta, u_swap:
     [m, n_var] uniforms in [0, 1). Returns two children."""
     n_var = x1.shape[1]
@@ -47,14 +48,17 @@ def sbx_core(x1: torch.Tensor, x2: torch.Tensor, xl, xu, u_mate, u_var,
     c2s = torch.minimum(torch.maximum(torch.where(swap, c1, c2), xl), xu)
     o1 = torch.where(cross, c1s, x1)
     o2 = torch.where(cross, c2s, x2)
+    if round_int:
+        o1, o2 = torch.round(o1), torch.round(o2)
     return o1, o2
 
 
 def sbx(gen: torch.Generator, x1: torch.Tensor, x2: torch.Tensor, xl, xu,
-        eta: float = 3.0, prob: float = 1.0, prob_per_variable: float = 0.5):
+        eta: float = 3.0, prob: float = 1.0, prob_per_variable: float = 0.5,
+        round_int: bool = False):
     """SBX on parent matrices [m, n_var] -> two children."""
     return sbx_core(x1, x2, xl, xu, *_sbx_uniforms(gen, x1), eta=eta, prob=prob,
-                    prob_per_variable=prob_per_variable)
+                    prob_per_variable=prob_per_variable, round_int=round_int)
 
 
 def hux_core(x1: torch.Tensor, x2: torch.Tensor, u_mate, u_score, prob: float = 0.2):

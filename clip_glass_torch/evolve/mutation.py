@@ -1,8 +1,9 @@
 """Mutation with pymoo-0.4.2 semantics (reference operators.py:60-77).
 
 Polynomial mutation in Deb's bounded formulation (delta1/delta2 split at
-rand 0.5, eta+1 powers, bound clamp); bitflip on 0/1 genes; the BigGAN
-genome mixes the two by a per-gene mask.
+rand 0.5, eta+1 powers, bound clamp, for integer genes rounding half to
+even); bitflip on 0/1 genes; the BigGAN genome mixes the two by a per-gene
+mask.
 
 Each `_core` function takes its uniform draws as tensors (the JAX package
 splits its key for them, in the order of the arguments); the functions
@@ -15,7 +16,8 @@ import torch
 
 
 def polynomial_mutation_core(x: torch.Tensor, xl, xu, u_do, u_rand,
-                             eta: float = 3.0, prob: float = 0.5) -> torch.Tensor:
+                             eta: float = 3.0, prob: float = 0.5,
+                             round_int: bool = False) -> torch.Tensor:
     """x: [n, n_var]; u_do, u_rand: [n, n_var] uniforms in [0, 1)."""
     n_var = x.shape[1]
     xl = torch.as_tensor(xl, dtype=x.dtype, device=x.device).expand(n_var)
@@ -33,13 +35,15 @@ def polynomial_mutation_core(x: torch.Tensor, xl, xu, u_do, u_rand,
 
     deltaq = torch.where(u_rand <= 0.5, d1, d2)
     y = torch.minimum(torch.maximum(x + deltaq * span, xl), xu)
-    return torch.where(u_do < prob, y, x)
+    out = torch.where(u_do < prob, y, x)
+    return torch.round(out) if round_int else out
 
 
 def polynomial_mutation(gen: torch.Generator, x: torch.Tensor, xl, xu,
-                        eta: float = 3.0, prob: float = 0.5) -> torch.Tensor:
+                        eta: float = 3.0, prob: float = 0.5,
+                        round_int: bool = False) -> torch.Tensor:
     return polynomial_mutation_core(x, xl, xu, _rand(gen, x), _rand(gen, x), eta=eta,
-                                    prob=prob)
+                                    prob=prob, round_int=round_int)
 
 
 def _rand(gen, x):

@@ -1,7 +1,8 @@
 """Population initialization (reference operators.py:9-52).
 
 Samplers draw from an explicit torch.Generator on its own device and return
-[n, n_var] float32 genome matrices; boolean genes are 0/1 floats. Where the
+[n, n_var] float32 genome matrices; boolean genes are 0/1 floats, integer
+genes integral floats (fitness/latent.py decodes them). Where the
 JAX package turns uniforms into its samples, a `_core` function takes the
 uniforms as a tensor, so the tests can feed both packages the same ones.
 """
@@ -47,6 +48,21 @@ def binary_sampling(gen: torch.Generator, n: int, n_var: int,
     """Bernoulli(prob) as 0/1 floats (reference operators.py:27-34): a
     uniform below `prob`, as jax.random.bernoulli decides."""
     return (_rand(gen, n, n_var) < prob).float()
+
+
+def int_random_core(u: torch.Tensor, xl, xu) -> torch.Tensor:
+    """Integers uniform on [xl, xu] from uniforms u in [0, 1), as floats:
+    floor(xl + u * (xu - xl + 1)), capped at xu."""
+    lo = torch.as_tensor(xl, dtype=u.dtype, device=u.device)
+    hi = torch.as_tensor(xu, dtype=u.dtype, device=u.device)
+    return torch.minimum(torch.floor(lo + u * (hi - lo + 1.0)), hi)
+
+
+def int_random_sampling(gen: torch.Generator, n: int, n_var: int, xl, xu) -> torch.Tensor:
+    """Uniform integers in [xl, xu] (pymoo "int_random", reference
+    operators.py:75). JAX's randint draws its integers from raw bits, not
+    from uniforms, so the two packages' streams differ."""
+    return int_random_core(_rand(gen, n, n_var), xl, xu)
 
 
 def mixed_biggan_sampling(gen: torch.Generator, n: int, dim_z: int = 128,

@@ -14,3 +14,10 @@ def decode_biggan(x: torch.Tensor, dim_z: int = 128):
 def decode_stylegan2(x: torch.Tensor):
     """Identity (reference latent.py:40-41)."""
     return (x,)
+
+
+def decode_gpt2(x: torch.Tensor):
+    """Float genome -> int32 token ids (reference latent.py:55-56); the
+    integer operators keep the genes integral, and torch.round, like
+    jnp.rint, rounds half to even."""
+    return (torch.round(x).to(torch.int32),)

@@ -1,8 +1,9 @@
-"""Byte-level BPE machinery for the CLIP tokenizer (host-side, pure Python).
+"""Byte-level BPE machinery for the GPT-2 and CLIP tokenizers (host-side,
+pure Python).
 
-Reimplements reference clip/simple_tokenizer.py without the `regex`/`ftfy`
-packages: the \\p{L}/\\p{N} pre-tokenizer is an explicit scanner over
-`unicodedata` categories with the regex's match semantics.
+Reimplements reference gpt2/encoder.py and clip/simple_tokenizer.py without
+the `regex`/`ftfy` packages: the \\p{L}/\\p{N} pre-tokenizers are explicit
+scanners over `unicodedata` categories with the regexes' match semantics.
 """
 
 from __future__ import annotations
@@ -57,6 +58,55 @@ _SPECIALS = ("<|startoftext|>", "<|endoftext|>")
 
 def _special_at(text: str, j: int) -> bool:
     return text.startswith(_SPECIALS[0], j) or text.startswith(_SPECIALS[1], j)
+
+
+def _run(text: str, i: int, pred) -> int:
+    """End of the run of characters from `i` on that satisfy `pred`."""
+    n = len(text)
+    while i < n and pred(text[i]):
+        i += 1
+    return i
+
+
+def pretokenize_gpt2(text: str) -> List[str]:
+    """GPT-2 pattern: 's|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+|
+    ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+   (reference gpt2/encoder.py:42).
+
+    A left-to-right scanner with the regex's alternation and backtracking
+    semantics, including the trailing-whitespace lookahead that leaves the
+    last space of a run to fuse with the following word.
+    """
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        ch = text[i]
+        if ch == "'":
+            # contractions are case-sensitive literals in the pattern
+            c = next((c for c in _CONTRACTIONS if text.startswith(c, i)), None)
+            j = i + len(c) if c is not None else _run(text, i, _is_other)
+        elif _is_space(ch):
+            j = _run(text, i, _is_space)
+            if j < n:
+                # \s+(?!\S) takes all but the run's last character; a last
+                # plain space joins the next token through its " ?" prefix,
+                # any other whitespace character stands alone (\s+)
+                if j - i > 1:
+                    out.append(text[i:j - 1])
+                i = j - 1
+                if text[i] == " ":
+                    nxt = text[j]
+                    pred = (_is_letter if _is_letter(nxt) else
+                            _is_number if _is_number(nxt) else _is_other)
+                    j = _run(text, j, pred)
+        elif _is_letter(ch):
+            j = _run(text, i, _is_letter)
+        elif _is_number(ch):
+            j = _run(text, i, _is_number)
+        else:
+            j = _run(text, i, _is_other)
+        out.append(text[i:j])
+        i = j
+    return out
 
 
 def pretokenize_clip(text: str) -> List[str]:

@@ -3,7 +3,9 @@
 Reimplements reference clip/simple_tokenizer.py:10-132 and the 77-token
 context packing of reference clip/clip.py:125-138, with a dependency-free
 stand-in for `ftfy.fix_text` (UTF-8 mojibake repair, then NFC
-normalization), which is the identity on well-formed input.
+normalization), which is the identity on well-formed input. The merge loop
+runs in the native core (tokenizers/native.py) unless the core cannot be
+built; both routes give the same ids.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 
 from clip_glass_torch.tokenizers.bpe import bpe_merge, bytes_to_unicode, pretokenize_clip
+from clip_glass_torch.tokenizers.native import get_native_merger
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
 CONTEXT_LENGTH = 77
+SPECIALS = ("<|startoftext|>", "<|endoftext|>")
 
 
 def fix_mojibake(text: str, max_rounds: int = 3) -> str:
@@ -78,10 +82,9 @@ class CLIPTokenizer:
         self.encoder: Dict[str, int] = dict(zip(vocab, range(len(vocab))))
         self.decoder = {v: k for k, v in self.encoder.items()}
         self.bpe_ranks = dict(zip(merge_pairs, range(len(merge_pairs))))
-        self._cache: Dict[str, str] = {
-            "<|startoftext|>": "<|startoftext|>",
-            "<|endoftext|>": "<|endoftext|>",
-        }
+        self._cache: Dict[str, str] = {s: s for s in SPECIALS}
+        self._id_cache: Dict[str, List[int]] = {}
+        self.native = get_native_merger(self.encoder, self.bpe_ranks)
 
     @property
     def sot_id(self) -> int:
@@ -103,12 +106,24 @@ class CLIPTokenizer:
         self._cache[token] = out
         return out
 
+    def _token_ids(self, token: str) -> List[int]:
+        out = self._id_cache.get(token)
+        if out is None:
+            if self.native is not None and token not in SPECIALS:
+                # the word-final symbol carries "</w>", as in _bpe
+                out = self.native.apply([self.encoder[c] for c in token[:-1]]
+                                        + [self.encoder[token[-1] + "</w>"]])
+            else:
+                out = [self.encoder[t] for t in self._bpe(token).split(" ")]
+            self._id_cache[token] = out
+        return out
+
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         text = whitespace_clean(basic_clean(text)).lower()
         for token in pretokenize_clip(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
-            ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
+            ids.extend(self._token_ids(token))
         return ids
 
     def decode(self, ids: Sequence[int]) -> str:

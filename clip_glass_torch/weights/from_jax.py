@@ -13,7 +13,9 @@ Layout traps handled here:
 - dense and attention weights stay right-multiply [in, out];
 - CLIP transformer blocks, stacked on a leading layer axis in JAX, become a
   list of per-layer dicts;
-- BigGAN's batch norms keep their [n_stats, C] running statistics.
+- BigGAN's batch norms keep their [n_stats, C] running statistics;
+- GPT-2's Conv1D weights are [in, out] on both sides (nothing transposed),
+  its blocks, stacked on a leading layer axis in JAX, become a list.
 
 The port's own random init builds the same JAX-layout trees and passes them
 through these converters, so the two structures cannot drift apart.
@@ -190,11 +192,23 @@ def convert_biggan(tree) -> Dict[str, Any]:
     }
 
 
+def convert_gpt2(tree) -> Dict[str, Any]:
+    """GPT-2: wte, wpe, ln_f and the per-layer blocks."""
+    return {
+        "wte": to_tensor(tree["wte"]),
+        "wpe": to_tensor(tree["wpe"]),
+        "blocks": _unstack(tree["blocks"]),
+        "ln_f": {k: to_tensor(v) for k, v in tree["ln_f"].items()},
+    }
+
+
 def convert_bundle(bundle) -> Dict[str, Any]:
     """A fitness bundle -> the port's: StyleGAN2 {clip, g, d?, noise,
-    target}, or BigGAN {clip, g, target}, told apart by the noise planes."""
+    target}, BigGAN {clip, g, target} or GPT-2 {clip, g, target}, told apart
+    by the noise planes and GPT-2's token embedding."""
     if "noise" not in bundle:
-        return {"clip": convert_clip(bundle["clip"]), "g": convert_biggan(bundle["g"]),
+        convert = convert_gpt2 if "wte" in bundle["g"] else convert_biggan
+        return {"clip": convert_clip(bundle["clip"]), "g": convert(bundle["g"]),
                 "target": to_tensor(bundle["target"])}
     out = {
         "clip": convert_clip(bundle["clip"]),

@@ -9,6 +9,10 @@
   the same weights (fp32): `genetic_result` and `ls_result.npz` equal, the
   same decision row, and the rendered `output.jpg` image (before JPEG) at
   rtol = atol = 1e-4, the tolerance of tests/test_torch_fitness.py.
+- GPT2 (img2txt): the `.txt` artifact set, int32 token ids in ls_result,
+  bit-exact resume, and with tied fitness (an overflowed batch) the JAX
+  CLI's order of ls_result.npz and of the periodic dump (numpy's default
+  argsort on the host), at pop 100.
 - Every flag and config the port does not run exits 2 naming its ROADMAP
   item; without --device cpu and without a card the CLI raises.
 """
@@ -48,10 +52,14 @@ CONFIGS = {"StyleGAN2_ffhq_d": 2, "StyleGAN2_ffhq_nod": 1}
 ARTIFACTS = {"genetic-it-2.jpg", "genetic-it-final.jpg", "genetic_result",
              "ls_result.npz", "output.jpg", "ga_state.npz"}
 POP = 8
+DOG = os.path.join(os.path.dirname(__file__), "..", "examples", "gpt2_images", "dog.jpeg")
+GPT2_ARTIFACTS = {"genetic-it-2.txt", "genetic-it-final.txt", "genetic_result",
+                  "ls_result.npz", "output.txt", "ga_state.npz"}
 
 
 def _run(folder, config, generations, *extra):
-    argv = ["--config", config, "--target", "a red flower",
+    target = DOG if config == "GPT2" else "a red flower"
+    argv = ["--config", config, "--target", target,
             "--generations", str(generations), "--save-each", "2",
             "--tmp-folder", str(folder), "--tiny", "--pop-size", str(POP),
             "--device", "cpu", *extra]
@@ -93,7 +101,7 @@ def test_cli_tiny_end_to_end(tmp_path, config):
         np.testing.assert_array_equal(ls["z"], state["X"])
     else:  # the single best row; the latents sorted by fitness
         assert res["X"].shape == (32,) and res["F"].shape == (1,)
-        order = np.argsort(state["F"][:, 0], kind="stable")
+        order = np.argsort(state["F"][:, 0])
         np.testing.assert_array_equal(ls["z"], state["X"][order])
         np.testing.assert_array_equal(res["X"], ls["z"][0])
     # a grid of 8 16 px images in one row, 2 px padding; one 16 px image
@@ -101,7 +109,7 @@ def test_cli_tiny_end_to_end(tmp_path, config):
     assert Image.open(tmp_path / "output.jpg").size == (16, 16)
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS) + ["DeepMindBigGAN512"])
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["DeepMindBigGAN512", "GPT2"])
 def test_cli_resume_is_bit_exact(tmp_path, config, capsys):
     """2 generations, then --resume to 4, against 4 uninterrupted."""
     a, b = tmp_path / "a", tmp_path / "b"
@@ -230,7 +238,8 @@ def test_scatter_without_matplotlib(tmp_path):
     # item 9 is ported: these two configs now run (why = None)
     pytest.param(["--config", "DeepMindBigGAN512"], None, id="config_DeepMindBigGAN512-item 9"),
     pytest.param(["--config", "DeepMindBigGAN256"], None, id="config_DeepMindBigGAN256-item 9"),
-    (["--config", "GPT2"], "item 10"),
+    # item 10 is ported: GPT2 runs and writes the .txt artifact set
+    pytest.param(["--config", "GPT2", "--target", DOG], None, id="config_GPT2-item 10"),
     (["--config", "StyleGAN3"], "unknown"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, why):
@@ -241,7 +250,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, why):
     if why is None:
         assert cli.main([*base, "--generations", "1", "--save-each", "1",
                          "--no-verbose", *argv]) == 0
-        assert set(os.listdir(tmp_path)) == ARTIFACTS - {"genetic-it-2.jpg"}
+        want = GPT2_ARTIFACTS if argv[1] == "GPT2" else ARTIFACTS
+        assert set(os.listdir(tmp_path)) == {a for a in want if "-it-2." not in a}
         assert str(_npz(tmp_path / "ga_state.npz")["config"]) == argv[1]
         return
     with pytest.raises(SystemExit) as e:
@@ -306,7 +316,7 @@ def test_cli_default_config_is_biggan512(tmp_path):
         "output.jpg", "ga_state.npz"}
     state = _npz(tmp_path / "ga_state.npz")
     assert str(state["config"]) == "DeepMindBigGAN512" and int(state["gen"]) == 2
-    X = state["X"][np.argsort(state["F"][:, 0], kind="stable")]
+    X = state["X"][np.argsort(state["F"][:, 0])]
     assert X.shape == (32, 26)   # DeepMindBigGAN512's pop; the TINY genome, 16 + 10
     ls = _npz(tmp_path / "ls_result.npz")
     assert set(ls) == {"z", "class_labels"}
@@ -389,3 +399,96 @@ def test_final_artifacts_match_jax_biggan(tmp_path):
     np.testing.assert_allclose(lt["class_labels"], lj["class_labels"], rtol=1e-6, atol=1e-7)
     assert rendered["port"].shape == rendered["jax"].shape == (1, 3, 8, 8)
     np.testing.assert_allclose(rendered["port"].numpy(), rendered["jax"], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ GPT-2 img2txt
+
+
+def test_cli_gpt2_txt_artifacts(tmp_path):
+    """GPT2 --tiny: the .txt artifact set; the captions start with the init
+    text and have at most 50 characters; ls_result holds the int32 ids of
+    the population sorted by fitness; output.txt is the best row's caption."""
+    _run(tmp_path, "GPT2", 4)
+    assert set(os.listdir(tmp_path)) == GPT2_ARTIFACTS
+    state = _npz(tmp_path / "ga_state.npz")
+    assert state["X"].shape == (POP, 6) and np.array_equal(state["X"], np.round(state["X"]))
+    for name in ("genetic-it-2.txt", "genetic-it-final.txt"):
+        lines = (tmp_path / name).read_text().split("\n")
+        assert len(lines) == POP
+        assert all(t.startswith("the picture of") and len(t) <= 50 for t in lines)
+    ls = _npz(tmp_path / "ls_result.npz")
+    assert ls["z"].dtype == np.int32
+    np.testing.assert_array_equal(ls["z"], state["X"][np.argsort(state["F"][:, 0])])
+    out = (tmp_path / "output.txt").read_text()
+    assert "\n" not in out and out.startswith("the picture of")
+    res = _result(tmp_path)
+    assert res["X"].shape == (6,) and res["F"].shape == (1,)
+
+
+def _tied_F(n):
+    """A GA population's fitness after an overflowed generation: most rows
+    tied at 0, every 7th from a generation that scored."""
+    F = np.zeros((n, 1), np.float32)
+    F[::7, 0] = -0.125
+    assert not np.array_equal(np.argsort(F[:, 0]), np.argsort(F[:, 0], kind="stable"))
+    return F
+
+
+def test_tie_order_matches_the_jax_cli(tmp_path, monkeypatch):
+    """Tied fitness at n = 100 (GPT2's population): `_final_artifacts` of
+    both packages on the same population and weights give the same
+    genetic_result, ls_result.npz and output.txt (JAX cli.py:162); and the
+    port's periodic dump renders the population in the JAX CLI's dump order
+    (cli.py:390: np.argsort of the host F), which a stable sort would not."""
+    from clip_glass_tpu.models.gpt2 import model as jg2
+
+    from clip_glass_torch.fitness.generator import Generator
+    from clip_glass_torch.models.gpt2 import model as tg2
+
+    n = 100
+    kw = dict(pop_size=n, dim_z=6, n_var=6, max_tokens_len=5, weights="random:0",
+              target=DOG, compute_dtype="float32")
+    jcfg, tcfg = jget_config("GPT2").replace(**kw), get_config("GPT2").replace(**kw)
+    jprob = JProblem(jcfg, clip_cfg=jclip.TINY, model_cfg=jg2.TINY)
+    tprob = GenerationProblem(
+        tcfg, device="cpu", clip_cfg=tclip.TINY, model_cfg=tg2.TINY,
+        bundle=from_jax.convert_bundle(jax.tree.map(np.asarray, jprob.generator.bundle)))
+    rng = np.random.default_rng(9)
+    pop_X = rng.integers(0, 50257, (n, 6)).astype(np.float32)
+    pop_F = _tied_F(n)
+    fj, ft = tmp_path / "jax", tmp_path / "port"
+    fj.mkdir(), ft.mkdir()
+    gen_fn = jax.jit(lambda X, ctx: jprob.generator.generate(X, ctx))
+    jcli._final_artifacts(jprob, jcfg, jextract(pop_X, pop_F, "ga", None), str(fj), gen_fn)
+    cli._final_artifacts(tprob, tcfg, extract_result(T(pop_X), T(pop_F), "ga", None), str(ft))
+    rj, rt = _result(fj), _result(ft)
+    for k in rj:
+        np.testing.assert_array_equal(rt[k], rj[k])
+    np.testing.assert_array_equal(_npz(ft / "ls_result.npz")["z"],
+                                  _npz(fj / "ls_result.npz")["z"])
+    assert (ft / "output.txt").read_text() == (fj / "output.txt").read_text()
+
+    # the dump: the search hands its callback the initial population, whose
+    # every evaluation ties as above (a search's own survivors come sorted);
+    # record what gets rendered
+    from clip_glass_torch.evolve import algorithm as talg
+
+    def search(algorithm, n_gen, generator, callback, save_each, verbose, state):
+        state = talg.GAState(state.X, state.F, n_gen)
+        callback(state)
+        return talg.extract_result(state.X.cpu(), state.F.cpu(), "ga", state)
+
+    monkeypatch.setattr(talg, "minimize", search)
+    monkeypatch.setattr(Generator, "eval_population",
+                        lambda self, X, bundle=None: torch.from_numpy(_tied_F(X.shape[0])))
+    rendered = []
+    render = Generator.render
+    monkeypatch.setattr(Generator, "render",
+                        lambda self, X: rendered.append(X.numpy().copy()) or render(self, X))
+    folder = tmp_path / "run"
+    assert cli.main(["--config", "GPT2", "--target", DOG, "--tiny", "--device", "cpu",
+                     "--pop-size", str(n), "--generations", "1", "--save-each", "1",
+                     "--tmp-folder", str(folder), "--no-verbose"]) == 0
+    state = _npz(folder / "ga_state.npz")
+    np.testing.assert_array_equal(state["F"], _tied_F(n))
+    np.testing.assert_array_equal(rendered[0], state["X"][np.argsort(state["F"][:, 0])])

@@ -105,3 +105,41 @@ def test_port_init_matches_jax_structure(params):
 
     assert list(shapes(port)) == list(shapes(tp))
     assert port["logit_scale"].item() == pytest.approx(float(np.log(1 / 0.07)))
+
+
+def test_api_load_matches_the_models_and_jax_api(tmp_path):
+    """models/clip/api.py: `load("random:<seed>")` and `load(<converted
+    .npz>)` give the same towers as the model functions on the same
+    parameters; the image path of `preprocess` is the JAX API's; the model
+    registry and the checkpoint hash check match the JAX API's."""
+    import dataclasses
+    import json
+
+    from PIL import Image
+
+    from clip_glass_tpu.models.clip import api as japi
+
+    from clip_glass_torch.core import pytree
+    from clip_glass_torch.models.clip import api as tapi
+
+    model = tapi.load("random:3", cfg=tclip.TINY, device="cpu")
+    want = tclip.init(torch.Generator().manual_seed(3), tclip.TINY)
+    ids = ttokenize(PROMPTS[:3])
+    torch.testing.assert_close(model.encode_text(ids), tclip.encode_text(
+        want, torch.as_tensor(ids), tclip.TINY), rtol=0, atol=0)
+    path = tmp_path / "clip.npz"
+    pytree.save_npz(str(path), tclip.init_tree(torch.Generator().manual_seed(3), tclip.TINY))
+    with open(tmp_path / "clip_cfg.json", "w") as f:
+        json.dump(dataclasses.asdict(tclip.TINY), f)
+    loaded = tapi.load(str(path), device="cpu")
+    assert loaded.cfg == tclip.TINY
+    with Image.open("examples/gpt2_images/dog.jpeg") as im:
+        img = loaded.preprocess(im)
+        np.testing.assert_array_equal(img, japi.LoadedCLIP(None, jclip.TINY, JFP32).preprocess(im))
+    torch.testing.assert_close(loaded.encode_image(img), model.encode_image(img),
+                               rtol=0, atol=0)
+    assert tapi.available_models() == japi.available_models()
+    (tmp_path / "x.pt").write_bytes(b"not a checkpoint")
+    assert tapi.verify_checkpoint(str(tmp_path / "x.pt"), "ViT-B/32") is False
+    with pytest.raises(KeyError):
+        tapi.verify_checkpoint(str(tmp_path / "x.pt"), "ViT-L/14")

@@ -384,3 +384,28 @@ def test_tiny_biggan_fitness_on_gpu_matches_cpu(gpu):
     import chip_smoke
 
     chip_smoke.phase_agreement_biggan()
+
+
+def test_tiny_gpt2_img2txt_on_gpu_matches_cpu(gpu):
+    """The smoke run's GPT-2 agreement phase: the TINY GPT2 fitness and a
+    24-token argmax decode on the card against the CPU, fp32: ids
+    token-exact, F within 1e-6, both tokenizers on the native core, no
+    kernel of the package launched."""
+    import chip_smoke
+
+    chip_smoke.phase_agreement_gpt2()
+
+
+def test_gpt2_argmax_takes_the_first_of_tied_maxima_on_gpu(gpu):
+    """A planted tie at the largest bf16 logit of a [100, 50257] row block
+    on the card: the first index wins, as on the CPU and in jnp.argmax."""
+    from clip_glass_torch.models.gpt2 import model as g2
+
+    logits = _randn(gpu, 100, 50257).to(torch.bfloat16)
+    logits[:, 777] = logits[:, 31000] = logits[:, 50000] = 9.0
+    logits[5, 3] = 9.0
+    got = g2._select_next(logits, 1.0, 40, False, None)
+    want = torch.full((100,), 777, device="cuda")
+    want[5] = 3
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), g2._select_next(logits.cpu(), 1.0, 40, False, None))

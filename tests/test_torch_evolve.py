@@ -280,23 +280,26 @@ def test_tiny_search_is_deterministic_and_valid():
 @pytest.mark.parametrize("name,item", [("DeepMindBigGAN256", "item 9"),
                                        ("GPT2", "item 10")])
 def test_operators_refuse_unported_families(name, item):
-    """GPT-2 (item 10) is refused; BigGAN (item 9) is ported and gets the
-    mixed-genome operators: truncnorm z in (-2, 2) and 0/1 class bits."""
+    """Both families are ported (items 9 and 10) and get their operators:
+    BigGAN's mixed genome (truncnorm z in (-2, 2), 0/1 class bits), GPT-2's
+    integer token ids in [0, 50256] that crossover and mutation keep
+    integral."""
     from clip_glass_torch.evolve.algorithm import operators_for_config
 
     config = get_config(name)
-    if item != "item 9":
-        with pytest.raises(NotImplementedError, match=item):
-            operators_for_config(config)
-        return
     ops = operators_for_config(config)
     gen = torch.Generator().manual_seed(0)
     X = ops.sample(gen, 8)
+    o1, o2 = ops.cross(gen, X[:4], X[4:])
+    M = ops.mutate(gen, torch.cat([o1, o2]))
+    if item == "item 10":
+        assert X.shape == (8, config.n_var) == (8, 20)
+        for Y in (X, o1, o2, M):
+            assert torch.equal(Y, Y.round()) and 0 <= Y.min() and Y.max() <= 50256
+        return
     assert X.shape == (8, config.n_var) == (8, 1128)
     z, bits = X[:, :128], X[:, 128:]
     assert z.abs().max() < 2 and set(bits.unique().tolist()) <= {0.0, 1.0}
-    o1, o2 = ops.cross(gen, X[:4], X[4:])
-    M = ops.mutate(gen, torch.cat([o1, o2]))
     assert set(M[:, 128:].unique().tolist()) <= {0.0, 1.0}
     assert (M[:, :128].abs() <= 2).all()
 
@@ -446,3 +449,138 @@ def test_tiny_ga_search_is_elitist_and_valid():
     i = int(res.pop_F[:, 0].argmin())
     assert torch.equal(res.X, res.pop_X[i]) and torch.equal(res.F, res.pop_F[i])
     assert res.G.shape == (1,) and res.CV.shape == (1, 1)
+
+
+# ------------------------------------------------------------ GPT-2: integer genes
+
+XL, XU = 0, 50256
+
+
+def _ints(rng, m, n_var):
+    return rng.integers(XL, XU + 1, (m, n_var)).astype(np.float32)
+
+
+def test_int_random_core_and_sampling():
+    """Uniforms -> integers on [xl, xu]: u = 0 gives xl, the largest fp32
+    uniform below 1 gives xu; the sampler's draws are integral, in range and
+    spread over the whole range."""
+    u = torch.tensor([[0.0, 0.5, 1.0 - 2.0 ** -24, 1e-6]])
+    assert tsmp.int_random_core(u, XL, XU).tolist() == [[0.0, 25128.0, 50256.0, 0.0]]
+    X = tsmp.int_random_sampling(torch.Generator().manual_seed(0), 500, 20, XL, XU)
+    assert X.dtype == torch.float32 and X.shape == (500, 20)
+    assert torch.equal(X, X.round()) and X.min() >= XL and X.max() <= XU
+    hist = torch.histc(X, bins=10, min=XL, max=XU + 1)
+    assert hist.min() > 0.8 * X.numel() / 10
+    # the JAX sampler's law: the same range, integral floats
+    J = np.asarray(jsmp.int_random_sampling(jax.random.PRNGKey(0), 500, 20, XL, XU))
+    assert J.min() >= XL and J.max() <= XU and np.array_equal(J, np.round(J))
+
+
+@pytest.mark.parametrize("prob", [1.0, 0.5])
+def test_sbx_round_int_matches_jax(rng, prob):
+    """GPT-2's SBX on integer parents near both bounds: identical integers
+    on the same uniforms (the rounding is half to even on both sides)."""
+    m, n_var = 50, 20
+    x1, x2 = _ints(rng, m, n_var), _ints(rng, m, n_var)
+    x1[:5], x2[5:10] = XU - rng.integers(0, 3, (5, n_var)), rng.integers(0, 3, (5, n_var))
+    x2[10] = x1[10]
+    key = jax.random.PRNGKey(11)
+    want = jxo.sbx(key, jnp.asarray(x1), jnp.asarray(x2), XL, XU, eta=3.0, prob=prob,
+                   round_int=True)
+    k_mate, k_var, k_beta, k_swap = jax.random.split(key, 4)
+    got = txo.sbx_core(T(x1), T(x2), XL, XU, _u(k_mate, (m, 1)), _u(k_var, (m, n_var)),
+                       _u(k_beta, (m, n_var)), _u(k_swap, (m, n_var)), eta=3.0, prob=prob,
+                       round_int=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(N(g), np.asarray(w))
+        assert np.array_equal(N(g), np.round(N(g)))
+
+
+@pytest.mark.parametrize("prob", [0.5, 1.0])
+def test_polynomial_mutation_round_int_matches_jax(rng, prob):
+    n, n_var = 100, 20
+    x = _ints(rng, n, n_var)
+    x[:3], x[3:6] = XU, XL
+    key = jax.random.PRNGKey(12)
+    want = jmut.polynomial_mutation(key, jnp.asarray(x), XL, XU, eta=3.0, prob=prob,
+                                    round_int=True)
+    k_do, k_rand = jax.random.split(key)
+    got = tmut.polynomial_mutation_core(T(x), XL, XU, _u(k_do, (n, n_var)),
+                                        _u(k_rand, (n, n_var)), eta=3.0, prob=prob,
+                                        round_int=True)
+    np.testing.assert_array_equal(N(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("tied", ["all", "some"])
+def test_ga_step_on_tied_fitness_matches_jax(rng, tied):
+    """One GPT-2 GA generation at pop 100 on tied fitness (an overflowed
+    batch zeroes every row): the JAX package's step against the port's
+    cores in the port's step order (tournament with its tie coin, SBX and
+    PM with rounding, duplicate resampling with the int sampler, fitness
+    survival) on the same draws; the offspring and the survivors equal."""
+    from clip_glass_tpu.config import get_config as jget_config
+    from clip_glass_tpu.evolve import algorithm as jalg
+
+    pop, n_var = 100, 20
+    jcfg = jget_config("GPT2")
+    X = _ints(rng, pop, n_var)
+    X[7] = X[3]                                   # a member the offspring may copy
+    F = np.zeros((pop, 1), np.float32)
+    if tied == "some":
+        F[::7] = -0.25
+
+    def F_off(off):  # ties between offspring and with the parents
+        return np.where(np.asarray(off)[:, :1] % 3 == 0, -0.25, 0.0).astype(np.float32)
+
+    state = jalg.GAState(jnp.asarray(X), jnp.asarray(F), jax.random.PRNGKey(13), jnp.int32(0))
+    vary, survive = jalg.make_step_halves(jalg.operators_for_config(jcfg), pop, "ga")
+    off_j, _, key = vary(state)
+    want = survive(state, off_j, jnp.asarray(F_off(off_j)), key)
+
+    _, k_sel, k_x, k_m, k_d, _ = jax.random.split(state.key, 6)
+    k_pairs, k_tie = jax.random.split(k_sel)
+    cand = jsel._permutation_pairs(k_pairs, pop, pop)
+    tie = jax.random.bernoulli(k_tie, 0.5, (pop,))
+    pairs = tsel.tournament_ga_core(T(F), torch.as_tensor(np.array(cand)),
+                                    torch.as_tensor(np.array(tie)))
+    x1, x2 = T(X)[pairs[:, 0]], T(X)[pairs[:, 1]]
+    m = pop // 2
+    k_mate, k_var, k_beta, k_swap = jax.random.split(k_x, 4)
+    o1, o2 = txo.sbx_core(x1, x2, XL, XU, _u(k_mate, (m, 1)), _u(k_var, (m, n_var)),
+                          _u(k_beta, (m, n_var)), _u(k_swap, (m, n_var)), eta=3.0,
+                          prob=1.0, round_int=True)
+    k_do, k_rand = jax.random.split(k_m)
+    off = tmut.polynomial_mutation_core(torch.cat([o1, o2]), XL, XU, _u(k_do, (pop, n_var)),
+                                        _u(k_rand, (pop, n_var)), eta=3.0, prob=0.5,
+                                        round_int=True)
+    fresh = T(jsmp.int_random_sampling(k_d, pop, n_var, XL, XU))
+    off = resample_duplicates_core(off, T(X), fresh)
+    np.testing.assert_array_equal(N(off), np.asarray(off_j))
+    X_new, F_new = tfitness_survival(torch.cat([T(X), off]),
+                                     torch.cat([T(F), torch.from_numpy(F_off(off))]), pop)
+    np.testing.assert_array_equal(N(X_new), np.asarray(want.X))
+    np.testing.assert_array_equal(N(F_new), np.asarray(want.F))
+
+
+def test_tiny_gpt2_ga_search_is_deterministic_and_valid():
+    """The GPT2 GA on the TINY models (CPU): seeded, elitist, the genes stay
+    integral token ids."""
+    from clip_glass_torch.models.gpt2 import model as tg2
+
+    dog = "examples/gpt2_images/dog.jpeg"
+    cfg = get_config("GPT2").replace(pop_size=8, dim_z=6, n_var=6, max_tokens_len=5,
+                                     weights="random:0", target=dog, compute_dtype="float32")
+
+    def run():
+        problem = GenerationProblem(cfg, device="cpu", clip_cfg=tclip.TINY, model_cfg=tg2.TINY)
+        best = []
+        res = minimize(problem.make_algorithm(), 3, 0, save_each=1,
+                       callback=lambda s: best.append(s.F[:, 0].min().item()))
+        return res, best
+
+    a, best = run()
+    b, _ = run()
+    assert torch.equal(a.pop_X, b.pop_X) and torch.equal(a.pop_F, b.pop_F)
+    assert best == sorted(best, reverse=True) and a.state.gen == 3
+    assert a.pop_X.shape == (8, 6) and torch.equal(a.pop_X, a.pop_X.round())
+    assert a.pop_X.min() >= XL and a.pop_X.max() <= XU and torch.isfinite(a.pop_F).all()

@@ -30,6 +30,7 @@ from clip_glass_torch.core.dtypes import BF16
 from clip_glass_torch.fitness.generator import Generator
 from clip_glass_torch.fitness.problem import GenerationProblem
 from clip_glass_torch.models.clip import model as tclip
+from clip_glass_torch.models.gpt2 import model as tg2
 from clip_glass_torch.models.stylegan2 import model as tsg2
 from clip_glass_torch.weights import from_jax
 
@@ -69,6 +70,19 @@ def problems():
 
 def _X(seed=0):
     return np.random.default_rng(seed).normal(size=(POP, 32)).astype(np.float32)
+
+
+DOG = "examples/gpt2_images/dog.jpeg"
+
+
+def _g2_config(get, **kw):
+    return get("GPT2").replace(**{**dict(
+        pop_size=POP, batch_size=POP, dim_z=6, n_var=6, max_tokens_len=5,
+        weights="random:0", target=DOG, compute_dtype="float32"), **kw})
+
+
+def _g2_X(seed):
+    return np.random.default_rng(seed).integers(0, 50257, (POP, 6)).astype(np.float32)
 
 
 def test_eval_population_matches_jax(problems):
@@ -138,10 +152,15 @@ def test_port_random_problem_is_seeded():
 
 
 def test_unported_configs_raise():
-    """GPT-2 is not ported (item 10); a checkpoint directory that does not
-    exist raises FileNotFoundError, as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """GPT-2 is ported (item 10): its config's default weights (the
+    reference's .bin, absent here) raise FileNotFoundError, as in the JAX
+    package, and its TINY problem evaluates; a StyleGAN2 checkpoint
+    directory that does not exist raises FileNotFoundError."""
+    with pytest.raises(FileNotFoundError):
         GenerationProblem(get_config("GPT2"), device="cpu")
+    F = GenerationProblem(_g2_config(get_config), device="cpu", clip_cfg=tclip.TINY,
+                          model_cfg=tg2.TINY).generator.eval_population(T(_g2_X(0)))
+    assert F.shape == (POP, 1) and torch.isfinite(F).all() and (F.abs() <= 1).all()
     with pytest.raises(FileNotFoundError):
         GenerationProblem(_config(get_config).replace(weights="./weights/x"),
                           device="cpu", clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
@@ -327,4 +346,150 @@ def test_biggan_loaders(tmp_path):
     blk = gen.g_params["blocks"][1]["block"]   # TINY: attention first
     assert blk["bn_0"]["running_vars"].dtype == torch.float32
     assert blk["conv_0"]["w"].dtype == torch.bfloat16
+    assert set(gen.bundle) == {"clip", "g", "target"}
+
+
+# ------------------------------------------------------------ GPT-2 img2txt fitness
+
+
+@pytest.fixture(scope="module")
+def g2_problems():
+    """The JAX TINY GPT-2 problem (target: the example dog photo) and the
+    port's on the converted bundle."""
+    from clip_glass_tpu.models.gpt2 import model as jg2
+
+    jprob = JProblem(_g2_config(jget_config), clip_cfg=jclip.TINY, model_cfg=jg2.TINY)
+    jbundle = jprob.generator.bundle
+    tbundle = from_jax.convert_bundle(jax.tree.map(np.asarray, jbundle))
+    assert set(tbundle) == {"clip", "g", "target"}
+    return jprob, jbundle, tbundle
+
+
+def _g2_port(tbundle, **kw):
+    return GenerationProblem(_g2_config(get_config, **kw), device="cpu", clip_cfg=tclip.TINY,
+                             model_cfg=tg2.TINY, bundle=tbundle)
+
+
+def _overflow_rows(generate, mark, tail):
+    """`generate` with the decode of the rows whose first gene is `mark`
+    replaced by `tail` (ids whose caption overflows CLIP's context); traced
+    (JAX) and eager (the port) alike."""
+    def patched(X, *a):
+        ids = generate(X, *a)
+        lib = jnp if isinstance(ids, jax.Array) else torch
+        cols = np.arange(ids.shape[1]) >= ids.shape[1] - len(tail)
+        planted = np.zeros(ids.shape[1], np.int32)
+        planted[cols] = tail
+        if lib is torch:
+            cols, planted = torch.from_numpy(cols), torch.from_numpy(planted)
+        return lib.where((X[:, :1] == mark) & cols[None, :], planted[None, :], ids)
+    return patched
+
+
+@pytest.mark.parametrize("mb", [None, 4, 3])
+def test_gpt2_eval_population_matches_jax_host_eval(g2_problems, mb):
+    """F = -cos of the TINY GPT-2 population against the JAX package's
+    host_eval_population (fp32, 1e-5): whole, in two decode chunks, and with
+    a microbatch that does not divide the population (one chunk in both)."""
+    jprob, jbundle, tbundle = g2_problems
+    X = _g2_X(1)
+    jgen = JProblem(_g2_config(jget_config, eval_microbatch=mb), clip_cfg=jclip.TINY,
+                    model_cfg=jprob.generator.model_cfg).generator
+    want = np.asarray(jgen.host_eval_population(jnp.asarray(X), jbundle))
+    got = N(_g2_port(tbundle, eval_microbatch=mb).generator.eval_population(T(X)))
+    assert got.shape == (POP, 1) and (got != 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mb", [None, 4])
+def test_gpt2_overflow_zeroes_the_population_as_jax(g2_problems, mb):
+    """One caption past CLIP's 77 tokens (in the second chunk when mb = 4)
+    zeroes every fitness of the population, in both packages."""
+    jprob, jbundle, tbundle = g2_problems
+    # GPT-2 id 33454 decodes to 3 CJK characters, 9 CLIP tokens: the caption's
+    # 50 characters hold 36 of them, 108 CLIP tokens
+    tail = np.full(12, 33454, np.int32)
+    X = _g2_X(2)
+    X[6, 0] = mark = 12345
+    jgen = JProblem(_g2_config(jget_config, eval_microbatch=mb, max_tokens_len=len(tail)),
+                    clip_cfg=jclip.TINY, model_cfg=jprob.generator.model_cfg).generator
+    tgen = _g2_port(tbundle, eval_microbatch=mb, max_tokens_len=len(tail)).generator
+    jgen.generate = _overflow_rows(jgen.generate, mark, tail)
+    tgen.generate = _overflow_rows(tgen.generate, mark, tail)
+    want = np.asarray(jgen.host_eval_population(jnp.asarray(X), jbundle))
+    got = N(tgen.eval_population(T(X)))
+    texts = tgen.decode_texts(tgen.generate(T(X)).numpy())
+    assert len(texts[6]) == 50 and texts[6].startswith("the picture of")
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).all()
+    # without the planted row, no caption overflows and no fitness is 0
+    clean = _g2_port(tbundle, eval_microbatch=mb, max_tokens_len=len(tail)).generator
+    assert (N(clean.eval_population(T(X))) != 0).all()
+
+
+def test_gpt2_generate_texts_and_save_match_jax(g2_problems, tmp_path):
+    """The argmax decode of genome ++ init tokens (token-exact), the
+    captions (cut at EOT, init text kept, 50 characters) and the saved
+    newline-joined captions, against the JAX package's."""
+    jprob, jbundle, tbundle = g2_problems
+    tgen = _g2_port(tbundle).generator
+    X = _g2_X(3)
+    X[1, 2] = 50256                                   # an EOT inside the genome
+    want = np.asarray(jax.jit(jprob.generator.generate)(jnp.asarray(X), jbundle))
+    got = tgen.generate(T(X)).numpy()
+    assert got.shape == (POP, 6 + 3 + 5) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, 6:9], [[1169, 4286, 286]] * POP)
+    got[3, 11] = 50256                                # an EOT inside the decode
+    texts = tgen.decode_texts(got)
+    assert texts == jprob.generator.decode_texts(got)
+    assert texts[1] == "" and all(t.startswith("the picture of") for t in texts[2:])
+    tgen.save(got, str(tmp_path / "port.txt"))
+    jprob.generator.save(got, str(tmp_path / "jax.txt"))
+    assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
+    np.testing.assert_array_equal(tgen.render(T(X)), want)
+
+
+def test_gpt2_target_features_match_jax(g2_problems):
+    """The port encodes the target image itself (clip_preprocess_pil, then
+    the image tower) when the bundle carries no target."""
+    jprob, _, tbundle = g2_problems
+    bundle = {k: v for k, v in tbundle.items() if k != "target"}
+    tgen = _g2_port(bundle).generator
+    assert tgen.text_features is None
+    assert_close_scaled(N(tgen.image_features), np.asarray(jprob.generator.image_features), 1e-5)
+
+
+def test_gpt2_loaders(tmp_path):
+    """random:<seed> draws the TINY tree; a converted npz with its _cfg.json
+    gives the same weights; without the sidecar the geometry comes from the
+    shapes (head width 64); a missing path raises FileNotFoundError, the
+    reference's .bin NotImplementedError naming item 14. bf16 staging keeps
+    the LayerNorm parameters fp32."""
+    import json
+
+    from clip_glass_torch.core import pytree
+    from clip_glass_torch.fitness.generator import _load_gpt2
+
+    cfg = _g2_config(get_config)
+    want, mcfg = _load_gpt2(cfg.replace(weights="random:3"), tg2.TINY)
+    assert mcfg == tg2.TINY
+    path = tmp_path / "gpt2.npz"
+    pytree.save_npz(str(path), tg2.init_tree(torch.Generator().manual_seed(3), tg2.TINY))
+    got, got_cfg = _load_gpt2(cfg.replace(weights=str(path)), None)
+    assert got_cfg == tg2.GPT2Config(n_positions=128, n_embd=64, n_layer=2, n_head=2)
+    jax.tree.map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0), got, want)
+    with open(tmp_path / "gpt2_cfg.json", "w") as f:
+        json.dump(dataclasses.asdict(dataclasses.replace(tg2.TINY, n_head=4)), f)
+    assert _load_gpt2(cfg.replace(weights=str(path)), None)[1].n_head == 4
+    with pytest.raises(FileNotFoundError):
+        _load_gpt2(cfg.replace(weights=str(tmp_path / "missing.npz")), None)
+    (tmp_path / "gpt2-pytorch_model.bin").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        _load_gpt2(cfg.replace(weights=str(tmp_path / "gpt2-pytorch_model.bin")), None)
+    gen = Generator(cfg.replace(compute_dtype="bfloat16"), device="cpu",
+                    clip_cfg=tclip.TINY, model_cfg=tg2.TINY)
+    assert gen.g_params["blocks"][0]["ln_2"]["b"].dtype == torch.float32
+    assert gen.g_params["wte"].dtype == gen.g_params["blocks"][1]["attn"]["c_attn_w"].dtype \
+        == torch.bfloat16
     assert set(gen.bundle) == {"clip", "g", "target"}
