@@ -76,9 +76,26 @@ BPE round trip on the host between them):
  15. gpt2 cli: `cli.main --config GPT2` at full width: F1 2 generations, F2
      F1's folder resumed to 4, G 4 straight; the .txt artifact set, and F2's
      ga_state.npz equal to G's bitwise.
-The last lines are the kernels' summary (JSON; kernel 4's entry carries a
-`biggan` record per config), the card's name and power limit, and
-{"ok": true, "device": {...}}.
+Then the reference's own checkpoint formats (random weights from seed 0,
+written at the published geometries by weights/synthesize.py, about 2.4 GB in
+a temporary directory):
+ 16. checkpoints: (a) each file loaded directly equals, leaf by leaf and
+     bitwise, the npz the port's convert CLI wrote from it (StyleGAN2
+     config-f Gs/G/D.pth, the TF pickle's G/D/Gs and noise planes, CLIP
+     ViT-B/32 and RN50 as TorchScript archives and pickled state dicts in
+     fp16, BigGAN-deep-512's and GPT-2 124M's .bin), with each file's size
+     and load seconds; (b) `cli.main --config StyleGAN2_ffhq_d` from
+     Gs.pth + D.pth + ViT-B-32.pt (H1) and from the converted npz files
+     (H2), 2 generations each: every kernel on the variants of phase 3, and
+     H1's ga_state.npz equal to H2's bitwise; (c) the same search with
+     RN50.pt (I), and both towers' CLIP stage (CUDA events); (d) one
+     full-width evaluation of DeepMindBigGAN512 from its .bin (kernel 4
+     launches, F finite) and of GPT2 from its .bin (no kernel launches),
+     with BigGAN's largest F difference between its final-BN affine staged
+     in bf16 and kept in fp32 (printed).
+The last lines are the script's seconds, the kernels' summary (JSON; kernel
+4's entry carries a `biggan` record per config), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -1515,6 +1532,260 @@ def phase_cli_gpt2() -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 16: checkpoints
+
+
+def _same_params(label: str, got, want) -> None:
+    """Two parameter trees equal leaf by leaf, dtypes and bits."""
+    from clip_glass_torch.core import pytree
+
+    fg, fw = pytree.flatten(got), pytree.flatten(want)
+    if fg.keys() != fw.keys():
+        raise AssertionError(f"{label}: keys differ: {sorted(set(fg) ^ set(fw))[:5]}")
+    for k in fg:
+        if fg[k].dtype != fw[k].dtype or not torch.equal(fg[k], fw[k]):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def _timed(fn, *args):
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t
+
+
+def _convert_cli(kind: str, src: str, dst: str, *extra) -> float:
+    """The port's convert CLI in-process; its seconds."""
+    import contextlib
+    import io
+
+    from clip_glass_torch.weights import convert_weights
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert_weights.main([kind, src, dst, *extra])
+    if rc != 0:
+        raise AssertionError(f"convert_weights {kind} {src}: exit {rc}")
+    return time.perf_counter() - t
+
+
+def _npz_tree(path: str):
+    from clip_glass_torch.core import pytree
+
+    return pytree.restore_lists(pytree.load_npz(path))
+
+
+def direct_vs_converted(paths: dict, conv: str) -> list:
+    """Phase 16 (a): for every file `weights.synthesize.write_all` wrote
+    (`paths`), the direct load against the load of the npz the convert CLI
+    wrote from it into `conv`: equal leaf by leaf (torch.equal), with equal
+    configs; each at its published geometry. Returns one record a file:
+    its size, the direct load's seconds, the conversion's, the npz load's."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.generator import _load_biggan, _load_gpt2
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.weights import convert_stylegan2, convert_stylegan2_tf, from_jax, load
+
+    recs = []
+
+    def record(name, direct_s, convert_s, npz_s, **extra):
+        rec = {"phase": "checkpoints", "check": "direct == converted", "file": name,
+               "bytes": os.path.getsize(paths[name]), "direct_load_s": direct_s,
+               "convert_s": convert_s, "npz_load_s": npz_s, **extra}
+        log(rec)
+        recs.append(rec)
+
+    def stylegan2_tree(tree, kind):
+        return (from_jax.convert_generator if kind == "G" else from_jax.convert_discriminator)(tree)
+
+    # StyleGAN2 config-f .pth: Gs, G (EMA and training generators) and D
+    out = os.path.join(conv, "stylegan2")
+    convert_s = _convert_cli("stylegan2", os.path.dirname(paths["stylegan2/Gs.pth"]), out)
+    for stem in ("Gs", "G", "D"):
+        name = f"stylegan2/{stem}.pth"
+        (tree, cfg, kind), direct_s = _timed(convert_stylegan2.load_pth, paths[name])
+        direct = stylegan2_tree(tree, kind)
+        npz = os.path.join(out, f"{stem}.npz")
+        tree, npz_s = _timed(_npz_tree, npz)
+        if load.read_cfg_sidecar(npz, sg2.SG2Config) != cfg:
+            raise AssertionError(f"{name}: the sidecar's config differs")
+        if kind == "G" and cfg != sg2.CONFIG_F:
+            raise AssertionError(f"{name}: {cfg} is not config-f")
+        _same_params(name, direct, stylegan2_tree(tree, kind))
+        record(name, direct_s, convert_s / 3, npz_s)
+
+    # the TF pickle: G, D, Gs and the generators' noise planes
+    name = "stylegan2-ffhq-config-f.pkl"
+    out = os.path.join(conv, "stylegan2-tf")
+    convert_s = _convert_cli("stylegan2-tf", paths[name], out)
+    nets, direct_s = _timed(convert_stylegan2_tf.convert_pkl, paths[name])
+    t = time.perf_counter()
+    for key, net in nets.items():
+        npz = os.path.join(out, f"{key}.npz")
+        tree, cfg = net[0], net[1]
+        kind = "D" if key == "D" else "G"
+        if load.read_cfg_sidecar(npz, sg2.SG2Config) != cfg:
+            raise AssertionError(f"{name} {key}: the sidecar's config differs")
+        _same_params(f"{name} {key}", stylegan2_tree(tree, kind),
+                     stylegan2_tree(_npz_tree(npz), kind))
+        if kind == "G":
+            _same_params(f"{name} {key} noise", from_jax.convert_noise(net[2]),
+                         from_jax.convert_noise(_npz_tree(os.path.join(out, f"{key}_noise.npz"))))
+    record(name, direct_s, convert_s, time.perf_counter() - t,
+           resolution=nets["Gs"][1].resolution, noise_planes=len(nets["Gs"][2]))
+    del nets
+
+    # CLIP ViT-B/32 and RN50: TorchScript archives and pickled state dicts, fp16
+    for name in ("clip/ViT-B-32.pt", "clip/ViT-B-32-state-dict.pt", "clip/RN50.pt",
+                 "clip/RN50-state-dict.pt"):
+        npz = os.path.join(conv, name.replace("/", "_").replace(".pt", ".npz"))
+        convert_s = _convert_cli("clip", paths[name], npz)
+        (direct, cfg), direct_s = _timed(load.load_clip, paths[name])
+        (got, got_cfg), npz_s = _timed(load.load_clip, npz)
+        want_cfg = clip_model.RN50 if "RN50" in name else clip_model.VIT_B_32
+        if not cfg == got_cfg == want_cfg:
+            raise AssertionError(f"{name}: configs {cfg} / {got_cfg}")
+        _same_params(name, direct, got)
+        record(name, direct_s, convert_s, npz_s)
+
+    # BigGAN-deep-512 and GPT-2 124M `.bin`s through the fitness loaders
+    for name, loader, config, kind, want_cfg, extra in (
+            ("biggan-deep-512-pytorch_model.bin", _load_biggan,
+             get_config("DeepMindBigGAN512"), "biggan", bg.BIGGAN_DEEP_512,
+             ("--model-name", "biggan-deep-512")),
+            ("gpt2-pytorch_model.bin", _load_gpt2, get_config("GPT2"), "gpt2",
+             g2.GPT2_124M, ())):
+        npz = os.path.join(conv, f"{kind}.npz")
+        convert_s = _convert_cli(kind, paths[name], npz, *extra)
+        (direct, cfg), direct_s = _timed(loader, config.replace(weights=paths[name]), None)
+        (got, got_cfg), npz_s = _timed(loader, config.replace(weights=npz), None)
+        if not cfg == got_cfg == want_cfg:
+            raise AssertionError(f"{name}: configs {cfg} / {got_cfg}")
+        _same_params(name, direct, got)
+        record(name, direct_s, convert_s, npz_s)
+    return recs
+
+
+def _clip_stage(g_dir: str, clip_file: str) -> dict:
+    """The flagship's CLIP stage with the CLIP of `clip_file` (pop POP, bf16,
+    G from `g_dir`): the phase-aware resize + image tower + cosine of one
+    packed population (`clip_similarity_packed`), and the whole evaluation,
+    CUDA events, mean of 10 and 3 calls."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    config = get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights=g_dir, pop_size=POP)
+    gen = GenerationProblem(config, device="cuda", clip_weights=clip_file).generator
+    X = torch.randn((POP, config.n_var), generator=torch.Generator().manual_seed(3)).cuda()
+    with torch.inference_mode():
+        img = gen.generate_packed(X)
+        out = {"clip": gen.clip_cfg.vision_kind, "clip_ms": time_ms(
+                   lambda: gen.clip_similarity_packed(img), 10),
+               "evaluation_ms": time_ms(lambda: gen.eval_population(X), 3, warmup=1)}
+    del gen, img
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_evaluation(config, clip_file: str, X, label: str):
+    """One full-width evaluation with the kernels' counts set to 0 just
+    before and read just after; F must be finite, of the config's shape."""
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    gen = GenerationProblem(config, device="cuda", clip_weights=clip_file).generator
+    _zero_counts(kernels)
+    with torch.inference_mode():
+        Fp = gen.eval_population(X.cuda())
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    if tuple(Fp.shape) != (X.shape[0], 1) or not torch.isfinite(Fp).all():
+        raise AssertionError(f"{label}: bad fitness: shape {tuple(Fp.shape)}, {Fp}")
+    return gen, Fp, launches
+
+
+def phase_checkpoints(kind: str, smi: str, summary: dict) -> None:
+    """Phase 16: the reference's checkpoint formats at their published
+    geometries, written from seed 0 by weights/synthesize.py into one
+    temporary directory (deleted at the end): (a) direct_vs_converted; (b)
+    `cli.main --config StyleGAN2_ffhq_d` (pop 16, bf16) for 2 generations
+    from Gs.pth + D.pth + ViT-B-32.pt, launching every kernel on the
+    variants phase 3 saw, and the same run from the converted npz files,
+    whose ga_state.npz must be equal bitwise; (c) the same search with
+    RN50.pt, and the CLIP stage of both towers; (d) one full-width
+    evaluation of DeepMindBigGAN512 from its .bin (kernel 4 launches) and of
+    GPT2 from its .bin (no kernel launches), and the largest difference in
+    BigGAN's F between its final-BN affine staged in bf16 (the rule of both
+    packages) and kept in fp32 (printed, not asserted)."""
+    import tempfile
+
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import mixed_biggan_sampling
+    from clip_glass_torch.weights import convert_biggan, from_jax, synthesize
+
+    want = _flagship_variants(summary)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, conv = os.path.join(tmp, "ref"), os.path.join(tmp, "conv")
+        paths, write_s = _timed(synthesize.write_all, ref, 0)
+        log({"phase": "checkpoints", "written_s": write_s, "files": {
+            name: os.path.getsize(p) for name, p in paths.items()}})
+        direct_vs_converted(paths, conv)
+
+        g_ref = os.path.dirname(paths["stylegan2/Gs.pth"])
+        runs = {}
+        for label, g_dir, clip_file in (
+                ("H1", g_ref, paths["clip/ViT-B-32.pt"]),
+                ("H2", os.path.join(conv, "stylegan2"), os.path.join(conv, "clip_ViT-B-32.npz")),
+                ("I", g_ref, paths["clip/RN50.pt"])):
+            folder = os.path.join(tmp, label)
+            runs[label] = _cli_run(label, folder, "StyleGAN2_ffhq_d", 2, want,
+                                   "--weights", g_dir, "--clip-weights", clip_file)
+            runs[label]["state"] = _npz(os.path.join(folder, "ga_state.npz"))
+        _same_state("checkpoints: .pth + .pt H1 vs converted npz H2",
+                    runs["H1"]["state"], runs["H2"]["state"])
+        log({"phase": "checkpoints", "check": "H1 == H2 bitwise; RN50 search I completed",
+             "clip_stage": [_clip_stage(g_ref, paths[f"clip/{n}.pt"])
+                            for n in ("ViT-B-32", "RN50")], "device": kind, "nvidia_smi": smi})
+
+        name = "DeepMindBigGAN512"
+        bin_path = paths["biggan-deep-512-pytorch_model.bin"]
+        config = get_config(name).replace(target=TARGET, weights=bin_path)
+        X = mixed_biggan_sampling(torch.Generator().manual_seed(4), config.pop_size)
+        gen, Fp, launches = _one_evaluation(config, paths["clip/ViT-B-32.pt"], X, name)
+        if not launches["s2d_conv2x2"] or any(
+                n for k, n in launches.items() if k != "s2d_conv2x2"):
+            raise AssertionError(f"{name} from its .bin: launches {launches}")
+        raw = from_jax.convert_biggan(
+            convert_biggan.load_torch_checkpoint(bin_path, "biggan-deep-512")[0])["bn"]
+        g32 = {**gen.g_params, "bn": {**gen.g_params["bn"],
+                                      **{k: raw[k].cuda() for k in ("weight", "bias")}}}
+        with torch.inference_mode():
+            F32 = gen.eval_population(X.cuda(), {**gen.bundle, "g": g32})
+        staged = gen.g_params["bn"]["weight"].dtype
+        log({"phase": "checkpoints", "config": name, "weights": os.path.basename(bin_path),
+             "pop": config.pop_size, "launches": launches, "best_cos": -Fp.min().item(),
+             "final_bn_affine_staged": str(staged),
+             "max_abs_dF_bf16_vs_fp32_affine": (Fp - F32).abs().max().item(),
+             "F_spread": (Fp.max() - Fp.min()).item()})
+        del gen, g32, F32, raw
+        torch.cuda.empty_cache()
+
+        config = get_config("GPT2").replace(target=DOG,
+                                            weights=paths["gpt2-pytorch_model.bin"])
+        X = torch.randint(0, 50257, (config.pop_size, config.n_var),
+                          generator=torch.Generator().manual_seed(5)).float()
+        gen, Fp, launches = _one_evaluation(config, paths["clip/ViT-B-32.pt"], X, "GPT2")
+        if any(launches.values()):
+            raise AssertionError(f"GPT2 from its .bin: a kernel launched: {launches}")
+        log({"phase": "checkpoints", "config": "GPT2", "weights": "gpt2-pytorch_model.bin",
+             "pop": config.pop_size, "launches": launches, "best_cos": -Fp.min().item(),
+             "zeroed_by_overflow": bool((Fp == 0).all())})
+        del gen
+    torch.cuda.empty_cache()
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -1528,6 +1799,7 @@ KERNEL_META = {
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     kind = phase_device()
     smi = smi_line()
     phase_build()
@@ -1546,6 +1818,7 @@ def main() -> int:
     phase_agreement_gpt2()
     phase_main_gpt2(kind, smi)
     phase_cli_gpt2()
+    phase_checkpoints(kind, smi, summary)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -1579,6 +1852,7 @@ def main() -> int:
                                  f"biggan: each config's GA, init + "
                                  f"{BIGGAN_GENERATIONS} generations (launches), sums over "
                                  f"its call shapes of one evaluation (its pop, bf16)"})
+    log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,8 +17,8 @@ F, as in the JAX CLI, so tied fitnesses (every row of a GPT-2 population
 whose captions overflowed CLIP's context) order the artifacts the same way.
 
 Additions, as in the JAX package's CLI: --pop-size/--seed overrides,
---weights (a directory of converted checkpoints, or `random:<seed>`),
---clip-weights, --resume (bit-exact resume from `ga_state.npz`), --profile.
+--weights (the reference's checkpoints, converted npz trees, or
+`random:<seed>`), --clip-weights, --resume (bit-exact resume from `ga_state.npz`), --profile.
 The JAX package's other flags are parsed and refused, each naming the
 ROADMAP item that ports it.
 """
@@ -72,14 +72,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
                    help="not ported: " + REFUSED["quantize"])
     p.add_argument("--weights", type=str, default=None,
-                   help="override config weights: for StyleGAN2 a directory of "
-                        "converted checkpoints (Gs.npz + Gs_cfg.json, D.npz, "
-                        "optional Gs_noise.npz), for BigGAN and GPT-2 a converted .npz "
-                        "(with its _cfg.json), or 'random:<seed>' for random init")
+                   help="override config weights: for StyleGAN2 a directory with the "
+                        "reference's Gs.pth (or G.pth) and D.pth, or converted "
+                        "checkpoints (Gs.npz + Gs_cfg.json, D.npz, optional "
+                        "Gs_noise.npz); for BigGAN and GPT-2 the reference's "
+                        "pytorch_model.bin / gpt2-pytorch_model.bin or a converted .npz "
+                        "(with its _cfg.json); or 'random:<seed>' for random init")
     p.add_argument("--clip-weights", type=str, default=None,
-                   help="a converted CLIP ViT-B/32 .npz (with its _cfg.json), or "
-                        "'random:<seed>'; default: ./weights/clip/ViT-B-32.npz "
-                        "if present, else random:0")
+                   help="an OpenAI CLIP checkpoint (ViT-B-32.pt or RN50.pt), a "
+                        "converted .npz (with its _cfg.json), or 'random:<seed>'; "
+                        "default: ./weights/clip/ViT-B-32.npz if present, else random:0")
     p.add_argument("--resume", action="store_true",
                    help="resume from <tmp-folder>/ga_state.npz")
     p.add_argument("--mesh", action="store_true",

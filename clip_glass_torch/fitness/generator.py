@@ -8,8 +8,10 @@ CLIP cosine similarity, plus the discriminator hinge for the StyleGAN2 `*_d`
 configs.
 
 Parameters are drawn from seeded torch.Generators (`weights="random:<seed>"`),
-read from converted checkpoints (the npz trees and `_cfg.json` sidecars the
-JAX package's converters write, carried across by `weights.from_jax`), or
+read from the reference's own checkpoints (StyleGAN2's `.pth`, BigGAN's and
+GPT-2's `.bin`, CLIP's `.pt`, through the converters of `weights/`), from
+converted checkpoints (the npz trees and `_cfg.json` sidecars either
+package's convert CLI writes), all carried across by `weights.from_jax`, or
 handed in as a converted bundle (`weights.from_jax.convert_bundle`).
 StyleGAN2's per-layer noise is fixed per search and is data: drawn once from
 a seeded generator, or read from `<stem>_noise.npz`, or taken from the
@@ -53,7 +55,7 @@ from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import clip_preprocess_pil, resize_bilinear
 from clip_glass_torch.tokenizers import get_gpt2_tokenizer, tokenize
 from clip_glass_torch.tokenizers.clip_bpe import CONTEXT_LENGTH
-from clip_glass_torch.weights import from_jax
+from clip_glass_torch.weights import convert_biggan, convert_gpt2, convert_stylegan2, from_jax
 from clip_glass_torch.weights.load import is_random as _is_random
 from clip_glass_torch.weights.load import load_clip as _load_clip
 from clip_glass_torch.weights.load import random_seed as _random_seed
@@ -85,10 +87,12 @@ def _cosine(a, b):
 
 def _load_stylegan2(config, model_cfg):
     """G, D (for the `*_d` configs), noise planes (None: draw them) and the
-    model config. `config.weights`: 'random:<seed>', or a directory of
-    converted checkpoints: `Gs.npz` (the EMA generator, preferred, as the
-    reference evaluates it) or `G.npz`, each with `<stem>_cfg.json`, `D.npz`,
-    and optionally `<stem>_noise.npz` (JAX package: generator.py:358-420)."""
+    model config. `config.weights`: 'random:<seed>', or a directory, read in
+    the JAX package's order of preference (generator.py:358-420): the
+    reference's `Gs.pth` (the EMA generator, as the reference evaluates it)
+    or `G.pth`, with `D.pth`; else the converted `Gs.npz` or `G.npz`, each
+    with `<stem>_cfg.json`, `D.npz` and optionally `<stem>_noise.npz`. The
+    checkpoint's config wins over the one passed in."""
     if _is_random(config.weights):
         gen = torch.Generator().manual_seed(_random_seed(config.weights))
         cfg = model_cfg or sg2.CONFIG_F
@@ -96,17 +100,22 @@ def _load_stylegan2(config, model_cfg):
         d = sg2.discriminator_init(gen, cfg) if config.use_discriminator else None
         return g, d, None, cfg
     root = config.weights
+    pth = next((p for p in (os.path.join(root, f"{s}.pth") for s in ("Gs", "G"))
+                if os.path.exists(p)), None)
+    if pth is not None:
+        tree, cfg, _ = convert_stylegan2.load_pth(pth)
+        d = None
+        if config.use_discriminator:
+            d = from_jax.convert_discriminator(
+                convert_stylegan2.load_pth(os.path.join(root, "D.pth"))[0])
+        return from_jax.convert_generator(tree), d, None, cfg
     stem = next((s for s in ("Gs", "G")
                  if os.path.exists(os.path.join(root, f"{s}.npz"))), None)
     if stem is None:
-        if any(os.path.exists(os.path.join(root, f"{s}.pth")) for s in ("Gs", "G")):
-            raise NotImplementedError(
-                f"StyleGAN2 weights under {root!r} are in the reference's .pth "
-                "format; loading it is ROADMAP item 14 (convert them to npz with "
-                "scripts/convert_weights.py)")
         raise FileNotFoundError(
-            f"StyleGAN2 weights not found under {root!r} (Gs/G .npz); convert "
-            "the reference checkpoints (scripts/convert_weights.py) or use "
+            f"StyleGAN2 weights not found under {root!r} (Gs/G .pth or .npz); use "
+            "the reference's checkpoints, convert them "
+            "(python -m clip_glass_torch.weights.convert_weights) or use "
             "weights='random:<seed>'")
     g_path = os.path.join(root, f"{stem}.npz")
     cfg = _read_cfg_sidecar(g_path, sg2.SG2Config)
@@ -131,9 +140,10 @@ def _biggan_default_cfg(config):
 
 def _load_biggan(config, model_cfg):
     """G and the model config. `config.weights`: 'random:<seed>' (the
-    config's resolution names `bg.CONFIGS`' entry), or a converted `.npz`
-    with its `_cfg.json` sidecar; a config passed in wins over the sidecar,
-    as in the JAX package (generator.py:294-320)."""
+    config's resolution names `bg.CONFIGS`' entry), a converted `.npz` with
+    its `_cfg.json` sidecar, or the package's `pytorch_model.bin` read as the
+    `biggan-deep-<resolution>` variant (the JAX package: generator.py:
+    294-320); a config passed in wins over the file's."""
     w = config.weights
     if _is_random(w):
         gen = torch.Generator().manual_seed(_random_seed(w))
@@ -141,22 +151,22 @@ def _load_biggan(config, model_cfg):
         return bg.init(gen, cfg), cfg
     if not os.path.exists(w):
         raise FileNotFoundError(
-            f"BigGAN weights not found at {w!r}; provide a converted .npz (with its "
-            "_cfg.json) or weights='random:<seed>'")
+            f"BigGAN weights not found at {w!r}; provide the pytorch_model.bin, a "
+            "converted .npz (with its _cfg.json) or weights='random:<seed>'")
     if not w.endswith(".npz"):
-        raise NotImplementedError(
-            f"BigGAN weights {w!r}: only converted .npz checkpoints load here; the "
-            "package's pytorch_model.bin is ROADMAP item 14")
+        tree, cfg = convert_biggan.load_torch_checkpoint(w, f"biggan-deep-{config.resolution}")
+        return from_jax.convert_biggan(tree), model_cfg or cfg
     cfg = (model_cfg or _read_cfg_sidecar(w, bg.BigGANConfig)
            or _biggan_default_cfg(config))
     return from_jax.convert_biggan(pytree.restore_lists(pytree.load_npz(w))), cfg
 
 
 def _load_gpt2(config, model_cfg):
-    """GPT-2 and its config. `config.weights`: 'random:<seed>', or a
-    converted `.npz` with its `_cfg.json` sidecar; a config passed in wins
-    over the sidecar, and without either the geometry is read from the
-    shapes (head width 64), as in the JAX package (generator.py:321-354)."""
+    """GPT-2 and its config. `config.weights`: 'random:<seed>', the
+    reference's `gpt2-pytorch_model.bin`, or a converted `.npz` with its
+    `_cfg.json` sidecar; a config passed in wins over the file's, and
+    without either the geometry is read from the shapes (head width 64), as
+    in the JAX package (generator.py:321-354)."""
     w = config.weights
     if _is_random(w):
         gen = torch.Generator().manual_seed(_random_seed(w))
@@ -165,9 +175,8 @@ def _load_gpt2(config, model_cfg):
     if not os.path.exists(w):
         raise FileNotFoundError(f"GPT-2 weights not found at {w!r}")
     if not w.endswith(".npz"):
-        raise NotImplementedError(
-            f"GPT-2 weights {w!r}: only converted .npz checkpoints load here; the "
-            "reference's gpt2-pytorch_model.bin is ROADMAP item 14")
+        tree, cfg = convert_gpt2.load_torch_checkpoint(w)
+        return from_jax.convert_gpt2(tree), model_cfg or cfg
     tree = pytree.load_npz(w)
     vocab, d = tree["wte"].shape
     cfg = (model_cfg or _read_cfg_sidecar(w, g2.GPT2Config)

@@ -1,8 +1,9 @@
-"""CLIP ViT (image + text towers).
+"""CLIP (image + text towers), with a ViT or a ModifiedResNet image tower.
 
 Behavioral reference: reference clip/model.py:150-335 (VisualTransformer,
 Transformer/ResidualAttentionBlock, CLIP.encode_image/encode_text), in the
-JAX package's formulation so the numbers follow it:
+JAX package's formulation so the numbers follow it (the ResNet tower, the
+RN50 family, is `models/clip/resnet.py`):
 
 - the patch embedding is a reshape with a (c, ph, pw) flatten order and one
   [B*G*G, 3*P*P] x [3*P*P, width] matmul (same arithmetic as the reference's
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
+from clip_glass_torch.models.clip import resnet
 from clip_glass_torch.ops.attention import multi_head_attention
 from clip_glass_torch.ops.norms import layer_norm
 from clip_glass_torch.weights import from_jax
@@ -31,14 +33,18 @@ from clip_glass_torch.weights import from_jax
 class CLIPConfig:
     embed_dim: int = 512
     image_resolution: int = 224
-    vision_layers: int = 12
+    # vit: the block count; rn: the bottlenecks of each stage, e.g. (3, 4, 6, 3)
+    vision_layers: object = 12
     vision_width: int = 768
-    vision_patch_size: int = 32
+    vision_patch_size: int = 32  # vit only
     context_length: int = 77
     vocab_size: int = 49408
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+    # the image tower's family: "vit" (patch transformer, reference
+    # clip/model.py:222-269) or "rn" (ModifiedResNet, clip/model.py:9-149)
+    vision_kind: str = "vit"
 
     @property
     def vision_heads(self) -> int:
@@ -48,8 +54,18 @@ class CLIPConfig:
     def grid(self) -> int:
         return self.image_resolution // self.vision_patch_size
 
+    def rn_config(self) -> resnet.RNConfig:
+        """The ModifiedResNet view of this config (vision_kind == "rn")."""
+        return resnet.RNConfig(layers=tuple(self.vision_layers), output_dim=self.embed_dim,
+                               input_resolution=self.image_resolution,
+                               width=self.vision_width)
+
 
 VIT_B_32 = CLIPConfig()
+# RN50 (reference clip/clip.py:18-21 `_MODELS`; the hyperparameters
+# build_model infers from the official checkpoint, clip/model.py:371-379)
+RN50 = CLIPConfig(embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64,
+                  vision_kind="rn")
 
 # tiny variant for CPU tests
 TINY = CLIPConfig(embed_dim=64, image_resolution=32, vision_layers=2,
@@ -57,8 +73,8 @@ TINY = CLIPConfig(embed_dim=64, image_resolution=32, vision_layers=2,
                   vocab_size=49408, transformer_width=64, transformer_heads=2,
                   transformer_layers=2)
 
-# Leaves the forward reads raw in fp32: LayerNorm scales/biases and
-# logit_scale (`bn` names the RN50 tower's norms, not ported yet).
+# Leaves the forward reads raw in fp32: LayerNorm scales/biases, the ResNet
+# tower's folded BatchNorms (`bn*`) and logit_scale.
 PRECAST_EXCLUDE = ("ln_", "bn", "logit_scale")
 
 
@@ -102,17 +118,20 @@ def init_tree(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
     JAX layout (what a converted CLIP `.npz` holds)."""
     w, tw = cfg.vision_width, cfg.transformer_width
     scale_v, scale_t = w ** -0.5, tw ** -0.5
-    n_tok = cfg.grid ** 2 + 1
-    patch_dim = 3 * cfg.vision_patch_size ** 2
-    visual = {
-        "patch_embed": {"weight": scale_v * _randn(gen, patch_dim, w)},
-        "class_embedding": scale_v * _randn(gen, w),
-        "positional_embedding": scale_v * _randn(gen, n_tok, w),
-        "ln_pre": {"scale": torch.ones(w), "bias": torch.zeros(w)},
-        "blocks": _stack([_block_tree(gen, w) for _ in range(cfg.vision_layers)]),
-        "ln_post": {"scale": torch.ones(w), "bias": torch.zeros(w)},
-        "proj": scale_v * _randn(gen, w, cfg.embed_dim),
-    }
+    if cfg.vision_kind == "rn":
+        visual = resnet.init_tree(gen, cfg.rn_config())
+    else:
+        n_tok = cfg.grid ** 2 + 1
+        patch_dim = 3 * cfg.vision_patch_size ** 2
+        visual = {
+            "patch_embed": {"weight": scale_v * _randn(gen, patch_dim, w)},
+            "class_embedding": scale_v * _randn(gen, w),
+            "positional_embedding": scale_v * _randn(gen, n_tok, w),
+            "ln_pre": {"scale": torch.ones(w), "bias": torch.zeros(w)},
+            "blocks": _stack([_block_tree(gen, w) for _ in range(cfg.vision_layers)]),
+            "ln_post": {"scale": torch.ones(w), "bias": torch.zeros(w)},
+            "proj": scale_v * _randn(gen, w, cfg.embed_dim),
+        }
     text = {
         "token_embedding": scale_t * _randn(gen, cfg.vocab_size, tw),
         "positional_embedding": 0.01 * _randn(gen, cfg.context_length, tw),
@@ -159,6 +178,8 @@ def encode_image(params, images, cfg: CLIPConfig = VIT_B_32,
                  policy: Policy = FP32) -> torch.Tensor:
     """images: [B, 3, H, W] floats (the fitness path feeds [0,1] images with
     no CLIP mean/std normalization, like the reference, generator.py:45)."""
+    if cfg.vision_kind == "rn":
+        return resnet.apply(params["visual"], images, cfg.rn_config(), policy)
     v = params["visual"]
     B = images.shape[0]
     P, G = cfg.vision_patch_size, cfg.grid

@@ -48,6 +48,10 @@ from clip_glass_torch.weights import from_jax
 @dataclasses.dataclass(frozen=True)
 class SG2Config:
     latent_size: int = 512
+    # a class-conditional checkpoint's label count (the reference's
+    # label_size); the searches are unconditional and the forward reads no
+    # labels, so it is 0 for every model here
+    label_size: int = 0
     mapping_layers: int = 8
     mapping_lr_mul: float = 0.01
     channels: Sequence[int] = (32, 32, 64, 128, 256, 512, 512, 512, 512)

@@ -12,7 +12,9 @@ Layout traps handled here:
   kernel's operand);
 - dense and attention weights stay right-multiply [in, out];
 - CLIP transformer blocks, stacked on a leading layer axis in JAX, become a
-  list of per-layer dicts;
+  list of per-layer dicts; the ResNet tower's attention pool gets its q/k/v
+  projections joined into one [C, 3C] in-projection (what the JAX package
+  concatenates on every call);
 - BigGAN's batch norms keep their [n_stats, C] running statistics;
 - GPT-2's Conv1D weights are [in, out] on both sides (nothing transposed),
   its blocks, stacked on a leading layer axis in JAX, become a list.
@@ -38,6 +40,22 @@ def to_tensor(a) -> torch.Tensor:
             arr = arr.astype(np.float32)
         t = torch.from_numpy(np.array(arr))
     return t.float() if t.is_floating_point() else t
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor or array of any float dtype -> fp32 numpy (fp16 widens
+    exactly): how the checkpoint converters read a state dict's entries."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def stack_layers(blocks):
+    """List of per-layer numpy trees -> one tree stacked on a leading layer
+    axis (the JAX layout; `_unstack` inverts it)."""
+    if isinstance(blocks[0], dict):
+        return {k: stack_layers([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack(blocks)
 
 
 def _oihw(w) -> torch.Tensor:
@@ -117,28 +135,59 @@ def _unstack(blocks) -> list:
     return layers
 
 
-def _ln(p) -> Dict[str, torch.Tensor]:
+def _affine(p) -> Dict[str, torch.Tensor]:
     return {"scale": to_tensor(p["scale"]), "bias": to_tensor(p["bias"])}
 
 
+def _rn_convs(p) -> Dict[str, Any]:
+    """A ResNet stem or bottleneck: OIHW convs beside their folded BNs."""
+    out = {k: (_oihw(v) if k.startswith("conv") else _affine(v))
+           for k, v in p.items() if k != "downsample"}
+    if "downsample" in p:
+        out["downsample"] = {"conv": _oihw(p["downsample"]["conv"]),
+                             "bn": _affine(p["downsample"]["bn"])}
+    return out
+
+
+def _rn_visual(v) -> Dict[str, Any]:
+    """The ModifiedResNet image tower."""
+    out = {"stem": _rn_convs(v["stem"])}
+    for li in range(1, 5):
+        out[f"layer{li}"] = [_rn_convs(bp) for bp in v[f"layer{li}"]]
+    ap = v["attnpool"]
+    out["attnpool"] = {
+        "positional_embedding": to_tensor(ap["positional_embedding"]),
+        "in_proj_weight": torch.cat([to_tensor(ap[k]["w"]) for k in "qkv"], dim=1),
+        "in_proj_bias": torch.cat([to_tensor(ap[k]["b"]) for k in "qkv"]),
+        "out_proj_weight": to_tensor(ap["c"]["w"]),
+        "out_proj_bias": to_tensor(ap["c"]["b"]),
+    }
+    return out
+
+
+def _vit_visual(v) -> Dict[str, Any]:
+    return {
+        "patch_embed": {"weight": to_tensor(v["patch_embed"]["weight"])},
+        "class_embedding": to_tensor(v["class_embedding"]),
+        "positional_embedding": to_tensor(v["positional_embedding"]),
+        "ln_pre": _affine(v["ln_pre"]),
+        "blocks": _unstack(v["blocks"]),
+        "ln_post": _affine(v["ln_post"]),
+        "proj": to_tensor(v["proj"]),
+    }
+
+
 def convert_clip(tree) -> Dict[str, Any]:
-    """CLIP ViT (image + text towers)."""
+    """CLIP: the image tower (ViT, or the ModifiedResNet, told apart by its
+    stem) and the text tower."""
     v, t = tree["visual"], tree["text"]
     return {
-        "visual": {
-            "patch_embed": {"weight": to_tensor(v["patch_embed"]["weight"])},
-            "class_embedding": to_tensor(v["class_embedding"]),
-            "positional_embedding": to_tensor(v["positional_embedding"]),
-            "ln_pre": _ln(v["ln_pre"]),
-            "blocks": _unstack(v["blocks"]),
-            "ln_post": _ln(v["ln_post"]),
-            "proj": to_tensor(v["proj"]),
-        },
+        "visual": _rn_visual(v) if "stem" in v else _vit_visual(v),
         "text": {
             "token_embedding": to_tensor(t["token_embedding"]),
             "positional_embedding": to_tensor(t["positional_embedding"]),
             "blocks": _unstack(t["blocks"]),
-            "ln_final": _ln(t["ln_final"]),
+            "ln_final": _affine(t["ln_final"]),
             "text_projection": to_tensor(t["text_projection"]),
         },
         "logit_scale": to_tensor(tree["logit_scale"]),

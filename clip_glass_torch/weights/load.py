@@ -1,6 +1,7 @@
-"""Reading the weight names a config gives: `random[:<seed>]` and the
-converted `.npz` checkpoints with their `<stem>_cfg.json` sidecars that the
-JAX package's converters write. The CLIP loader lives here, so the fitness
+"""Reading the weight names a config gives: `random[:<seed>]`, the converted
+`.npz` checkpoints with their `<stem>_cfg.json` sidecars (what either
+package's convert CLI writes), and the reference's own files through the
+converters beside this module. The CLIP loader lives here, so the fitness
 layer and `models/clip/api.py` share it."""
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from clip_glass_torch.core import pytree
 from clip_glass_torch.models.clip import model as clip_model
-from clip_glass_torch.weights import from_jax
+from clip_glass_torch.weights import convert_clip, from_jax
 
 
 def is_random(weights: str) -> bool:
@@ -42,23 +43,22 @@ def read_cfg_sidecar(npz_path: str, cfg_cls):
 
 
 def load_clip(clip_weights: str, clip_cfg=None):
-    """CLIP parameters and config: seeded random draws, or a converted
-    `.npz` with its `_cfg.json` sidecar (the JAX package's torch-free path,
-    weights/convert_clip.py:127-145)."""
+    """CLIP parameters and config (fp32, CPU): seeded random draws (the
+    config passed in, ViT-B/32 by default), an OpenAI CLIP `.pt` of either
+    tower family (its config read off the shapes), or a converted `.npz`
+    with its `_cfg.json` sidecar (the JAX package: weights/convert_clip.py
+    load_checkpoint)."""
     if is_random(clip_weights):
         gen = torch.Generator().manual_seed(random_seed(clip_weights))
         cfg = clip_cfg or clip_model.VIT_B_32
         return clip_model.init(gen, cfg), cfg
-    if not clip_weights.endswith(".npz"):
-        raise NotImplementedError(
-            f"CLIP weights {clip_weights!r}: only converted .npz checkpoints "
-            "load here; the OpenAI .pt format is ROADMAP item 14")
     if not os.path.exists(clip_weights):
         raise FileNotFoundError(f"CLIP weights not found at {clip_weights!r}")
+    if not clip_weights.endswith(".npz"):
+        tree, cfg = convert_clip.load_torch_checkpoint(clip_weights)
+        return from_jax.convert_clip(tree), cfg
     cfg = read_cfg_sidecar(clip_weights, clip_model.CLIPConfig)
     if cfg is None:
         raise FileNotFoundError(f"{clip_weights}: its _cfg.json sidecar is missing")
-    if not isinstance(cfg.vision_layers, int):  # per-stage counts: a ResNet
-        raise NotImplementedError(
-            f"CLIP weights {clip_weights!r}: the ResNet towers are ROADMAP item 11")
-    return from_jax.convert_clip(pytree.load_npz(clip_weights)), cfg
+    # restore_lists: the ResNet tower keeps its stages as lists
+    return from_jax.convert_clip(pytree.restore_lists(pytree.load_npz(clip_weights))), cfg

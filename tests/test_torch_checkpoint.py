@@ -162,22 +162,37 @@ def test_checkpoint_reads_g_npz_and_draws_missing_noise(converted, tmp_path):
 
 
 def test_unloadable_weights_raise(converted, tmp_path):
-    """A missing directory: FileNotFoundError, as the JAX package; the
-    reference's torch formats: NotImplementedError naming ROADMAP item 14."""
+    """A missing directory or file: FileNotFoundError, as the JAX package.
+    The reference's own formats load: a directory holding `Gs.pth` and
+    `D.pth` (preferred over the npz stems beside them) and an OpenAI CLIP
+    `.pt`."""
+    from clip_glass_torch.weights import synthesize
+
     root, _, _ = converted
     with pytest.raises(FileNotFoundError):
         Generator(_config(get_config, weights=str(tmp_path / "none")), device="cpu",
                   clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
-    (tmp_path / "Gs.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Generator(_config(get_config, weights=str(tmp_path)), device="cpu",
-                  clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Generator(_config(get_config), device="cpu", clip_weights="ViT-B-32.pt",
-                  model_cfg=tsg2.TINY)
+    synthesize.write_stylegan2_pth(str(tmp_path), tsg2.TINY, seed=1)
+    for name in ("Gs.npz", "Gs_cfg.json", "D.npz"):
+        (tmp_path / name).write_bytes((root / name).read_bytes())
+    gen = Generator(_config(get_config, weights=str(tmp_path)), device="cpu",
+                    clip_cfg=tclip.TINY, model_cfg=tsg2.TINY)
+    assert gen.model_cfg == dataclasses.replace(tsg2.TINY, mbstd_group_size=4)
+    from clip_glass_torch.weights import convert_stylegan2, from_jax
+
+    want = from_jax.convert_generator(convert_stylegan2.load_pth(str(tmp_path / "Gs.pth"))[0])
+    got, want = pytree.flatten(gen.g_params), pytree.flatten(want)
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
+    synthesize.write_clip(str(tmp_path / "ViT-B-32.pt"), tclip.TINY, seed=2)
+    gen = Generator(_config(get_config), device="cpu", model_cfg=tsg2.TINY,
+                    clip_weights=str(tmp_path / "ViT-B-32.pt"))
+    assert gen.clip_cfg == dataclasses.replace(tclip.TINY, transformer_heads=1)
     with pytest.raises(FileNotFoundError):
         Generator(_config(get_config), device="cpu", model_cfg=tsg2.TINY,
                   clip_weights=str(tmp_path / "clip.npz"))
+    with pytest.raises(FileNotFoundError):
+        Generator(_config(get_config), device="cpu", model_cfg=tsg2.TINY,
+                  clip_weights=str(tmp_path / "RN50.pt"))
 
 
 def _state(rng, gen=3):

@@ -316,8 +316,9 @@ def test_biggan_decode_matches_jax(rng):
 def test_biggan_loaders(tmp_path):
     """random:<seed> draws bg.CONFIGS' entry for the config's resolution; a
     converted npz with its _cfg.json gives the same weights; a missing path
-    raises FileNotFoundError; a .bin raises naming ROADMAP item 14. Staging
-    keeps the running statistics fp32 under bf16."""
+    raises FileNotFoundError; the package's .bin loads as the
+    `biggan-deep-<resolution>` variant. Staging keeps the running statistics
+    fp32 under bf16."""
     import json
 
     from clip_glass_torch.core import pytree
@@ -338,9 +339,16 @@ def test_biggan_loaders(tmp_path):
                  bundle["g"], want)
     with pytest.raises(FileNotFoundError):
         _load_biggan(cfg.replace(weights=str(tmp_path / "missing.npz")), None)
-    (tmp_path / "pytorch_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _load_biggan(cfg.replace(weights=str(tmp_path / "pytorch_model.bin")), None)
+    from clip_glass_torch.weights import convert_biggan, synthesize
+
+    bin_path = str(tmp_path / "pytorch_model.bin")
+    synthesize.write_biggan(bin_path, tbg.TINY, seed=4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tbg.CONFIGS, "biggan-deep-8", tbg.TINY)
+        got, got_cfg = _load_biggan(cfg.replace(weights=bin_path), None)
+    assert got_cfg == tbg.TINY
+    want = from_jax.convert_biggan(convert_biggan.load_torch_checkpoint(bin_path, "auto")[0])
+    jax.tree.map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0), got, want)
     gen = Generator(cfg.replace(compute_dtype="bfloat16"), device="cpu",
                     clip_cfg=tclip.TINY, model_cfg=tbg.TINY)
     blk = gen.g_params["blocks"][1]["block"]   # TINY: attention first
@@ -463,9 +471,9 @@ def test_gpt2_target_features_match_jax(g2_problems):
 def test_gpt2_loaders(tmp_path):
     """random:<seed> draws the TINY tree; a converted npz with its _cfg.json
     gives the same weights; without the sidecar the geometry comes from the
-    shapes (head width 64); a missing path raises FileNotFoundError, the
-    reference's .bin NotImplementedError naming item 14. bf16 staging keeps
-    the LayerNorm parameters fp32."""
+    shapes (head width 64); a missing path raises FileNotFoundError; the
+    reference's legacy .bin loads, its geometry read off the shapes. bf16
+    staging keeps the LayerNorm parameters fp32."""
     import json
 
     from clip_glass_torch.core import pytree
@@ -484,9 +492,13 @@ def test_gpt2_loaders(tmp_path):
     assert _load_gpt2(cfg.replace(weights=str(path)), None)[1].n_head == 4
     with pytest.raises(FileNotFoundError):
         _load_gpt2(cfg.replace(weights=str(tmp_path / "missing.npz")), None)
-    (tmp_path / "gpt2-pytorch_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _load_gpt2(cfg.replace(weights=str(tmp_path / "gpt2-pytorch_model.bin")), None)
+    from clip_glass_torch.weights import synthesize
+
+    bin_path = str(tmp_path / "gpt2-pytorch_model.bin")
+    synthesize.write_gpt2(bin_path, n_embd=64, n_layer=2, seed=3)
+    got, got_cfg = _load_gpt2(cfg.replace(weights=bin_path), None)
+    assert got_cfg == tg2.GPT2Config(n_embd=64, n_layer=2, n_head=2)
+    assert got["blocks"][1]["mlp"]["c_proj_w"].shape == (256, 64)
     gen = Generator(cfg.replace(compute_dtype="bfloat16"), device="cpu",
                     clip_cfg=tclip.TINY, model_cfg=tg2.TINY)
     assert gen.g_params["blocks"][0]["ln_2"]["b"].dtype == torch.float32
