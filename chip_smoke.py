@@ -93,9 +93,37 @@ a temporary directory):
      launches, F finite) and of GPT2 from its .bin (no kernel launches),
      with BigGAN's largest F difference between its final-BN affine staged
      in bf16 and kept in fp32 (printed).
+Then K searches of one config batched in one evaluation a generation
+(evolve/batched.py) and the server over them (serving.py):
+ 17. batched kernels: kernels 1-4 against their plain versions at every
+     call shape of one batched flagship evaluation, 4 searches x pop 16 =
+     64 rows, bf16, both paths (the largest reach and pass 2**31
+     elements), measured as phase 3 measures them, on the variants
+     `expected_variant` names;
+ 18. batched agreement: K = 3 searches' batched fitness on the GPU against
+     the CPU, TINY models, fp32: StyleGAN2 `_d` plain and s2d, `_nod`,
+     BigGAN (s2d mid segments) and GPT-2; each kernel once per call site;
+ 19. batched main: StyleGAN2_ffhq_d at full width as 4 searches x pop 16
+     (init + 2 generations, s2d path): each kernel once per call site and
+     batched evaluation on phase 17's variants, each search's X0 its
+     search_generator's bitwise, the batched F against the per-search
+     evaluations and against search_microbatch=2 within BATCHED_BF16_TOL,
+     s a generation, cand/s and peak memory beside phase 5's single search,
+     the host time of the 4 `vary` halves; GPT2 as 2 searches x pop 100 (no
+     kernel, F finite; the difference from per-search evaluation and the
+     rows whose ids differ, printed; the decode and round trip in one group
+     and in groups of one search); DeepMindBigGAN512 as 2 searches x pop 32
+     (one batched evaluation: kernel 4, 1 wmma + 3 wgmma);
+ 20. batched and serve cli: `cli.main` at full width, M1 StyleGAN2_ffhq_d
+     with 4 --target for 2 generations, M2 resumed to 4, M3 4 straight (M2's
+     ga_state.npz equal to M3's bitwise; every search-NN/ with target.txt
+     and the artifact set), S --serve of 3 prompts with --slots 2 (three
+     request-NNNN/ folders with target.txt and the result artifacts, the
+     slots' occupancy); every kernel on phase 17's variants.
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
-4's entry carries a `biggan` record per config), the card's name and power
-limit, and {"ok": true, "device": {...}}.
+4's entry carries a `biggan` record per config, every entry a `batched`
+record: phase 19's launches and phase 17's per-path sums), the card's name
+and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -410,16 +438,16 @@ def _iters(n_bytes: int) -> int:
 
 def _measure(kernel, plain, args, dtype, shape, n_bytes, n_ops, library=None,
              scaled=False, peak=PEAK_FP32_OPS_PER_S, previous=None,
-             device_time=False):
-    """One shape: the kernel checked against the plain version and timed;
-    with `device_time` also through a CUDA graph; `previous` (a callable:
-    the first design's kernel on the same operands) checked and timed the
-    same ways."""
+             device_time=False, iters=None):
+    """One shape: the kernel checked against the plain version and timed
+    (`iters` launches, default `_iters`); with `device_time` also through a
+    CUDA graph; `previous` (a callable: the first design's kernel on the
+    same operands) checked and timed the same ways."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     err = _check(kernel.__name__, got, want, dtype, shape, scaled)
-    iters = _iters(n_bytes)
+    iters = iters or _iters(n_bytes)
     rec = {"kernel": kernel.__name__, "shape": list(shape), "dtype": str(dtype),
            "max_abs_err": err,
            "kernel_ms": time_ms(lambda: kernel(*args), iters),
@@ -465,78 +493,81 @@ def _path_sum(counts, recs, peak: float):
     return tot
 
 
-def phase_kernels():
-    """Kernels vs plain versions at every call shape that either flagship
-    path (s2d default, plain) gives them, bf16, each shape measured once;
-    returns per-kernel, per-path summaries over one evaluation."""
-    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+def _nbl_cost(shape, args):
+    B, H, W, C = shape
+    return nbytes(*args) + nbytes(args[0]), 5 * B * H * W * C
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    path_shapes = {p: flagship_shapes(_model_cfg(p)) for p in PER_EVAL}
+
+def _ups_cost(shape, args):
+    B, H, W, C = shape
+    return 5 * nbytes(args[0]), 8 * 4 * B * H * W * C
+
+
+def _rgb_cost(shape, args):
+    B, P, I, O = shape
+    x, style, w, d, bias = args
+    return (nbytes(x, style, w, d, bias) + B * P * O * x.element_size(),
+            2 * B * P * I * O)
+
+
+def _ups_library(args):
+    """One cuDNN transposed conv of the same function (groups=C)."""
+    from clip_glass_torch.ops import upfirdn
+
+    (x,) = args
+    B, H, W, C = x.shape
     k1 = upfirdn.polyphase_taps()
     fir_t = torch.tensor([[a * b for b in k1] for a in k1], device="cuda")
+    wt = fir_t.flip(0, 1).to(x.dtype)[None, None].expand(C, 1, 4, 4)
+    xn = x.permute(0, 3, 1, 2)
 
-    def nbl_cost(shape, args):
-        B, H, W, C = shape
-        return nbytes(*args) + nbytes(args[0]), 5 * B * H * W * C
+    def fn():
+        return F.conv_transpose2d(xn, wt, stride=2, groups=C)[:, :, :2 * H, :2 * W]
 
-    def ups_cost(shape, args):
-        B, H, W, C = shape
-        return 5 * nbytes(args[0]), 8 * 4 * B * H * W * C
+    def check(got):
+        _check("conv_transpose2d", fn().permute(0, 2, 3, 1), got, x.dtype,
+               tuple(x.shape))
+    return fn, check
 
-    def rgb_cost(shape, args):
-        B, P, I, O = shape
-        x, style, w, d, bias = args
-        return (nbytes(x, style, w, d, bias) + B * P * O * x.element_size(),
-                2 * B * P * I * O)
 
-    def ups_library(args):
-        (x,) = args
-        B, H, W, C = x.shape
-        wt = fir_t.flip(0, 1).to(x.dtype)[None, None].expand(C, 1, 4, 4)
-        xn = x.permute(0, 3, 1, 2)
+def _rgb_library(args):
+    """One cuBLAS batched GEMM of the same function, the weights folded."""
+    x, style, w, d, bias = args
+    dd = d if d is not None else torch.ones_like(style[:, :1])
+    wb = style[:, :, None] * w[None] * dd[:, None, :]
 
-        def fn():
-            return F.conv_transpose2d(xn, wt, stride=2, groups=C)[:, :, :2 * H, :2 * W]
+    def fn():
+        return torch.baddbmm(bias[None, None], x, wb)
 
-        def check(got):
-            _check("conv_transpose2d", fn().permute(0, 2, 3, 1), got, x.dtype,
-                   tuple(x.shape))
-        return fn, check
+    def check(got):
+        # the folded weight rounds s*w*d to bf16 once more: compare at
+        # twice the bf16 tolerance
+        err = (fn().float() - got.float()).abs().max().item()
+        scale = got.float().abs().max().item()
+        if not err <= 2 * TOL[x.dtype] * max(1.0, scale):
+            raise AssertionError(f"baddbmm disagrees: {err}")
+    return fn, check
 
-    def rgb_library(args):
-        x, style, w, d, bias = args
-        dd = d if d is not None else torch.ones_like(style[:, :1])
-        wb = style[:, :, None] * w[None] * dd[:, None, :]
 
-        def fn():
-            return torch.baddbmm(bias[None, None], x, wb)
+def _kernel_specs():
+    """(name, kernel, plain, case, cost, library, first design, index in
+    flagship_shapes, odd shapes) of the four kernels."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
 
-        def check(got):
-            # the folded weight rounds s*w*d to bf16 once more: compare at
-            # twice the bf16 tolerance
-            err = (fn().float() - got.float()).abs().max().item()
-            scale = got.float().abs().max().item()
-            if not err <= 2 * TOL[x.dtype] * max(1.0, scale):
-                raise AssertionError(f"baddbmm disagrees: {err}")
-        return fn, check
-
-    # (name, kernel, plain, case, cost, library, first design, index in
-    # flagship_shapes, odd shapes)
-    specs = [
+    return [
         ("noise_bias_lrelu", bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
-         _nbl_case, nbl_cost, None, None, 0, [(3, 5, 7, 20), (2, 3, 5, 7)]),
+         _nbl_case, _nbl_cost, None, None, 0, [(3, 5, 7, 20), (2, 3, 5, 7)]),
         # odd shapes: ragged rows, C = 3 and not, a tile's last rows (H = 21:
         # 8 + 8 + 5), rows of 16-byte multiples (W*C = 24, 96, 128) and not
         ("upsample2x", upfirdn.upsample2x, upfirdn.upsample2x_plain,
-         _ups_case, ups_cost, ups_library, _ups_previous, 1,
+         _ups_case, _ups_cost, _ups_library, _ups_previous, 1,
          [(3, 5, 7, 3), (2, 4, 6, 16), (1, 21, 8, 3), (3, 9, 32, 3), (2, 11, 8, 16),
           (1, 13, 5, 7)]),
         # odd shapes: O = 3 on scalar rows and on rows of 3 vectors, O != 3,
         # launch-sized runs that end inside a warp's tile, and the same
         # above 2 Mi input values (bf16: the tensor-core variant)
         ("modulated_matmul", modulated_conv.modulated_matmul,
-         modulated_conv.modulated_matmul_plain, _rgb_case, rgb_cost, rgb_library,
+         modulated_conv.modulated_matmul_plain, _rgb_case, _rgb_cost, _rgb_library,
          _rgb_previous, 2,
          [(3, 37, 24, 3), (2, 50, 20, 12), (2, 33, 7, 5), (3, 1037, 32, 3),
           (1, 77, 512, 3), (3, 30011, 32, 3), (1, 4099, 512, 3), (2, 16411, 64, 3)]),
@@ -549,15 +580,29 @@ def phase_kernels():
           (1, 70, 64, 1, True), (3, 70, 128, 0, False), (3, 129, 64, 0, False),
           (1, 129, 128, 1, True)]),
     ]
+
+
+def _peak(name: str, dtype) -> float:
+    """Kernel 4 computes bf16 on the tensor cores; the others, and kernel 4
+    in fp32, on the CUDA cores."""
+    return (PEAK_BF16_TC_OPS_PER_S if name == "s2d_conv2x2" and dtype == torch.bfloat16
+            else PEAK_FP32_OPS_PER_S)
+
+
+def phase_kernels():
+    """Kernels vs plain versions at every call shape that either flagship
+    path (s2d default, plain) gives them, bf16, each shape measured once;
+    returns per-kernel, per-path summaries over one evaluation."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path_shapes = {p: flagship_shapes(_model_cfg(p)) for p in PER_EVAL}
+    specs = _kernel_specs()
     summary = {}
     for name, kernel, plain, make, cost, library, previous, idx, odd in specs:
-        # kernel 4: outputs checked relative to their scale; bf16 on the
-        # tensor cores, fp32 on the CUDA cores
+        # kernel 4: outputs checked relative to their scale
         scaled = name == "s2d_conv2x2"
 
-        def peak(dtype):
-            return (PEAK_BF16_TC_OPS_PER_S if scaled and dtype == torch.bfloat16
-                    else PEAK_FP32_OPS_PER_S)
+        def peak(dtype, name=name):
+            return _peak(name, dtype)
         counts = {p: _counts(path_shapes[p][idx]) for p in PER_EVAL}
         shapes = list(dict.fromkeys(s for p in PER_EVAL for s in counts[p]))
         recs = {}  # shape -> (record, bytes, operations)
@@ -608,17 +653,31 @@ def phase_kernels():
 FIRST_DESIGN = {"upsample2x": "rows", "modulated_matmul": "chunked", "s2d_conv2x2": "wmma"}
 
 
+# the input values up to which kernels 2 and 3 take their first design (the
+# launch is the cost there), and kernel 2's tiled stage
+UPS_LAUNCH_SIZED = 16 * 1024
+RGB_LAUNCH_SIZED = 2 * 1024 * 1024
+UPS_STAGE_BYTES = 32 * 1024
+
+
 def expected_variant(name: str, shape) -> str:
-    """The variant a call shape must take: the redesigned one from 32 px up
-    (kernel 2: the input's height; kernel 3: the pixels), the first design's
-    on launch-sized inputs below; kernel 4's redesign at C' = 64 and 128
-    (every flagship call, BigGAN-deep-512's last blocks), its first design
-    at BigGAN-deep's C' = 256, whose weights do not fit shared memory."""
+    """The variant a bf16 call shape must take: kernels 2 and 3 their
+    redesign above their launch-sized inputs (kernel 2 beyond 16 Ki input
+    values with five input rows in a 32 KB stage, kernel 3 beyond 2 Mi with
+    O = 3 and I of 32-512), the first design's up to them: at pop 16 the
+    redesigns from 32 px up, at 64 rows from 16 px up; kernel 4's redesign
+    at C' = 64 and 128 (every flagship call, BigGAN-deep-512's last blocks),
+    its first design at BigGAN-deep's C' = 256, whose weights do not fit
+    shared memory."""
     if name == "s2d_conv2x2":
         return "wgmma" if shape[2] in (64, 128) else "wmma"
     if name == "upsample2x":
-        return "tiled" if shape[1] >= 32 else "rows"
-    return "mma" if shape[1] >= 32 * 32 else "chunked"
+        B, H, W, C = shape
+        return ("tiled" if B * H * W * C > UPS_LAUNCH_SIZED and 5 * W * C * 2 <= UPS_STAGE_BYTES
+                else "rows")
+    B, P, I, O = shape
+    return ("mma" if B * P * I > RGB_LAUNCH_SIZED and O == 3 and I in (32, 64, 128, 256, 512)
+            else "chunked")
 
 
 def _check_variant(name: str, shape, rec: dict) -> None:
@@ -802,7 +861,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
             raise AssertionError(f"{path}: {name} launches by variant "
                                  f"{variants[name]}, expected {want}")
     gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
-    log({"phase": "main", "path": path, "config": "StyleGAN2_ffhq_d",
+    rec = {"phase": "main", "path": path, "config": "StyleGAN2_ffhq_d",
          "model": "CONFIG_F 1024px" + ("" if path == "s2d" else ", s2d_min_res=2**30"),
          "clip": "VIT_B_32", "pop": POP, "compute_dtype": config.compute_dtype,
          "generations": generations, "setup_s": setup_s, "init_eval_s": init_s,
@@ -811,10 +870,11 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "best_cos": -Fp[:, 0].min().item(), "hinge_min": Fp[:, 1].min().item(),
          "launches": launches, "launches_by_variant": variants,
-         "device": kind, "nvidia_smi": smi})
+         "device": kind, "nvidia_smi": smi}
+    log(rec)
     del problem, algorithm, res, state
     torch.cuda.empty_cache()
-    return launches, variants
+    return launches, variants, rec
 
 
 # ------------------------------------------------------------ phase 6
@@ -895,12 +955,16 @@ def _write_converted(root: str) -> None:
 
 
 def _cli_run(label: str, folder: str, config, generations: int, want_variants: dict,
-             *extra, first_gen: int = 0, pop=POP, target: str = TARGET) -> dict:
+             *extra, first_gen: int = 0, pop=POP, target: str = TARGET, layout=None) -> dict:
     """One in-process CLI run with the kernels' counts set to 0 just before
     it; checks its artifacts and that each kernel of `want_variants` (name
     -> the variants it must launch, or None for a kernel without variants)
     launched on those variants, and no other kernel. `config` None runs
-    the CLI's default config, `pop` None the config's population."""
+    the CLI's default config, `pop` None the config's population.
+    `layout`: ("search", K) for K --target (`search-NN/` folders with
+    target.txt and the artifacts, ga_state.npz at the root), ("request", N)
+    for serve mode (N `request-NNNN/` folders with target.txt and the
+    result artifacts)."""
     import contextlib
     import io
     import pickle
@@ -932,12 +996,24 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
         f"genetic-it-{g}.{ext}" for g in range(first_gen + 2, generations, 2)}
     if (config or "").endswith("_d"):
         want.add("F.jpg")
-    if set(os.listdir(folder)) != want:
-        raise AssertionError(f"cli {label}: artifacts {sorted(os.listdir(folder))}")
-    with open(os.path.join(folder, "genetic_result"), "rb") as f:
-        res = pickle.load(f)
-    if set(res) != {"X", "F", "G", "CV"}:
-        raise AssertionError(f"cli {label}: genetic_result holds {sorted(res)}")
+    kind, n = layout or (None, 0)
+    subs = {"search": [f"search-{i:02d}" for i in range(n)],
+            "request": [f"request-{i:04d}" for i in range(n)]}.get(kind, [""])
+    if layout is not None:
+        root = {"ga_state.npz"} if kind == "search" else set()
+        if kind == "request":   # the result artifacts only
+            want = {a for a in want if not a.startswith("genetic-it")} - {"ga_state.npz"}
+        want = (want - {"ga_state.npz"}) | {"target.txt"}
+        if set(os.listdir(folder)) != root | set(subs):
+            raise AssertionError(f"cli {label}: folders {sorted(os.listdir(folder))}")
+    for sub in subs:
+        got = set(os.listdir(os.path.join(folder, sub)))
+        if got != want:
+            raise AssertionError(f"cli {label}: artifacts {sorted(got)} in {sub or '.'}")
+        with open(os.path.join(folder, sub, "genetic_result"), "rb") as f:
+            res = pickle.load(f)
+        if set(res) != {"X", "F", "G", "CV"}:
+            raise AssertionError(f"cli {label}: genetic_result holds {sorted(res)}")
     launches = {k.__name__: k.launches for k in kernels}
     variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
                 if k.__name__ in FIRST_DESIGN}
@@ -948,11 +1024,20 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
         missing = [v for v in want_variants.get(name) or () if not variants[name].get(v)]
         if missing:
             raise AssertionError(f"cli {label}: {name} did not launch {missing}")
+    run_gens = generations - first_gen
+    if kind == "request":
+        served = next(line for line in lines if "slot occupancy" in line)
+        rec = {"phase": "cli", "run": label, "config": config, "extra_args": list(extra),
+               "generations": generations, "serve": served,
+               "occupancy": float(served.rsplit(" ", 1)[1].rstrip("%")) / 100,
+               "launches": {k.__name__: k.launches for k in kernels},
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        log(rec)
+        return rec
     wall = next(line for line in lines if line.startswith("wallclock:"))
     phases = {k: float(v.rstrip("s")) for k, v in
               (part.split("=") for part in wall.split()[1:])}
     dumps = [line for line in lines if line.startswith("dump ")]
-    run_gens = generations - first_gen
     rec = {"phase": "cli", "run": label, "config": config or "(default)",
            "extra_args": list(extra), "wallclock": phases, "generations": [first_gen, generations],
            "search_s_per_generation": phases["search+dumps"] / run_gens,
@@ -963,11 +1048,14 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
     return rec
 
 
-def _flagship_variants(summary: dict) -> dict:
-    """Every kernel, on the variants phase 3 saw the flagship's s2d path
-    take."""
-    return {name: ({v for v, n in summary[name]["s2d"]["launches_by_variant"].items() if n}
-                   if name in FIRST_DESIGN else None) for name in KERNEL_META}
+def _flagship_variants(summary: dict, batched: bool = False) -> dict:
+    """Every kernel, on the variants phase 3 (or, `batched`, phase 17) saw
+    the flagship's s2d path take."""
+    def by(name):
+        rec = summary[name]["batched"] if batched else summary[name]
+        return rec["s2d"]["launches_by_variant"]
+    return {name: ({v for v, n in by(name).items() if n} if name in FIRST_DESIGN else None)
+            for name in KERNEL_META}
 
 
 def phase_cli(summary: dict) -> None:
@@ -1786,6 +1874,411 @@ def phase_checkpoints(kind: str, smi: str, summary: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 17-20: K searches batched
+
+K_SEARCH = 4
+BATCH_TARGETS = [TARGET, "a red flower in a glass vase", "a wolf at night with the moon",
+                 "the face of a woman with red hair"]
+# a batched bf16 evaluation against the per-search ones: other batch sizes
+# may take other cuDNN / cuBLAS algorithms, whose bf16 roundings fall apart
+# over ~40 layers; 5e-2 of each objective's population scale (about 13 bf16
+# ulps there). Exact agreement is held in fp32 by phase 18.
+BATCHED_BF16_TOL = 5e-2
+INT32_LIMIT = 2 ** 31 - 1
+
+
+def phase_kernels_batched(summary: dict) -> None:
+    """Phase 17: kernels 1-4 against their plain versions at every call
+    shape of one batched flagship evaluation, K_SEARCH searches x POP rows
+    = 64, bf16, in both domains (the plain levels' [64, 1024, 1024, 32] and
+    the s2d levels' [64, 512, 2048, 32] reach 2**31 elements, the 513-cell
+    ones pass it), measured as phase 3 measures them (`ms`, `device_ms`,
+    bound, library). Each shape must take the variant `expected_variant`
+    names: kernels 2 and 3 count input values, so at 64 rows their 16 px
+    calls take the redesigns that pop 16 leaves to the first designs (the
+    variants' launches by path are recorded). A library call
+    whose one sample holds more than 2**31 - 1 elements (kernel 4's grouped
+    form of a per-sample fold) is not made; its time is null. The
+    per-kernel, per-path sums go to summary[name]["batched"]."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = K_SEARCH * POP
+    path_shapes = {p: flagship_shapes(_model_cfg(p), rows) for p in PER_EVAL}
+    for name, kernel, plain, make, cost, library, _, idx, _ in _kernel_specs():
+        counts = {p: _counts(path_shapes[p][idx]) for p in PER_EVAL}
+        recs = {}
+        for shape in dict.fromkeys(s for p in PER_EVAL for s in counts[p]):
+            args = make(shape, torch.bfloat16, gen)
+            n_bytes, n_ops = cost(shape, args)
+            lib = library(args) if library else None
+            skip_lib = (name == "s2d_conv2x2" and shape[4]
+                        and args[0].numel() > INT32_LIMIT)
+            rec = _measure(kernel, plain, args, torch.bfloat16, shape, n_bytes, n_ops,
+                           None if skip_lib else lib, name == "s2d_conv2x2",
+                           _peak(name, torch.bfloat16), device_time=True,
+                           iters=max(3, min(20, int(4e9 / n_bytes))))
+            rec["elements"] = args[0].numel()
+            if skip_lib:
+                rec["library_note"] = ("not made: the grouped conv holds one sample of "
+                                       f"{args[0].numel()} elements")
+            if name in FIRST_DESIGN:
+                rec["variant"] = _variant_of(kernel, args)
+                if rec["variant"] != expected_variant(name, shape):
+                    raise AssertionError(f"batched {name} {shape}: took {rec['variant']}, "
+                                         f"not {expected_variant(name, shape)}")
+            rec.update(phase="batched_kernels", launches_per_evaluation={
+                p: counts[p].get(shape, 0) for p in PER_EVAL})
+            log(rec)
+            recs[shape] = (rec, n_bytes, n_ops)
+            del args, lib
+            torch.cuda.empty_cache()
+        out = {}
+        for p in PER_EVAL:
+            out[p] = _path_sum(counts[p], recs, _peak(name, torch.bfloat16))
+            out[p]["max_elements"] = max(recs[s][0]["elements"] for s in counts[p]) \
+                if counts[p] else 0
+            if name in FIRST_DESIGN:
+                by = out[p]["launches_by_variant"] = {}
+                for shape, count in counts[p].items():
+                    v = recs[shape][0]["variant"]
+                    by[v] = by.get(v, 0) + count
+        summary[name]["batched"] = out
+        log({"phase": "batched_kernels", "kernel": name, "rows": rows, "sums": out})
+
+
+def _batched_agreement(family: str, cfg, Xb, targets, models: dict, bundle=None) -> None:
+    """Each model config's batched fitness of Xb [K, pop, n_var] against
+    `targets` on the GPU (kernels) against the CPU (plain versions), fp32,
+    TF32 off, at _agreement's tolerance (rtol 1e-3, atol 1e-4; GPT-2 1e-6),
+    with the four kernels' launches of one batched GPU evaluation."""
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+
+    kernels = _kernels()
+    for label, (model_cfg, want) in models.items():
+        Fs = {}
+        for dev in ("cpu", "cuda"):
+            gen = GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
+                                    model_cfg=model_cfg, bundle=bundle).generator
+            before = [k.launches for k in kernels]
+            feats = gen.encode_targets(targets)
+            Fs[dev] = gen.eval_population_batched(Xb.to(dev), feats).cpu()
+            moved = tuple(k.launches - n for k, n in zip(kernels, before))
+            if moved != (want if dev == "cuda" else (0, 0, 0, 0)):
+                raise AssertionError(f"batched {family} {label} {dev}: launches {moved}")
+        err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
+        tol = dict(rtol=1e-6, atol=1e-6) if family == "GPT2" else dict(rtol=1e-3, atol=1e-4)
+        if Fs["cpu"].shape != Xb.shape[:2] + (cfg.n_obj,) or \
+                not torch.allclose(Fs["cuda"], Fs["cpu"], **tol):
+            raise AssertionError(f"batched {family} {label}: GPU {Fs['cuda']} vs CPU "
+                                 f"{Fs['cpu']}")
+        log({"phase": "batched_agreement", "config": f"{family} {label} fp32",
+             "searches": Xb.shape[0], "pop": Xb.shape[1], "max_abs_err": err,
+             "launches_per_batched_evaluation": dict(zip([k.__name__ for k in kernels], want))})
+
+
+def phase_agreement_batched() -> None:
+    """Phase 18: each family's batched fitness (K = 3 searches, so that D's
+    groups would cross searches if pooled over the whole batch) on the GPU
+    against the CPU, TINY models, fp32: StyleGAN2 `_d` plain and s2d
+    (s2d_min_res=8), `_nod`, BigGAN (s2d mid segments) and GPT-2 (no kernel;
+    fitness within 1e-6). One batched evaluation launches each kernel once
+    per call site, as one single-search evaluation does.
+    tests/test_torch_cuda.py runs this same check."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import int_random_sampling, mixed_biggan_sampling
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    targets = ["a red flower", "a blue car", "an old house"]
+    g = torch.Generator().manual_seed(18)
+    for name in ("StyleGAN2_ffhq_d", "StyleGAN2_ffhq_nod"):
+        cfg = get_config(name).replace(pop_size=8, dim_z=32, n_var=32, weights="random:0",
+                                       target=targets[0], compute_dtype="float32")
+        models = {"TINY": (sg2.TINY, (5, 2, 3, 0))}
+        if name.endswith("_d"):
+            models["TINY_S2D"] = (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))
+        _batched_agreement(name, cfg, torch.randn((3, 8, 32), generator=g), targets, models)
+    cfg = get_config("DeepMindBigGAN512").replace(
+        pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8, weights="random:0",
+        target=targets[0], compute_dtype="float32")
+    Xb = torch.stack([mixed_biggan_sampling(g, 8, 16, 10, bool_prob=0.3) for _ in range(3)])
+    bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
+              "g": lively_biggan(bg.TINY, 1)}
+    _batched_agreement("BigGAN", cfg, Xb, targets, {
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3))}, bundle)
+    dogs = [DOG, os.path.join(ROOT, "examples", "gpt2_images", "goldfish.jpeg"),
+            os.path.join(ROOT, "examples", "gpt2_images", "zebra.jpeg")]
+    Xb = torch.stack([int_random_sampling(g, 8, 6, 0, 50256) for _ in range(3)])
+    _batched_agreement("GPT2", _gpt2_tiny_config(), Xb, dogs, {"TINY": (g2.TINY, (0, 0, 0, 0))})
+
+
+def _close_to_scale(label: str, got, want, tol: float) -> dict:
+    """|got - want| <= tol * (each objective's largest |want|); returns the
+    largest differences per objective, absolute and over that scale."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().flatten(0, -2).max(dim=0).values.clamp_min(1e-6)
+    err = diff.flatten(0, -2).max(dim=0).values
+    if not (err <= tol * scale).all() or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: differences {err.tolist()} beyond {tol} of the "
+                             f"scale {scale.tolist()}")
+    return {"max_abs": err.tolist(), "max_rel_to_scale": (err / scale).tolist(),
+            "scale": scale.tolist()}
+
+
+def _timed_generations(step, state, generations: int):
+    """`generations` steps with the host clock around each, synchronised."""
+    times = []
+    for _ in range(generations):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return state, times
+
+
+def phase_main_batched(kind: str, smi: str, summary: dict, single: dict) -> tuple:
+    """Phase 19a: StyleGAN2_ffhq_d at full width (config-f, ViT-B/32, bf16,
+    random weights from seed 0, the s2d path) as K_SEARCH searches of POP,
+    one target each, init + 2 generations, the kernels' counts set to 0 just
+    before and read just after: each kernel launches once per call site and
+    batched evaluation, on phase 17's variants. Each search's X0 is its
+    search_generator's first sample, bitwise; the batched F of the final
+    population equals the K per-search evaluations of the same rows within
+    BATCHED_BF16_TOL, and so does one evaluation with search_microbatch=2.
+    Beside phase 5's single search (`single`, the same call): s a
+    generation, cand/s, peak memory; and the host time of the K `vary`
+    halves of a step."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.batched import make_batched, search_generator, slice_state
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    config = get_config("StyleGAN2_ffhq_d").replace(
+        target=TARGET, weights="random:0", pop_size=POP)
+    t = time.perf_counter()
+    problem = GenerationProblem(config, device="cuda", model_cfg=_model_cfg("s2d"))
+    balgo = make_batched(problem, BATCH_TARGETS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    gens = balgo.generators(0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    t = time.perf_counter()
+    state = balgo.init(gens)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    X0 = state.X
+    state, gen_s = _timed_generations(lambda s: balgo.step(s, gens), state, 2)
+    launches = {k.__name__: k.launches for k in kernels}
+    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
+                if k.__name__ in FIRST_DESIGN}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in PER_EVAL["s2d"].items():
+        if launches[name] != 3 * n:
+            raise AssertionError(f"batched main: {name} {launches[name]} launches, expected "
+                                 f"{n} x 3 batched evaluations")
+    for name in FIRST_DESIGN:
+        want = {v: 3 * n for v, n in
+                summary[name]["batched"]["s2d"]["launches_by_variant"].items()}
+        if {v: n for v, n in variants[name].items() if n} != want:
+            raise AssertionError(f"batched main: {name} by variant {variants[name]}, "
+                                 f"expected phase 17's {want}")
+    for i in range(K_SEARCH):
+        if not torch.equal(X0[i], balgo.sample(search_generator(0, i, "cuda"))):
+            raise AssertionError(f"batched main: search {i}'s X0 is not its generator's")
+    if tuple(state.F.shape) != (K_SEARCH, POP, 2) or not torch.isfinite(state.F).all():
+        raise AssertionError(f"batched main: bad fitness {tuple(state.F.shape)}")
+
+    gen = problem.generator
+    with torch.inference_mode():
+        Fb = balgo.evaluate(state.X)
+        Fi = torch.stack([gen.eval_population(state.X[i], {**gen.bundle,
+                                                          "target": balgo.targets[i:i + 1]})
+                          for i in range(K_SEARCH)])
+        Fm = gen.eval_population_batched(state.X, balgo.targets, search_microbatch=2)
+        vary = balgo._halves[0]
+        vary_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i, g in enumerate(balgo.generators(1)):
+                vary(slice_state(state, i), g)
+            torch.cuda.synchronize()
+            vary_ms.append((time.perf_counter() - t) * 1e3)
+    err_single = _close_to_scale("batched vs per-search F", Fb, Fi, BATCHED_BF16_TOL)
+    err_mb = _close_to_scale("search_microbatch=2 vs unchunked F", Fm, Fb, BATCHED_BF16_TOL)
+    rec = {"phase": "batched_main", "config": "StyleGAN2_ffhq_d", "model": "CONFIG_F 1024px",
+           "clip": "VIT_B_32", "searches": K_SEARCH, "pop": POP,
+           "compute_dtype": config.compute_dtype, "generations": 2, "setup_s": setup_s,
+           "init_eval_s": init_s, "generation_s": gen_s,
+           "candidates_per_s": [K_SEARCH * POP / s for s in gen_s],
+           "single_search": {k: single[k] for k in ("generation_s", "candidates_per_s",
+                                                    "max_memory_allocated_bytes")},
+           "max_memory_allocated_bytes": peak, "vary_halves_host_ms": vary_ms,
+           "diff_vs_per_search": err_single, "diff_search_microbatch_2": err_mb,
+           "tolerance_of_scale": BATCHED_BF16_TOL,
+           "launches": launches, "launches_by_variant": variants,
+           "device": kind, "nvidia_smi": smi}
+    log(rec)
+    del problem, balgo, state, gen, X0, Fb, Fi, Fm
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
+def phase_main_batched_gpt2(kind: str, smi: str) -> None:
+    """Phase 19b: GPT2 at full width (GPT-2 124M, ViT-B/32, bf16, random
+    weights from seed 0) as 2 searches x pop 100 (two example photos): one
+    batched evaluation of each search's initial population, no kernel of
+    the package launched, F finite; against the two single-search
+    evaluations of the same rows (printed: the largest difference and the
+    rows whose decoded ids differ; a bf16 argmax may flip at another batch
+    size, and phase 18 holds the exact agreement in fp32). Then each
+    grouping's decode (CUDA events) and host round trip (host clock),
+    mean of 3 after a warm-up: `_auto_search_microbatch(2)` is None, one
+    group of 200 rows, against groups of one search."""
+    import numpy as np
+
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.batched import _auto_search_microbatch, make_batched
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    targets = [DOG, os.path.join(ROOT, "examples", "gpt2_images", "goldfish.jpeg")]
+    config = get_config("GPT2").replace(target=DOG, weights="random:0")
+    problem = GenerationProblem(config, device="cuda")
+    balgo = make_batched(problem, targets)
+    gen = problem.generator
+    _zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        state = balgo.init(balgo.generators(0))
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        if any(launches.values()):
+            raise AssertionError(f"batched gpt2: a kernel launched: {launches}")
+        X, Fb = state.X, state.F
+        if tuple(Fb.shape) != (2, 100, 1) or not torch.isfinite(Fb).all():
+            raise AssertionError(f"batched gpt2: bad fitness {tuple(Fb.shape)}")
+        Fi = torch.stack([gen.eval_population(X[i], {**gen.bundle,
+                                                    "target": balgo.targets[i:i + 1]})
+                          for i in range(2)])
+        ids_b = gen.generate(X.reshape(200, -1)).cpu().numpy()
+        ids_i = np.concatenate([gen.generate(X[i]).cpu().numpy() for i in range(2)])
+        timing = {}
+        for label, smb in (("one_group", None), ("groups_of_1", 1)):
+            rows = 100 * (smb or 2)
+            recs = []
+            for _ in range(4):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                groups = [gen.generate(X.reshape(200, -1)[r:r + rows])
+                          for r in range(0, 200, rows)]
+                ev[1].record()
+                ev[1].synchronize()
+                t1 = time.perf_counter()
+                for ids in groups:
+                    ids = ids.cpu().numpy()
+                    for s in range(0, ids.shape[0], 100):
+                        gen._texts_to_clip_tokens(ids[s:s + 100])
+                recs.append({"decode_ms": ev[0].elapsed_time(ev[1]),
+                             "decode_host_ms": (t1 - t0) * 1e3,
+                             "host_round_trip_ms": (time.perf_counter() - t1) * 1e3})
+                del groups
+            t = time.perf_counter()
+            balgo.generator.eval_population_batched(X, balgo.targets, smb)
+            torch.cuda.synchronize()
+            timing[label] = {"search_microbatch": smb, "splits": recs[1:],
+                             "batched_evaluation_ms": (time.perf_counter() - t) * 1e3}
+    log({"phase": "batched_main", "config": "GPT2", "searches": 2, "pop": 100,
+         "compute_dtype": config.compute_dtype,
+         "auto_search_microbatch": _auto_search_microbatch(2),
+         "max_abs_diff_vs_per_search": (Fb - Fi).abs().max().item(),
+         "rows_with_other_ids": int((ids_b != ids_i).any(axis=1).sum()),
+         "grouping": timing, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "launches": launches, "device": kind, "nvidia_smi": smi})
+    del problem, balgo, state, gen, X
+    torch.cuda.empty_cache()
+
+
+def phase_main_batched_biggan(kind: str, smi: str, summary: dict) -> None:
+    """Phase 19c: DeepMindBigGAN512 at full width (bf16, ViT-B/32, random
+    weights from seed 0) as 2 searches x its pop 32: one batched evaluation
+    of the initial populations, kernel 4 alone launching on phase 8's
+    variants (1 wmma + 3 wgmma), F finite."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.batched import make_batched
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = _kernels()
+    config = get_config("DeepMindBigGAN512").replace(target=TARGET, weights="random:0")
+    problem = GenerationProblem(config, device="cuda")
+    balgo = make_batched(problem, BATCH_TARGETS[:2])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    t = time.perf_counter()
+    state = balgo.init(balgo.generators(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in kernels}
+    variants = {v: n for v, n in kernels[3].launches_by_variant.items() if n}
+    want = summary["s2d_conv2x2"]["biggan"]["DeepMindBigGAN512"]["launches_by_variant"]
+    if variants != want or any(launches[k.__name__] for k in kernels[:3]):
+        raise AssertionError(f"batched biggan: launches {launches}, {variants}; expected "
+                             f"s2d_conv2x2 {want} only")
+    if tuple(state.F.shape) != (2, 32, 1) or not torch.isfinite(state.F).all():
+        raise AssertionError(f"batched biggan: bad fitness {tuple(state.F.shape)}")
+    log({"phase": "batched_main", "config": "DeepMindBigGAN512", "searches": 2,
+         "pop": config.pop_size, "compute_dtype": config.compute_dtype, "init_eval_s": init_s,
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "launches": launches, "launches_by_variant": {"s2d_conv2x2": variants},
+         "device": kind, "nvidia_smi": smi})
+    del problem, balgo, state
+    torch.cuda.empty_cache()
+
+
+def phase_cli_batched(summary: dict) -> None:
+    """Phase 20: `cli.main` in-process at full width (StyleGAN2_ffhq_d,
+    config-f, ViT-B/32, pop 16, bf16, random weights from seed 0): M1 with
+    K_SEARCH --target for 2 generations; M2 M1's folder resumed to 4; M3 4
+    straight, whose ga_state.npz (X [4, 16, 512], the four generators'
+    states) must equal M2's bitwise; every search-NN/ with target.txt and
+    the artifact set. S: --serve with a file of 3 prompts, --slots 2, 2
+    generations, --save-each 1: three request-NNNN/ folders with
+    target.txt and the result artifacts, and the slots' occupancy. Every
+    run launches each kernel on the variants phase 17 saw."""
+    import tempfile
+
+    want = _flagship_variants(summary, batched=True)
+    more = [a for t in BATCH_TARGETS[1:] for a in ("--target", t)]
+    with tempfile.TemporaryDirectory() as tmp:
+        m, m3, srv = (os.path.join(tmp, x) for x in ("m", "m3", "s"))
+        _cli_run("M1", m, "StyleGAN2_ffhq_d", 2, want, *more, layout=("search", K_SEARCH))
+        _cli_run("M2", m, "StyleGAN2_ffhq_d", 4, want, *more, "--resume", first_gen=2,
+                 layout=("search", K_SEARCH))
+        _cli_run("M3", m3, "StyleGAN2_ffhq_d", 4, want, *more, layout=("search", K_SEARCH))
+        s2, s3 = _npz(os.path.join(m, "ga_state.npz")), _npz(os.path.join(m3, "ga_state.npz"))
+        if list(s3["gen"]) != [4] * K_SEARCH or s3["X"].shape != (K_SEARCH, POP, 512):
+            raise AssertionError(f"cli M3: gen {s3['gen']}, X {s3['X'].shape}")
+        _same_state("cli: resumed M2 vs uninterrupted M3", s2, s3)
+        prompts = os.path.join(tmp, "prompts.txt")
+        with open(prompts, "w") as f:
+            f.write("\n".join(BATCH_TARGETS[:3]) + "\n")
+        _cli_run("S", srv, "StyleGAN2_ffhq_d", 2, want, "--serve", prompts, "--slots", "2",
+                 "--save-each", "1", layout=("request", 3))
+        for i, target in enumerate(BATCH_TARGETS[:3]):
+            with open(os.path.join(srv, f"request-{i:04d}", "target.txt")) as f:
+                if f.read() != target:
+                    raise AssertionError(f"cli S: request {i}'s target.txt")
+        log({"phase": "cli", "check": "M2 == M3 bitwise; every search-NN/ and request-NNNN/ "
+                                      "with its artifact set"})
+    torch.cuda.empty_cache()
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -1806,8 +2299,8 @@ def main() -> int:
     summary = phase_kernels()
     host = phase_host()
     phase_agreement()
-    launches, variants = phase_main(kind, smi, "s2d", GENERATIONS, summary)
-    plain_launches, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
+    launches, variants, single = phase_main(kind, smi, "s2d", GENERATIONS, summary)
+    plain_launches, _, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
     phase_domains()
     phase_cli(summary)
     phase_kernels_biggan(summary)
@@ -1819,6 +2312,12 @@ def main() -> int:
     phase_main_gpt2(kind, smi)
     phase_cli_gpt2()
     phase_checkpoints(kind, smi, summary)
+    phase_kernels_batched(summary)
+    phase_agreement_batched()
+    batched, batched_variants = phase_main_batched(kind, smi, summary, single)
+    phase_main_batched_gpt2(kind, smi)
+    phase_main_batched_biggan(kind, smi, summary)
+    phase_cli_batched(summary)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -1833,6 +2332,12 @@ def main() -> int:
                         "host_us_per_call": host.get(name),
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
+                        "batched": {
+                            "launches": batched[name],
+                            "launches_by_variant": batched_variants.get(name),
+                            **{path: {k: v for k, v in summary[name]["batched"][path].items()
+                                      if k in keys or k in ("max_abs_err", "max_elements")}
+                               for path in PER_EVAL}},
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -1851,7 +2356,11 @@ def main() -> int:
                                  f"4 px shape; max_abs_err: over both paths' shapes; "
                                  f"biggan: each config's GA, init + "
                                  f"{BIGGAN_GENERATIONS} generations (launches), sums over "
-                                 f"its call shapes of one evaluation (its pop, bf16)"})
+                                 f"its call shapes of one evaluation (its pop, bf16); "
+                                 f"batched: {K_SEARCH} searches x pop {POP}, init + 2 "
+                                 f"generations of the s2d path (launches), sums over "
+                                 f"each path's call shapes of one batched evaluation "
+                                 f"({K_SEARCH * POP} rows, bf16)"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

@@ -18,9 +18,13 @@ whose captions overflowed CLIP's context) order the artifacts the same way.
 
 Additions, as in the JAX package's CLI: --pop-size/--seed overrides,
 --weights (the reference's checkpoints, converted npz trees, or
-`random:<seed>`), --clip-weights, --resume (bit-exact resume from `ga_state.npz`), --profile.
-The JAX package's other flags are parsed and refused, each naming the
-ROADMAP item that ports it.
+`random:<seed>`), --clip-weights, --resume (bit-exact resume from `ga_state.npz`), --profile;
+several --target (K searches batched in one run, evolve/batched.py: one
+`search-NN/` folder each with `target.txt` and its artifact set, one
+`ga_state.npz` at the root) with --search-microbatch; --serve FILE|- with
+--slots (serving.SearchServer: one `request-NNNN/` folder per request with
+`target.txt` and the result artifacts). The JAX package's other flags are
+parsed and refused, each naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -36,9 +40,6 @@ DEFAULT_TARGET = "a wolf at night with the moon in the background"
 
 # flag (argparse dest) -> why this package refuses it
 REFUSED = {
-    "serve": "serve mode is ROADMAP item 12",
-    "slots": "serve mode is ROADMAP item 12",
-    "search_microbatch": "multi-search batching is ROADMAP item 12",
     "quantize": "the int8 fitness is ROADMAP item 13",
     "mesh": "population sharding is ROADMAP item 16",
     "distributed": "multi-host runs are ROADMAP item 16",
@@ -56,18 +57,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target", type=str, action="append", default=None,
                    help="search target: a text prompt, or for GPT2 an image path. "
                         "Default: 'a wolf at night with the moon in the background' "
-                        "(reference run.py:22). One only: several targets are ROADMAP "
-                        "item 12")
+                        "(reference run.py:22). Repeat the flag for several searches "
+                        "batched in one run, each in its own search-NN/ folder")
     p.add_argument("--pop-size", type=int, default=None)
     p.add_argument("--eval-microbatch", type=int, default=None,
                    help="evaluate the population in sequential chunks of this "
                         "size (must divide the population)")
     p.add_argument("--search-microbatch", type=int, default=None,
-                   help="not ported: " + REFUSED["search_microbatch"])
+                   help="with several --target (or --serve): evaluate the searches "
+                        "in chunks of this many (must divide their count); GPT2: "
+                        "decode in groups of this many searches")
     p.add_argument("--serve", type=str, default=None, metavar="FILE",
-                   help="not ported: " + REFUSED["serve"])
+                   help="serve mode: read one target a line from FILE ('-': stdin) "
+                        "and run each as a request through --slots resident "
+                        "searches; results in <tmp-folder>/request-NNNN/")
     p.add_argument("--slots", type=int, default=4,
-                   help="not ported: " + REFUSED["slots"])
+                   help="serve mode: searches resident at once")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
                    help="not ported: " + REFUSED["quantize"])
@@ -104,8 +109,6 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     for dest, why in REFUSED.items():
         if getattr(args, dest) != parser.get_default(dest):
             parser.error(f"--{dest.replace('_', '-')}: {why}")
-    if args.target and len(args.target) > 1:
-        parser.error("more than one --target: multi-search batching is ROADMAP item 12")
     from clip_glass_torch.config import list_configs
 
     if args.config not in list_configs():
@@ -187,6 +190,70 @@ def _final_artifacts(problem, config, res, folder):
     problem.generator.save(rendered, os.path.join(folder, f"output.{artifact_ext(config)}"))
 
 
+def _serve_mode(server, problem, config, args) -> int:
+    """The CLI's front of serving.SearchServer (the JAX CLI's `_serve_mode`,
+    cli.py:189-275): a reader thread feeds `server`'s queue from the --serve
+    file or stdin, one target a line, while this thread ticks its --slots
+    resident searches (`--save-each` generations a tick); each finished
+    request gets `request-NNNN/` with `target.txt` and the result artifacts
+    (reference run.py:79-125), written by a one-worker saver thread while
+    the next tick runs. A writer's error ends the serve at once."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    # opened here, so that a bad path fails before any thread starts
+    src = sys.stdin if args.serve == "-" else open(args.serve)
+    eof = threading.Event()
+
+    def reader():
+        try:
+            for line in src:
+                target = line.strip()
+                if target:
+                    ticket = server.submit(target, n_gen=config.generations)
+                    if args.verbose:
+                        print(f"[serve] queued #{ticket}: {target!r}", flush=True)
+        finally:
+            if src is not sys.stdin:
+                src.close()
+            eof.set()
+
+    def write(ticket, res):
+        folder = os.path.join(config.tmp_folder, f"request-{ticket:04d}")
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "target.txt"), "w") as f:
+            f.write(server.meta[ticket])
+        _final_artifacts(problem, config, res, folder)
+        if args.verbose:
+            print(f"[serve] done #{ticket}: best F={float(res.pop_F.min()):+.4f} -> {folder}",
+                  flush=True)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    written = {}   # ticket -> future of its artifacts
+    with ThreadPoolExecutor(max_workers=1) as saver:
+        while True:
+            worked = server.tick()
+            for ticket in sorted(set(server.results) - set(written)):
+                written[ticket] = saver.submit(write, ticket, server.results[ticket])
+            for fut in written.values():
+                if fut.done():
+                    fut.result()   # a writer's error ends the serve now
+            if not worked:
+                if eof.is_set() and not server.pending() and not server.active():
+                    break
+                time.sleep(0.05)
+        th.join()
+        for fut in written.values():
+            fut.result()
+    s = server.stats
+    if args.verbose:
+        print(f"[serve] {s.completed} requests in {s.ticks} ticks, "
+              f"slot occupancy {s.occupancy:.0%}")
+    return 0
+
+
 def main(argv=None) -> int:
     t0 = time.perf_counter()
     phases = {}  # wallclock breakdown (printed when --verbose)
@@ -194,7 +261,13 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
-    target = args.target[0] if args.target else DEFAULT_TARGET
+    targets = args.target or [DEFAULT_TARGET]
+    if args.serve:
+        if args.resume:
+            parser.error("--serve does not take --resume: a server's state is resident "
+                         "and per request; submit unfinished targets again")
+        if args.serve != "-" and not os.path.exists(args.serve):
+            parser.error(f"--serve file not found: {args.serve}")
 
     import torch
 
@@ -203,12 +276,13 @@ def main(argv=None) -> int:
                                                   save_state)
     from clip_glass_torch.core.profiling import GenerationMeter, Timer, device_trace
     from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.evolve.batched import make_batched, minimize_batched
     from clip_glass_torch.fitness.problem import GenerationProblem
 
     phases["imports"] = time.perf_counter() - t0
 
     config = get_config(args.config).replace(
-        target=target, tmp_folder=args.tmp_folder, seed=args.seed,
+        target=targets[0], tmp_folder=args.tmp_folder, seed=args.seed,
         generations=args.generations, save_each=args.save_each)
     if args.pop_size:
         config = config.replace(pop_size=args.pop_size)
@@ -237,11 +311,38 @@ def main(argv=None) -> int:
 
     problem = GenerationProblem(config, device=args.device, clip_weights=clip_weights,
                                 clip_cfg=clip_cfg, model_cfg=model_cfg)
-    algorithm = problem.make_algorithm()
-    rng = algorithm.generator(config.seed)
+    if args.serve:
+        from clip_glass_torch.serving import SearchServer
+
+        if len(targets) > 1:
+            print(f"[serve] only the first --target is used (as the idle slots' "
+                  f"placeholder); ignoring {len(targets) - 1} more")
+        try:
+            server = SearchServer(problem, n_slots=args.slots, chunk=args.save_each,
+                                  seed=config.seed, search_microbatch=args.search_microbatch)
+        except ValueError as e:
+            parser.error(f"--serve: {e}")
+        return _serve_mode(server, problem, config, args)
+    n_search = len(targets)
+    if n_search > 1:
+        # K searches, one per --target, evaluated as one batch
+        try:
+            algorithm = make_batched(problem, targets, search_microbatch=args.search_microbatch)
+        except ValueError as e:
+            parser.error(f"--search-microbatch: {e}")
+        rng = algorithm.generators(config.seed)
+        folders = [os.path.join(config.tmp_folder, f"search-{i:02d}") for i in range(n_search)]
+        for folder, target in zip(folders, targets):
+            os.makedirs(folder, exist_ok=True)
+            with open(os.path.join(folder, "target.txt"), "w") as f:
+                f.write(target)
+    else:
+        algorithm = problem.make_algorithm()
+        rng = algorithm.generator(config.seed)
+        folders = [config.tmp_folder]
     phases["setup"] = time.perf_counter() - t0 - sum(phases.values())
 
-    meter = GenerationMeter(config.pop_size)
+    meter = GenerationMeter(config.pop_size * n_search)
     # artifact dumps: the device work (render, quantize, copy to the host)
     # runs here on the main thread; a one-worker saver thread (`saver`,
     # below) assembles the grid and encodes the JPEG (or decodes the
@@ -256,26 +357,34 @@ def main(argv=None) -> int:
 
     ext = artifact_ext(config)
 
+    def searches(state):
+        """(gen, [(X, F) of each search]) of a single or batched state."""
+        if n_search == 1:
+            return state.gen, [(state.X, state.F)]
+        return state.gen[0], list(zip(state.X, state.F))
+
     @torch.inference_mode()
     def _dump(state):
-        with Timer() as render:
-            X = state.X
-            if config.n_obj == 1:  # sorted by fitness (reference run.py:36-38)
-                order = fitness_order(state.F.cpu().numpy())
-                X = X[torch.from_numpy(order).to(X.device)]
-            rendered = problem.generator.render(X)
-        name = (f"genetic-it-{state.gen}.{ext}" if state.gen < config.generations
+        gen, pops = searches(state)
+        name = (f"genetic-it-{gen}.{ext}" if gen < config.generations
                 else f"genetic-it-final.{ext}")
-        pending.append((name, render.seconds, saver.submit(
-            _write, rendered, os.path.join(config.tmp_folder, name))))
+        for folder, (X, F) in zip(folders, pops):
+            with Timer() as render:
+                if config.n_obj == 1:  # sorted by fitness (reference run.py:36-38)
+                    order = fitness_order(F.cpu().numpy())
+                    X = X[torch.from_numpy(order).to(X.device)]
+                rendered = problem.generator.render(X)
+            label = os.path.relpath(os.path.join(folder, name), config.tmp_folder)
+            pending.append((label, render.seconds, saver.submit(
+                _write, rendered, os.path.join(folder, name))))
 
     def save_callback(state):
         _dump(state)
         save_state(state, rng, config.tmp_folder, config.name)
+        gen = searches(state)[0]
         # the first chunk's wall time holds the kernel builds and the
         # libraries' warm-up: rebaseline there so rates are steady-state
-        meter.set_generation(state.gen,
-                             rebaseline=(meter.generation == 0 and state.gen > 0))
+        meter.set_generation(gen, rebaseline=(meter.generation == 0 and gen > 0))
         if args.verbose and meter.gens_per_sec > 0:
             print(f"  rate: {meter.gens_per_sec:.2f} gen/s "
                   f"({meter.candidates_per_sec:.1f} candidates/s)")
@@ -286,28 +395,31 @@ def main(argv=None) -> int:
             state = load_state(config.tmp_folder, rng)
         except ValueError as e:
             parser.error(f"--resume: {e}")
+        want = ((config.pop_size, config.n_var), (config.pop_size, config.n_obj))
+        if n_search > 1:
+            want = tuple((n_search, *w) for w in want)
         if state is None:
             print("no checkpoint found; starting fresh")
-        elif (tuple(state.X.shape), tuple(state.F.shape)) != (
-                (config.pop_size, config.n_var), (config.pop_size, config.n_obj)):
+        elif (tuple(state.X.shape), tuple(state.F.shape)) != want:
             parser.error(f"--resume: the checkpoint's X {tuple(state.X.shape)} and F "
                          f"{tuple(state.F.shape)} do not fit this search ({config.name}, "
                          f"pop {config.pop_size})")
     if state is None:
         state = algorithm.init(rng)
 
-    remaining = config.generations - state.gen
+    remaining = config.generations - searches(state)[0]
     phases["init(gen0)"] = time.perf_counter() - t0 - sum(phases.values())
+    run = minimize if n_search == 1 else minimize_batched
     with ThreadPoolExecutor(max_workers=1) as saver:
         with device_trace(args.profile):
-            res = minimize(algorithm, n_gen=max(remaining, 0), generator=rng,
-                           callback=save_callback, save_each=config.save_each,
-                           verbose=args.verbose, state=state)
+            res = run(algorithm, max(remaining, 0), rng, callback=save_callback,
+                      save_each=config.save_each, verbose=args.verbose, state=state)
         writes = [fut.result() for _, _, fut in pending]  # surface any write error
     phases["search+dumps"] = time.perf_counter() - t0 - sum(phases.values())
 
-    # ---- final artifacts (reference run.py:79-125)
-    _final_artifacts(problem, config, res, config.tmp_folder)
+    # ---- final artifacts (reference run.py:79-125), one set per search
+    for r, folder in zip(res if n_search > 1 else [res], folders):
+        _final_artifacts(problem, config, r, folder)
     phases["final_artifacts"] = time.perf_counter() - t0 - sum(phases.values())
     if args.verbose:
         for (name, render_s, _), write_s in zip(pending, writes):

@@ -101,10 +101,16 @@ def resample_duplicates(gen: torch.Generator, off: torch.Tensor,
     return resample_duplicates_core(off, pop_X, fresh, eps)
 
 
-def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
-              algorithm: str = "nsga2") -> Callable:
-    """`step(state, gen) -> state`: mating -> variation -> dedup -> eval ->
-    survival. `algorithm`: "ga" (one objective) or "nsga2"."""
+def make_step_halves(ops: Operators, pop_size: int, algorithm: str = "nsga2"):
+    """The two halves of a generation around its evaluation (the JAX
+    package's `make_step_halves`, algorithm.py:109), so that K searches can
+    each vary with their own generator, be evaluated in one batch and each
+    survive (evolve/batched.py):
+
+      vary(state, gen) -> offspring: selection, crossover, mutation and
+        duplicate resampling, drawing from `gen` in that order;
+      survive(state, offspring, F_offspring) -> the next state (no draws).
+    """
     if algorithm not in ("ga", "nsga2"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if pop_size % 2:
@@ -112,7 +118,7 @@ def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
     n_matings = pop_size // 2
     is_nsga2 = algorithm == "nsga2"
 
-    def step(state: GAState, gen: torch.Generator) -> GAState:
+    def vary(state: GAState, gen: torch.Generator) -> torch.Tensor:
         if is_nsga2:
             rank = non_dominated_rank(state.F)
             crowd = crowding_distance(state.F, rank)
@@ -121,14 +127,28 @@ def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
             pairs = tournament_ga(gen, state.F, n_matings)
         o1, o2 = ops.cross(gen, state.X[pairs[:, 0]], state.X[pairs[:, 1]])
         off = ops.mutate(gen, torch.cat([o1, o2], dim=0))
-        off = resample_duplicates(gen, off, state.X, ops.sample)
-        F_off = eval_fn(off)
+        return resample_duplicates(gen, off, state.X, ops.sample)
+
+    def survive(state: GAState, off: torch.Tensor, F_off: torch.Tensor) -> GAState:
         X_all, F_all = torch.cat([state.X, off]), torch.cat([state.F, F_off])
         if is_nsga2:
             X_new, F_new, _, _ = nsga2_survival(X_all, F_all, pop_size)
         else:
             X_new, F_new = fitness_survival(X_all, F_all, pop_size)
         return GAState(X_new, F_new, state.gen + 1)
+
+    return vary, survive
+
+
+def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
+              algorithm: str = "nsga2") -> Callable:
+    """`step(state, gen) -> state`: mating -> variation -> dedup -> eval ->
+    survival. `algorithm`: "ga" (one objective) or "nsga2"."""
+    vary, survive = make_step_halves(ops, pop_size, algorithm)
+
+    def step(state: GAState, gen: torch.Generator) -> GAState:
+        off = vary(state, gen)
+        return survive(state, off, eval_fn(off))
 
     return step
 

@@ -278,16 +278,28 @@ class Generator:
     def encode_target(self, target: str) -> torch.Tensor:
         """CLIP features [1, D] of a text prompt (txt2img) or of the image at
         the path `target` (img2txt, CLIP-preprocessed on the host)."""
+        return self.encode_targets([target])
+
+    @torch.inference_mode()
+    def encode_targets(self, targets) -> torch.Tensor:
+        """CLIP features [K, D] of K targets in one tower call: text prompts
+        (txt2img) or image paths (img2txt), as the JAX package's
+        `encode_targets` (generator.py:573-587); multi-search batching and
+        serving score each search against its row."""
+        targets = list(targets)
         if self.config.task == "txt2img":
-            tokens = torch.as_tensor(tokenize([target]), device=self.device)
+            tokens = torch.as_tensor(tokenize(targets), device=self.device)
             return clip_model.encode_text(self.clip_params, tokens, self.clip_cfg,
                                           self.policy)
         from PIL import Image
 
-        with Image.open(target) as im:
-            img = clip_preprocess_pil(im, self.clip_cfg.image_resolution)
-        return clip_model.encode_image(self.clip_params, torch.as_tensor(img, device=self.device),
-                                       self.clip_cfg, self.policy)
+        imgs = []
+        for path in targets:
+            with Image.open(path) as im:
+                imgs.append(clip_preprocess_pil(im, self.clip_cfg.image_resolution))
+        return clip_model.encode_image(
+            self.clip_params, torch.as_tensor(np.concatenate(imgs), device=self.device),
+            self.clip_cfg, self.policy)
 
     @property
     def bundle(self):
@@ -366,26 +378,37 @@ class Generator:
 
     def _text_similarity(self, toks: torch.Tensor, ok: torch.Tensor, bundle) -> torch.Tensor:
         """CLIP text tower on the round trip's tokens -> the cosine to the
-        target image, 0 where ok is False."""
+        target image, 0 where ok is False. With K target rows in
+        bundle["target"], the tokens are K searches' consecutive blocks and
+        each block is scored against its own row."""
         feats = clip_model.encode_text(bundle["clip"], toks, self.clip_cfg, self.policy)
-        return torch.where(ok, _cosine(feats, bundle["target"]), 0.0)
+        target = bundle["target"]
+        sim = _cosine(feats.reshape(target.shape[0], -1, feats.shape[-1]), target[:, None, :])
+        return torch.where(ok, sim.reshape(-1), 0.0)
 
-    def _eval_img2txt(self, X: torch.Tensor, bundle, mb: int) -> torch.Tensor:
-        """GPT-2 fitness in stages (the JAX package's host_eval_population):
-        the decode in chunks of `mb` rows, all issued first, then each copied
-        to the host and tokenized in order; the text tower on the whole
-        population. The chunks bound the decode's memory only: in eager
-        PyTorch the host issues every launch of every chunk's decode before
-        it reaches the first copy, so no round trip overlaps a decode (the
-        JAX package's asynchronous dispatch can). One overflow anywhere
-        zeroes the whole population."""
-        chunks = [self.generate(X[i:i + mb], bundle) for i in range(0, X.shape[0], mb)]
-        toks, oks = zip(*(self._texts_to_clip_tokens(c.cpu().numpy()) for c in chunks))
-        ok = np.concatenate(oks)
-        if not ok.all():
-            ok[:] = False
-        sim = self._text_similarity(*self._place_like(X, np.concatenate(toks), ok), bundle)
-        return (-sim[:, None]).float()
+    def _eval_img2txt(self, Xb: torch.Tensor, targets: torch.Tensor, bundle,
+                      rows: int) -> torch.Tensor:
+        """GPT-2 fitness in stages for K searches, Xb [K, pop, n_var] against
+        targets [K, D] -> F [K, pop, 1] (the JAX package's
+        host_eval_population, and for K > 1 host_eval_population_batched):
+        the decode in chunks of `rows` rows, all issued first, then their ids
+        copied to the host; the round trip per search, where one overflowing
+        caption zeroes its search's population; the text tower on all K*pop
+        captions, each against its search's target. The chunks bound the
+        decode's memory only: in eager PyTorch the host issues every launch
+        of every chunk's decode before it reaches the first copy, so no round
+        trip overlaps a decode (the JAX package's asynchronous dispatch
+        can)."""
+        K, pop, n_var = Xb.shape
+        flat = Xb.reshape(K * pop, n_var)
+        chunks = [self.generate(flat[r:r + rows], bundle) for r in range(0, K * pop, rows)]
+        ids = np.concatenate([c.cpu().numpy() for c in chunks])
+        toks, oks = zip(*(self._texts_to_clip_tokens(ids[r:r + pop])
+                          for r in range(0, K * pop, pop)))
+        sim = self._text_similarity(
+            *self._place_like(Xb, np.concatenate(toks), np.concatenate(oks)),
+            {**bundle, "target": targets})
+        return (-sim.reshape(K, pop, 1)).float()
 
     def clip_similarity(self, generated, bundle=None) -> torch.Tensor:
         """Cosine similarity of images vs the cached target features
@@ -397,12 +420,13 @@ class Generator:
                                         self.policy)
         return _cosine(feats, bundle["target"])
 
-    def discriminate(self, images, bundle=None) -> torch.Tensor:
+    def discriminate(self, images, bundle=None, n_search: int = 1) -> torch.Tensor:
         """[0,1] images -> D logits (reference generator.py:36-38 denorms
-        back to [-1,1] first)."""
+        back to [-1,1] first); `n_search` as in sg2.discriminator_apply."""
         bundle = bundle if bundle is not None else self.bundle
         return sg2.discriminator_apply(bundle["d"], biggan_denorm(images),
-                                       self.model_cfg, policy=self.policy)
+                                       self.model_cfg, policy=self.policy,
+                                       n_search=n_search)
 
     @property
     def _s2d_active(self) -> bool:
@@ -434,33 +458,36 @@ class Generator:
                                         self.policy)
         return _cosine(feats, bundle["target"])
 
-    def discriminate_packed(self, img, bundle=None) -> torch.Tensor:
+    def discriminate_packed(self, img, bundle=None, n_search: int = 1) -> torch.Tensor:
         """discriminate of a packed image."""
         bundle = bundle if bundle is not None else self.bundle
         s4d = sg2.rgb_domain(self.model_cfg) == "s4d"
         return sg2.discriminator_apply(
             bundle["d"], biggan_denorm(img), self.model_cfg, policy=self.policy,
             input_s2d=not s4d, input_offset=sg2.s2d_output_offset(self.model_cfg),
-            input_s4d=s4d)
+            input_s4d=s4d, n_search=n_search)
 
-    def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle) -> torch.Tensor:
+    def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
         """s2d-domain fitness: decode -> synthesis (s2d features, packed RGB)
         -> [0, 1] -> phase-aware 224 px resize -> CLIP; D reads the packed
         image for the hinge."""
         img = self.generate_packed(X, bundle)
         sim = self.clip_similarity_packed(img, bundle)
         if self.config.n_obj == 2 and self.config.use_discriminator:
-            hinge = torch.relu(1.0 - self.discriminate_packed(img, bundle)[:, 0])
+            hinge = torch.relu(1.0 - self.discriminate_packed(img, bundle, n_search)[:, 0])
             return torch.stack([-sim, hinge], dim=1).float()
         return (-sim[:, None]).float()
 
-    def _eval_batch(self, X: torch.Tensor, bundle) -> torch.Tensor:
+    def _eval_batch(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
+        """F of one batch. `n_search`: X holds that many searches' rows in
+        consecutive blocks, `bundle["target"]` one row per row of X, and D
+        pools within each block."""
         if self._s2d_active:
-            return self._eval_stylegan2_s2d(X, bundle)
+            return self._eval_stylegan2_s2d(X, bundle, n_search)
         generated = self.generate(X, bundle)
         sim = self.clip_similarity(generated, bundle)
         if self.config.n_obj == 2 and self.config.use_discriminator:
-            d = self.discriminate(generated, bundle)
+            d = self.discriminate(generated, bundle, n_search)
             hinge = torch.relu(1.0 - d[:, 0])
             return torch.stack([-sim, hinge], dim=1).float()
         return (-sim[:, None]).float()
@@ -481,13 +508,62 @@ class Generator:
         pop = X.shape[0]
         if self.config.task == "img2txt":
             mb = mb or pop
-            return self._eval_img2txt(X, bundle, pop if pop % mb else mb)
+            return self._eval_img2txt(X[None], bundle["target"], bundle,
+                                      pop if pop % mb else mb)[0]
         if mb and pop > mb and pop % mb:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
         if not mb or pop <= mb:
             return self._eval_batch(X, bundle)
         return torch.cat([self._eval_batch(X[i:i + mb], bundle)
                           for i in range(0, pop, mb)], dim=0)
+
+    @torch.inference_mode()
+    def eval_population_batched(self, Xb: torch.Tensor, targets: torch.Tensor,
+                                search_microbatch: Optional[int] = None) -> torch.Tensor:
+        """K searches' populations at once: Xb [K, pop, n_var] against target
+        features [K, D] (row i is search i's) -> F [K, pop, n_obj]; search
+        i's F is what `eval_population` gives for Xb[i] against target i,
+        as the JAX package's `vmap` of its evaluation over searches.
+
+        G and CLIP run on the searches' rows together, the cosine is taken
+        against each search's target and D's minibatch-std groups stay
+        inside each search. `config.eval_microbatch` chunks each search's
+        population (rows c*mb..(c+1)*mb of every search in one batch, D
+        pooling per search and chunk). The searches go in chunks of
+        `search_microbatch` (which must divide K): scheduling only, it
+        bounds the activations to those of one chunk.
+
+        GPT-2 (the JAX package's `host_eval_population_batched`): the
+        decode in groups of `search_microbatch` searches, the host round
+        trip per search (an overflow zeroes that search's population only),
+        the text tower once at K*pop; `eval_microbatch` is not read. With
+        config.stochastic each search is evaluated alone, in turn."""
+        K, pop, n_var = Xb.shape
+        if targets.shape[0] != K:
+            raise ValueError(f"{targets.shape[0]} targets for {K} searches")
+        smb = min(search_microbatch or K, K)
+        if K % smb:
+            raise ValueError(f"search_microbatch {smb} must divide n_search {K}")
+        bundle = self.bundle
+        if self.config.task == "img2txt":
+            if self.config.stochastic:
+                return torch.stack([
+                    self.eval_population(Xb[i], {**bundle, "target": targets[i:i + 1]})
+                    for i in range(K)])
+            return self._eval_img2txt(Xb, targets, bundle, smb * pop)
+        mb = self.config.eval_microbatch
+        if mb and pop > mb and pop % mb:
+            raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
+        if not mb or pop <= mb:
+            mb = pop
+        out = []
+        for s in range(0, K, smb):
+            rows = {**bundle, "target": targets[s:s + smb].repeat_interleave(mb, dim=0)}
+            out.append(torch.cat([
+                self._eval_batch(Xb[s:s + smb, c:c + mb].reshape(smb * mb, n_var), rows,
+                                 n_search=smb).reshape(smb, mb, -1)
+                for c in range(0, pop, mb)], dim=1))
+        return torch.cat(out)
 
     def save(self, generated: np.ndarray, path: str):
         """Artifact dump (reference generator.py:63-72) of what `render`

@@ -37,7 +37,7 @@ def bias_act(x: torch.Tensor, bias=None, act: str = "linear",
 
 
 def minibatch_std(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
-                  center_input: bool = True) -> torch.Tensor:
+                  center_input: bool = True, n_search: int = 1) -> torch.Tensor:
     """Minibatch-std extra channel (reference stylegan2/modules.py:679-750).
     x: [B, H, W, C] -> [B, H, W, C+1]; stats in fp32.
 
@@ -45,14 +45,20 @@ def minibatch_std(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
     `y -= y.mean(dim=0)` at modules.py:728 aliases the input storage, so the
     features concatenated at modules.py:745 are CENTERED by their group mean.
     Groups are `reshape(g, B//g, ...)`; batch b gets the std of s[b mod B/g].
+
+    `n_search`: the batch is that many searches' populations, each a
+    consecutive block of B/n_search rows, and the groups form inside each
+    block (the JAX package gets the same from `vmap` over searches): no row
+    is pooled with another search's. With 1 the blocks are the batch.
     """
     B, H, W, C = x.shape
-    g = group_size if group_size and group_size > 0 else B
-    y = x.float().reshape(g, B // g, H, W, C)
-    y = y - y.mean(dim=0, keepdim=True)
-    s = torch.sqrt(y.square().mean(dim=0) + eps)
-    s = s.reshape(B // g, -1).mean(dim=-1)          # [B/g]
-    s = s.repeat(g).to(x.dtype)                      # [B]: s[b mod B/g]
+    n = B // n_search                                # rows of one search
+    g = group_size if group_size and group_size > 0 else n
+    y = x.float().reshape(n_search, g, n // g, H, W, C)
+    y = y - y.mean(dim=1, keepdim=True)
+    s = torch.sqrt(y.square().mean(dim=1) + eps)
+    s = s.reshape(n_search, n // g, -1).mean(dim=-1)  # [n_search, n/g]
+    s = s.repeat(1, g).reshape(B).to(x.dtype)        # row b of a block: s[b mod n/g]
     s = s[:, None, None, None].expand(B, H, W, 1)
     if center_input:
         x = y.reshape(B, H, W, C).to(x.dtype)

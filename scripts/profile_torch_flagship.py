@@ -4,7 +4,9 @@ on one GPU: StyleGAN2_ffhq_d (config-f 1024px G + D, CLIP ViT-B/32), pop 16,
 bf16, random weights from seed 0, through the evaluation `eval_population`
 runs: by default the s2d fitness path (the 512 and 1024 px levels in the
 space-to-depth domain, the image handed over packed), with --plain the plain
-domain (s2d_min_res=2**30).
+domain (s2d_min_res=2**30). With --searches K, K searches of pop 16 in one
+batched evaluation (`eval_population_batched`, as several --target run it):
+the stages at K x 16 rows, D pooled per search.
 
 Prints JSON lines:
   - stage times (CUDA events, mean of ITERS warm runs): G (mapping +
@@ -20,7 +22,7 @@ Prints JSON lines:
   - the card's name and power limit.
 Writes the Chrome trace to --trace (default build/flagship_eval_trace.json).
 
-Run on the card: python3 scripts/profile_torch_flagship.py [--plain]
+Run on the card: python3 scripts/profile_torch_flagship.py [--plain] [--searches K]
 """
 
 from __future__ import annotations
@@ -71,7 +73,10 @@ def main() -> int:
     ap.add_argument("--trace", default=os.path.join(ROOT, "build", "flagship_eval_trace.json"))
     ap.add_argument("--plain", action="store_true",
                     help="the plain domain throughout (s2d_min_res=2**30)")
+    ap.add_argument("--searches", type=int, default=1,
+                    help="K searches of pop 16 in one batched evaluation")
     args = ap.parse_args()
+    K = args.searches
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -89,23 +94,30 @@ def main() -> int:
         g, clip, d = gen.generate_packed, gen.clip_similarity_packed, gen.discriminate_packed
     else:
         g, clip, d = gen.generate, gen.clip_similarity, gen.discriminate
-    X = torch.randn((16, config.n_var), generator=torch.Generator(device="cuda")
+    X = torch.randn((K * 16, config.n_var), generator=torch.Generator(device="cuda")
                     .manual_seed(0), device="cuda")
+    targets = gen.encode_targets([config.target] * K)
+
+    def evaluate():
+        if K == 1:
+            return gen.eval_population(X)
+        return gen.eval_population_batched(X.reshape(K, 16, -1), targets)
 
     with torch.inference_mode():
         imgs = g(X)
-        F0 = gen.eval_population(X)
+        F0 = evaluate()
         stages = {
             "G": cuda_ms(lambda: g(X), ITERS),
             "CLIP": cuda_ms(lambda: clip(imgs), ITERS),
-            "D": cuda_ms(lambda: d(imgs), ITERS),
-            "evaluation": cuda_ms(lambda: gen.eval_population(X), ITERS),
+            "D": cuda_ms(lambda: d(imgs, None, K), ITERS),
+            "evaluation": cuda_ms(evaluate, ITERS),
         }
-        step = make_step(problem.make_algorithm().ops, lambda off: F0, 16)
-        state = GAState(X, F0, 0)
-        rng = torch.Generator(device="cuda").manual_seed(0)
-        stages["nsga2_step_without_eval"] = cuda_ms(lambda: step(state, rng), ITERS)
-    log({"domain": domain, "stage_ms": stages, "pop": 16, "dtype": "bfloat16",
+        if K == 1:
+            step = make_step(problem.make_algorithm().ops, lambda off: F0, 16)
+            state = GAState(X, F0, 0)
+            rng = torch.Generator(device="cuda").manual_seed(0)
+            stages["nsga2_step_without_eval"] = cuda_ms(lambda: step(state, rng), ITERS)
+    log({"domain": domain, "stage_ms": stages, "searches": K, "pop": 16, "dtype": "bfloat16",
          "nvidia_smi": smi})
 
     from torch.autograd import DeviceType
@@ -116,7 +128,7 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             t = time.perf_counter()
-            gen.eval_population(X)
+            evaluate()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
 
@@ -135,7 +147,7 @@ def main() -> int:
     top_convs = [{"name": e.key, "input_shapes": e.input_shapes[:2],
                   "device_ms": e.device_time_total / 1e3, "calls": e.count}
                  for e in convs[:TOP]]
-    log({"profile": "one evaluation", "domain": domain, "wall_ms": wall_ms,
+    log({"profile": "one evaluation", "domain": domain, "searches": K, "wall_ms": wall_ms,
          "device_ms": total_ms,
          "idle_share": max(0.0, 1.0 - total_ms / wall_ms),
          "kernel_launches": sum(e.count for e in events),

@@ -228,10 +228,12 @@ def test_scatter_without_matplotlib(tmp_path):
 
 
 @pytest.mark.parametrize("argv,why", [
-    (["--serve", "targets.txt"], "item 12"),
-    (["--slots", "8"], "item 12"),
-    (["--search-microbatch", "2"], "item 12"),
-    (["--target", "a", "--target", "b"], "item 12"),
+    # item 12 is ported: serve mode, --slots and --search-microbatch (which
+    # ask for nothing without their mode) and several --target now run
+    pytest.param(["--serve", "targets.txt"], None, id="serve_targets.txt-item 12"),
+    pytest.param(["--slots", "8"], None, id="slots_8-item 12"),
+    pytest.param(["--search-microbatch", "2"], None, id="search-microbatch_2-item 12"),
+    pytest.param(["--target", "a", "--target", "b"], None, id="target_a_--target_b-item 12"),
     (["--quantize", "int8"], "item 13"),
     (["--mesh"], "item 16"),
     (["--distributed", "auto"], "item 16"),
@@ -242,17 +244,41 @@ def test_scatter_without_matplotlib(tmp_path):
     pytest.param(["--config", "GPT2", "--target", DOG], None, id="config_GPT2-item 10"),
     (["--config", "StyleGAN3"], "unknown"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
-def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, why):
-    """Exit 2 naming the ROADMAP item, or, for the configs of a ported item,
-    a run that writes the artifact set."""
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch, argv, why):
+    """Exit 2 naming the ROADMAP item, or, for the flags and configs of a
+    ported item, a one-generation run that writes the artifact set: serve
+    mode one `request-NNNN/` folder per line of the file, several --target
+    one `search-NN/` folder per target and the batch's ga_state.npz."""
     base = ["--config", "StyleGAN2_ffhq_d", "--tiny", "--device", "cpu",
             "--tmp-folder", str(tmp_path)]
     if why is None:
+        monkeypatch.chdir(tmp_path)
+        if argv[0] == "--serve":
+            (tmp_path / argv[1]).write_text("a red flower\na blue car\n")
         assert cli.main([*base, "--generations", "1", "--save-each", "1",
                          "--no-verbose", *argv]) == 0
-        want = GPT2_ARTIFACTS if argv[1] == "GPT2" else ARTIFACTS
-        assert set(os.listdir(tmp_path)) == {a for a in want if "-it-2." not in a}
-        assert str(_npz(tmp_path / "ga_state.npz")["config"]) == argv[1]
+        config = argv[1] if argv[0] == "--config" else "StyleGAN2_ffhq_d"
+        want = GPT2_ARTIFACTS if config == "GPT2" else ARTIFACTS
+        want = {a for a in want if "-it-2." not in a}
+        want |= {"F.jpg"} if config.endswith("_d") else set()
+        if argv[0] == "--serve":   # the result artifacts, no dumps, no state
+            final = {"F.jpg", "genetic_result", "ls_result.npz", "output.jpg"}
+            assert set(os.listdir(tmp_path)) == {argv[1], "request-0000", "request-0001"}
+            for i, target in enumerate(["a red flower", "a blue car"]):
+                folder = tmp_path / f"request-{i:04d}"
+                assert set(os.listdir(folder)) == final | {"target.txt"}
+                assert (folder / "target.txt").read_text() == target
+            return
+        if argv.count("--target") > 1:
+            assert set(os.listdir(tmp_path)) == {"ga_state.npz", "search-00", "search-01"}
+            for i, target in enumerate(["a", "b"]):
+                folder = tmp_path / f"search-{i:02d}"
+                assert set(os.listdir(folder)) == (want - {"ga_state.npz"}) | {"target.txt"}
+                assert (folder / "target.txt").read_text() == target
+            assert _npz(tmp_path / "ga_state.npz")["X"].shape == (2, 16, 32)
+        else:
+            assert set(os.listdir(tmp_path)) == want
+        assert str(_npz(tmp_path / "ga_state.npz")["config"]) == config
         return
     with pytest.raises(SystemExit) as e:
         cli.main([*base, *argv])

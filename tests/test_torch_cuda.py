@@ -409,3 +409,46 @@ def test_gpt2_argmax_takes_the_first_of_tied_maxima_on_gpu(gpu):
     want[5] = 3
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), g2._select_next(logits.cpu(), 1.0, 40, False, None))
+
+
+def test_tiny_batched_fitness_on_gpu_matches_cpu(gpu):
+    """The smoke run's batched agreement phase: K = 3 searches' fitness in
+    one batched evaluation on the card against the CPU, TINY models, fp32:
+    StyleGAN2 `_d` (plain and s2d), `_nod`, BigGAN and GPT-2, each kernel
+    launched once per call site."""
+    import chip_smoke
+
+    chip_smoke.phase_agreement_batched()
+
+
+@pytest.mark.parametrize("kernel,variant", [("noise_bias_lrelu", None), ("upsample2x", "tiled"),
+                                            ("modulated_matmul", "mma"),
+                                            ("s2d_conv2x2", "wgmma")])
+def test_kernels_at_a_batch_of_64(gpu, kernel, variant):
+    """Each kernel against its plain version at a batch of 64 rows (four
+    searches of 16), bf16, on the variant its rule names for the shape."""
+    dtype = torch.bfloat16
+    if kernel == "noise_bias_lrelu":
+        x, noise = _randn(gpu, 64, 32, 32, 64, dtype=dtype), _randn(gpu, 32, 32, dtype=dtype)
+        ns, b = torch.tensor(0.7, device="cuda").to(dtype), _randn(gpu, 64, dtype=dtype)
+        args, wrapper = (x, noise, ns, b), bias_act.noise_bias_lrelu
+        plain = bias_act.noise_bias_lrelu_plain
+    elif kernel == "upsample2x":
+        args, wrapper = (_randn(gpu, 64, 64, 64, 3, dtype=dtype),), upfirdn.upsample2x
+        plain = upfirdn.upsample2x_plain
+    elif kernel == "modulated_matmul":
+        x = _randn(gpu, 64, 64 * 64, 64, dtype=dtype)
+        s = (1.0 + 0.5 * _randn(gpu, 64, 64)).to(dtype)
+        w = (_randn(gpu, 64, 3) / 8.0).to(dtype)
+        args = (x, s, w, None, _randn(gpu, 3, dtype=dtype))
+        wrapper, plain = modulated_conv.modulated_matmul, modulated_conv.modulated_matmul_plain
+    else:
+        args = (*_s2d_args(gpu, 64, 33, 128, True, dtype), 1)
+        wrapper, plain = s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain
+    n0 = wrapper.launches
+    v0 = dict(getattr(wrapper, "launches_by_variant", {}))
+    got = wrapper(*args)
+    assert wrapper.launches == n0 + 1
+    if variant is not None:
+        assert wrapper.launches_by_variant[variant] == v0[variant] + 1
+    (_close_scaled if kernel == "s2d_conv2x2" else _close)(got, plain(*args), dtype)
