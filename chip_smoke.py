@@ -120,6 +120,31 @@ Then K searches of one config batched in one evaluation a generation
      and the artifact set), S --serve of 3 prompts with --slots 2 (three
      request-NNNN/ folders with target.txt and the result artifacts, the
      slots' occupancy); every kernel on phase 17's variants.
+Then the int8 quantized fitness (--quantize int8, ops/quant.py), whose
+int8 convs run the hand-written conv_s8 (csrc/conv_s8.cu):
+ 21. int8 kernels: conv_s8 against its plain version, bitwise (int32
+     accumulators and bf16 outputs), at every call shape of one int8
+     flagship evaluation (s2d path, pop 16) and at odd shapes (I = 3, O = 5,
+     stride 2, lhs_dilation 2, negative pads); per shape `kernel_ms`,
+     `device_ms`, the plain version, the bound (bytes over 3.35 TB/s or
+     2*M*N*K over 1,979 TOPS), and as yardsticks the port never calls an
+     im2col copy + torch._int_mm and the bf16 conv the site replaces
+     (cuDNN, kernel 4 at the [2,2] folds); launches per evaluation;
+ 22. int8 agreement: the TINY int8 fitness (quantize_min_ch = 1) on the GPU
+     against the CPU with the CPU's scales: StyleGAN2 `_d` plain and s2d,
+     `_nod`, BigGAN with s2d mid segments, `_d` s2d as K = 3 searches
+     batched; conv_s8 once per call site, kernel 4 at none;
+ 23. int8 main: StyleGAN2_ffhq_d --quantize int8 at full width (init + 3
+     generations): the calibration's call sites and seconds, conv_s8 at
+     every site, kernel 4 at none, s a generation, cand/s and peak memory
+     beside phase 5's bf16 run; collect_fidelity (4 pops x 16: Spearman,
+     top-8 and NSGA-II survival overlap, |dF|, as measured on random
+     weights); one DeepMindBigGAN256 int8 evaluation at pop 64 (conv_s8 at
+     the s2d mid segments' sites only); GPT2 int8 (no site, F bitwise the
+     bf16 F);
+ 24. int8 cli: `cli.main --quantize int8` on the flagship: Q1 2
+     generations, Q2 resumed to 4, Q3 4 straight (Q2 == Q3 bitwise), S
+     --serve of 2 prompts through 2 slots; each run's artifact set.
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums), the card's name
@@ -2279,6 +2304,522 @@ def phase_cli_batched(summary: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 21-24: the int8 fitness
+
+# H100 SXM data sheet: 1,979 TOPS dense int8 on the tensor cores
+PEAK_INT8_OPS_PER_S = 1979e12
+# the CPU parity tolerance of tests/test_torch_quant.py (f): the similarity
+# absolute, the hinge relative to max(|hinge|, 1)
+INT8_TOL = {"similarity": 5e-3, "hinge": 1e-2}
+# odd shapes (B, H, W, I, O, k, stride, pad0, pad1, lhs_dilation): I = 3,
+# O = 5, stride 2, lhs_dilation 2, negative pads, ragged tiles
+CONV_S8_ODD = [
+    (2, 7, 5, 3, 5, 3, 1, 1, 1, 1),
+    (2, 8, 8, 16, 24, 3, 2, 1, 0, 1),
+    (1, 5, 6, 8, 7, 3, 1, 2, 2, 2),
+    (2, 9, 9, 32, 16, 2, 1, 0, -1, 1),
+    (1, 6, 6, 12, 4, 4, 1, 2, 1, 2),
+    (2, 10, 10, 20, 9, 1, 2, -1, -1, 1),
+    (1, 33, 31, 48, 65, 3, 2, 1, 1, 1),
+]
+
+
+def _conv_s8():
+    from clip_glass_torch.ops.conv_s8 import conv_s8
+
+    return conv_s8
+
+
+def _int8_flagship_config():
+    from clip_glass_torch.config import get_config
+
+    return get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights="random:0",
+                                                  pop_size=POP, quantize="int8")
+
+
+def _conv_s8_calls(generator, X) -> dict:
+    """One int8 evaluation of X with every conv_s8 call recorded: (x shape,
+    w shape, geometry) -> calls."""
+    from clip_glass_torch.ops import modulated_conv
+
+    calls = {}
+    real = modulated_conv.conv_s8
+
+    def record(xq, wq, scale, **kw):
+        key = (tuple(xq.shape), tuple(wq.shape),
+               tuple((k, v) for k, v in sorted(kw.items()) if k != "out_dtype"))
+        calls[key] = calls.get(key, 0) + 1
+        return real(xq, wq, scale, **kw)
+
+    modulated_conv.conv_s8 = record
+    try:
+        generator.eval_population(X)
+        torch.cuda.synchronize()
+    finally:
+        modulated_conv.conv_s8 = real
+    return calls
+
+
+def _int8_operands(gen, x_shape, w_shape):
+    xq = torch.randint(-127, 128, x_shape, generator=gen, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, w_shape, generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand(w_shape[0], generator=gen, device="cuda") * 1e-4
+    return xq, wq, scale
+
+
+def _conv_s8_bitwise(xq, wq, scale, geometry) -> float:
+    """The kernel's int32 accumulators and its bf16 outputs equal the plain
+    version's bitwise. Returns the largest |got - want| over both (int32
+    in float64, exact)."""
+    conv_s8 = _conv_s8()
+    from clip_glass_torch.ops.conv_s8 import conv_s8_plain
+
+    err = 0.0
+    for out_dtype in (torch.int32, torch.bfloat16):
+        got = conv_s8(xq, wq, scale, out_dtype=out_dtype, **geometry)
+        want = conv_s8_plain(xq, wq, scale, out_dtype=out_dtype, **geometry)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"conv_s8 {tuple(xq.shape)} x {tuple(wq.shape)} {geometry} "
+                                 f"{out_dtype}: shape {tuple(got.shape)}, plain "
+                                 f"{tuple(want.shape)}")
+        bad = (got.double() - want.double()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv_s8 {tuple(xq.shape)} x {tuple(wq.shape)} {geometry} "
+                                 f"{out_dtype}: differs from its plain version ({bad})")
+        err = max(err, bad)
+    return err
+
+
+def _real_taps(n_in, n_out, k, stride, pad0, d) -> int:
+    """Along one spatial axis, the (output, tap) pairs whose input row
+    p = o*stride + t - pad0 is a real sample of the d-dilated input (p >= 0,
+    p % d == 0, p / d < n_in): the products that padding and dilation holes
+    do not zero."""
+    return sum(1 for o in range(n_out) for t in range(k)
+               if (p := o * stride + t - pad0) >= 0 and p % d == 0 and p // d < n_in)
+
+
+def _im2col_int_mm(xq, wq, stride, pad0, pad1, lhs_dilation):
+    """The library yardstick: an im2col copy of the dilated, padded input and
+    one torch._int_mm against the K-major weights (int32 out). _int_mm takes
+    K and N in multiples of 8: the copy zero-pads K (D's minibatch-std
+    channel makes I = 513), the weights K and N."""
+    B, H, W, I = xq.shape
+    O, _, kh, kw = wq.shape
+    x = xq
+    if lhs_dilation > 1:
+        d = lhs_dilation
+        x = xq.new_zeros((B, (H - 1) * d + 1, (W - 1) * d + 1, I))
+        x[:, ::d, ::d] = xq
+    x = F.pad(x, (0, 0, pad0, pad1, pad0, pad1))
+    Ho = (x.shape[1] - kh) // stride + 1
+    Wo = (x.shape[2] - kw) // stride + 1
+    K, M = kh * kw * I, B * Ho * Wo
+    Kp, Op = -(-K // 8) * 8, -(-O // 8) * 8
+    cols = x.new_zeros((B, Ho, Wo, kh * kw, I) if Kp == K else (M, Kp))
+    taps = (cols.view(B, Ho, Wo, kh * kw, I) if Kp == K
+            else cols[:, :K].view(B, Ho, Wo, kh * kw, I))
+    for ky in range(kh):
+        for kx in range(kw):
+            taps[:, :, :, ky * kw + kx] = x[:, ky:ky + stride * (Ho - 1) + 1:stride,
+                                            kx:kx + stride * (Wo - 1) + 1:stride]
+    wk = wq.new_zeros((Op, Kp))
+    wk[:O, :K] = wq.permute(0, 2, 3, 1).reshape(O, K)
+    return torch._int_mm(cols.view(M, Kp), wk.t())[:, :O].reshape(B, Ho, Wo, O)
+
+
+def _conv_s8_site(gen, x_shape, w_shape, geometry, calls: int) -> dict:
+    """One call shape of the int8 flagship: bitwise against the plain
+    version, then timed: the kernel (`kernel_ms` back to back, `device_ms`
+    replayed from a CUDA graph), its plain version, the bound, the site's
+    quantize passes (its bf16 input, its weights), and as yardsticks never
+    called by the port the im2col + torch._int_mm pair and the bf16 conv
+    the site replaces (cuDNN; for a [2,2] fold also kernel 4, per-sample
+    weights at pad0 = 1 as G's folds, one shared set at pad0 = 0 as D's)."""
+    from clip_glass_torch.ops import quant, s2d
+    from clip_glass_torch.ops.conv_s8 import conv_s8_plain, out_size, pack_weights
+    from clip_glass_torch.ops.modulated_conv import _conv_float
+
+    conv_s8 = _conv_s8()
+    xq, wq, scale = _int8_operands(gen, x_shape, w_shape)
+    err = _conv_s8_bitwise(xq, wq, scale, geometry)
+    B, H, W, I = x_shape
+    O, _, kh, kw = w_shape
+    Ho = out_size(H, kh, geometry["stride"], geometry["pad0"], geometry["pad1"],
+                  geometry["lhs_dilation"])
+    Wo = out_size(W, kw, geometry["stride"], geometry["pad0"], geometry["pad1"],
+                  geometry["lhs_dilation"])
+    M, K = B * Ho * Wo, kh * kw * I
+    st, p0, d = geometry["stride"], geometry["pad0"], geometry["lhs_dilation"]
+    # the products with real inputs (the kernel also multiplies the zeros
+    # of padding and of dilation holes: 2*M*O*K)
+    n_ops = 2 * B * I * O * _real_taps(H, Ho, kh, st, p0, d) * _real_taps(W, Wo, kw, st, p0, d)
+    n_bytes = xq.numel() + wq.numel() + 4 * O + 2 * M * O
+    iters = _iters(n_bytes)
+
+    def kernel():
+        return conv_s8(xq, wq, scale, out_dtype=torch.bfloat16, **geometry)
+
+    lib = _im2col_int_mm(xq, wq, **geometry)
+    if not torch.equal(lib, conv_s8(xq, wq, scale, out_dtype=torch.int32, **geometry)):
+        raise AssertionError(f"im2col + _int_mm disagrees with conv_s8 at {x_shape}")
+    del lib
+    xb, wb = xq.bfloat16(), wq.bfloat16()
+    sx = 127.0  # the quantize passes' time does not depend on the scale
+    rec = {"x": list(x_shape), "w": list(w_shape), "geometry": geometry,
+           "launches_per_evaluation": calls, "M": M, "N": O, "K": K, "max_abs_err": err,
+           "bytes": n_bytes, "ops": n_ops, "gemm_ops": 2 * M * O * K,
+           "kernel_ms": time_ms(kernel, iters), "device_ms": graph_ms(kernel, iters),
+           "plain_ms": time_ms(lambda: conv_s8_plain(xq, wq, scale, out_dtype=torch.bfloat16,
+                                                     **geometry), 2, warmup=1),
+           "library_ms": time_ms(lambda: _im2col_int_mm(xq, wq, **geometry), iters),
+           "bf16_cudnn_ms": time_ms(lambda: _conv_float(xb, wb, **geometry), iters),
+           # the site's PyTorch passes around the kernel: its bf16 input
+           # quantized, its weights quantized and packed (every call)
+           "quantize_x_ms": time_ms(lambda: quant.quantize_activations(xb, sx), iters),
+           "quantize_w_ms": time_ms(lambda: pack_weights(quant.quantize_weights(wb)[0]),
+                                    iters)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, rec["ops"], PEAK_INT8_OPS_PER_S)
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    fold = (kh == kw == 2 and I == O and geometry["stride"] == 1
+            and geometry["lhs_dilation"] == 1 and geometry["pad0"] in (0, 1))
+    if fold:
+        K4 = wb.permute(2, 3, 1, 0).contiguous()
+        st = dm = None
+        if geometry["pad0"] == 1:
+            st = 1.0 + 0.1 * torch.randn((B, I), generator=gen, device="cuda")
+            dm = 1.0 + 0.1 * torch.randn((B, O), generator=gen, device="cuda")
+        rec["bf16_kernel4_ms"] = time_ms(lambda: s2d.s2d_conv2x2(xb, K4, st, dm,
+                                                                 geometry["pad0"]), iters)
+    del xq, wq, scale, xb, wb
+    return rec
+
+
+def phase_kernels_int8(kind: str, smi: str) -> dict:
+    """Phase 21: conv_s8 against its plain version, bitwise (int32
+    accumulators and bf16 outputs), at every call shape of one int8
+    flagship evaluation (s2d path, pop 16, bf16, random weights from seed
+    0) and at the odd shapes of CONV_S8_ODD; each flagship shape measured
+    by `_conv_s8_site`. Returns the sums over one evaluation."""
+    from clip_glass_torch.evolve.sampling import normal_sampling
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    problem = GenerationProblem(_int8_flagship_config(), device="cuda")
+    scales = problem.generator._quant_scales
+    X = normal_sampling(torch.Generator(device="cuda").manual_seed(21), POP, 512)
+    calls = _conv_s8_calls(problem.generator, X)
+    del problem
+    torch.cuda.empty_cache()
+    live = int(((scales > 0) & (scales < float("inf"))).sum())
+    if sum(calls.values()) != live:
+        raise AssertionError(f"int8 kernels: {sum(calls.values())} conv_s8 calls an "
+                             f"evaluation, {live} live call sites of {len(scales)}")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    recs = []
+    for (x_shape, w_shape, geom), n in calls.items():
+        rec = _conv_s8_site(gen, x_shape, w_shape, dict(geom), n)
+        recs.append(rec)
+        log({"phase": "int8_kernels", "kernel": "conv_s8", **rec})
+        torch.cuda.empty_cache()
+    err = max(r["max_abs_err"] for r in recs)
+    for B, H, W, I, O, k, stride, pad0, pad1, d in CONV_S8_ODD:
+        err = max(err, _conv_s8_bitwise(*_int8_operands(gen, (B, H, W, I), (O, I, k, k)),
+                                        dict(stride=stride, pad0=pad0, pad1=pad1,
+                                             lhs_dilation=d)))
+
+    def total(key):
+        return sum(r[key] * r["launches_per_evaluation"] for r in recs)
+
+    out = {"shapes": len(recs), "launches_per_evaluation": sum(calls.values()),
+           "call_sites": len(scales), "max_abs_err": err,
+           **{k: total(k) for k in ("kernel_ms", "device_ms", "plain_ms", "library_ms",
+                                    "bf16_cudnn_ms", "quantize_x_ms", "quantize_w_ms",
+                                    "ops", "gemm_ops")},
+           # the bf16 path's conv at each site: kernel 4 at the [2,2] folds
+           "bf16_site_ms": sum(r.get("bf16_kernel4_ms", r["bf16_cudnn_ms"])
+                               * r["launches_per_evaluation"] for r in recs),
+           "odd_shapes_bitwise": len(CONV_S8_ODD)}
+    out["bound_ms"], out["bound_by"] = bound_ms(total("bytes"), out["ops"],
+                                                PEAK_INT8_OPS_PER_S)
+    out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    log({"phase": "int8_kernels", "kernel": "conv_s8", "sums": out, "device": kind,
+         "nvidia_smi": smi})
+    return out
+
+
+def _int8_gpu_vs_cpu(family: str, cfg, X, models: dict, bundle=None, targets=None) -> None:
+    """Each model config's int8 fitness (quantize_min_ch in `cfg`) on the
+    GPU (conv_s8 and the kernels) against the CPU (plain versions), fp32,
+    TF32 off, with the CPU's scales handed to the GPU problem; within
+    INT8_TOL. One GPU evaluation launches conv_s8 once per call site and
+    kernel 4 at none (every [2,2] fold is a call site); the launches of
+    each kernel in it are logged. `targets`: K searches' batched fitness
+    of X [K, pop, n_var]."""
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+
+    kernels = (*_kernels(), _conv_s8())
+    for label, model_cfg in models.items():
+        gens = {dev: GenerationProblem(cfg, device=dev, clip_cfg=clip_model.TINY,
+                                       model_cfg=model_cfg, bundle=bundle).generator
+                for dev in ("cpu", "cuda")}
+        scales = gens["cpu"]._quant_scales
+        gens["cuda"]._quant_scales = scales
+        Fs, launches = {}, {}
+        for dev, gen in gens.items():
+            _zero_counts(kernels)
+            if targets is None:
+                Fs[dev] = gen.eval_population(X.to(dev)).cpu()
+            else:
+                Fs[dev] = gen.eval_population_batched(X.to(dev), gen.encode_targets(targets)).cpu()
+            launches[dev] = {k.__name__: k.launches for k in kernels}
+        if any(launches["cpu"].values()):
+            raise AssertionError(f"int8 {family} {label}: the CPU launched {launches['cpu']}")
+        got = launches["cuda"]
+        if got["conv_s8"] != len(scales) or got["s2d_conv2x2"]:
+            raise AssertionError(f"int8 {family} {label}: launches {got} for {len(scales)} "
+                                 f"call sites")
+        d = (Fs["cuda"] - Fs["cpu"]).abs()
+        sim_err = d[..., 0].max().item()
+        hinge_err = (d[..., 1] / Fs["cpu"][..., 1].abs().clamp_min(1.0)).max().item() \
+            if cfg.n_obj == 2 else 0.0
+        if not (torch.isfinite(Fs["cuda"]).all() and sim_err <= INT8_TOL["similarity"]
+                and hinge_err <= INT8_TOL["hinge"]):
+            raise AssertionError(f"int8 {family} {label}: GPU {Fs['cuda']} vs CPU {Fs['cpu']}")
+        log({"phase": "int8_agreement", "config": f"{family} {label} fp32 int8",
+             "searches": 1 if targets is None else X.shape[0], "call_sites": len(scales),
+             "similarity_max_abs_err": sim_err, "hinge_max_rel_err": hinge_err,
+             "tolerance": INT8_TOL, "launches_per_evaluation": got,
+             "conv_s8_launches_per_call_site": got["conv_s8"] / len(scales)})
+
+
+def phase_agreement_int8() -> None:
+    """Phase 22: the TINY int8 fitness (quantize_min_ch = 1, every conv a
+    call site, as the CPU tests run it) on the GPU against the CPU:
+    StyleGAN2 `_d` plain and s2d (s2d_min_res=8), `_nod`, BigGAN with s2d
+    mid segments (s2d_min_res=4, lively weights) and the `_d` s2d fitness
+    of K = 3 searches batched. tests/test_torch_cuda.py runs this same
+    check."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import mixed_biggan_sampling
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    g = torch.Generator().manual_seed(22)
+    tiny_s2d = dataclasses.replace(sg2.TINY, s2d_min_res=8)
+    for name in ("StyleGAN2_ffhq_d", "StyleGAN2_ffhq_nod"):
+        cfg = get_config(name).replace(pop_size=8, dim_z=32, n_var=32, weights="random:0",
+                                       target=TARGET, compute_dtype="float32",
+                                       quantize="int8", quantize_min_ch=1)
+        models = {"TINY": sg2.TINY}
+        if name.endswith("_d"):
+            models["TINY_S2D"] = tiny_s2d
+        _int8_gpu_vs_cpu(name, cfg, torch.randn((8, 32), generator=g), models)
+        if name.endswith("_d"):
+            _int8_gpu_vs_cpu(name, cfg, torch.randn((3, 8, 32), generator=g),
+                             {"TINY_S2D": tiny_s2d},
+                             targets=["a red flower", "a blue car", "an old house"])
+    cfg = get_config("DeepMindBigGAN512").replace(
+        pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8, weights="random:0",
+        target=TARGET, compute_dtype="float32", quantize="int8", quantize_min_ch=1)
+    bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
+              "g": lively_biggan(bg.TINY, 1)}
+    _int8_gpu_vs_cpu("BigGAN", cfg, mixed_biggan_sampling(g, 8, 16, 10, bool_prob=0.3),
+                     {"TINY_S2D": dataclasses.replace(bg.TINY, s2d_min_res=4)}, bundle)
+
+
+def phase_main_int8(kind: str, smi: str, single: dict) -> dict:
+    """Phase 23a: StyleGAN2_ffhq_d with --quantize int8 at full width
+    (config-f 1024 px G + D, ViT-B/32, pop 16, bf16, random weights from
+    seed 0, s2d path), init + GENERATIONS generations: the calibration's
+    call sites and seconds (a second calibration, which must give the same
+    scales), conv_s8 at every call site of every evaluation, kernel 4 at
+    none, kernels 1-3 as in phase 5; s a generation, cand/s and peak memory
+    beside phase 5's bf16 run (`single`, this same call). Counts set to 0
+    just before the search, read just after."""
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+
+    kernels = (*_kernels(), _conv_s8())
+    t = time.perf_counter()
+    problem = GenerationProblem(_int8_flagship_config(), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    gen = problem.generator
+    scales = gen._quant_scales.copy()
+    t = time.perf_counter()
+    gen._calibrate_quant()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t
+    if not (gen._quant_scales == scales).all():
+        raise AssertionError("int8 main: a second calibration gave other scales")
+    algorithm = problem.make_algorithm()
+    rng = algorithm.generator(0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    t = time.perf_counter()
+    state = algorithm.init(rng)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    init_s = stamps[0] - t
+
+    def on_generation(_state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = minimize(algorithm, GENERATIONS, rng, callback=on_generation, save_each=1,
+                   state=state)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    n_eval = GENERATIONS + 1
+    live = int(((scales > 0) & (scales < float("inf"))).sum())
+    want = {**{k: n * n_eval for k, n in PER_EVAL["s2d"].items()}, "s2d_conv2x2": 0,
+            "conv_s8": live * n_eval}
+    # kernel 3 at every ToRGB (O = 3, no call site), kernels 1 and 2 unchanged
+    if launches != want:
+        raise AssertionError(f"int8 main: launches {launches}, expected {want}")
+    Fp = res.pop_F
+    if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all() or (Fp[:, 1] < 0).any():
+        raise AssertionError(f"int8 main: bad fitness {Fp}")
+    gen_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    rec = {"phase": "int8_main", "config": "StyleGAN2_ffhq_d --quantize int8",
+           "model": "CONFIG_F 1024px", "clip": "VIT_B_32", "pop": POP,
+           "compute_dtype": problem.config.compute_dtype,
+           "quantize_min_ch": problem.config.quantize_min_ch,
+           "quantize_margin": problem.config.quantize_margin,
+           "call_sites": len(scales), "live_call_sites": live, "calibration_s": calib_s,
+           "setup_s": setup_s, "init_eval_s": init_s, "generation_s": gen_s,
+           "candidates_per_s": [POP / s for s in gen_s],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "bf16": {k: single[k] for k in ("generation_s", "candidates_per_s",
+                                           "max_memory_allocated_bytes")},
+           "launches": launches, "device": kind, "nvidia_smi": smi}
+    log(rec)
+    del problem, algorithm, res, state, gen
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _quant_fidelity_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quant_fidelity_torch", os.path.join(ROOT, "scripts", "quant_fidelity_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_fidelity_int8(kind: str, smi: str) -> None:
+    """Phase 23b: scripts/quant_fidelity_torch.py's collect_fidelity on the
+    flagship (4 populations x 16, bf16 against int8, random weights from
+    seed 0): per population Spearman and top-8 overlap of each objective,
+    the NSGA-II survival overlap, max / mean |dF|. Printed as measured; on
+    random weights they decide nothing (the gate reads them BLOCKED)."""
+    from clip_glass_torch.config import get_config
+
+    qft = _quant_fidelity_module()
+    cfg = get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights="random:0",
+                                                 pop_size=POP)
+    t = time.perf_counter()
+    fid = qft.collect_fidelity(cfg, 4, {"device": "cuda"}, log=lambda *a, **k: None)
+    log({"phase": "int8_fidelity", "config": "StyleGAN2_ffhq_d", "weights": "random:0",
+         "seconds": time.perf_counter() - t, **fid, "device": kind, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+
+def phase_other_configs_int8(kind: str, smi: str) -> None:
+    """Phase 23c: one DeepMindBigGAN256 int8 evaluation at its pop 64 (bf16,
+    random weights from seed 0): conv_s8 once per call site and F finite;
+    the call sites are those of the s2d mid segments alone (with the s2d
+    domain off the config has none: BigGAN's plain convs are never
+    quantized). GPT2 int8: no call site, F bitwise the bf16 F."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.algorithm import operators_for_config
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.biggan import model as bg
+
+    conv_s8 = _conv_s8()
+    config = get_config("DeepMindBigGAN256").replace(target=TARGET, weights="random:0",
+                                                     quantize="int8")
+    problem = GenerationProblem(config, device="cuda")
+    gen = problem.generator
+    X = operators_for_config(config).sample(torch.Generator(device="cuda").manual_seed(23),
+                                            config.pop_size)
+    conv_s8.launches = 0
+    t = time.perf_counter()
+    F = gen.eval_population(X)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    sites = len(gen._quant_scales)
+    if conv_s8.launches != sites or not torch.isfinite(F).all():
+        raise AssertionError(f"int8 biggan: {conv_s8.launches} launches, {sites} call sites")
+    del problem, gen
+    plain = GenerationProblem(config, device="cuda", model_cfg=dataclasses.replace(
+        bg.CONFIGS["biggan-deep-256"], s2d_min_res=2 ** 30)).generator
+    if plain._quant_scales is not None:
+        raise AssertionError("int8 biggan: a plain conv became a call site")
+    del plain
+    torch.cuda.empty_cache()
+    log({"phase": "int8_main", "config": "DeepMindBigGAN256 --quantize int8", "pop": 64,
+         "call_sites": sites, "conv_s8_launches": sites, "evaluation_s": eval_s,
+         "plain_domain_call_sites": 0, "device": kind, "nvidia_smi": smi})
+
+    Fs = {}
+    for q in ("int8", ""):
+        cfg = get_config("GPT2").replace(target=DOG, weights="random:0", quantize=q)
+        gen = GenerationProblem(cfg, device="cuda").generator
+        if q and gen._quant_scales is not None:
+            raise AssertionError("int8 gpt2: call sites in img2txt")
+        Xg = operators_for_config(cfg).sample(torch.Generator(device="cuda").manual_seed(23),
+                                              cfg.pop_size)
+        conv_s8.launches = 0
+        Fs[q or "bf16"] = gen.eval_population(Xg).cpu()
+        if conv_s8.launches:
+            raise AssertionError("int8 gpt2: conv_s8 launched")
+        del gen
+    if not torch.equal(Fs["int8"], Fs["bf16"]):
+        raise AssertionError("int8 gpt2: F differs from bf16")
+    torch.cuda.empty_cache()
+    log({"phase": "int8_main", "config": "GPT2 --quantize int8", "pop": 100, "call_sites": 0,
+         "F_bitwise_bf16": True, "device": kind, "nvidia_smi": smi})
+
+
+def phase_cli_int8(summary: dict) -> None:
+    """Phase 24: `cli.main --quantize int8` on the flagship at full width
+    (random weights from seed 0): Q1 2 generations, Q2 Q1's folder resumed
+    to 4, Q3 4 straight, whose ga_state.npz must equal Q2's bitwise (the
+    resumed run recalibrates from the seed); S --serve of 2 prompts with
+    --slots 2. Each run writes its artifact set and launches conv_s8; its
+    renders stay bf16, so kernel 4 launches there on phase 3's variants."""
+    import tempfile
+
+    conv_s8 = _conv_s8()
+    want = _flagship_variants(summary)
+    with tempfile.TemporaryDirectory() as tmp:
+        q, q3, srv = (os.path.join(tmp, x) for x in ("q", "q3", "s"))
+        prompts = os.path.join(tmp, "prompts.txt")
+        with open(prompts, "w") as f:
+            f.write("\n".join(BATCH_TARGETS[:2]) + "\n")
+        runs = [("Q1", q, 2, (), {}), ("Q2", q, 4, ("--resume",), {"first_gen": 2}),
+                ("Q3", q3, 4, (), {}),
+                ("S", srv, 2, ("--serve", prompts, "--slots", "2", "--save-each", "1"),
+                 {"layout": ("request", 2)})]
+        for label, folder, n_gen, extra, kw in runs:
+            conv_s8.launches = 0
+            _cli_run(label, folder, "StyleGAN2_ffhq_d", n_gen, want, "--quantize", "int8",
+                     *extra, **kw)
+            if not conv_s8.launches:
+                raise AssertionError(f"cli {label}: conv_s8 never launched")
+            log({"phase": "cli", "run": label, "conv_s8_launches": conv_s8.launches})
+        _same_state("cli: resumed int8 Q2 vs uninterrupted Q3",
+                    _npz(os.path.join(q, "ga_state.npz")), _npz(os.path.join(q3, "ga_state.npz")))
+        log({"phase": "cli", "check": "int8: Q2 == Q3 bitwise; the artifact sets; S served 2"})
+    torch.cuda.empty_cache()
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -2318,6 +2859,12 @@ def main() -> int:
     phase_main_batched_gpt2(kind, smi)
     phase_main_batched_biggan(kind, smi, summary)
     phase_cli_batched(summary)
+    int8_kernels = phase_kernels_int8(kind, smi)
+    phase_agreement_int8()
+    int8_main = phase_main_int8(kind, smi, single)
+    phase_fidelity_int8(kind, smi)
+    phase_other_configs_int8(kind, smi)
+    phase_cli_int8(summary)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -2361,6 +2908,22 @@ def main() -> int:
                                  f"generations of the s2d path (launches), sums over "
                                  f"each path's call shapes of one batched evaluation "
                                  f"({K_SEARCH * POP} rows, bf16)"})
+    kernels.append({
+        "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
+        "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
+        "launches": int8_main["launches"]["conv_s8"],
+        "max_abs_err": int8_kernels["max_abs_err"], "ms": int8_kernels["kernel_ms"],
+        **{k: int8_kernels[k] for k in ("device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "bound_share", "library_ms", "bf16_site_ms",
+                                        "shapes", "launches_per_evaluation")},
+        "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
+                 f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
+                 f"of one int8 evaluation; max_abs_err: the largest |got - want| of the "
+                 f"int32 and bf16 outputs against the plain version at every shape (any "
+                 f"difference fails the run); bound_ms: the products with real inputs "
+                 f"(none with padding or dilation holes); library_ms: an im2col copy + "
+                 f"torch._int_mm; bf16_site_ms: the bf16 path's conv at the same sites "
+                 f"(cuDNN, kernel 4 at the [2,2] folds)"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

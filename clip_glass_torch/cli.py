@@ -23,7 +23,8 @@ several --target (K searches batched in one run, evolve/batched.py: one
 `search-NN/` folder each with `target.txt` and its artifact set, one
 `ga_state.npz` at the root) with --search-microbatch; --serve FILE|- with
 --slots (serving.SearchServer: one `request-NNNN/` folder per request with
-`target.txt` and the result artifacts). The JAX package's other flags are
+`target.txt` and the result artifacts); --quantize int8 (the int8 fitness,
+ops/quant.py, calibrated at setup from the seed). The JAX package's other flags are
 parsed and refused, each naming the ROADMAP item that ports it.
 """
 
@@ -40,7 +41,6 @@ DEFAULT_TARGET = "a wolf at night with the moon in the background"
 
 # flag (argparse dest) -> why this package refuses it
 REFUSED = {
-    "quantize": "the int8 fitness is ROADMAP item 13",
     "mesh": "population sharding is ROADMAP item 16",
     "distributed": "multi-host runs are ROADMAP item 16",
 }
@@ -75,7 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve mode: searches resident at once")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
-                   help="not ported: " + REFUSED["quantize"])
+                   help="int8: run the frozen models' wide convs as int8 convs on the "
+                        "card's int8 tensor cores (activation scales calibrated at "
+                        "setup; an approximate fitness, ops/quant.py). Artifacts are "
+                        "rendered in full precision")
     p.add_argument("--weights", type=str, default=None,
                    help="override config weights: for StyleGAN2 a directory with the "
                         "reference's Gs.pth (or G.pth) and D.pth, or converted "
@@ -290,6 +293,8 @@ def main(argv=None) -> int:
         config = config.replace(eval_microbatch=args.eval_microbatch)
     if args.weights:
         config = config.replace(weights=args.weights)
+    if args.quantize:
+        config = config.replace(quantize=args.quantize)
 
     clip_cfg = model_cfg = None
     if args.tiny:

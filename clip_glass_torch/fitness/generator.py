@@ -51,6 +51,7 @@ from clip_glass_torch.models.biggan import model as bg
 from clip_glass_torch.models.clip import model as clip_model
 from clip_glass_torch.models.gpt2 import model as g2
 from clip_glass_torch.models.stylegan2 import model as sg2
+from clip_glass_torch.ops import quant
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import clip_preprocess_pil, resize_bilinear
 from clip_glass_torch.tokenizers import get_gpt2_tokenizer, tokenize
@@ -273,6 +274,38 @@ class Generator:
             target = self.encode_target(config.target)
         self.text_features = target if config.task == "txt2img" else None
         self.image_features = target if config.task == "img2txt" else None
+        # the opt-in int8 fitness (ops/quant.py): activation scales per call site
+        self._quant_scales = None
+        if config.quantize:
+            self._calibrate_quant()
+
+    @torch.inference_mode()
+    def _calibrate_quant(self, X0: Optional[torch.Tensor] = None) -> None:
+        """The int8 mode's activation scales (the JAX package's
+        `_calibrate_quant`, generator.py:157-186): one float evaluation of X0,
+        or of `eval_microbatch or pop_size` rows drawn with the config's
+        sampling operator from a generator seeded config.seed, recording the
+        input absmax of every eligible conv in call order, times
+        config.quantize_margin (float64, on the host). The draw depends on
+        the seed alone, so a resumed search recalibrates to the same scales.
+        img2txt has no eligible conv and keeps None."""
+        from clip_glass_torch.evolve.algorithm import operators_for_config
+
+        cfg = self.config
+        if cfg.quantize not in quant.INT8_MODES:
+            raise ValueError(f"unknown quantize mode {cfg.quantize!r}; "
+                             f"supported: {quant.INT8_MODES}")
+        self._quant_scales = None
+        if cfg.task == "img2txt":
+            return
+        if X0 is None:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            X0 = operators_for_config(cfg).sample(gen, cfg.eval_microbatch or cfg.pop_size)
+        with quant.calibration(cfg.quantize_min_ch) as records:
+            self._eval_batch_raw(X0.to(self.device), self.bundle)
+        if records:
+            self._quant_scales = (torch.stack(records).double().cpu().numpy()
+                                  * cfg.quantize_margin)
 
     @torch.inference_mode()
     def encode_target(self, target: str) -> torch.Tensor:
@@ -481,7 +514,16 @@ class Generator:
     def _eval_batch(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
         """F of one batch. `n_search`: X holds that many searches' rows in
         consecutive blocks, `bundle["target"]` one row per row of X, and D
-        pools within each block."""
+        pools within each block. With config.quantize the batch runs in a
+        fresh int8 scope (ops/quant.py), which every evaluation path goes
+        through: whole populations, their microbatches, K searches' batches
+        and the server's. `generate` and `render` stay in the float path."""
+        if self._quant_scales is None:
+            return self._eval_batch_raw(X, bundle, n_search)
+        with quant.int8_scope(self._quant_scales, self.config.quantize_min_ch):
+            return self._eval_batch_raw(X, bundle, n_search)
+
+    def _eval_batch_raw(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
         if self._s2d_active:
             return self._eval_stylegan2_s2d(X, bundle, n_search)
         generated = self.generate(X, bundle)

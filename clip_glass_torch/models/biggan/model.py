@@ -34,7 +34,7 @@ import torch
 from clip_glass_torch.core.dtypes import FP32, Policy
 from clip_glass_torch.evolve.sampling import truncnorm_core
 from clip_glass_torch.ops import s2d as S
-from clip_glass_torch.ops.modulated_conv import _conv
+from clip_glass_torch.ops.modulated_conv import _conv_float
 from clip_glass_torch.weights import from_jax
 
 
@@ -216,10 +216,11 @@ def _plain_bn_apply(p, x, truncation, cfg):
 
 
 def _conv_apply(p, x, policy: Policy):
-    """Stride-1 conv with the package's padding, (k-1)//2 on each side."""
+    """Stride-1 conv with the package's padding, (k-1)//2 on each side; never
+    quantized, as the JAX package's lax.conv_general_dilated call here."""
     w = policy.cast_compute(p["w"])
     pad = (w.shape[-1] - 1) // 2
-    y = _conv(x, w, pad0=pad, pad1=pad)
+    y = _conv_float(x, w, pad0=pad, pad1=pad)
     if "b" in p:
         y = y + policy.cast_compute(p["b"])
     return y
@@ -356,6 +357,6 @@ def apply(params, z, class_vector, truncation: float = 1.0,
     # of the products. The checkpoint keeps the full weight.
     w = cc(params["conv_to_rgb"]["w"][:3])
     pad = (w.shape[-1] - 1) // 2
-    h = _conv(h, w, pad0=pad, pad1=pad).permute(0, 3, 1, 2)
+    h = _conv_float(h, w, pad0=pad, pad1=pad).permute(0, 3, 1, 2)
     h = h + cc(params["conv_to_rgb"]["b"][:3])[:, None, None]
     return torch.tanh(h)  # NCHW like the reference

@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
+from clip_glass_torch.ops import quant
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.bias_act import bias_act, minibatch_std, noise_bias_lrelu
 from clip_glass_torch.ops.modulated_conv import (
@@ -445,6 +446,14 @@ def synthesis_apply(params, dlatents, cfg: SG2Config = CONFIG_F,
                 t = s2d_ops.s2d_conv2d(xs, rw.t()[:, :, None, None], x_off, x_off)
                 tile, y_dom, y_off = 4, "s2d", x_off
             t = bias_act(t, s2d_ops.tile_channels(rb, tile), act="linear")
+        elif quant.hooked((rw.shape[1], rw.shape[0], 1, 1)):
+            # a call site of an int8 or calibration scope (only below
+            # quantize_min_ch = 3): the JAX package's form, a 1x1 `_conv`
+            w4 = rw.t()[:, :, None, None]
+            t = (modulated_conv2d(x, w4, style, demodulate=False) if style is not None
+                 else conv2d(x, w4))
+            t = bias_act(t, rb, act="linear")
+            y_dom = "plain"
         else:
             Bx, H, W, C = x.shape
             # x is contiguous out of _epilogue

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
-           "s2d_conv2x2.cu")
+           "s2d_conv2x2.cu", "conv_s8.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,6 +69,11 @@ _SIGNATURES = {
     # variant, bf16, C in {64, 128}; kt_sets = B, or 1 shared by every
     # sample; each tap [out, in])
     "cg_s2d_conv2x2_wgmma": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _I64, _P),
+    # x, w, scale, out, B, H, W, I, Ho, Wo, O, kh, kw, ldw, stride, pad0,
+    # lhs_dilation, out dtype (0 fp32, 1 bf16, 2 int32), vec16, stream (the
+    # int8 conv of ops/conv_s8.py)
+    "cg_conv_s8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                   _I64, _INT, _INT, _INT, _INT, _INT, _P),
 }
 
 _lock = threading.Lock()

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from clip_glass_torch.core.device import constant
-from clip_glass_torch.ops import cuda
+from clip_glass_torch.ops import cuda, quant
+from clip_glass_torch.ops.conv_s8 import conv_s8
 from clip_glass_torch.ops.upfirdn import fir, pad_hw, setup_filter_kernel
 
 
@@ -37,7 +38,25 @@ def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0,
     """x: [B, H, W, I]; w: [O, I, kh, kw]; correlation with explicit padding
     (pad0 before, pad1 after, on both spatial axes; negative crops) of the
     input dilated by `lhs_dilation` (lhs_dilation-1 zeros between samples),
-    as the JAX package's lax.conv_general_dilated call."""
+    as the JAX package's lax.conv_general_dilated call. The call site of the
+    int8 mode (ops/quant.py): inside a calibration or int8 scope an eligible
+    conv records its input's absmax or runs as `conv_s8`, as the JAX
+    package's `_conv` hands its operands to quant.conv_hook."""
+    geometry = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=lhs_dilation)
+
+    def run(xx, ww, scale):
+        if scale is None:
+            return _conv_float(xx, ww, **geometry)
+        return conv_s8(xx, ww, scale, out_dtype=x.dtype, **geometry)
+
+    return quant.conv_hook(x, w, run)
+
+
+def _conv_float(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0,
+                lhs_dilation=1) -> torch.Tensor:
+    """`_conv`'s float conv, never quantized: cuDNN on NHWC activations (the
+    NCHW view of channels_last memory). BigGAN's plain convs call it
+    directly, as the JAX package calls lax.conv_general_dilated there."""
     xn = x.permute(0, 3, 1, 2)
     if lhs_dilation > 1:
         y = _conv_dilated(xn, w, lhs_dilation, pad0, pad1)
@@ -98,8 +117,14 @@ def modulated_conv2d_up(x, w, style, *, demodulate: bool = True,
     the FIR with pad = (fk-2)-(k-1), pad0 = (pad+1)//2+1, pad1 = pad//2+1."""
     k = w.shape[-1]
     xs = x * style[:, None, None, :].to(x.dtype)
-    y = F.conv_transpose2d(xs.permute(0, 3, 1, 2), w.transpose(0, 1), stride=2)
-    y = y.permute(0, 2, 3, 1)
+    if quant.hooked(w.shape):
+        # inside a calibration or int8 scope, the JAX package's form, a call
+        # site of the int8 mode: the flipped kernel's correlation with the
+        # 2-dilated input
+        y = _conv(xs, w.flip(2, 3), lhs_dilation=2, pad0=k - 1, pad1=k - 1)
+    else:
+        y = F.conv_transpose2d(xs.permute(0, 3, 1, 2), w.transpose(0, 1), stride=2)
+        y = y.permute(0, 2, 3, 1)
     fk = setup_filter_kernel(tuple(filter_taps), gain=1.0, up_factor=2)
     pad = (fk.shape[-1] - 2) - (k - 1)
     y = fir(y, fk, pad0=(pad + 1) // 2 + 1, pad1=pad // 2 + 1)

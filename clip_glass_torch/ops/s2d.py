@@ -23,7 +23,9 @@ Dispatch rule: every square [2,2] fold on the input's channels goes to
 BigGAN's unmodulated mid-segment convs with one shared weight set). The JAX
 package sends these folds to its Pallas kernel only under
 CLIP_GLASS_PALLAS_S2D=1 and to XLA's conv otherwise; the port has no such
-switch, since both compute the same function. The other folds stay cuDNN
+switch, since both compute the same function. The exception is the int8
+mode: inside its scopes an eligible fold takes the JAX package's default
+form (`_conv`), the one that mode quantizes. The other folds stay cuDNN
 convs.
 
 The RGB path at those levels is carried in the 4x4 space-to-depth domain
@@ -46,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from clip_glass_torch.core.device import constant
-from clip_glass_torch.ops import cuda
+from clip_glass_torch.ops import cuda, quant
 from clip_glass_torch.ops.modulated_conv import _conv, _polyphase_up_kernels, demod_coef
 from clip_glass_torch.ops.resize import bilinear_matrix
 from clip_glass_torch.ops.upfirdn import setup_filter_kernel
@@ -436,8 +438,13 @@ s2d_conv2x2.launches_by_variant = {"wgmma": 0, "wmma": 0, "fp32": 0}
 
 def _takes_conv2x2(K: torch.Tensor, x: torch.Tensor) -> bool:
     """The dispatch rule of the JAX package: a [2,2] fold with square
-    channels equal to the input's."""
-    return K.shape[0] == 2 and K.shape[2] == K.shape[3] == x.shape[-1]
+    channels equal to the input's, unless it is a call site of an active
+    calibration or int8 scope (ops/quant.py). Such a fold takes the JAX
+    package's default form instead, the one its int8 mode quantizes: the
+    style scales the input, the fold (rounded to the activation dtype) runs
+    as a `_conv`, demod scales the output."""
+    return (K.shape[0] == 2 and K.shape[2] == K.shape[3] == x.shape[-1]
+            and not quant.hooked((K.shape[3], K.shape[2], 2, 2)))
 
 
 # ------------------------------------------------------------ modulated ops

@@ -4,7 +4,8 @@
   (`_nod`) configs: the reference artifact set that tests/test_cli.py
   expects of the JAX CLI, plus the periodic dump and `ga_state.npz`.
 - Resume: 2 generations and `--resume` to 4 equal 4 uninterrupted, bitwise
-  (the whole `ga_state.npz`, the result pickle and the latents).
+  (the whole `ga_state.npz`, the result pickle and the latents); also with
+  --quantize int8, whose resumed run recalibrates from the seed.
 - `_final_artifacts` of both packages from the same final population and
   the same weights (fp32): `genetic_result` and `ls_result.npz` equal, the
   same decision row, and the rendered `output.jpg` image (before JPEG) at
@@ -17,6 +18,7 @@
   item; without --device cpu and without a card the CLI raises.
 """
 
+import dataclasses
 import os
 import pickle
 
@@ -128,6 +130,35 @@ def test_cli_resume_is_bit_exact(tmp_path, config, capsys):
                                   _npz(b / "ls_result.npz")["z"])
 
 
+@pytest.mark.parametrize("config", ["StyleGAN2_ffhq_d", "DeepMindBigGAN512"])
+def test_cli_int8_resume_is_bit_exact(tmp_path, monkeypatch, config):
+    """--quantize int8 with every TINY conv a call site (quantize_min_ch = 1;
+    BigGAN's in its s2d mid segments): 2 generations, then --resume to 4,
+    against 4 uninterrupted, bitwise (the resumed run recalibrates from the
+    seed); the int8 search is not the float one."""
+    tinyfy = cli._tinyfy
+
+    def tiny_int8(config):
+        config, clip_cfg, model_cfg = tinyfy(config)
+        if config.model == "biggan":
+            model_cfg = dataclasses.replace(model_cfg, s2d_min_res=4)
+        return config.replace(quantize_min_ch=1), clip_cfg, model_cfg
+
+    monkeypatch.setattr(cli, "_tinyfy", tiny_int8)
+    a, b, f = tmp_path / "a", tmp_path / "b", tmp_path / "f"
+    _run(a, config, 2, "--quantize", "int8")
+    _run(a, config, 4, "--quantize", "int8", "--resume")
+    _run(b, config, 4, "--quantize", "int8")
+    sa, sb = _npz(a / "ga_state.npz"), _npz(b / "ga_state.npz")
+    assert sa.keys() == sb.keys() and int(sa["gen"]) == 4
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k])
+    for k, v in _result(a).items():
+        np.testing.assert_array_equal(v, _result(b)[k])
+    _run(f, config, 4)
+    assert not np.array_equal(_npz(f / "ga_state.npz")["F"], sa["F"])
+
+
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_final_artifacts_match_jax(tmp_path, config):
     n_obj = CONFIGS[config]
@@ -234,7 +265,9 @@ def test_scatter_without_matplotlib(tmp_path):
     pytest.param(["--slots", "8"], None, id="slots_8-item 12"),
     pytest.param(["--search-microbatch", "2"], None, id="search-microbatch_2-item 12"),
     pytest.param(["--target", "a", "--target", "b"], None, id="target_a_--target_b-item 12"),
-    (["--quantize", "int8"], "item 13"),
+    # item 13 is ported: the int8 fitness runs (a no-op at TINY's widths,
+    # below quantize_min_ch = 64, as in the JAX CLI)
+    pytest.param(["--quantize", "int8"], None, id="quantize_int8-item 13"),
     (["--mesh"], "item 16"),
     (["--distributed", "auto"], "item 16"),
     # item 9 is ported: these two configs now run (why = None)

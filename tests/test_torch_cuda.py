@@ -452,3 +452,65 @@ def test_kernels_at_a_batch_of_64(gpu, kernel, variant):
     if variant is not None:
         assert wrapper.launches_by_variant[variant] == v0[variant] + 1
     (_close_scaled if kernel == "s2d_conv2x2" else _close)(got, plain(*args), dtype)
+
+
+# (B, H, W, I, O, k, stride, pad0, pad1, lhs_dilation): odd channels (the
+# byte gather), I % 16 == 0 (the 16-byte gather), every geometry of `_conv`,
+# tiles with ragged M, N and K edges
+CONV_S8_GEOMETRIES = [
+    (2, 7, 5, 3, 5, 3, 1, 1, 1, 1),
+    (2, 8, 8, 16, 24, 3, 2, 1, 0, 1),
+    (1, 5, 6, 8, 7, 3, 1, 2, 2, 2),
+    (2, 9, 9, 32, 16, 2, 1, 0, -1, 1),
+    (1, 6, 6, 12, 4, 4, 1, 2, 1, 2),
+    (2, 10, 10, 20, 9, 1, 2, -1, -1, 1),
+    (3, 17, 17, 128, 128, 2, 1, 1, 1, 1),
+    (2, 9, 9, 64, 200, 3, 1, 1, 1, 2),
+    (1, 33, 31, 48, 65, 3, 2, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", CONV_S8_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_conv_s8_kernel_is_bitwise_its_plain_version(gpu, geom, out_dtype):
+    """The int8 conv's int32 accumulators, and its dequantized outputs, equal
+    the exact plain version bitwise."""
+    from clip_glass_torch.ops.conv_s8 import conv_s8, conv_s8_plain
+
+    B, H, W, I, O, k, stride, pad0, pad1, d = geom
+    xq = torch.randint(-127, 128, (B, H, W, I), generator=gpu, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (O, I, k, k), generator=gpu, device="cuda").to(torch.int8)
+    scale = torch.rand(O, generator=gpu, device="cuda") * 1e-3
+    kw = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=d, out_dtype=out_dtype)
+    n0 = conv_s8.launches
+    got = conv_s8(xq, wq, scale, **kw)
+    assert conv_s8.launches == n0 + 1
+    want = conv_s8_plain(xq, wq, scale, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_conv_s8_rejects_what_the_kernel_does_not_take(gpu):
+    from clip_glass_torch.ops.conv_s8 import conv_s8
+
+    xq = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device="cuda")
+    wq = torch.zeros((4, 8, 3, 3), dtype=torch.int8, device="cuda")
+    scale = torch.ones(4, device="cuda")
+    with pytest.raises(TypeError):
+        conv_s8(xq.float(), wq, scale)
+    with pytest.raises(ValueError):
+        conv_s8(xq, wq[:, :4], scale)
+    with pytest.raises(ValueError):
+        conv_s8(xq, wq, scale.cpu())
+    with pytest.raises(TypeError):
+        conv_s8(xq, wq, scale, out_dtype=torch.float16)
+
+
+def test_tiny_int8_fitness_on_gpu_matches_cpu(gpu):
+    """The smoke run's int8 agreement phase: the TINY int8 fitness (every
+    conv a call site) on the card against the CPU with the CPU's scales,
+    conv_s8 once per call site and kernel 4 at none."""
+    import chip_smoke
+
+    chip_smoke.phase_agreement_int8()

@@ -58,8 +58,9 @@ def _imported_names(path: pathlib.Path):
             yield node.args[0].value
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "run_torch.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+                             ROOT / "chip_smoke.py", ROOT / "run_torch.py",
+                             ROOT / "scripts" / "quant_fidelity_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN]
