@@ -21,6 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      one's. Kernel 3's variants must fold their weights in fp32. Then the
      host's cost of one call of the wrappers of kernels 2 and 3 at their
      4 px shapes (`host_us_per_call`);
+  3b. gradients (`phase_gradients`): each of kernels 1-4 under autograd,
+     fp32 and bf16, at one flagship shape (kernel 4 also at C' = 256 with
+     one shared set): a grad_fn, input gradients within TOL of the plain
+     version's autograd on the card, the direct launch under
+     inference_mode; the TINY G's latent gradient (plain domain) on the card
+     against the CPU; conv_s8 raising under grad;
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
      domain (TINY with s2d_min_res=8);
@@ -48,7 +54,8 @@ blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample):
   8. biggan kernels: kernel 4 at every call shape of DeepMindBigGAN256
      (pop 64) and DeepMindBigGAN512 (pop 32) (`biggan_shapes`), bf16, as
      phase 3 measures the flagship's, on the variant `expected_variant`
-     names (wmma at C' = 256, wgmma at 128);
+     names (wgmma_stream at C' = 256, wgmma at 128; the first design,
+     wmma, beside each as `previous_*`, and at no fold of either config);
   9. biggan agreement: the TINY BigGAN GA fitness on the GPU against the
      CPU, fp32, plain (bg.TINY) and with both blocks' mid segments in the
      s2d domain (s2d_min_res=4);
@@ -113,7 +120,7 @@ Then K searches of one config batched in one evaluation a generation
      kernel, F finite; the difference from per-search evaluation and the
      rows whose ids differ, printed; the decode and round trip in one group
      and in groups of one search); DeepMindBigGAN512 as 2 searches x pop 32
-     (one batched evaluation: kernel 4, 1 wmma + 3 wgmma);
+     (one batched evaluation: kernel 4, 1 wgmma_stream + 3 wgmma);
  20. batched and serve cli: `cli.main` at full width, M1 StyleGAN2_ffhq_d
      with 4 --target for 2 generations, M2 resumed to 4, M3 4 straight (M2's
      ga_state.npz equal to M3's bitwise; every search-NN/ with target.txt
@@ -123,13 +130,19 @@ Then K searches of one config batched in one evaluation a generation
 Then the int8 quantized fitness (--quantize int8, ops/quant.py), whose
 int8 convs run the hand-written conv_s8 (csrc/conv_s8.cu):
  21. int8 kernels: conv_s8 against its plain version, bitwise (int32
-     accumulators and bf16 outputs), at every call shape of one int8
-     flagship evaluation (s2d path, pop 16) and at odd shapes (I = 3, O = 5,
-     stride 2, lhs_dilation 2, negative pads); per shape `kernel_ms`,
-     `device_ms`, the plain version, the bound (bytes over 3.35 TB/s or
-     2*M*N*K over 1,979 TOPS), and as yardsticks the port never calls an
-     im2col copy + torch._int_mm and the bf16 conv the site replaces
-     (cuDNN, kernel 4 at the [2,2] folds); launches per evaluation;
+     accumulators and bf16 outputs), both entries (the fused one on a bf16
+     activation with its x_inv_scale, as the int8 path calls it, and the
+     int8 one), at every call shape of one int8 flagship evaluation (s2d
+     path, pop 16) and at odd shapes (I = 3, O = 5, stride 2, lhs_dilation
+     2 with k 1, 3 and 4, negative pads); per shape its route
+     (`conv_s8_variant`), `kernel_ms`, `device_ms`, the first design's
+     route (`previous_*`), the quantize passes it needed and those left, the
+     weights' quantize and pack, the plain version, the bound (bytes of the
+     bf16 activation, the int8 weights and the bf16 output over 3.35 TB/s,
+     or the real products over 1,979 TOPS), and as yardsticks the port
+     never calls an im2col copy + torch._int_mm and the bf16 conv the site
+     replaces (cuDNN, kernel 4 at the [2,2] folds); launches per evaluation
+     by route;
  22. int8 agreement: the TINY int8 fitness (quantize_min_ch = 1) on the GPU
      against the CPU with the CPU's scales: StyleGAN2 `_d` plain and s2d,
      `_nod`, BigGAN with s2d mid segments, `_d` s2d as K = 3 searches
@@ -692,10 +705,13 @@ def expected_variant(name: str, shape) -> str:
     O = 3 and I of 32-512), the first design's up to them: at pop 16 the
     redesigns from 32 px up, at 64 rows from 16 px up; kernel 4's redesign
     at C' = 64 and 128 (every flagship call, BigGAN-deep-512's last blocks),
-    its first design at BigGAN-deep's C' = 256, whose weights do not fit
-    shared memory."""
+    the weight-streaming redesign at BigGAN-deep's C' = 256 (one shared
+    set, which does not fit shared memory), the first design at other
+    widths."""
     if name == "s2d_conv2x2":
-        return "wgmma" if shape[2] in (64, 128) else "wmma"
+        if shape[2] in (64, 128):
+            return "wgmma"
+        return "wgmma_stream" if shape[2] == 256 and not shape[4] else "wmma"
     if name == "upsample2x":
         B, H, W, C = shape
         return ("tiled" if B * H * W * C > UPS_LAUNCH_SIZED and 5 * W * C * 2 <= UPS_STAGE_BYTES
@@ -740,6 +756,134 @@ def phase_host():
     log({"phase": "host", "host_us_per_call": out, "calls": 1000,
          "shapes": {"upsample2x": [POP, 4, 4, 3], "modulated_matmul": [POP, 16, 512, 3]}})
     return out
+
+
+# ------------------------------------------------------------ phase 3b
+
+# one flagship call shape of each kernel (s2d path at 1024 px for kernel 4,
+# the plain path's 1024 px layer for kernels 1-3), and kernel 4 at C' = 256
+# with one shared weight set (BigGAN-deep's block 11, cut to 8 samples)
+GRAD_SHAPES = [("noise_bias_lrelu", (POP, 128, 128, 64)),
+               ("upsample2x", (POP, 256, 256, 3)),
+               ("modulated_matmul", (POP, 256 * 256, 64, 3)),
+               ("s2d_conv2x2", (POP, 257, 128, 1, True)),
+               ("s2d_conv2x2", (8, 129, 256, 0, False))]
+
+
+def _grad_inputs(args):
+    return [a for a in args if isinstance(a, torch.Tensor) and a.is_floating_point()]
+
+
+def _grad_case(name, shape, dtype, gen):
+    """The kernel's wrapper and its plain version on one set of operands,
+    every float operand requiring grad: loss = sum(out * r) with a seeded r.
+    Returns the largest gradient difference relative to the largest plain
+    gradient, after checking that the wrapper launched its kernel once and
+    returned a result with a grad_fn."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+
+    wrapper, plain, make = {
+        "noise_bias_lrelu": (bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
+                             _nbl_case),
+        "upsample2x": (upfirdn.upsample2x, upfirdn.upsample2x_plain, _ups_case),
+        "modulated_matmul": (modulated_conv.modulated_matmul,
+                             modulated_conv.modulated_matmul_plain, _rgb_case),
+        "s2d_conv2x2": (s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain, _s2d_case)}[name]
+    args = make(shape, dtype, gen)
+    inputs = _grad_inputs(args)
+    for t in inputs:
+        t.requires_grad_(True)
+    n0 = wrapper.launches
+    out = wrapper(*args)
+    if wrapper.launches != n0 + 1 or out.grad_fn is None:
+        raise AssertionError(f"{name} {shape} {dtype}: {wrapper.launches - n0} launches, "
+                             f"grad_fn {out.grad_fn}")
+    r = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = torch.autograd.grad((out.float() * r.float()).sum(), inputs)
+    want = torch.autograd.grad((plain(*args).float() * r.float()).sum(), inputs)
+    torch.cuda.synchronize()
+    err, scale = 0.0, 0.0
+    for g, w in zip(got, want):
+        err = max(err, (g.float() - w.float()).abs().max().item())
+        scale = max(scale, w.float().abs().max().item())
+    with torch.inference_mode():  # no gradient: the direct launch, no grad_fn
+        if wrapper(*args).grad_fn is not None or wrapper.launches != n0 + 2:
+            raise AssertionError(f"{name}: inference_mode did not launch directly")
+    return err / max(scale, 1e-30), [tuple(t.shape) for t in inputs]
+
+
+def _tiny_g_latent_grad(device: str):
+    """d sum(G(z) * r) / dz of the TINY StyleGAN2 G in the plain domain,
+    fp32, weights, noise, z and r from seeds (the same on every device)."""
+    import numpy as np
+
+    from clip_glass_torch.core.dtypes import FP32, tree_to
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = dataclasses.replace(sg2.TINY, s2d_min_res=2 ** 30)
+    params = tree_to(sg2.generator_init(torch.Generator().manual_seed(0), cfg), device)
+    rng = np.random.default_rng(25)
+    noise = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+             for s in cfg.noise_shapes()]
+    z = torch.from_numpy(rng.normal(size=(4, cfg.latent_size)).astype(np.float32)).to(device)
+    r = torch.from_numpy(rng.normal(size=(4, 3, 16, 16)).astype(np.float32)).to(device)
+    z.requires_grad_(True)
+    out = sg2.generator_apply(params, z, cfg, noise=noise, policy=FP32)
+    (grad,) = torch.autograd.grad((out * r).sum(), [z])
+    return grad.cpu()
+
+
+def phase_gradients() -> dict:
+    """Phase 3b: each of kernels 1-4 under autograd on the card, fp32 and
+    bf16, at GRAD_SHAPES: the wrapper launches its kernel and returns a
+    result with a grad_fn, whose input gradients equal the plain version's
+    autograd on the card within TOL of their scale (the backward is that
+    autograd, on the kernel's forward); under inference_mode the direct
+    launch. Then the TINY G's latent gradient on the card against the CPU's
+    (plain versions) within GRAD_G_TOL of its scale, and conv_s8 raising
+    under grad."""
+    from clip_glass_torch.ops import s2d
+    from clip_glass_torch.ops.conv_s8 import conv_s8
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for name, shape in GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            v0 = dict(s2d.s2d_conv2x2.launches_by_variant)
+            err, shapes = _grad_case(name, shape, dtype, gen)
+            rec = {"phase": "gradients", "kernel": name, "shape": list(shape),
+                   "dtype": str(dtype), "inputs": shapes, "max_rel_err": err,
+                   "tolerance": TOL[dtype]}
+            if name == "s2d_conv2x2":
+                rec["variants"] = {v: n - v0[v] for v, n in
+                                   s2d.s2d_conv2x2.launches_by_variant.items() if n != v0[v]}
+            log(rec)
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"gradient of {name} {shape} {dtype}: {err} of its "
+                                     f"scale, tolerance {TOL[dtype]}")
+            out[name] = max(out.get(name, 0.0), err)
+            torch.cuda.empty_cache()
+    got, want = _tiny_g_latent_grad("cuda"), _tiny_g_latent_grad("cpu")
+    g_err = ((got - want).abs().max() / want.abs().max()).item()
+    log({"phase": "gradients", "check": "TINY StyleGAN2 G (plain domain, fp32): latent "
+         "gradient on the card vs the CPU", "max_rel_err": g_err, "tolerance": GRAD_G_TOL})
+    if not g_err <= GRAD_G_TOL:
+        raise AssertionError(f"TINY G latent gradient: card vs CPU {g_err}")
+    x = torch.randn((2, 8, 8, 64), device="cuda", requires_grad=True)
+    wq = torch.randint(-127, 128, (64, 64, 3, 3), device="cuda").to(torch.int8)
+    try:
+        conv_s8(x, wq, torch.ones(64, device="cuda"), pad0=1, pad1=1, x_inv_scale=10.0)
+    except RuntimeError as e:
+        log({"phase": "gradients", "check": "conv_s8 raises under grad", "error": str(e)})
+    else:
+        raise AssertionError("conv_s8 returned a result under grad")
+    return {**out, "tiny_g": g_err}
+
+
+# the TINY G's gradient, card against CPU: the forwards differ by the
+# kernels' fp32 rounding (TOL), which the backward carries through a few
+# layers
+GRAD_G_TOL = 1e-4
 
 
 # ------------------------------------------------------------ phase 4
@@ -1194,6 +1338,9 @@ def phase_kernels_biggan(summary: dict) -> None:
         for shape, count in counts.items():
             v = recs[shape][0]["variant"]
             tot["launches_by_variant"][v] = tot["launches_by_variant"].get(v, 0) + count
+        if tot["launches_by_variant"].get("wmma"):
+            raise AssertionError(f"{name}: kernel 4 takes wmma at a fold: "
+                                 f"{tot['launches_by_variant']}")
         out[name] = tot
     summary["s2d_conv2x2"]["biggan"] = out
 
@@ -1360,7 +1507,7 @@ def phase_cli_biggan() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         folder = os.path.join(tmp, "e")
-        _cli_run("E", folder, None, 2, {"s2d_conv2x2": {"wmma", "wgmma"}}, pop=None)
+        _cli_run("E", folder, None, 2, {"s2d_conv2x2": {"wgmma_stream", "wgmma"}}, pop=None)
         ls = _npz(os.path.join(folder, "ls_result.npz"))
         shapes = {k: v.shape for k, v in ls.items()}
         if shapes != {"z": (32, 128), "class_labels": (32, 1000)}:
@@ -2234,7 +2381,7 @@ def phase_main_batched_biggan(kind: str, smi: str, summary: dict) -> None:
     """Phase 19c: DeepMindBigGAN512 at full width (bf16, ViT-B/32, random
     weights from seed 0) as 2 searches x its pop 32: one batched evaluation
     of the initial populations, kernel 4 alone launching on phase 8's
-    variants (1 wmma + 3 wgmma), F finite."""
+    variants (1 wgmma_stream + 3 wgmma), F finite."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.batched import make_batched
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -2321,6 +2468,10 @@ CONV_S8_ODD = [
     (1, 6, 6, 12, 4, 4, 1, 2, 1, 2),
     (2, 10, 10, 20, 9, 1, 2, -1, -1, 1),
     (1, 33, 31, 48, 65, 3, 2, 1, 1, 1),
+    # the polyphase split: k 4 and 3, k 1 (phases without a tap), odd extents
+    (2, 9, 7, 32, 40, 4, 1, 1, 1, 2),
+    (1, 8, 9, 16, 16, 3, 1, 2, 2, 2),
+    (2, 5, 6, 16, 8, 1, 1, 0, 0, 2),
 ]
 
 
@@ -2339,17 +2490,22 @@ def _int8_flagship_config():
 
 def _conv_s8_calls(generator, X) -> dict:
     """One int8 evaluation of X with every conv_s8 call recorded: (x shape,
-    w shape, geometry) -> calls."""
+    w shape, geometry) -> calls. Every call hands conv_s8 the float
+    activation and its x_inv_scale (the fused entry)."""
     from clip_glass_torch.ops import modulated_conv
 
     calls = {}
     real = modulated_conv.conv_s8
 
-    def record(xq, wq, scale, **kw):
-        key = (tuple(xq.shape), tuple(wq.shape),
-               tuple((k, v) for k, v in sorted(kw.items()) if k != "out_dtype"))
+    def record(x, wq, scale, **kw):
+        if not x.is_floating_point() or kw.get("x_inv_scale") is None:
+            raise AssertionError(f"int8 site {tuple(x.shape)}: conv_s8 got {x.dtype} x, "
+                                 f"not the fused entry's float x and x_inv_scale")
+        key = (tuple(x.shape), tuple(wq.shape),
+               tuple((k, v) for k, v in sorted(kw.items())
+                     if k not in ("out_dtype", "x_inv_scale")))
         calls[key] = calls.get(key, 0) + 1
-        return real(xq, wq, scale, **kw)
+        return real(x, wq, scale, **kw)
 
     modulated_conv.conv_s8 = record
     try:
@@ -2367,26 +2523,37 @@ def _int8_operands(gen, x_shape, w_shape):
     return xq, wq, scale
 
 
-def _conv_s8_bitwise(xq, wq, scale, geometry) -> float:
-    """The kernel's int32 accumulators and its bf16 outputs equal the plain
-    version's bitwise. Returns the largest |got - want| over both (int32
-    in float64, exact)."""
-    conv_s8 = _conv_s8()
-    from clip_glass_torch.ops.conv_s8 import conv_s8_plain
+# x_inv_scale of the float activations in phase 21: x ~ 3 N(0, 1) in bf16
+# against sx = 6, so that some values saturate and some fall on .5
+INT8_SX = 6.0
 
+
+def _float_activation(gen, x_shape):
+    return (3.0 * torch.randn(x_shape, generator=gen, device="cuda")).bfloat16()
+
+
+def _conv_s8_bitwise(x, wq, scale, geometry, x_inv_scale=None) -> float:
+    """The kernel's int32 accumulators and its bf16 outputs equal the plain
+    version's bitwise: of x itself (int8), or of x quantized by x_inv_scale
+    (a float x: the fused entry). Returns the largest |got - want| over both
+    (int32 in float64, exact)."""
+    conv_s8 = _conv_s8()
+    from clip_glass_torch.ops.conv_s8 import conv_s8_plain, quantize
+
+    xq = x if x_inv_scale is None else quantize(x, x_inv_scale)
     err = 0.0
     for out_dtype in (torch.int32, torch.bfloat16):
-        got = conv_s8(xq, wq, scale, out_dtype=out_dtype, **geometry)
+        got = conv_s8(x, wq, scale, out_dtype=out_dtype, x_inv_scale=x_inv_scale, **geometry)
         want = conv_s8_plain(xq, wq, scale, out_dtype=out_dtype, **geometry)
         torch.cuda.synchronize()
+        what = (f"conv_s8 {tuple(x.shape)} {x.dtype} x {tuple(wq.shape)} {geometry} "
+                f"{out_dtype}")
         if got.shape != want.shape:
-            raise AssertionError(f"conv_s8 {tuple(xq.shape)} x {tuple(wq.shape)} {geometry} "
-                                 f"{out_dtype}: shape {tuple(got.shape)}, plain "
+            raise AssertionError(f"{what}: shape {tuple(got.shape)}, plain "
                                  f"{tuple(want.shape)}")
         bad = (got.double() - want.double()).abs().max().item()
         if not torch.equal(got, want):
-            raise AssertionError(f"conv_s8 {tuple(xq.shape)} x {tuple(wq.shape)} {geometry} "
-                                 f"{out_dtype}: differs from its plain version ({bad})")
+            raise AssertionError(f"{what}: differs from its plain version ({bad})")
         err = max(err, bad)
     return err
 
@@ -2429,21 +2596,47 @@ def _im2col_int_mm(xq, wq, stride, pad0, pad1, lhs_dilation):
     return torch._int_mm(cols.view(M, Kp), wk.t())[:, :O].reshape(B, Ho, Wo, O)
 
 
+def _route_ops(x_shape, w_shape, geometry) -> int:
+    """The products the route `conv_s8_variant` names runs: for wgmma the
+    phases' GEMMs (their taps only: padding multiplied, no dilation hole),
+    for mma_sync the dilated GEMM."""
+    from clip_glass_torch.ops.conv_s8 import conv_s8_variant, out_size, phases
+
+    B, H, W, I = x_shape
+    O, _, kh, kw = w_shape
+    st, p0, p1, d = (geometry[k] for k in ("stride", "pad0", "pad1", "lhs_dilation"))
+    Ho, Wo = out_size(H, kh, st, p0, p1, d), out_size(W, kw, st, p0, p1, d)
+    if conv_s8_variant(I, st, d) != "wgmma":
+        return 2 * B * Ho * Wo * O * kh * kw * I
+    return sum(2 * B * Hp * Wp * O * khp * kwp * I
+               for _, _, khp, kwp, _, _, Hp, Wp, _, _ in phases(kh, kw, st, p0, d, Ho, Wo))
+
+
 def _conv_s8_site(gen, x_shape, w_shape, geometry, calls: int) -> dict:
-    """One call shape of the int8 flagship: bitwise against the plain
-    version, then timed: the kernel (`kernel_ms` back to back, `device_ms`
-    replayed from a CUDA graph), its plain version, the bound, the site's
-    quantize passes (its bf16 input, its weights), and as yardsticks never
+    """One call shape of the int8 flagship: the fused entry (bf16 x and its
+    x_inv_scale, as the int8 path calls it) and the int8 entry, each bitwise
+    against the plain version; then timed: the fused call (`kernel_ms` back
+    to back, `device_ms` replayed from a CUDA graph: the weights' packing,
+    at an mma_sync site the quantize pass, and the kernel), the first design
+    on the int8 x (`previous_ms`, `previous_device_ms`: mma_sync, no
+    quantize pass), the activation's quantize passes as that design ran them at
+    every site (`quantize_ms`) and as they are left (`quantize_left_ms`:
+    at the mma_sync sites only), the weights' quantize and pack
+    (`weights_ms`), its plain version, the bound, and as yardsticks never
     called by the port the im2col + torch._int_mm pair and the bf16 conv
     the site replaces (cuDNN; for a [2,2] fold also kernel 4, per-sample
     weights at pad0 = 1 as G's folds, one shared set at pad0 = 0 as D's)."""
     from clip_glass_torch.ops import quant, s2d
-    from clip_glass_torch.ops.conv_s8 import conv_s8_plain, out_size, pack_weights
+    from clip_glass_torch.ops.conv_s8 import (conv_s8_launch, conv_s8_plain, conv_s8_variant,
+                                              out_size, pack_weights, quantize)
     from clip_glass_torch.ops.modulated_conv import _conv_float
 
     conv_s8 = _conv_s8()
     xq, wq, scale = _int8_operands(gen, x_shape, w_shape)
-    err = _conv_s8_bitwise(xq, wq, scale, geometry)
+    xb = _float_activation(gen, x_shape)
+    inv = quant.activation_inv_scale(INT8_SX)
+    err = max(_conv_s8_bitwise(xq, wq, scale, geometry),
+              _conv_s8_bitwise(xb, wq, scale, geometry, inv))
     B, H, W, I = x_shape
     O, _, kh, kw = w_shape
     Ho = out_size(H, kh, geometry["stride"], geometry["pad0"], geometry["pad1"],
@@ -2452,45 +2645,58 @@ def _conv_s8_site(gen, x_shape, w_shape, geometry, calls: int) -> dict:
                   geometry["lhs_dilation"])
     M, K = B * Ho * Wo, kh * kw * I
     st, p0, d = geometry["stride"], geometry["pad0"], geometry["lhs_dilation"]
-    # the products with real inputs (the kernel also multiplies the zeros
-    # of padding and of dilation holes: 2*M*O*K)
+    variant = conv_s8_variant(I, st, d)
+    # the products with real inputs (the routes also multiply the zeros of
+    # padding, mma_sync those of dilation holes too: `route_ops`)
     n_ops = 2 * B * I * O * _real_taps(H, Ho, kh, st, p0, d) * _real_taps(W, Wo, kw, st, p0, d)
-    n_bytes = xq.numel() + wq.numel() + 4 * O + 2 * M * O
+    # the bytes of the fused work: the bf16 activation read once, the int8
+    # weights and fp32 scales, the bf16 output written once
+    n_bytes = 2 * xb.numel() + wq.numel() + 4 * O + 2 * M * O
     iters = _iters(n_bytes)
 
     def kernel():
-        return conv_s8(xq, wq, scale, out_dtype=torch.bfloat16, **geometry)
+        return conv_s8(xb, wq, scale, out_dtype=torch.bfloat16, x_inv_scale=inv, **geometry)
 
+    def previous():
+        return conv_s8_launch(xq, wq, scale, geometry, torch.bfloat16, None, "mma_sync")
+
+    if not torch.equal(previous(), conv_s8_plain(xq, wq, scale, out_dtype=torch.bfloat16,
+                                                 **geometry)):
+        raise AssertionError(f"conv_s8 mma_sync route disagrees at {x_shape}")
     lib = _im2col_int_mm(xq, wq, **geometry)
     if not torch.equal(lib, conv_s8(xq, wq, scale, out_dtype=torch.int32, **geometry)):
         raise AssertionError(f"im2col + _int_mm disagrees with conv_s8 at {x_shape}")
     del lib
-    xb, wb = xq.bfloat16(), wq.bfloat16()
-    sx = 127.0  # the quantize passes' time does not depend on the scale
-    rec = {"x": list(x_shape), "w": list(w_shape), "geometry": geometry,
+    wb = wq.bfloat16()
+    quantize_ms = time_ms(lambda: quantize(xb, inv), iters)
+    rec = {"x": list(x_shape), "w": list(w_shape), "geometry": geometry, "variant": variant,
            "launches_per_evaluation": calls, "M": M, "N": O, "K": K, "max_abs_err": err,
            "bytes": n_bytes, "ops": n_ops, "gemm_ops": 2 * M * O * K,
+           "route_ops": _route_ops(x_shape, w_shape, geometry),
            "kernel_ms": time_ms(kernel, iters), "device_ms": graph_ms(kernel, iters),
+           "previous_ms": time_ms(previous, iters),
+           "previous_device_ms": graph_ms(previous, iters),
            "plain_ms": time_ms(lambda: conv_s8_plain(xq, wq, scale, out_dtype=torch.bfloat16,
                                                      **geometry), 2, warmup=1),
            "library_ms": time_ms(lambda: _im2col_int_mm(xq, wq, **geometry), iters),
            "bf16_cudnn_ms": time_ms(lambda: _conv_float(xb, wb, **geometry), iters),
-           # the site's PyTorch passes around the kernel: its bf16 input
-           # quantized, its weights quantized and packed (every call)
-           "quantize_x_ms": time_ms(lambda: quant.quantize_activations(xb, sx), iters),
-           "quantize_w_ms": time_ms(lambda: pack_weights(quant.quantize_weights(wb)[0]),
-                                    iters)}
+           # the PyTorch passes around the kernel: the activation's quantize
+           # passes (the first design ran them at every site; now only the mma_sync sites
+           # do, inside the fused call), the weights' quantize and pack
+           "quantize_ms": quantize_ms,
+           "quantize_left_ms": quantize_ms if variant == "mma_sync" else 0.0,
+           "weights_ms": time_ms(lambda: pack_weights(quant.quantize_weights(wb)[0]), iters)}
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, rec["ops"], PEAK_INT8_OPS_PER_S)
     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     fold = (kh == kw == 2 and I == O and geometry["stride"] == 1
             and geometry["lhs_dilation"] == 1 and geometry["pad0"] in (0, 1))
     if fold:
         K4 = wb.permute(2, 3, 1, 0).contiguous()
-        st = dm = None
+        sty = dm = None
         if geometry["pad0"] == 1:
-            st = 1.0 + 0.1 * torch.randn((B, I), generator=gen, device="cuda")
+            sty = 1.0 + 0.1 * torch.randn((B, I), generator=gen, device="cuda")
             dm = 1.0 + 0.1 * torch.randn((B, O), generator=gen, device="cuda")
-        rec["bf16_kernel4_ms"] = time_ms(lambda: s2d.s2d_conv2x2(xb, K4, st, dm,
+        rec["bf16_kernel4_ms"] = time_ms(lambda: s2d.s2d_conv2x2(xb, K4, sty, dm,
                                                                  geometry["pad0"]), iters)
     del xq, wq, scale, xb, wb
     return rec
@@ -2498,12 +2704,14 @@ def _conv_s8_site(gen, x_shape, w_shape, geometry, calls: int) -> dict:
 
 def phase_kernels_int8(kind: str, smi: str) -> dict:
     """Phase 21: conv_s8 against its plain version, bitwise (int32
-    accumulators and bf16 outputs), at every call shape of one int8
-    flagship evaluation (s2d path, pop 16, bf16, random weights from seed
-    0) and at the odd shapes of CONV_S8_ODD; each flagship shape measured
-    by `_conv_s8_site`. Returns the sums over one evaluation."""
+    accumulators and bf16 outputs; the fused entry on bf16 x and the int8
+    entry), at every call shape of one int8 flagship evaluation (s2d path,
+    pop 16, bf16, random weights from seed 0) and at the odd shapes of
+    CONV_S8_ODD; each flagship shape measured by `_conv_s8_site`. Returns
+    the sums over one evaluation, with the launches by route."""
     from clip_glass_torch.evolve.sampling import normal_sampling
     from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.ops import quant
 
     problem = GenerationProblem(_int8_flagship_config(), device="cuda")
     scales = problem.generator._quant_scales
@@ -2523,19 +2731,26 @@ def phase_kernels_int8(kind: str, smi: str) -> dict:
         log({"phase": "int8_kernels", "kernel": "conv_s8", **rec})
         torch.cuda.empty_cache()
     err = max(r["max_abs_err"] for r in recs)
+    inv = quant.activation_inv_scale(INT8_SX)
     for B, H, W, I, O, k, stride, pad0, pad1, d in CONV_S8_ODD:
-        err = max(err, _conv_s8_bitwise(*_int8_operands(gen, (B, H, W, I), (O, I, k, k)),
-                                        dict(stride=stride, pad0=pad0, pad1=pad1,
-                                             lhs_dilation=d)))
+        xq, wq, scale = _int8_operands(gen, (B, H, W, I), (O, I, k, k))
+        geometry = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=d)
+        err = max(err, _conv_s8_bitwise(xq, wq, scale, geometry),
+                  _conv_s8_bitwise(_float_activation(gen, (B, H, W, I)), wq, scale, geometry,
+                                   inv))
 
     def total(key):
         return sum(r[key] * r["launches_per_evaluation"] for r in recs)
 
+    by_route = {}
+    for r in recs:
+        by_route[r["variant"]] = by_route.get(r["variant"], 0) + r["launches_per_evaluation"]
     out = {"shapes": len(recs), "launches_per_evaluation": sum(calls.values()),
-           "call_sites": len(scales), "max_abs_err": err,
-           **{k: total(k) for k in ("kernel_ms", "device_ms", "plain_ms", "library_ms",
-                                    "bf16_cudnn_ms", "quantize_x_ms", "quantize_w_ms",
-                                    "ops", "gemm_ops")},
+           "launches_by_variant": by_route, "call_sites": len(scales), "max_abs_err": err,
+           **{k: total(k) for k in ("kernel_ms", "device_ms", "previous_ms",
+                                    "previous_device_ms", "plain_ms", "library_ms",
+                                    "bf16_cudnn_ms", "quantize_ms", "quantize_left_ms",
+                                    "weights_ms", "ops", "gemm_ops", "route_ops")},
            # the bf16 path's conv at each site: kernel 4 at the [2,2] folds
            "bf16_site_ms": sum(r.get("bf16_kernel4_ms", r["bf16_cudnn_ms"])
                                * r["launches_per_evaluation"] for r in recs),
@@ -2543,6 +2758,10 @@ def phase_kernels_int8(kind: str, smi: str) -> dict:
     out["bound_ms"], out["bound_by"] = bound_ms(total("bytes"), out["ops"],
                                                 PEAK_INT8_OPS_PER_S)
     out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    # the int8 path's conv work an evaluation, now and in the first design
+    out["int8_conv_work_ms"] = out["device_ms"] + out["weights_ms"]
+    out["previous_int8_conv_work_ms"] = (out["previous_device_ms"] + out["quantize_ms"]
+                                         + out["weights_ms"])
     log({"phase": "int8_kernels", "kernel": "conv_s8", "sums": out, "device": kind,
          "nvidia_smi": smi})
     return out
@@ -2630,15 +2849,17 @@ def phase_agreement_int8() -> None:
                      {"TINY_S2D": dataclasses.replace(bg.TINY, s2d_min_res=4)}, bundle)
 
 
-def phase_main_int8(kind: str, smi: str, single: dict) -> dict:
+def phase_main_int8(kind: str, smi: str, single: dict, int8_kernels: dict) -> dict:
     """Phase 23a: StyleGAN2_ffhq_d with --quantize int8 at full width
     (config-f 1024 px G + D, ViT-B/32, pop 16, bf16, random weights from
     seed 0, s2d path), init + GENERATIONS generations: the calibration's
     call sites and seconds (a second calibration, which must give the same
     scales), conv_s8 at every call site of every evaluation, kernel 4 at
     none, kernels 1-3 as in phase 5; s a generation, cand/s and peak memory
-    beside phase 5's bf16 run (`single`, this same call). Counts set to 0
-    just before the search, read just after."""
+    beside phase 5's bf16 run (`single`, this same call); conv_s8's
+    launches by route those of phase 21's evaluation (`int8_kernels`), so
+    every site of the wgmma route runs no separate quantize pass. Counts
+    set to 0 just before the search, read just after."""
     from clip_glass_torch.evolve.algorithm import minimize
     from clip_glass_torch.fitness.problem import GenerationProblem
 
@@ -2673,6 +2894,7 @@ def phase_main_int8(kind: str, smi: str, single: dict) -> dict:
                    state=state)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    routes = dict(kernels[-1].launches_by_variant)
     n_eval = GENERATIONS + 1
     live = int(((scales > 0) & (scales < float("inf"))).sum())
     want = {**{k: n * n_eval for k, n in PER_EVAL["s2d"].items()}, "s2d_conv2x2": 0,
@@ -2680,6 +2902,10 @@ def phase_main_int8(kind: str, smi: str, single: dict) -> dict:
     # kernel 3 at every ToRGB (O = 3, no call site), kernels 1 and 2 unchanged
     if launches != want:
         raise AssertionError(f"int8 main: launches {launches}, expected {want}")
+    want_routes = {v: n * n_eval for v, n in int8_kernels["launches_by_variant"].items()}
+    if {v: n for v, n in routes.items() if n} != want_routes:
+        raise AssertionError(f"int8 main: conv_s8 launches by route {routes}, expected "
+                             f"{want_routes}")
     Fp = res.pop_F
     if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all() or (Fp[:, 1] < 0).any():
         raise AssertionError(f"int8 main: bad fitness {Fp}")
@@ -2695,7 +2921,8 @@ def phase_main_int8(kind: str, smi: str, single: dict) -> dict:
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "bf16": {k: single[k] for k in ("generation_s", "candidates_per_s",
                                            "max_memory_allocated_bytes")},
-           "launches": launches, "device": kind, "nvidia_smi": smi}
+           "launches": launches, "launches_by_variant": {"conv_s8": routes},
+           "device": kind, "nvidia_smi": smi}
     log(rec)
     del problem, algorithm, res, state, gen
     torch.cuda.empty_cache()
@@ -2839,6 +3066,7 @@ def main() -> int:
     phase_build()
     summary = phase_kernels()
     host = phase_host()
+    grads = phase_gradients()
     phase_agreement()
     launches, variants, single = phase_main(kind, smi, "s2d", GENERATIONS, summary)
     plain_launches, _, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
@@ -2861,7 +3089,7 @@ def main() -> int:
     phase_cli_batched(summary)
     int8_kernels = phase_kernels_int8(kind, smi)
     phase_agreement_int8()
-    int8_main = phase_main_int8(kind, smi, single)
+    int8_main = phase_main_int8(kind, smi, single, int8_kernels)
     phase_fidelity_int8(kind, smi)
     phase_other_configs_int8(kind, smi)
     phase_cli_int8(summary)
@@ -2877,6 +3105,8 @@ def main() -> int:
                         "max_abs_err": max(s["max_abs_err"], p["max_abs_err"]),
                         **{k: s[k] for k in keys}, "variant": variant,
                         "host_us_per_call": host.get(name),
+                        "launches_by_variant": variants.get(name),
+                        "gradient_max_rel_err": grads[name],
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
                         "batched": {
@@ -2912,18 +3142,31 @@ def main() -> int:
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
         "launches": int8_main["launches"]["conv_s8"],
+        "launches_by_variant": int8_main["launches_by_variant"]["conv_s8"],
         "max_abs_err": int8_kernels["max_abs_err"], "ms": int8_kernels["kernel_ms"],
-        **{k: int8_kernels[k] for k in ("device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "bound_share", "library_ms", "bf16_site_ms",
-                                        "shapes", "launches_per_evaluation")},
+        **{k: int8_kernels[k] for k in ("device_ms", "previous_ms", "previous_device_ms",
+                                        "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                        "library_ms", "bf16_site_ms", "quantize_ms",
+                                        "quantize_left_ms", "weights_ms", "int8_conv_work_ms",
+                                        "previous_int8_conv_work_ms", "ops", "route_ops",
+                                        "gemm_ops", "shapes", "launches_per_evaluation")},
+        "gradient": "raises (inference only)",
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
                  f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
-                 f"of one int8 evaluation; max_abs_err: the largest |got - want| of the "
-                 f"int32 and bf16 outputs against the plain version at every shape (any "
-                 f"difference fails the run); bound_ms: the products with real inputs "
-                 f"(none with padding or dilation holes); library_ms: an im2col copy + "
-                 f"torch._int_mm; bf16_site_ms: the bf16 path's conv at the same sites "
-                 f"(cuDNN, kernel 4 at the [2,2] folds)"})
+                 f"of one int8 evaluation; ms, device_ms: the fused entry on the bf16 "
+                 f"activation (wgmma: quantized in the gather; mma_sync: a quantize pass "
+                 f"first); previous_*: the first design (mma_sync) on the int8 activation; "
+                 f"quantize_ms: the activation's quantize passes as that design ran them at "
+                 f"every site; quantize_left_ms: those still run (mma_sync sites); "
+                 f"weights_ms: the weights' quantize and pack; max_abs_err: the largest "
+                 f"|got - want| of the int32 and bf16 outputs of both entries against the "
+                 f"plain version at every shape (any difference fails the run); "
+                 f"bound_ms: the products with real inputs (none with padding or dilation "
+                 f"holes) and the fused work's bytes (bf16 activation, int8 weights, bf16 "
+                 f"output); route_ops: the products the routes run (no dilation hole on "
+                 f"wgmma); library_ms: an im2col copy + torch._int_mm; bf16_site_ms: the "
+                 f"bf16 path's conv at the same sites (cuDNN, kernel 4 at the [2,2] "
+                 f"folds)"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

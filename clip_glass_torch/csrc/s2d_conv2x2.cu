@@ -19,7 +19,8 @@
 // at the 989 TFLOP/s bf16 tensor-core peak): bytes bind, narrowly, and only
 // if the products run at the tensor cores' full rate.
 //
-// Three variants; the wrapper picks one from dtype and C alone.
+// Four variants; the wrapper picks one from dtype, C and whether one weight
+// set serves every sample.
 //
 // 1. wgmma (bf16, C in {64, 128}: every flagship launch). A persistent,
 //    warp-specialised implicit GEMM:
@@ -52,6 +53,10 @@
 //    Shared memory at C = 128: 128 KB weights + 3 x 20 KB stages + 32 KB
 //    output staging + barriers, under the 227 KB opt-in; 102 registers a
 //    thread, no spills.
+// 1b. wgmma_stream (bf16, C = 256, one shared weight set: BigGAN-deep's block
+//    11 fold): the same A ring and consumers, with the 512 KiB weight set
+//    streamed by TMA in [256 x 64] slabs through a ring of its own (at the
+//    end of this file).
 // 2. wmma (bf16, any other C; first design, kept for C = 20 and the like):
 //    a block owns BM consecutive output cells and BN output channels, and
 //    walks K as four taps times C in steps of BK; each thread gathers its
@@ -365,20 +370,17 @@ struct Plan {
   static_assert(BYTES <= 232448, "over the 227 KB shared-memory opt-in");
 };
 
+using cg::encode_tiled;
 using cg::mbar_arrive;
 using cg::mbar_expect_tx;
 using cg::mbar_init;
 using cg::mbar_wait;
 using cg::smem_addr;
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+using cg::sw128_desc;
+using cg::tma_load_3d;
+using cg::wgmma_commit;
+using cg::wgmma_fence;
+using cg::wgmma_wait;
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
@@ -400,25 +402,6 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
 
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
-}
-
-// wgmma operand in shared memory, K-major with the 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO); a k16 step inside the row
-// adds 32 bytes to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving accumulator reads or writes across a wgmma
@@ -454,6 +437,27 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b, in
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : CG_F16(0), CG_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// m64n256k16: the C = 256 route, one warpgroup's 64 rows x 256 outputs
+// (128 fp32 registers a thread).
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : CG_F16(0), CG_F16(16), CG_F16(32), CG_F16(48), CG_F16(64), CG_F16(80), CG_F16(96),
+        CG_F16(112)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -592,33 +596,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
-// so the library does not link libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // bf16 tensor map: dims innermost first, strides in bytes of dims 1.., the
 // 128-byte swizzle, zeros for every element outside the tensor.
 bool encode(CUtensorMap* map, const void* ptr, uint32_t rank, const uint64_t* dims,
             const uint64_t* strides, const uint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
+  const cg::EncodeTiled fn = encode_tiled();
   const uint32_t elem[4] = {1, 1, 1, 1};
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
@@ -660,6 +642,212 @@ int launch_wgmma(const void* x, const void* kt, void* y, int64_t B, int64_t n, i
   return 0;
 }
 
+// ---- C = 256 with one shared weight set: the weights streamed by TMA
+//
+// The resident-weight design above cannot hold one set at C = 256 (4 taps x
+// 256 x 256 bf16 = 512 KiB, over the 227 KB opt-in). Here K is walked as
+// (c, chunk) A stages of 64 channels, as above, and each stage meets its two
+// taps (0, c) and (1, c) in two B slabs of [256 out x 64 in] (32 KB) that
+// TMA streams into a ring of their own: 16 slabs a tile, every tile re-reads
+// the 512 KiB set, from L2 (50 MB). Two consumer warpgroups each hold a
+// 64 x 256 fp32 accumulator (128 registers a thread) and issue wgmma
+// m64n256k16; one producer thread keeps both rings full. The grid is
+// persistent over every SM: block i takes a contiguous run of the B x tiles
+// output tiles (samples back to back, since the weights are shared), so one
+// tile's epilogue overlaps the next tile's loads. Shared memory: 3 A stages
+// (60 KB) + 3 B stages (96 KB) + 2 x 32 KB output staging + barriers.
+// Bound at BigGAN-deep-256's [64,129,129,256]: 5.5e11 operations (0.556 ms
+// at 989 TFLOP/s) against 1.08e9 bytes (0.32 ms): operations bind. On an
+// H100 it runs at about two thirds of that, level with cuDNN (PERF.md).
+namespace stream {
+
+constexpr int C = 256;
+constexpr int CHUNKS = C / KCH;                 // 64-channel chunks of one tap's K
+constexpr int STEPS = 2 * CHUNKS;               // A stages per tile: (c, chunk)
+constexpr int A_STAGES = 3, B_STAGES = 3;
+constexpr int B_STAGE = C * ROW_BYTES;          // one (tap, chunk) slab
+constexpr int O_HALF = 64 * ROW_BYTES;          // 64 rows x 64 channels of output
+constexpr int O_GROUP = CHUNKS * O_HALF;
+constexpr int B_OFF = A_STAGES * STAGE_BYTES;
+constexpr int O_OFF = B_OFF + B_STAGES * B_STAGE;
+constexpr int BAR_OFF = O_OFF + CONSUMERS * O_GROUP;
+constexpr int BYTES = BAR_OFF + 4 * (A_STAGES + B_STAGES) * 8 + 1024;  // + alignment slack
+static_assert(BYTES <= 232448, "over the 227 KB shared-memory opt-in");
+
+__global__ void __launch_bounds__(THREADS, 1)
+    s2d_conv2x2_wgmma_stream_kernel(const __grid_constant__ CUtensorMap xmap,
+                                    const __grid_constant__ CUtensorMap wmap,
+                                    const __grid_constant__ CUtensorMap ymap, int pad0,
+                                    int tiles_w, int tiles, int64_t total) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t a_s = base, b_s = base + B_OFF, o_s = base + O_OFF;
+  const uint32_t a_full = base + BAR_OFF;           // A_STAGES barriers: stage loaded
+  const uint32_t a_empty = a_full + 8 * A_STAGES;   // stage consumed by both warpgroups
+  const uint32_t b_full = a_empty + 8 * A_STAGES;
+  const uint32_t b_empty = b_full + 8 * B_STAGES;
+
+  const int64_t g_begin = total * blockIdx.x / gridDim.x;
+  const int64_t g_end = total * (blockIdx.x + 1) / gridDim.x;
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < A_STAGES; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, CONSUMERS);
+    }
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == CONSUMERS) {
+    // producer: one thread issues every TMA load of the block, in the order
+    // the consumers take them (A stage, then its two B slabs)
+    if (threadIdx.x != CONSUMERS * 128) return;
+    int as = 0, bs = 0;
+    uint32_t ap = 0, bp = 0;
+    for (int64_t g = g_begin; g < g_end; ++g) {
+      const int b = static_cast<int>(g / tiles), t = static_cast<int>(g % tiles);
+      const int v0 = (t / tiles_w) * TV, w0 = (t % tiles_w) * TW;
+      for (int s = 0; s < STEPS; ++s) {  // s = c * CHUNKS + chunk
+        const int c = s / CHUNKS, chunk = s % CHUNKS;
+        mbar_wait(a_empty + 8 * as, ap ^ 1);
+        mbar_expect_tx(a_full + 8 * as, STAGE_BYTES);
+        tma_load_4d(a_s + as * STAGE_BYTES, &xmap, a_full + 8 * as, chunk * KCH, w0 + c - pad0,
+                    v0 - pad0, b);
+        if (++as == A_STAGES) {
+          as = 0;
+          ap ^= 1;
+        }
+        for (int ta = 0; ta < 2; ++ta) {  // tap (ta, c): weight slab 2 * ta + c
+          mbar_wait(b_empty + 8 * bs, bp ^ 1);
+          mbar_expect_tx(b_full + 8 * bs, B_STAGE);
+          tma_load_3d(b_s + bs * B_STAGE, &wmap, b_full + 8 * bs, chunk * KCH, 0, 2 * ta + c);
+          if (++bs == B_STAGES) {
+            bs = 0;
+            bp ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `group` owns tile rows [64 group, 64 group + 64)
+  float acc[C / 2] = {};
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t out = o_s + group * O_GROUP;
+  unsigned char* out_p = smem + O_OFF + group * O_GROUP;
+  int as = 0, bs = 0;
+  uint32_t ap = 0, bp = 0;
+  for (int64_t g = g_begin; g < g_end; ++g) {
+    int prev_b = -1, prev_a = -1;  // the stages the last committed group reads
+    for (int s = 0; s < STEPS; ++s) {
+      mbar_wait(a_full + 8 * as, ap);
+      for (int ta = 0; ta < 2; ++ta) {
+        mbar_wait(b_full + 8 * bs, bp);
+        fence_operands(acc);
+        wgmma_fence();
+        const uint32_t a = a_s + as * STAGE_BYTES + (ta * TW + group * 64) * ROW_BYTES;
+        const uint32_t w = b_s + bs * B_STAGE;
+#pragma unroll
+        for (int k = 0; k < KCH / 16; ++k)
+          wgmma(acc, sw128_desc(a + 32 * k), sw128_desc(w + 32 * k), s > 0 || ta > 0 || k > 0);
+        wgmma_commit();
+        fence_operands(acc);
+        if (prev_b >= 0) {
+          wgmma_wait<1>();  // the previous group is done with its stages
+          if (leader) {
+            mbar_arrive(b_empty + 8 * prev_b);
+            if (prev_a >= 0) mbar_arrive(a_empty + 8 * prev_a);
+          }
+        }
+        prev_b = bs;
+        prev_a = ta == 1 ? as : -1;  // the A stage is free after its second tap
+        if (++bs == B_STAGES) {
+          bs = 0;
+          bp ^= 1;
+        }
+      }
+      if (++as == A_STAGES) {
+        as = 0;
+        ap ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (leader) {
+      mbar_arrive(b_empty + 8 * prev_b);
+      mbar_arrive(a_empty + 8 * prev_a);
+    }
+
+    // epilogue, as the resident-weight kernel's: round to bf16 in registers,
+    // stage in the swizzled layout of the output map, one TMA store per 64
+    // channels
+    const int b = static_cast<int>(g / tiles), t = static_cast<int>(g % tiles);
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    named_sync(1 + group);  // the previous tile's store has read the staging tile
+    const int r0 = warp * 16 + lane / 4;  // accumulator rows r0 and r0 + 8
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        const int off = (j / 8) * O_HALF + row * ROW_BYTES + (((j % 8) ^ (row % 8)) * 16) +
+                        (lane % 4) * 4;
+        *reinterpret_cast<__nv_bfloat162*>(out_p + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1 + group);
+    if (leader) {
+      const int v0 = (t / tiles_w) * TV + 2 * group, w0 = (t % tiles_w) * TW;
+#pragma unroll
+      for (int h = 0; h < CHUNKS; ++h) tma_store_4d(&ymap, out + h * O_HALF, h * KCH, w0, v0, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+int launch(const void* x, const void* kt, void* y, int64_t B, int64_t n, int64_t n_out, int pad0,
+           cudaStream_t st) {
+  const uint64_t row = C * 2;
+  const uint64_t xd[4] = {C, uint64_t(n), uint64_t(n), uint64_t(B)};
+  const uint64_t xs[3] = {row, row * n, row * n * n};
+  const uint32_t xb[4] = {KCH, TW, TV + 1, 1};
+  const uint64_t yd[4] = {C, uint64_t(n_out), uint64_t(n_out), uint64_t(B)};
+  const uint64_t ys[3] = {row, row * n_out, row * n_out * n_out};
+  const uint32_t yb[4] = {KCH, TW, TV / CONSUMERS, 1};
+  const uint64_t wd[3] = {C, C, 4};  // [taps, out, in]
+  const uint64_t ws[2] = {row, row * C};
+  const uint32_t wb[3] = {KCH, C, 1};
+  CUtensorMap xmap, ymap, wmap;
+  if (!encode(&xmap, x, 4, xd, xs, xb) || !encode(&ymap, y, 4, yd, ys, yb) ||
+      !encode(&wmap, kt, 3, wd, ws, wb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(s2d_conv2x2_wgmma_stream_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_w = static_cast<int>((n_out + TW - 1) / TW);
+  const int tiles = tiles_w * static_cast<int>((n_out + TV - 1) / TV);
+  const int64_t total = B * tiles;
+  const int64_t blocks = std::min<int64_t>(total, cg::sm_count());
+  s2d_conv2x2_wgmma_stream_kernel<<<static_cast<unsigned>(blocks), THREADS, BYTES, st>>>(
+      xmap, wmap, ymap, pad0, tiles_w, tiles, total);
+  return 0;
+}
+
+}  // namespace stream
+
 }  // namespace wg
 
 }  // namespace
@@ -679,6 +867,23 @@ extern "C" int cg_s2d_conv2x2_wgmma(const void* x, const void* kt, void* y, int6
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int status = C == 128 ? wg::launch_wgmma<128>(x, kt, y, B, n, n_out, pad0, kt_sets, st)
                               : wg::launch_wgmma<64>(x, kt, y, B, n, n_out, pad0, kt_sets, st);
+  if (status != 0) return status;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma_stream variant: bf16, C = 256, one weight set kt [2, 2, C, C]
+// bf16 (each tap [out, in]) for every sample. x, kt and y contiguous and
+// 16-byte aligned.
+extern "C" int cg_s2d_conv2x2_wgmma_stream(const void* x, const void* kt, void* y, int64_t B,
+                                           int64_t n, int64_t n_out, int64_t C, int pad0,
+                                           void* stream) {
+  if (B * n_out == 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (C != 256 || B > (1 << 24) || n > (1 << 15) || (pad0 != 0 && pad0 != 1) ||
+      n_out != (pad0 ? n + 1 : n - 1) || misaligned(x) || misaligned(kt) || misaligned(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int status = wg::stream::launch(x, kt, y, B, n, n_out, pad0,
+                                        static_cast<cudaStream_t>(stream));
   if (status != 0) return status;
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,9 +80,18 @@ def noise_bias_lrelu(x: torch.Tensor, noise: torch.Tensor,
                      alpha: float = 0.2, gain: float = SQRT2) -> torch.Tensor:
     """Fused noise injection + bias + leaky ReLU + gain. CUDA: the
     hand-written kernel (noise, scale and bias in x's dtype; the scale stays
-    on the device); CPU: `noise_bias_lrelu_plain`."""
-    if x.device.type == "cpu":
+    on the device), differentiable as its plain version (`cuda.with_grad`);
+    CPU: `noise_bias_lrelu_plain`."""
+    if cuda.takes_plain(x):
         return noise_bias_lrelu_plain(x, noise, noise_scale, bias, alpha, gain)
+    return cuda.with_grad(_noise_bias_lrelu_cuda, noise_bias_lrelu_plain, x, noise,
+                          noise_scale, bias, alpha, gain)
+
+
+def _noise_bias_lrelu_cuda(x: torch.Tensor, noise: torch.Tensor,
+                            noise_scale: torch.Tensor, bias: torch.Tensor,
+                            alpha: float, gain: float) -> torch.Tensor:
+    """Check the operands and launch the kernel; counts the launch."""
     cuda.require_cuda("noise_bias_lrelu", x, noise, noise_scale, bias,
                       dtype=x.dtype)
     B, H, W, C = x.shape

@@ -30,6 +30,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
@@ -69,11 +70,19 @@ _SIGNATURES = {
     # variant, bf16, C in {64, 128}; kt_sets = B, or 1 shared by every
     # sample; each tap [out, in])
     "cg_s2d_conv2x2_wgmma": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _I64, _P),
+    # x, kt, out, B, n, n_out, C, pad0, stream (kernel 4: the wgmma_stream
+    # variant, bf16, C = 256, one weight set [2, 2, out, in] for every sample)
+    "cg_s2d_conv2x2_wgmma_stream": (_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P),
     # x, w, scale, out, B, H, W, I, Ho, Wo, O, kh, kw, ldw, stride, pad0,
     # lhs_dilation, out dtype (0 fp32, 1 bf16, 2 int32), vec16, stream (the
     # int8 conv of ops/conv_s8.py)
     "cg_conv_s8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                    _I64, _INT, _INT, _INT, _INT, _INT, _P),
+    # x, w, scale, out, B, H, W, I, Ho, Wo, O, ldw, stride, ostep, n_phases,
+    # phase table (host int[8 * n_phases]), x dtype (0 fp32, 1 bf16, 2 int8),
+    # x_inv_scale, out dtype, stream (conv_s8's wgmma route)
+    "cg_conv_s8_wgmma": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                         _INT, _INT, _INT, _P, _INT, _F, _INT, _P),
 }
 
 _lock = threading.Lock()
@@ -223,3 +232,67 @@ def vector_width(dtype: torch.dtype, n_inner: int, *tensors: torch.Tensor) -> in
     if n_inner % vec or any(t.data_ptr() % 16 for t in tensors):
         return 1
     return vec
+
+
+# ------------------------------------------------------------ gradients
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's plain version for `t`: a tensor
+    on the CPU. A CUDA tensor launches the kernel or raises."""
+    return t.device.type == "cpu"
+
+
+def grad_wanted(*args) -> bool:
+    """Whether a call on `args` must record a gradient: grad mode is on and
+    a tensor argument requires grad (never under `torch.no_grad()` or
+    `torch.inference_mode()`)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+
+
+class _KernelGrad(torch.autograd.Function):
+    """The forward launches the hand-written kernel; the backward is the
+    gradient of its plain version, recomputed on detached copies of the
+    saved inputs on their device. The TPU kernels have no VJP either: the
+    JAX package differentiates the lax ops of their plain counterparts.
+    Once differentiable: a second derivative through it raises rather than
+    come out wrong."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.tensor_at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        ctx.args = [None if i in ctx.tensor_at else a for i, a in enumerate(args)]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        return launch(*args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        args = list(ctx.args)
+        wanted = []
+        for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+            need = ctx.needs_input_grad[2 + i]
+            args[i] = t.detach().requires_grad_(need)
+            if need:
+                wanted.append(i)
+        grads = [None] * len(args)
+        if wanted:
+            with torch.enable_grad():
+                out = ctx.plain(*args)
+            found = torch.autograd.grad(out, [args[i] for i in wanted], grad_out,
+                                        allow_unused=True)
+            for i, g in zip(wanted, found):
+                grads[i] = g
+        return (None, None, *grads)
+
+
+def with_grad(launch, plain, *args) -> torch.Tensor:
+    """`launch(*args)`, the kernel's wrapper on checked CUDA operands; when a
+    gradient is wanted (`grad_wanted`), through `_KernelGrad`, so that the
+    result's gradient is that of `plain(*args)`. Otherwise the launch is
+    direct and costs the host nothing more."""
+    if grad_wanted(*args):
+        return _KernelGrad.apply(launch, plain, *args)
+    return launch(*args)

@@ -44,10 +44,11 @@ def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0,
     package's `_conv` hands its operands to quant.conv_hook."""
     geometry = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=lhs_dilation)
 
-    def run(xx, ww, scale):
+    def run(xx, ww, scale, x_inv_scale):
         if scale is None:
             return _conv_float(xx, ww, **geometry)
-        return conv_s8(xx, ww, scale, out_dtype=x.dtype, **geometry)
+        return conv_s8(xx, ww, scale, out_dtype=x.dtype, x_inv_scale=x_inv_scale,
+                       **geometry)
 
     return quant.conv_hook(x, w, run)
 
@@ -228,10 +229,16 @@ def modulated_matmul(x: torch.Tensor, style: Optional[torch.Tensor],
                      bias: torch.Tensor) -> torch.Tensor:
     """x: [B, P, I]; style: [B, I] or None; w: [I, O]; demod: [B, O] or None;
     bias: [O]. Returns [B, P, O]. CUDA: the hand-written kernel (every
-    operand in x's dtype), the variant `modulated_matmul_variant` picks; CPU:
+    operand in x's dtype), the variant `modulated_matmul_variant` picks,
+    differentiable as its plain version (`cuda.with_grad`); CPU:
     `modulated_matmul_plain`."""
-    if x.device.type == "cpu":
+    if cuda.takes_plain(x):
         return modulated_matmul_plain(x, style, w, demod, bias)
+    return cuda.with_grad(_modulated_matmul_cuda, modulated_matmul_plain, x, style, w,
+                          demod, bias)
+
+
+def _modulated_matmul_cuda(x, style, w, demod, bias) -> torch.Tensor:
     cuda.require_cuda("modulated_matmul", x, style, w, demod, bias, dtype=x.dtype)
     B, P, I = x.shape
     O = w.shape[1]

@@ -9,7 +9,7 @@ The JAX package's ops/quant.py, on the port's layouts:
 - Activations: one static scale per call site, calibrated once from one
   evaluation in the float path (`calibration`), times the config's margin;
   quantized by multiplying with float32(127/sx), rounding and clipping (out
-  of range values saturate).
+  of range values saturate): inside `conv_s8`, in its gather on the card.
 - Accumulation in int32 (`ops/conv_s8.py`: the hand-written kernel on the
   card), dequantized in the conv's epilogue by float32(acc) * scale[o],
   rounded once to the activation dtype. scale = sw * float32(sx/127) as the
@@ -116,25 +116,25 @@ def quantize_weights(w: torch.Tensor):
     return wq, wmax
 
 
-def quantize_activations(x: torch.Tensor, sx: float) -> torch.Tensor:
-    """x -> int8 with the static scale sx: round(x * float32(127/sx)),
-    clipped to +-127."""
-    y = x.to(torch.float32, copy=True)   # one fp32 buffer, updated in place
-    y.mul_(float(np.float32(127.0 / sx))).round_().clamp_(-127, 127)
-    return y.to(torch.int8)
+def activation_inv_scale(sx: float) -> float:
+    """float32(127/sx): the factor that quantizes an activation of static
+    scale sx."""
+    return float(np.float32(127.0 / sx))
 
 
 def conv_hook(x: torch.Tensor, w: torch.Tensor, run):
     """The one integration point, called by ops.modulated_conv._conv with
-    `run(xx, ww, scale)`: scale None runs the float conv of xx and ww; an
-    fp32 [O] scale runs the int8 conv of int8 xx and ww, dequantized by it
-    to x's dtype. With no scope on this thread: `run(x, w, None)`."""
+    `run(x, ww, scale, x_inv_scale)`: scale None runs the float conv of x
+    and ww; an fp32 [O] scale runs the int8 conv of x, quantized by
+    x_inv_scale = float32(127/sx) (inside conv_s8, in its gather on the
+    card), and int8 ww, dequantized by scale to x's dtype. With no scope on
+    this thread: `run(x, w, None, None)`."""
     ctx = _current()
     if ctx is None or not eligible(w.shape, ctx.min_ch):
-        return run(x, w, None)
+        return run(x, w, None, None)
     if ctx.mode == "calib":
         ctx.records.append(x.float().abs().amax())
-        return run(x, w, None)
+        return run(x, w, None, None)
     if ctx.scales is None or ctx.i >= len(ctx.scales):
         raise RuntimeError(
             f"int8_scope: conv call #{ctx.i} has no calibrated scale "
@@ -143,9 +143,9 @@ def conv_hook(x: torch.Tensor, w: torch.Tensor, run):
     sx = float(ctx.scales[ctx.i])
     ctx.i += 1
     if not math.isfinite(sx) or sx <= 0.0:
-        return run(x, w, None)  # dead activation at calibration: keep float
+        return run(x, w, None, None)  # dead activation at calibration: keep float
     wq, wmax = quantize_weights(w)
     # sw * float32(sx/127) with XLA's association: its two float32 constants
     # folded into one product first
     scale = wmax * float(_INV127 * np.float32(sx / 127.0))
-    return run(quantize_activations(x, sx), wq, scale)
+    return run(x, wq, scale, activation_inv_scale(sx))

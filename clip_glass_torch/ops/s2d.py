@@ -362,23 +362,29 @@ def _fold_style(K, style, demod):
     return Kb
 
 
-def conv2x2_variant(dtype: torch.dtype, C: int) -> str:
-    """The kernel that s2d_conv2x2 launches, from x's dtype and channels
-    alone (csrc/s2d_conv2x2.cu): "wgmma" for bf16 with C' of 64 or 128 (TMA
-    and wgmma, every flagship launch), "wmma" for any other bf16 C', "fp32"
-    for fp32."""
+def conv2x2_variant(dtype: torch.dtype, C: int, shared: bool = False) -> str:
+    """The kernel that s2d_conv2x2 launches, from x's dtype, its channels and
+    whether one weight set serves every sample (csrc/s2d_conv2x2.cu):
+    "wgmma" for bf16 with C' of 64 or 128 (TMA and wgmma, the weights
+    resident in shared memory: every flagship launch, BigGAN-deep-512's last
+    blocks); "wgmma_stream" for bf16 with C' = 256 and one shared set (the
+    same, the weights streamed by TMA: BigGAN-deep's block 11); "wmma" for
+    any other bf16 C' (TINY's 20, per-sample weights at 256, which no config
+    runs); "fp32" for fp32."""
     if dtype == torch.float32:
         return "fp32"
-    return "wgmma" if C in (64, 128) else "wmma"
+    if C in (64, 128):
+        return "wgmma"
+    return "wgmma_stream" if C == 256 and shared else "wmma"
 
 
 def conv2x2_weights(K, style, demod, dtype: torch.dtype, variant: str):
     """The kernel's weight operand: Kb (`_fold_style`, fp32) rounded once to
     `dtype`, [sets, 2, 2, C', C'] with sets = B, or 1 when style and demod
-    are both None. "wgmma" stores each tap [out, in], the K-major B operand
-    of wgmma; the other variants [in, out]. One pass: the copy rounds."""
+    are both None. The wgmma variants store each tap [out, in], the K-major
+    B operand of wgmma; the others [in, out]. One pass: the copy rounds."""
     Kb = _fold_style(K, style, demod)
-    if variant == "wgmma":
+    if variant.startswith("wgmma"):
         Kb = Kb.transpose(-1, -2)
     return torch.empty(Kb.shape, dtype=dtype, device=Kb.device).copy_(Kb)
 
@@ -388,10 +394,16 @@ def s2d_conv2x2(x: torch.Tensor, K: torch.Tensor, style, demod,
     """The offset-lattice [2,2] conv of `s2d_conv2x2_plain` (style/demod
     [B,C'] or None for ones). CUDA: the hand-written kernel
     (csrc/s2d_conv2x2.cu) on x's dtype, the variant `conv2x2_variant` picks,
-    with the weights from `conv2x2_weights`; an unmodulated call (both None)
-    hands it one weight set for every sample. CPU: `s2d_conv2x2_plain`."""
-    if x.device.type == "cpu":
+    with the weights from `conv2x2_weights`, differentiable as its plain
+    version (`cuda.with_grad`); an unmodulated call (both None) hands it one
+    weight set for every sample. CPU: `s2d_conv2x2_plain`."""
+    if cuda.takes_plain(x):
         return s2d_conv2x2_plain(x, K, style, demod, pad0)
+    return cuda.with_grad(_s2d_conv2x2_cuda, s2d_conv2x2_plain, x, K, style, demod, pad0)
+
+
+def _s2d_conv2x2_cuda(x: torch.Tensor, K: torch.Tensor, style, demod,
+                      pad0: int) -> torch.Tensor:
     cuda.require_cuda("s2d_conv2x2", x, dtype=x.dtype)
     B, n, n2, C = x.shape
     scales = [t for t in (style, demod) if t is not None]
@@ -402,7 +414,7 @@ def s2d_conv2x2(x: torch.Tensor, K: torch.Tensor, style, demod,
     for t in (K, *scales):
         if t.device != x.device:
             raise ValueError(f"s2d_conv2x2: tensors on {t.device} and {x.device}")
-    variant = conv2x2_variant(x.dtype, C)
+    variant = conv2x2_variant(x.dtype, C, shared=not scales)
     return conv2x2_launch(x, conv2x2_weights(K, style, demod, x.dtype, variant), pad0,
                           variant)
 
@@ -415,12 +427,19 @@ def conv2x2_launch(x: torch.Tensor, Kb: torch.Tensor, pad0: int,
     n_out = n + 1 if pad0 else n - 1
     out = torch.empty((B, n_out, n_out, C), dtype=x.dtype, device=x.device)
     lib = cuda.library()
-    if variant == "wgmma":
+    if variant.startswith("wgmma"):
         if any(t.data_ptr() % 16 for t in (x, Kb, out)):
             raise ValueError("s2d_conv2x2: the TMA kernel needs 16-byte aligned tensors")
-        status = lib.cg_s2d_conv2x2_wgmma(
-            x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
-            Kb.shape[0], cuda.stream_handle(x))
+        if variant == "wgmma":
+            status = lib.cg_s2d_conv2x2_wgmma(
+                x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
+                Kb.shape[0], cuda.stream_handle(x))
+        else:
+            if Kb.shape[0] != 1:
+                raise ValueError("s2d_conv2x2: wgmma_stream takes one shared weight set")
+            status = lib.cg_s2d_conv2x2_wgmma_stream(
+                x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
+                cuda.stream_handle(x))
     else:
         vec = cuda.vector_width(x.dtype, C, x, Kb, out)
         status = lib.cg_s2d_conv2x2(
@@ -433,7 +452,7 @@ def conv2x2_launch(x: torch.Tensor, Kb: torch.Tensor, pad0: int,
 
 
 s2d_conv2x2.launches = 0
-s2d_conv2x2.launches_by_variant = {"wgmma": 0, "wmma": 0, "fp32": 0}
+s2d_conv2x2.launches_by_variant = {"wgmma": 0, "wgmma_stream": 0, "wmma": 0, "fp32": 0}
 
 
 def _takes_conv2x2(K: torch.Tensor, x: torch.Tensor) -> bool:

@@ -110,10 +110,14 @@ def upsample2x_variant(dtype: torch.dtype, B: int, H: int, W: int, C: int) -> st
 def upsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
                gain: float = 1.0) -> torch.Tensor:
     """[B, H, W, C] -> [B, 2H, 2W, C]. CUDA: the hand-written kernel
-    (4 taps only), the variant `upsample2x_variant` picks; CPU:
-    `upsample2x_plain`."""
-    if x.device.type == "cpu":
+    (4 taps only), the variant `upsample2x_variant` picks, differentiable as
+    its plain version (`cuda.with_grad`); CPU: `upsample2x_plain`."""
+    if cuda.takes_plain(x):
         return upsample2x_plain(x, filter_taps, gain)
+    return cuda.with_grad(_upsample2x_cuda, upsample2x_plain, x, filter_taps, gain)
+
+
+def _upsample2x_cuda(x: torch.Tensor, filter_taps, gain: float) -> torch.Tensor:
     if len(filter_taps) != 4:
         raise ValueError("the CUDA upsample2x kernel takes 4 filter taps, "
                          f"got {len(filter_taps)}")

@@ -326,19 +326,43 @@ def test_s2d_conv2x2_shared_weights_equal_folded_ones(gpu, dtype, C):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("pad0,n", [(0, 17), (1, 16)])
 def test_s2d_conv2x2_shared_weights_at_c256(gpu, dtype, pad0, n):
-    """C' = 256, BigGAN-deep's 256 px fold (one shared weight set): the
-    wmma (bf16) and fp32 variants read set 0 for every sample; against the
-    plain version, and bitwise equal to B folded copies of unit scales."""
+    """C' = 256, BigGAN-deep's 256 px fold (one shared weight set): bf16
+    takes the wgmma_stream variant, fp32 the fp32 one, which reads set 0 for
+    every sample; against the plain version, and against B folded copies of
+    unit scales (the wmma variant in bf16, within the tolerance, since the
+    two sum in other orders; fp32 bitwise, one kernel)."""
     x, K, ones, _ = _s2d_args(gpu, 3, n, 256, False, dtype)
-    variant = s2d.conv2x2_variant(dtype, 256)
-    assert variant == ("wmma" if dtype == torch.bfloat16 else "fp32")
+    variant = s2d.conv2x2_variant(dtype, 256, shared=True)
+    assert variant == ("wgmma_stream" if dtype == torch.bfloat16 else "fp32")
     v0 = s2d.s2d_conv2x2.launches_by_variant[variant]
     got = s2d.s2d_conv2x2(x, K, None, None, pad0)
     assert s2d.s2d_conv2x2.launches_by_variant[variant] == v0 + 1
     want = s2d.s2d_conv2x2_plain(x, K, None, None, pad0)
     assert got.shape == want.shape == (3, n + 2 * pad0 - 1, n + 2 * pad0 - 1, 256)
     _close_scaled(got, want, dtype)
-    assert torch.equal(got, s2d.s2d_conv2x2(x, K, ones, ones, pad0))
+    folded = s2d.s2d_conv2x2(x, K, ones, ones, pad0)
+    if dtype == torch.bfloat16:
+        _close_scaled(got, folded, dtype)
+    else:
+        assert torch.equal(got, folded)
+
+
+@pytest.mark.parametrize("B,n,pad0", [
+    (1, 11, 0), (3, 11, 1),        # below one 32-cell tile row
+    (2, 70, 0), (1, 70, 1),        # ragged rows, both halos
+    (3, 129, 1), (5, 33, 0),       # 130 cells; more tiles than blocks per sample
+    (64, 129, 0), (32, 129, 0)])   # BigGAN-deep-256's and -512's block 11 (pop 64, 32)
+def test_s2d_conv2x2_wgmma_stream_kernel(gpu, B, n, pad0):
+    """The C' = 256 route with weights streamed by TMA against the plain
+    version, at BigGAN-deep's shapes and the edges of its tiles."""
+    x, K, _, _ = _s2d_args(gpu, B, n, 256, False, torch.bfloat16)
+    v0 = dict(s2d.s2d_conv2x2.launches_by_variant)
+    got = s2d.s2d_conv2x2(x, K, None, None, pad0)
+    assert s2d.s2d_conv2x2.launches_by_variant["wgmma_stream"] == v0["wgmma_stream"] + 1
+    assert s2d.s2d_conv2x2.launches_by_variant["wmma"] == v0["wmma"]
+    want = s2d.s2d_conv2x2_plain(x, K, None, None, pad0)
+    assert got.shape == want.shape == (B, n + 2 * pad0 - 1, n + 2 * pad0 - 1, 256)
+    _close_scaled(got, want, torch.bfloat16)
 
 
 def test_s2d_conv2x2_rejects_what_the_kernel_does_not_take(gpu):
@@ -491,6 +515,67 @@ def test_conv_s8_kernel_is_bitwise_its_plain_version(gpu, geom, out_dtype):
     assert torch.equal(got, want)
 
 
+# dilated geometries of the polyphase split: the s2d 4x4 up conv's (k 4, pad
+# 1), the plain levels' 3x3 up conv's (k 3, pad 2), k 1 (phases without a
+# tap), cropped and uneven pads; and sites with many K steps, several N
+# tiles and more tiles than SMs
+CONV_S8_WGMMA_GEOMETRIES = [
+    (2, 9, 7, 32, 40, 4, 1, 1, 1, 2),
+    (1, 8, 8, 16, 16, 3, 1, 2, 2, 2),
+    (2, 5, 6, 16, 8, 1, 1, 0, 0, 2),
+    (2, 7, 6, 48, 24, 3, 1, -1, 2, 2),
+    (1, 6, 5, 16, 130, 4, 1, 3, 0, 2),
+    (1, 12, 12, 512, 256, 3, 1, 1, 1, 1),
+    (8, 64, 64, 32, 64, 3, 1, 1, 1, 1),
+    (2, 17, 17, 64, 128, 3, 2, 0, 0, 1),
+]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("geom", CONV_S8_GEOMETRIES + CONV_S8_WGMMA_GEOMETRIES,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_conv_s8_fused_entry_is_bitwise_its_plain_version(gpu, geom, out_dtype, x_dtype):
+    """A float x with x_inv_scale: quantized in the wgmma route's gather (or
+    by `quantize` before the mma_sync route), bitwise the plain version of
+    the quantized x; each call on the route `conv_s8_variant` names, and
+    the int8 entry on the same route bitwise the same."""
+    from clip_glass_torch.ops import quant
+    from clip_glass_torch.ops.conv_s8 import conv_s8, conv_s8_plain, conv_s8_variant, quantize
+
+    B, H, W, I, O, k, stride, pad0, pad1, d = geom
+    x = (3.0 * torch.randn((B, H, W, I), generator=gpu, device="cuda")).to(x_dtype)
+    wq = torch.randint(-127, 128, (O, I, k, k), generator=gpu, device="cuda").to(torch.int8)
+    scale = torch.rand(O, generator=gpu, device="cuda") * 1e-3
+    inv = quant.activation_inv_scale(6.0)   # some entries saturate, some round to .5
+    kw = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=d, out_dtype=out_dtype)
+    variant = conv_s8_variant(I, stride, d)
+    v0 = conv_s8.launches_by_variant[variant]
+    got = conv_s8(x, wq, scale, x_inv_scale=inv, **kw)
+    assert conv_s8.launches_by_variant[variant] == v0 + 1
+    xq = quantize(x, inv)
+    want = conv_s8_plain(xq, wq, scale, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(conv_s8(xq, wq, scale, **kw), want)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_conv_s8_routes_agree_bitwise(gpu, d):
+    """The wgmma route and the mma_sync route on the same int8 operands."""
+    from clip_glass_torch.ops.conv_s8 import conv_s8_launch
+
+    xq = torch.randint(-127, 128, (2, 21, 19, 64), generator=gpu, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (96, 64, 3, 3), generator=gpu, device="cuda").to(torch.int8)
+    scale = torch.rand(96, generator=gpu, device="cuda")
+    geom = dict(stride=1, pad0=2 if d == 2 else 1, pad1=2 if d == 2 else 1, lhs_dilation=d)
+    a = conv_s8_launch(xq, wq, scale, geom, torch.int32, None, "wgmma")
+    b = conv_s8_launch(xq, wq, scale, geom, torch.int32, None, "mma_sync")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_conv_s8_rejects_what_the_kernel_does_not_take(gpu):
     from clip_glass_torch.ops.conv_s8 import conv_s8
 
@@ -514,3 +599,39 @@ def test_tiny_int8_fitness_on_gpu_matches_cpu(gpu):
     import chip_smoke
 
     chip_smoke.phase_agreement_int8()
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("noise_bias_lrelu", (2, 16, 16, 32)), ("upsample2x", (2, 16, 16, 3)),
+    ("modulated_matmul", (2, 256, 32, 3)), ("s2d_conv2x2", (2, 33, 128, 1, True)),
+    ("s2d_conv2x2", (2, 17, 256, 0, False)), ("s2d_conv2x2", (2, 13, 20, 1, True))])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_gradient_equals_plain_autograd(gpu, name, shape, dtype):
+    """The smoke run's gradient check at small shapes: the wrapper launches
+    its kernel and returns a grad_fn, and its input gradients equal the
+    plain version's autograd on the card; under inference_mode the direct
+    launch."""
+    import chip_smoke
+
+    err, _ = chip_smoke._grad_case(name, shape, dtype, gpu)
+    assert err <= TOL[dtype]
+
+
+def test_tiny_generator_gradient_on_gpu_matches_cpu(gpu):
+    """The TINY StyleGAN2 G (plain domain, fp32): its latent gradient on the
+    card (kernels 1-3 under autograd) against the CPU's (plain versions)."""
+    import chip_smoke
+
+    got, want = chip_smoke._tiny_g_latent_grad("cuda"), chip_smoke._tiny_g_latent_grad("cpu")
+    assert ((got - want).abs().max() / want.abs().max()).item() <= chip_smoke.GRAD_G_TOL
+
+
+def test_conv_s8_raises_under_grad_on_gpu(gpu):
+    from clip_glass_torch.ops.conv_s8 import conv_s8
+
+    x = torch.randn((1, 6, 6, 32), device="cuda", requires_grad=True)
+    wq = torch.zeros((8, 32, 3, 3), dtype=torch.int8, device="cuda")
+    with pytest.raises(RuntimeError, match="inference-only"):
+        conv_s8(x, wq, torch.ones(8, device="cuda"), pad0=1, pad1=1, x_inv_scale=2.0)
+    with torch.inference_mode():
+        conv_s8(x, wq, torch.ones(8, device="cuda"), pad0=1, pad1=1, x_inv_scale=2.0)

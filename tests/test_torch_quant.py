@@ -229,6 +229,146 @@ def test_scoped_conv_equals_jax_conv_hook(geom, dtype):
     np.testing.assert_array_equal(N(got), want)
 
 
+def _scoped_site(geom_x, w_shape_oihw, geometry, dtype, seed):
+    """The port's `_conv` and JAX's, each inside an int8 scope of one site,
+    on the same float operands (a scale that saturates some entries):
+    (port output, JAX output) as float32 numpy."""
+    B, H, W, I = geom_x
+    O, _, kh, kw = w_shape_oihw
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, W, I)).astype(np.float32)
+    w = (rng.normal(size=(kh, kw, I, O)) / np.sqrt(kh * kw * I)).astype(np.float32)
+    sx = float(np.abs(x).max()) * 0.8
+    jd = getattr(jnp, dtype)
+
+    def jfn(xx, ww):
+        with jquant.int8_scope(np.asarray([sx]), min_ch=1):
+            return jmc._conv(xx, ww, **geometry)
+    want = np.asarray(jax.jit(jfn)(jnp.asarray(x, jd), jnp.asarray(w, jd)).astype(jnp.float32))
+    td = getattr(torch, dtype)
+    with quant.int8_scope([sx], 1):
+        got = _conv(T(x).to(td), oihw(w).to(td), **geometry)
+    return N(got), want
+
+
+def test_fused_entry_equals_jax_conv_hook_at_the_tiny_flagship_sites():
+    """Every conv_s8 call of the TINY int8 flagship evaluation (both
+    domains) takes the fused entry, the float activation and its
+    x_inv_scale = float32(127/sx), and at each of its geometries the port's
+    site equals JAX's conv_hook bitwise (fp32 and bf16)."""
+    from clip_glass_torch.ops import modulated_conv
+
+    sites = {}
+    real = modulated_conv.conv_s8
+
+    def record(x, wq, scale, **kw):
+        assert x.is_floating_point() and kw["x_inv_scale"] is not None
+        geometry = {k: v for k, v in kw.items() if k not in ("out_dtype", "x_inv_scale")}
+        sites[(tuple(x.shape), tuple(wq.shape), tuple(sorted(geometry.items())))] = geometry
+        return real(x, wq, scale, **kw)
+
+    for family in ("d", "d_s2d"):
+        _, _, tprob = _pair(family)
+        modulated_conv.conv_s8 = record
+        try:
+            with torch.inference_mode():
+                tprob.generator.eval_population(torch.from_numpy(_X(family, seed=3)))
+        finally:
+            modulated_conv.conv_s8 = real
+    assert len(sites) >= 10
+    for i, ((x_shape, w_shape, _), geometry) in enumerate(sorted(sites.items())):
+        for dtype in ("float32", "bfloat16"):
+            got, want = _scoped_site(x_shape, w_shape, geometry, dtype, seed=40 + i)
+            np.testing.assert_array_equal(got, want)
+
+
+# (H, W, k, pad0, pad1): the flagship's 2x-up convs (k 3 at pad 2: the plain
+# levels; k 4 at pad 1: the s2d up conv) and odd extents, cropped and uneven
+# pads, k 1 (a phase without a tap) and k 2
+POLYPHASE_CASES = [(4, 4, 3, 2, 2), (5, 7, 3, 2, 2), (5, 5, 4, 1, 1), (6, 3, 4, 1, 1),
+                   (5, 6, 4, 2, 1), (4, 5, 3, -1, 2), (3, 4, 3, 0, 0), (5, 4, 1, 0, 0),
+                   (4, 4, 2, 1, 0), (6, 5, 4, 3, 0)]
+
+
+@pytest.mark.parametrize("case", POLYPHASE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_polyphase_packing_equals_the_dilated_conv(case):
+    """The per-phase weight packing (`phases`, `pack_weights`), applied phase
+    by phase through the plain reference of the split
+    (`conv_s8_phases_plain`), equals `conv_s8_plain` at lhs_dilation 2
+    bitwise; the undilated conv is its one phase."""
+    from clip_glass_torch.ops.conv_s8 import conv_s8_phases_plain, pack_weights, phases
+
+    H, W, k, pad0, pad1 = case
+    B, I, O = 2, 16, 5
+    rng = np.random.default_rng(sum(case) + 50)
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(B, H, W, I)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(O, I, k, k)).astype(np.int8))
+    for d, stride in ((2, 1), (1, 1), (1, 2)):
+        Ho, Wo = out_size(H, k, stride, pad0, pad1, d), out_size(W, k, stride, pad0, pad1, d)
+        if Ho < 1 or Wo < 1:
+            continue
+        plist = phases(k, k, stride, pad0, d, Ho, Wo)
+        assert len(plist) == (4 if d == 2 and Ho > 1 and Wo > 1 else len(plist))
+        got = conv_s8_phases_plain(xq, pack_weights(wq, plist, d), plist, stride=stride,
+                                   lhs_dilation=d, Ho=Ho, Wo=Wo)
+        want = conv_s8_plain(xq, wq, torch.ones(O), stride=stride, pad0=pad0, pad1=pad1,
+                             lhs_dilation=d, out_dtype=torch.int32)
+        assert torch.equal(got, want), (d, stride)
+
+
+@pytest.mark.parametrize("k,pad0", [(3, 2), (4, 1), (1, 0), (4, 2), (3, -1)])
+def test_each_phase_packs_only_real_taps(k, pad0):
+    """Per axis, phase r's taps are exactly those whose dilated position
+    r + ky - pad0 is even (a sample, not a hole); its packed row holds their
+    K = kh' * kw' * I weights and zeros after; the phases' products cover
+    each (output, tap) pair that meets a sample once."""
+    from clip_glass_torch.ops.conv_s8 import pack_weights, phases
+
+    I, O, n_out = 16, 3, 9
+    wq = torch.arange(1, O * I * k * k + 1, dtype=torch.int32).remainder(251).sub(125)
+    wq = wq.to(torch.int8).reshape(O, I, k, k)
+    plist = phases(k, k, 1, pad0, 2, n_out, n_out)
+    packed = pack_weights(wq, plist, 2)
+    pairs = 0
+    for q, (ky0, kx0, khp, kwp, _, _, Hp, Wp, ry, rx) in enumerate(plist):
+        taps_y = [t for t in range(k) if (ry + t - pad0) % 2 == 0]
+        taps_x = [t for t in range(k) if (rx + t - pad0) % 2 == 0]
+        assert list(range(ky0, k, 2)) == taps_y and khp == len(taps_y)
+        assert list(range(kx0, k, 2)) == taps_x and kwp == len(taps_x)
+        K = khp * kwp * I
+        assert torch.equal(packed[q, :, :K],
+                           wq[:, :, taps_y][:, :, :, taps_x].permute(0, 2, 3, 1).reshape(O, K))
+        assert not packed[q, :, K:].any()
+        pairs += Hp * Wp * khp * kwp
+    per_axis = sum(1 for o in range(n_out) for t in range(k) if (o + t - pad0) % 2 == 0)
+    assert pairs == per_axis ** 2
+
+
+@pytest.mark.parametrize("I,stride,d,route", [
+    (512, 1, 1, "wgmma"), (128, 2, 1, "wgmma"), (128, 1, 2, "wgmma"), (64, 2, 1, "wgmma"),
+    (16, 1, 2, "wgmma"), (513, 1, 1, "mma_sync"), (3, 1, 1, "mma_sync"),
+    (12, 1, 2, "mma_sync"), (128, 2, 2, "mma_sync"), (128, 1, 3, "mma_sync")])
+def test_conv_s8_variant_rule(I, stride, d, route):
+    """The wgmma route takes 16-byte channel gathers (I % 16 == 0), undilated
+    or 2-dilated at stride 1; D's last conv (I = 513) and odd widths keep
+    the first design."""
+    from clip_glass_torch.ops.conv_s8 import conv_s8_variant
+
+    assert conv_s8_variant(I, stride, d) == route
+
+
+def test_conv_s8_entries_refuse_a_mismatch():
+    """A float x needs x_inv_scale, an int8 x takes none."""
+    x = torch.zeros((1, 4, 4, 16))
+    wq = torch.zeros((4, 16, 3, 3), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        conv_s8(x, wq, torch.ones(4))
+    with pytest.raises(TypeError):
+        conv_s8(x.to(torch.int8), wq, torch.ones(4), x_inv_scale=1.0)
+    with pytest.raises(TypeError):
+        conv_s8(x.half(), wq, torch.ones(4), x_inv_scale=1.0)
+
+
 # ------------------------------------------------------------ (d)
 
 

@@ -410,12 +410,12 @@ def test_s2d_conv2x2_none_is_bitwise_ones(rng, dtype, pad0, modulated):
         assert torch.equal(fn(x, K, style, None, pad0), want)
 
 
-@pytest.mark.parametrize("variant", ["wgmma", "wmma", "fp32"])
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma_stream", "wmma", "fp32"])
 @pytest.mark.parametrize("shared", [False, True])
 def test_conv2x2_weights_hold_the_folded_values(rng, variant, shared):
     """The kernel's weight operand holds `_fold_style(...).to(dtype)`, each
-    tap [out, in] for wgmma and [in, out] otherwise, contiguous; one shared
-    copy, round(K), for style = demod = None."""
+    tap [out, in] for the wgmma variants and [in, out] otherwise, contiguous;
+    one shared copy, round(K), for style = demod = None."""
     Bc, C = 3, 16
     dtype = torch.float32 if variant == "fp32" else torch.bfloat16
     K = torch.from_numpy(_x(rng, 2, 2, C, C))
@@ -424,7 +424,7 @@ def test_conv2x2_weights_hold_the_folded_values(rng, variant, shared):
     got = S.conv2x2_weights(K, style, demod, dtype, variant)
     assert got.dtype == dtype and got.is_contiguous()
     assert got.shape == (1 if shared else Bc, 2, 2, C, C)
-    if variant == "wgmma":
+    if variant.startswith("wgmma"):
         got = got.transpose(-1, -2)
     assert torch.equal(got, S._fold_style(K, style, demod).to(dtype))
     if shared:
@@ -438,5 +438,37 @@ def test_conv2x2_weights_hold_the_folded_values(rng, variant, shared):
     (torch.float32, 20, "fp32")])
 def test_conv2x2_variant_rule(dtype, C, variant):
     """bf16 with C' of 64 or 128 (every flagship launch) takes the TMA/wgmma
-    kernel; other bf16 widths and fp32 keep the first design's kernels."""
+    kernel; other bf16 widths and fp32 keep the first design's kernels, and
+    so do per-sample weights at C' = 256, which no config runs."""
     assert S.conv2x2_variant(dtype, C) == variant
+    assert S.conv2x2_variant(dtype, C, shared=False) == variant
+
+
+@pytest.mark.parametrize("dtype,C,variant", [
+    (torch.bfloat16, 256, "wgmma_stream"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 20, "wmma"),
+    (torch.bfloat16, 512, "wmma"), (torch.float32, 256, "fp32")])
+def test_conv2x2_variant_rule_with_one_shared_set(dtype, C, variant):
+    """One weight set for every sample (an unmodulated fold: BigGAN-deep's
+    mid segments, D's convs): bf16 at C' = 256 streams the weights by TMA
+    (wgmma_stream); 64 and 128 keep them resident (wgmma)."""
+    assert S.conv2x2_variant(dtype, C, shared=True) == variant
+
+
+def test_biggan_folds_take_no_wmma():
+    """Every [2,2] fold of both BigGAN-deep configs (C' = 4 * mid of the
+    blocks whose mid segment runs in the s2d domain, one shared set) takes
+    a wgmma variant: wgmma_stream at C' = 256, wgmma at 128."""
+    from clip_glass_torch.models.biggan import model as bg
+
+    seen = set()
+    for name in ("biggan-deep-256", "biggan-deep-512"):
+        cfg = bg.CONFIGS[name]
+        res = 4
+        for up, in_m, _ in cfg.layers:
+            out_res = 2 * res if up else res
+            mid = cfg.channel_width * in_m // 4
+            if out_res >= cfg.s2d_min_res and 4 * mid <= 512:
+                seen.add((4 * mid, S.conv2x2_variant(torch.bfloat16, 4 * mid, shared=True)))
+            res = out_res
+    assert seen == {(256, "wgmma_stream"), (128, "wgmma")}
