@@ -158,10 +158,31 @@ int8 convs run the hand-written conv_s8 (csrc/conv_s8.cu):
  24. int8 cli: `cli.main --quantize int8` on the flagship: Q1 2
      generations, Q2 resumed to 4, Q3 4 straight (Q2 == Q3 bitwise), S
      --serve of 2 prompts through 2 slots; each run's artifact set.
+Then the projector and the metrics, on config-f 1024 px from a `Gs.pth` that
+weights/synthesize.py writes (seed 0: random weights at a checkpoint's
+scale; `random:0`'s images saturate, so a projection through the clamp gets
+no gradient), fp32, with LPIPS-VGG16 and the FID InceptionV3 at their real
+geometries, written in the reference's layouts and read back through the
+convert CLI:
+ 25. projector: `Projector.project` for 20 steps, B = 1: each step's seconds
+     and launches, every launch of kernels 1-3 recorded under grad through
+     `cuda._KernelGrad` (17, 8 and 9 a step) and none of kernel 4 (the plain
+     domain), the final render in the default domain (kernel 4), peak
+     memory, the distance at the first step and after the last (it must
+     fall); kernels 1-3 at the step's fp32 shapes, output and gradient
+     against the plain versions; the loss's dlatent gradient through the
+     kernels against the plain route; one first step, card against CPU, on
+     config-f cut to 256 px;
+ 26. ppl: `PPL.evaluate`, 2 batches of 8 pairs, epsilon 1e-4, LPIPS: the
+     value, s a batch, kernels 1-4 launched (kernel 4 at 512 and 1024 px);
+ 27. fid: `FID` over 2 x 64 G samples: s an Inception batch and a G batch,
+     FID(A, A) about 0, FID(A, B).
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
-record: phase 19's launches and phase 17's per-path sums), the card's name
-and power limit, and {"ok": true, "device": {...}}.
+record: phase 19's launches and phase 17's per-path sums, a `projector`
+record: phase 25's launches, those under grad and, for kernels 1-3, the
+errors at the step's shapes, and a `ppl` record: phase 26's launches), the
+card's name and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -174,6 +195,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -778,8 +800,9 @@ def _grad_case(name, shape, dtype, gen):
     """The kernel's wrapper and its plain version on one set of operands,
     every float operand requiring grad: loss = sum(out * r) with a seeded r.
     Returns the largest gradient difference relative to the largest plain
-    gradient, after checking that the wrapper launched its kernel once and
-    returned a result with a grad_fn."""
+    gradient, the inputs' shapes and the output's max abs error, after
+    checking that the wrapper launched its kernel once and returned a result
+    with a grad_fn that agrees with the plain version's output (`_check`)."""
     from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
 
     wrapper, plain, make = {
@@ -799,8 +822,11 @@ def _grad_case(name, shape, dtype, gen):
         raise AssertionError(f"{name} {shape} {dtype}: {wrapper.launches - n0} launches, "
                              f"grad_fn {out.grad_fn}")
     r = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    plain_out = plain(*args)
+    out_err = _check(name, out.detach(), plain_out.detach(), dtype, shape,
+                     scaled=name == "s2d_conv2x2")
     got = torch.autograd.grad((out.float() * r.float()).sum(), inputs)
-    want = torch.autograd.grad((plain(*args).float() * r.float()).sum(), inputs)
+    want = torch.autograd.grad((plain_out.float() * r.float()).sum(), inputs)
     torch.cuda.synchronize()
     err, scale = 0.0, 0.0
     for g, w in zip(got, want):
@@ -809,7 +835,7 @@ def _grad_case(name, shape, dtype, gen):
     with torch.inference_mode():  # no gradient: the direct launch, no grad_fn
         if wrapper(*args).grad_fn is not None or wrapper.launches != n0 + 2:
             raise AssertionError(f"{name}: inference_mode did not launch directly")
-    return err / max(scale, 1e-30), [tuple(t.shape) for t in inputs]
+    return err / max(scale, 1e-30), [tuple(t.shape) for t in inputs], out_err
 
 
 def _tiny_g_latent_grad(device: str):
@@ -850,7 +876,7 @@ def phase_gradients() -> dict:
     for name, shape in GRAD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             v0 = dict(s2d.s2d_conv2x2.launches_by_variant)
-            err, shapes = _grad_case(name, shape, dtype, gen)
+            err, shapes, _ = _grad_case(name, shape, dtype, gen)
             rec = {"phase": "gradients", "kernel": name, "shape": list(shape),
                    "dtype": str(dtype), "inputs": shapes, "max_rel_err": err,
                    "tolerance": TOL[dtype]}
@@ -3047,6 +3073,427 @@ def phase_cli_int8(summary: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 25-27: the projector and the metrics
+
+# the projector's steps at full width, PPL's batches of pairs and epsilon,
+# FID's samples per set and G batch
+PROJ_STEPS = 20
+PPL_PAIRS, PPL_BATCHES, PPL_EPS = 8, 2, 1e-4
+FID_SET, FID_BATCH = 64, 16
+# a projector's first step, card against CPU (`projector_step_card_vs_cpu`):
+# the loss, the distance and the state relative to their scale, 1e-5; the
+# gradient (Adam's first moment; the second, its square, at twice the
+# tolerance) relative to its scale, 5e-3: the dlatents' gradient is a sum
+# with much cancellation, whose fp32 rounding follows the summation order
+# (the JAX package's own jitted and eager gradients differ by 1.4e-4 of
+# their scale at 16 px, tests/test_torch_projector.py), while a missing or
+# wrong term moves it by its own size
+STEP_TOL = 1e-5
+STEP_GRAD_TOL = 5e-3
+# the dlatent gradient through kernels 1-3 against the plain versions on the
+# card: the kernels' forwards differ from the plain versions' by their fp32
+# rounding (TOL), which that same sum with cancellation magnifies (4.1e-5 to
+# 2.4e-4 of its scale from run to run at 1024 px on an H100); held as the
+# card-vs-CPU gradient is
+PROJ_GRAD_TOL = STEP_GRAD_TOL
+
+
+def synth_generator(root: str, cfg):
+    """(G, config) from a reference-format `Gs.pth` of `cfg` written by
+    weights/synthesize.py (seed 0) and read by the port's loader: random
+    weights at a checkpoint's scale. The random init of `generator_init`
+    ("random:0") is not one for a projection: its images saturate (|x| near
+    1e13 at 64 and 256 px on the CPU), so the clamp to [0, 1] passes no
+    gradient."""
+    from clip_glass_torch.weights import convert_stylegan2, from_jax, synthesize
+
+    path = os.path.join(root, "Gs.pth")
+    torch.save(synthesize.stylegan2_generator_state(cfg, 0), path)
+    tree, got_cfg, _ = convert_stylegan2.load_pth(path)
+    # the execution domain (s2d_min_res) is the caller's, not the file's
+    if dataclasses.replace(got_cfg, s2d_min_res=cfg.s2d_min_res) != cfg:
+        raise AssertionError(f"Gs.pth read back as {got_cfg}")
+    return from_jax.convert_generator(tree), cfg
+
+
+def lpips_weights(root: str, div: int = 1):
+    """LPIPS-VGG16 at channels / div: torchvision's vgg16 file and the LPIPS
+    linear heads written by weights/synthesize.py, converted by the convert
+    CLI (`lpips --linear`), read by `metrics.lpips.load_npz`."""
+    from clip_glass_torch.metrics import lpips
+    from clip_glass_torch.weights import synthesize
+
+    vgg, lin, npz = (os.path.join(root, n) for n in ("vgg16.pth", "vgg.pth", "lpips.npz"))
+    synthesize.write_vgg16(vgg, div=div)
+    synthesize.write_lpips_linear(lin, div=div)
+    _convert_cli("lpips", vgg, npz, "--linear", lin)
+    return lpips.load_npz(npz)
+
+
+def inception_weights(root: str):
+    """The FID InceptionV3 at its real geometry: pytorch-fid's pt_inception
+    file written by weights/synthesize.py, converted by the convert CLI
+    (`inception`), read by `metrics.inception.load_npz`."""
+    from clip_glass_torch.metrics import inception
+    from clip_glass_torch.weights import synthesize
+
+    pth, npz = os.path.join(root, "pt_inception.pth"), os.path.join(root, "inception.npz")
+    synthesize.write_inception(pth)
+    _convert_cli("inception", pth, npz)
+    return inception.load_npz(npz)
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def projector_step_card_vs_cpu(g_params, cfg, lpips_params, seed: int = 3) -> dict:
+    """The first step of a projection (t = 0, as `project` takes it) on the
+    card and on the CPU from the same start: dlatent statistics of one CPU
+    draw, noise planes, jitter draw and a [0, 1] target from a seed. At t = 0
+    the learning rate is 0, so the state moves by the noise renormalization
+    alone and the gradient shows in Adam's moments (at a rate above 0 Adam's
+    first update is lr * sign(g), which flips where g is within its rounding
+    noise). Returns the largest differences: loss and distance relative,
+    dlatents, noises and both moments relative to their scale (the first
+    moment also as a relative L2 norm, `mu_l2`); raises past STEP_TOL
+    (STEP_GRAD_TOL for the first moment, twice that for the second)."""
+    from clip_glass_torch import projector as P
+
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn((256, cfg.latent_size), generator=gen)
+    noises = [torch.randn(s, generator=gen) for s in cfg.noise_shapes()]
+    draw = torch.randn((1, cfg.num_latents, cfg.latent_size), generator=gen)
+    target = torch.rand((1, cfg.data_channels, cfg.resolution, cfg.resolution), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        proj = P.Projector(g_params, cfg, cfg=P.ProjectorConfig(dlatent_samples=8),
+                           lpips_params=lpips_params, device=dev)
+        proj.dlatent_avg, proj.dlatent_std = P.dlatent_statistics(
+            proj.g_params["mapping"], z.to(dev), cfg)
+        start = (proj.dlatent_avg[None, None, :].expand(draw.shape).clone(),
+                 [n.to(dev) for n in noises])
+        t = time.perf_counter()
+        (dl, ns), state, loss, dist = proj.step(start, P.adam_init([start[0], *start[1]]),
+                                                 target.to(dev), draw.to(dev), 0.0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"s": time.perf_counter() - t, "loss": loss, "dist": dist, "dlatents": dl,
+                    "noises": ns, "mu": state.mu, "nu": state.nu}
+    c, g = out["cpu"], out["cuda"]
+    rec = {"loss": _rel(g["loss"], c["loss"]), "dist": _rel(g["dist"], c["dist"]),
+           "dlatents": _rel(g["dlatents"], c["dlatents"]),
+           "noises": max(_rel(a, b) for a, b in zip(g["noises"], c["noises"])),
+           "mu": max(_rel(a, b) for a, b in zip(g["mu"], c["mu"])),
+           "nu": max(_rel(a, b) for a, b in zip(g["nu"], c["nu"])),
+           "mu_l2": max(_rel_l2(a, b) for a, b in zip(g["mu"], c["mu"])),
+           "cpu_step_s": c["s"], "card_step_s": g["s"], "loss_value": c["loss"].item(),
+           "tolerance": STEP_TOL, "moments_tolerance": [STEP_GRAD_TOL, 2 * STEP_GRAD_TOL]}
+    bad = [k for k in ("loss", "dist", "dlatents", "noises") if not rec[k] <= STEP_TOL]
+    bad += [k for k, tol in (("mu", STEP_GRAD_TOL), ("nu", 2 * STEP_GRAD_TOL))
+            if not rec[k] <= tol]
+    if bad:
+        raise AssertionError(f"projector step, card vs CPU, past the tolerance: {bad}: {rec}")
+    return rec
+
+
+def projector_grad_kernels_vs_plain(proj, target01, seed: int = 4) -> float:
+    """d loss / d dlatents of one projector loss on the card through kernels
+    1-3 (`cuda.with_grad`) against the same with every wrapper taking its
+    plain version (`cuda.takes_plain` forced), twice: returns the largest
+    difference of the kernels' gradient from the first plain one, and of
+    the second plain one from the first (the card's own spread), each
+    relative to the gradient's scale. Each kernel must record gradients in
+    the kernels' run and none in the plain ones."""
+    from clip_glass_torch.ops import cuda
+
+    cfg = proj.model_cfg
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dl = proj.dlatent_avg[None, None, :].expand(1, cfg.num_latents, cfg.latent_size).clone()
+    noises = [torch.randn(s, generator=gen, device="cuda") for s in cfg.noise_shapes()]
+    draw = torch.randn(dl.shape, generator=gen, device="cuda")
+    grads, recorded = {}, {}
+    for route in ("kernels", "plain", "plain again"):
+        leaf = dl.clone().requires_grad_(True)
+        before = dict(cuda.with_grad.recorded)
+        saved = cuda.takes_plain
+        if route != "kernels":
+            cuda.takes_plain = lambda t: True
+        try:
+            loss, _ = proj.loss(leaf, noises, target01, draw, 0.0)
+            (grads[route],) = torch.autograd.grad(loss, [leaf])
+        finally:
+            cuda.takes_plain = saved
+        recorded[route] = {k: v - before.get(k, 0) for k, v in cuda.with_grad.recorded.items()
+                           if v != before.get(k, 0)}
+    if set(recorded["kernels"]) != {"noise_bias_lrelu", "upsample2x", "modulated_matmul"} \
+            or recorded["plain"] or recorded["plain again"]:
+        raise AssertionError(f"gradients recorded through the kernels: {recorded}")
+    return (_rel(grads["kernels"], grads["plain"]),
+            _rel(grads["plain again"], grads["plain"]))
+
+
+def _projector_kernel_shapes(cfg):
+    """Kernels 1-3 at the projector's call shapes: the plain domain, B = 1."""
+    nbl, ups, rgb, _ = flagship_shapes(dataclasses.replace(cfg, s2d_min_res=2 ** 30), pop=1)
+    return [("noise_bias_lrelu", s) for s in dict.fromkeys(nbl)] + \
+        [("upsample2x", s) for s in dict.fromkeys(ups)] + \
+        [("modulated_matmul", s) for s in dict.fromkeys(rgb)]
+
+
+def synthesis_launches(cfg) -> dict:
+    """The four kernels' launches in one synthesis of `cfg` (any batch):
+    flagship_shapes' G part (kernel 4: G's modulated folds)."""
+    nbl, ups, rgb, s2d = flagship_shapes(cfg, pop=1)
+    n = {"noise_bias_lrelu": len(nbl), "upsample2x": len(ups), "modulated_matmul": len(rgb),
+         "s2d_conv2x2": sum(1 for shape in s2d if shape[4])}
+    return {k: v for k, v in n.items() if v}
+
+
+def _counters():
+    from clip_glass_torch.ops import cuda
+
+    return ({k.__name__: k.launches for k in _kernels()}, dict(cuda.with_grad.recorded))
+
+
+def _delta(a, b) -> dict:
+    return {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b) if b.get(k, 0) != a.get(k, 0)}
+
+
+def phase_projector(kind: str, smi: str, root: str, g_params, cfg, lpips_params) -> dict:
+    """Phase 25: the projector at full width: config-f 1024 px (`g_params`,
+    from the synthesized Gs.pth), fp32, B = 1, LPIPS-VGG16 at its real
+    geometry (lpips_weights), the target a G sample of another latent.
+    `Projector.project` for PROJ_STEPS steps: per step its seconds and the
+    kernels' launches, every launch of kernels 1-3 recorded through
+    `cuda._KernelGrad` and none of kernel 4 (the plain domain); the final
+    render in the default domain (kernel 4 at 512 and 1024 px); peak memory;
+    the distance at the first step and after the last, which must be
+    lower. Then kernels 1-3 at the step's fp32 call shapes, output and
+    gradient against the plain versions; the loss's dlatent gradient through
+    the kernels against the plain route (PROJ_GRAD_TOL); and one first
+    step, card against CPU, on a 256 px cut of config-f (the top two levels
+    left out) with LPIPS at channels / 8. Returns the launches."""
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.projector import Projector, ProjectorConfig
+
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn((1, cfg.latent_size), generator=gen)
+    noise = [torch.randn(s, generator=gen) for s in cfg.noise_shapes()]
+    t = time.perf_counter()
+    proj = Projector(g_params, cfg, cfg=ProjectorConfig(num_steps=PROJ_STEPS),
+                     lpips_params=lpips_params, device="cuda")
+    with torch.inference_mode():
+        target01 = ((sg2.generator_apply(proj.g_params, z.cuda(), cfg,
+                                         noise=[n.cuda() for n in noise]) + 1.0) / 2.0
+                    ).clamp(0.0, 1.0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    steps = []
+    real_step = proj.step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        c0, t0 = _counters(), time.perf_counter()
+        out = real_step(*args)
+        torch.cuda.synchronize()
+        c1 = _counters()
+        steps.append({"s": time.perf_counter() - t0, "dist": out[3].item(),
+                      "loss": out[2].item(), "launches": _delta(c0[0], c1[0]),
+                      "recorded": _delta(c0[1], c1[1])})
+        return out
+
+    proj.step = timed_step
+    _zero_counts(_kernels())
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    dlatents, images01 = proj.project(target01)
+    torch.cuda.synchronize()
+    project_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in _kernels()}
+    with torch.inference_mode():
+        d_last = proj.distance(images01, target01).sum().item()
+        inside = ((images01 > 0) & (images01 < 1)).float().mean().item()
+    # one plain-domain synthesis a step (config-f: 17, 8 and 9)
+    per_step = synthesis_launches(proj.plain_cfg)
+    for i, st in enumerate(steps):
+        if st["launches"] != per_step or st["recorded"] != per_step:
+            raise AssertionError(f"projector step {i}: launches {st['launches']}, recorded "
+                                 f"through _KernelGrad {st['recorded']}, expected {per_step}")
+    render = {k: n - PROJ_STEPS * per_step.get(k, 0) for k, n in launches.items()
+              if n - PROJ_STEPS * per_step.get(k, 0)}
+    if render != synthesis_launches(cfg) or not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"projector: the final render launched {render}, expected "
+                             f"{synthesis_launches(cfg)}")
+    if not (tuple(dlatents.shape) == (1, cfg.num_latents, cfg.latent_size)
+            and tuple(images01.shape) == (1, 3, cfg.resolution, cfg.resolution)
+            and torch.isfinite(images01).all()):
+        raise AssertionError(f"projector: bad output {tuple(dlatents.shape)} "
+                             f"{tuple(images01.shape)}")
+    if not d_last < steps[0]["dist"]:
+        raise AssertionError(f"projector: the distance did not fall: {steps[0]['dist']} "
+                             f"-> {d_last}")
+    rec = {"phase": "projector", "model": "CONFIG_F 1024px (synthesized Gs.pth, seed 0)",
+           "distance": "LPIPS-VGG16 (real geometry)", "dtype": "float32", "batch": 1,
+           "steps": PROJ_STEPS, "setup_s": setup_s, "project_s": project_s,
+           "step_s": [s["s"] for s in steps],
+           "step_s_after_first": sum(s["s"] for s in steps[1:]) / (PROJ_STEPS - 1),
+           "max_memory_allocated_bytes": peak, "dist_first_step": steps[0]["dist"],
+           "dist_after": d_last, "dist_by_step": [s["dist"] for s in steps],
+           "final_pixels_inside_0_1": inside,
+           "launches_per_step": per_step, "recorded_per_step": steps[0]["recorded"],
+           "final_render_launches": render, "launches": launches,
+           "device": kind, "nvidia_smi": smi}
+    log(rec)
+
+    gen_k = torch.Generator(device="cuda").manual_seed(41)
+    kernel_errs = {}
+    for name, shape in _projector_kernel_shapes(cfg):
+        err, _, out_err = _grad_case(name, shape, torch.float32, gen_k)
+        if not err <= TOL[torch.float32]:
+            raise AssertionError(f"projector shapes: gradient of {name} {shape}: {err}")
+        prev = kernel_errs.get(name, {"max_abs_err": 0.0, "gradient_max_rel_err": 0.0})
+        kernel_errs[name] = {"max_abs_err": max(prev["max_abs_err"], out_err),
+                             "gradient_max_rel_err": max(prev["gradient_max_rel_err"], err)}
+        torch.cuda.empty_cache()
+    log({"phase": "projector", "check": "kernels 1-3 at the step's fp32 shapes (B = 1, plain "
+         "domain): output and input gradients against the plain version",
+         "shapes": len(_projector_kernel_shapes(cfg)), "kernels": kernel_errs,
+         "tolerance": TOL[torch.float32]})
+
+    g_err, g_spread = projector_grad_kernels_vs_plain(proj, target01)
+    log({"phase": "projector", "check": "dlatent gradient of the loss through kernels 1-3 "
+         "vs the plain versions, on the card (1024 px)", "max_rel_err": g_err,
+         "plain_vs_plain": g_spread, "tolerance": PROJ_GRAD_TOL})
+    if not g_err <= PROJ_GRAD_TOL:
+        raise AssertionError(f"projector gradient through the kernels: {g_err}")
+    del proj, dlatents, images01, target01
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[2:]))
+    g_small, small = synth_generator(root, small)
+    step = projector_step_card_vs_cpu(g_small, small, lpips_weights(root, div=8))
+    log({"phase": "projector", "check": "first step, card vs CPU (config-f cut to 256 px, "
+         "LPIPS at channels / 8, fp32, TF32 off)", **step})
+    under_grad = {k: sum(st["recorded"].get(k, 0) for st in steps) for k in per_step}
+    return {"launches": launches, "under_grad": under_grad, "kernels": kernel_errs}
+
+
+def phase_ppl(kind: str, smi: str, g_params, cfg, lpips_params) -> dict:
+    """Phase 26: PPL (`metrics.ppl.PPL.evaluate`) of config-f 1024 px (G from
+    the synthesized Gs.pth), fp32, LPIPS-VGG16 at its real geometry on [0, 1]
+    images, epsilon PPL_EPS, PPL_BATCHES batches of PPL_PAIRS pairs: the
+    value, each batch's seconds and the kernels' launches (the default
+    domain under inference_mode: kernels 1-4, kernel 4 at 512 and 1024 px;
+    nothing recorded for a gradient)."""
+    from clip_glass_torch.core.dtypes import tree_to
+    from clip_glass_torch.metrics import lpips
+    from clip_glass_torch.metrics.ppl import PPL
+
+    lp = tree_to(lpips_params, "cuda")
+
+    def distance(a, b):
+        return lpips.lpips(lp, a, b, pixel_min=0.0, pixel_max=1.0)
+
+    ppl = PPL(g_params, cfg, distance, num_samples=PPL_PAIRS * PPL_BATCHES,
+              batch_size=PPL_PAIRS, epsilon=PPL_EPS, device="cuda")
+    batches = []
+    real = ppl.batch_distances
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = real(*args)
+        torch.cuda.synchronize()
+        batches.append({"s": time.perf_counter() - t0, "distances": d.tolist()})
+        return d
+
+    ppl.batch_distances = timed
+    c0 = _counters()
+    value = ppl.evaluate()
+    c1 = _counters()
+    launches, recorded = _delta(c0[0], c1[0]), _delta(c0[1], c1[1])
+    if len(batches) != PPL_BATCHES or not math.isfinite(value) or not value > 0:
+        raise AssertionError(f"ppl: {len(batches)} batches, value {value}")
+    want = {k: PPL_BATCHES * n for k, n in synthesis_launches(cfg).items()}
+    if launches != want or recorded:
+        raise AssertionError(f"ppl: launches {launches} (expected {want}), recorded for a "
+                             f"gradient {recorded}")
+    rec = {"phase": "ppl", "model": "CONFIG_F 1024px (synthesized Gs.pth, seed 0)",
+           "distance": "LPIPS-VGG16 (real geometry)", "dtype": "float32",
+           "epsilon": PPL_EPS, "pairs_per_batch": PPL_PAIRS, "value": value,
+           "batch_s": [b["s"] for b in batches],
+           "distances": [d for b in batches for d in b["distances"]],
+           "launches": launches, "device": kind, "nvidia_smi": smi}
+    log(rec)
+    return launches
+
+
+def phase_fid(kind: str, smi: str, root: str, g_params, cfg) -> dict:
+    """Phase 27: FID (`metrics.fid.FID`) with the FID InceptionV3 at its real
+    geometry (inception_weights) over G samples of config-f 1024 px (G from
+    the synthesized Gs.pth, fp32, the default domain, FID_BATCH a batch): the
+    features of set A (FID_SET samples, seed 5) as the reference statistics,
+    FID(A, A), which must be 0 within 1e-4 of the trace of A's covariance,
+    and FID(A, B) with set B from seed 6, which must be larger. Prints each
+    Inception batch's seconds and the G batches'."""
+    from clip_glass_torch.metrics import inception
+    from clip_glass_torch.core.dtypes import tree_to
+    from clip_glass_torch.metrics.fid import FID
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    g_params = tree_to(g_params, "cuda")
+    inc = tree_to(inception_weights(root), "cuda")
+    g_s, inc_s = [], []
+
+    def samples(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(FID_SET // FID_BATCH):
+            z = torch.randn((FID_BATCH, cfg.latent_size), generator=gen, device="cuda")
+            noise = [torch.randn(s, generator=gen, device="cuda") for s in cfg.noise_shapes()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                img = sg2.generator_apply(g_params, z, cfg, noise=noise)
+            torch.cuda.synchronize()
+            g_s.append(time.perf_counter() - t0)
+            yield ((img + 1.0) / 2.0).clamp(0.0, 1.0)
+
+    def features(images01):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            f = inception.features(inc, images01)
+        torch.cuda.synchronize()
+        inc_s.append(time.perf_counter() - t0)
+        return f
+
+    fid = FID(features, num_samples=FID_SET, batch_size=FID_BATCH)
+    t = time.perf_counter()
+    fid.set_real_stats(samples(5))
+    same = fid.evaluate(samples(5))
+    other = fid.evaluate(samples(6))
+    total_s = time.perf_counter() - t
+    trace = float(fid._real_stats[1].trace())
+    if not abs(same) <= 1e-4 * trace or not other > abs(same):
+        raise AssertionError(f"fid: FID(A, A) {same}, FID(A, B) {other}, trace {trace}")
+    rec = {"phase": "fid", "model": "CONFIG_F 1024px (synthesized Gs.pth, seed 0)",
+           "features": "FID InceptionV3 (real geometry, synthesized pt_inception)",
+           "samples_per_set": FID_SET, "batch": FID_BATCH, "fid_same_set": same,
+           "fid_other_set": other, "trace_sigma": trace, "inception_batch_s": inc_s,
+           "g_batch_s": g_s, "total_s": total_s, "device": kind, "nvidia_smi": smi}
+    log(rec)
+    return rec
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -3093,6 +3540,14 @@ def main() -> int:
     phase_fidelity_int8(kind, smi)
     phase_other_configs_int8(kind, smi)
     phase_cli_int8(summary)
+    with tempfile.TemporaryDirectory() as tmp:
+        from clip_glass_torch.models.stylegan2 import model as sg2
+
+        g_params, g_cfg = synth_generator(tmp, sg2.CONFIG_F)
+        lp = lpips_weights(tmp)
+        projector = phase_projector(kind, smi, tmp, g_params, g_cfg, lp)
+        ppl_launches = phase_ppl(kind, smi, g_params, g_cfg, lp)
+        phase_fid(kind, smi, tmp, g_params, g_cfg)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -3115,6 +3570,10 @@ def main() -> int:
                             **{path: {k: v for k, v in summary[name]["batched"][path].items()
                                       if k in keys or k in ("max_abs_err", "max_elements")}
                                for path in PER_EVAL}},
+                        "projector": {"launches": projector["launches"][name],
+                                      "under_grad": projector["under_grad"].get(name, 0),
+                                      **projector["kernels"].get(name, {})},
+                        "ppl": {"launches": ppl_launches[name]},
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -3137,7 +3596,14 @@ def main() -> int:
                                  f"batched: {K_SEARCH} searches x pop {POP}, init + 2 "
                                  f"generations of the s2d path (launches), sums over "
                                  f"each path's call shapes of one batched evaluation "
-                                 f"({K_SEARCH * POP} rows, bf16)"})
+                                 f"({K_SEARCH * POP} rows, bf16); projector: "
+                                 f"Projector.project, config-f 1024 px, fp32, B = 1, "
+                                 f"{PROJ_STEPS} steps (kernels 1-3 under grad in each "
+                                 f"step, the plain domain) and the final render (the "
+                                 f"default domain), max_abs_err and "
+                                 f"gradient_max_rel_err at the step's fp32 shapes; "
+                                 f"ppl: PPL.evaluate, {PPL_BATCHES} batches of "
+                                 f"{PPL_PAIRS} pairs at 1024 px, fp32"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",

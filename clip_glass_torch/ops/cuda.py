@@ -291,8 +291,16 @@ class _KernelGrad(torch.autograd.Function):
 def with_grad(launch, plain, *args) -> torch.Tensor:
     """`launch(*args)`, the kernel's wrapper on checked CUDA operands; when a
     gradient is wanted (`grad_wanted`), through `_KernelGrad`, so that the
-    result's gradient is that of `plain(*args)`. Otherwise the launch is
-    direct and costs the host nothing more."""
+    result's gradient is that of `plain(*args)`, and counted in
+    `with_grad.recorded` under the wrapper's name (`plain`'s less
+    "_plain"). Otherwise the launch is direct and costs the host nothing
+    more."""
     if grad_wanted(*args):
+        name = plain.__name__.removesuffix("_plain")
+        with_grad.recorded[name] = with_grad.recorded.get(name, 0) + 1
         return _KernelGrad.apply(launch, plain, *args)
     return launch(*args)
+
+
+# launches that recorded a gradient, by kernel wrapper name
+with_grad.recorded = {}

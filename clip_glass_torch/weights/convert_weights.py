@@ -6,13 +6,18 @@
     python -m clip_glass_torch.weights.convert_weights gpt2         gpt2-pytorch_model.bin out.npz
     python -m clip_glass_torch.weights.convert_weights biggan       biggan-deep-256.bin out.npz \\
         [--model-name biggan-deep-256|biggan-deep-512|biggan-deep-128|auto]
+    python -m clip_glass_torch.weights.convert_weights lpips        vgg16-397923af.pth out.npz \\
+        --linear vgg.pth
+    python -m clip_glass_torch.weights.convert_weights inception    pt_inception-2015-12-05.pth out.npz
 
 It writes what the JAX package's `scripts/convert_weights.py` writes: the
 same `.npz` trees and `<stem>_cfg.json` sidecars, so either package reads the
 other's output. Every format also loads without conversion (`--weights`,
 `--clip-weights`), except the TF pickle, which only this CLI reads. The
-metric models (`lpips`, `inception`) are not ported (ROADMAP item 15): those
-kinds exit with code 2.
+metric towers' npz (`lpips`: torchvision's vgg16 state dict with the
+richzhang v0.1 linear heads of `--linear`; `inception`: pytorch-fid's
+pt_inception state dict, BN folded) have no sidecar; `metrics.lpips.load_npz`
+and `metrics.inception.load_npz` read them.
 """
 
 from __future__ import annotations
@@ -25,9 +30,7 @@ import sys
 
 from clip_glass_torch.core import pytree
 
-KINDS = ("clip", "stylegan2", "stylegan2-tf", "gpt2", "biggan")
-UNPORTED = {"lpips": "the LPIPS metric is ROADMAP item 15",
-            "inception": "the Inception (FID) metric is ROADMAP item 15"}
+KINDS = ("clip", "stylegan2", "stylegan2-tf", "gpt2", "biggan", "lpips", "inception")
 
 
 def _save(dst: str, tree, cfg) -> None:
@@ -72,19 +75,49 @@ def _stylegan2_tf(src: str, dst: str) -> None:
         print(f"{key} ({cfg.resolution}px) -> {dst}")
 
 
+def _metric(p: argparse.ArgumentParser, args) -> None:
+    """The LPIPS-VGG16 or FID-Inception tree, as the JAX script writes it."""
+    import torch
+
+    sd = torch.load(args.src, map_location="cpu", weights_only=False)
+    if args.kind == "lpips":
+        from clip_glass_torch.metrics import lpips
+
+        # the vgg16 zoo file: the whole model's state dict, classifier
+        # included; the metric reads `features.*` only
+        feats = {k[len("features."):]: v for k, v in sd.items()
+                 if k.startswith("features.")} or sd
+        if "0.weight" not in feats:
+            p.error(f"{args.src}: no vgg16 `features.0.weight`")
+        lin = torch.load(args.linear, map_location="cpu", weights_only=False)
+        tree = lpips.convert_torch_lpips(feats, list(lin.values()))
+        pytree.save_npz(args.dst, tree)
+        print(f"LPIPS-VGG16 ({len(tree['convs'])} convs + {len(tree['heads'])} "
+              f"linear heads) -> {args.dst}")
+        return
+    from clip_glass_torch.metrics import inception
+
+    if "Conv2d_1a_3x3.conv.weight" not in sd:
+        p.error(f"{args.src}: no `Conv2d_1a_3x3.conv.weight`: not an InceptionV3 state dict")
+    pytree.save_npz(args.dst, inception.convert_torch_inception(sd))
+    print(f"InceptionV3 (pytorch-fid layout, BN folded) -> {args.dst}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m clip_glass_torch.weights.convert_weights",
         description="convert the reference's checkpoints to npz trees")
-    p.add_argument("kind", choices=KINDS + tuple(UNPORTED))
+    p.add_argument("kind", choices=KINDS)
     p.add_argument("src")
     p.add_argument("dst")
     p.add_argument("--model-name", default="biggan-deep-256",
                    help="the biggan kind's variant; 'auto' reads the geometry "
                         "off the checkpoint's shapes")
+    p.add_argument("--linear", default=None,
+                   help="the lpips kind's richzhang v0.1 linear-weights .pth")
     args = p.parse_args(argv)
-    if args.kind in UNPORTED:
-        p.error(f"{args.kind}: not ported: {UNPORTED[args.kind]}")
+    if args.kind == "lpips" and not args.linear:
+        p.error("the lpips kind requires --linear <richzhang vgg.pth>")
 
     if args.kind == "clip":
         from clip_glass_torch.weights import convert_clip
@@ -104,6 +137,8 @@ def main(argv=None) -> int:
         tree, cfg = convert_biggan.load_torch_checkpoint(args.src, args.model_name)
         _save(args.dst, tree, cfg)
         print(f"BigGAN {args.model_name} -> {args.dst}")
+    elif args.kind in ("lpips", "inception"):
+        _metric(p, args)
     elif args.kind == "stylegan2":
         _stylegan2(args.src, args.dst)
     else:

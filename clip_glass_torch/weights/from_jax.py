@@ -17,7 +17,11 @@ Layout traps handled here:
   concatenates on every call);
 - BigGAN's batch norms keep their [n_stats, C] running statistics;
 - GPT-2's Conv1D weights are [in, out] on both sides (nothing transposed),
-  its blocks, stacked on a leading layer axis in JAX, become a list.
+  its blocks, stacked on a leading layer axis in JAX, become a list;
+- the metric towers (LPIPS-VGG16, the FID InceptionV3) get OIHW convs;
+  Inception keeps its eval-mode BN as the JAX tree has it, `bn_scale` and
+  `bn_bias` applied in fp32 after the conv, not folded into the weights
+  (which would round differently).
 
 The port's own random init builds the same JAX-layout trees and passes them
 through these converters, so the two structures cannot drift apart.
@@ -249,6 +253,27 @@ def convert_gpt2(tree) -> Dict[str, Any]:
         "blocks": _unstack(tree["blocks"]),
         "ln_f": {k: to_tensor(v) for k, v in tree["ln_f"].items()},
     }
+
+
+def convert_lpips(tree) -> Dict[str, Any]:
+    """LPIPS-VGG16: the 13 convs keyed by torchvision layer index, and the
+    5 per-slice linear heads (a list)."""
+    return {"convs": {k: {"w": _oihw(p["w"]), "b": to_tensor(p["b"])}
+                      for k, p in tree["convs"].items()},
+            "heads": [to_tensor(h) for h in tree["heads"]]}
+
+
+def _conv_bn(p) -> Dict[str, torch.Tensor]:
+    return {"w": _oihw(p["w"]), "bn_scale": to_tensor(p["bn_scale"]),
+            "bn_bias": to_tensor(p["bn_bias"])}
+
+
+def convert_inception(tree) -> Dict[str, Any]:
+    """The FID InceptionV3 trunk: each stem conv {w, bn_scale, bn_bias}, each
+    Mixed block a dict of such branches."""
+    return {name: (_conv_bn(sub) if "w" in sub else
+                   {br: _conv_bn(p) for br, p in sub.items()})
+            for name, sub in tree.items()}
 
 
 def convert_bundle(bundle) -> Dict[str, Any]:

@@ -19,7 +19,11 @@ of `weights/` can be exercised where no published checkpoint is at hand:
   iteration, as a trained checkpoint's are) and [n_stats, C] running
   statistics;
 - GPT-2's legacy `.bin`: `.g/.b/.w` suffixes, 2-D Conv1D weights
-  (reference gpt2/utils.py:10-52).
+  (reference gpt2/utils.py:10-52);
+- the metric towers' files: torchvision's vgg16 zoo state dict and the
+  richzhang LPIPS v0.1 linear heads (reference external_models/lpips.py:
+  36-56), at channels / div, and pytorch-fid's pt_inception state dict at
+  its real geometry (reference external_models/inception.py:27).
 
 `write_all` writes the whole set at the published geometries (about 2.4 GB):
 
@@ -466,6 +470,92 @@ def write_gpt2(dest: str, n_embd: int = 96, n_layer: int = 2, seed: int = 0) -> 
         sd[f"{p}.mlp.c_proj.b"] = r(d)
     sd["ln_f.g"] = torch.ones(d)
     sd["ln_f.b"] = torch.zeros(d)
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    torch.save(sd, dest)
+
+
+# ------------------------------------------------------------------ metrics
+
+
+def write_vgg16(dest: str, div: int = 8, seed: int = 0) -> None:
+    """torchvision's vgg16 zoo-file layout (the file LPIPS's constructor
+    downloads, reference external_models/lpips.py:43): `features.{i}.weight/
+    bias` for all 13 convs at channels / div (div 1: the published
+    geometry), and a small stand-in for the classifier the metric never
+    reads (its presence rehearses the converter's tolerance of extra keys)."""
+    from clip_glass_torch.metrics import lpips
+
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g) * 0.1
+
+    sd = {}
+    for idx, cin, cout in lpips._VGG_CFG:
+        ci = 3 if cin == 3 else max(cin // div, 1)
+        co = max(cout // div, 1)
+        sd[f"features.{idx}.weight"] = r(co, ci, 3, 3)
+        sd[f"features.{idx}.bias"] = r(co)
+    last = max(512 // div, 1)
+    for li, (i, o) in zip((0, 3, 6), [(last * 49, 64), (64, 64), (64, 10)]):
+        sd[f"classifier.{li}.weight"] = r(o, i)
+        sd[f"classifier.{li}.bias"] = r(o)
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    torch.save(sd, dest)
+
+
+def write_lpips_linear(dest: str, div: int = 8, seed: int = 0) -> None:
+    """The richzhang v0.1 `vgg.pth` layout: an ordered dict of the 5
+    per-slice `lin{i}.model.1.weight` tensors, [1, C / div, 1, 1], which the
+    reference reads in file order (external_models/lpips.py:36-56)."""
+    import collections
+
+    from clip_glass_torch.metrics import lpips
+
+    g = torch.Generator().manual_seed(seed)
+    sd = collections.OrderedDict()
+    for i, c in enumerate(lpips._SLICE_OUT):
+        sd[f"lin{i}.model.1.weight"] = torch.rand(1, max(c // div, 1), 1, 1, generator=g) * 0.2
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    torch.save(sd, dest)
+
+
+def write_inception(dest: str, seed: int = 0) -> None:
+    """pytorch-fid's pt_inception state dict at its real geometry: every
+    BasicConv2d as `<block>[.<branch>].conv.weight` + `.bn.{weight,bias,
+    running_mean,running_var,num_batches_tracked}`, and the fc head
+    (fid_inception_v3 is built with num_classes=1008, aux_logits=False,
+    reference external_models/inception.py:134-158), which the converter
+    ignores with the bookkeeping keys."""
+    from clip_glass_torch.metrics import inception
+
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(std, *shape):
+        return torch.randn(*shape, generator=g) * std
+
+    def uniform(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    sd = {}
+
+    def fill(prefix, spec):
+        ci, co, kh, kw = spec
+        sd[f"{prefix}.conv.weight"] = normal(0.05, co, ci, kh, kw)
+        sd[f"{prefix}.bn.weight"] = uniform(0.5, 1.5, co)
+        sd[f"{prefix}.bn.bias"] = normal(0.1, co)
+        sd[f"{prefix}.bn.running_mean"] = normal(0.1, co)
+        sd[f"{prefix}.bn.running_var"] = uniform(0.5, 1.5, co)
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    for name, spec in inception.conv_table().items():
+        if isinstance(spec, tuple):
+            fill(name, spec)
+        else:
+            for br, s in spec.items():
+                fill(f"{name}.{br}", s)
+    sd["fc.weight"] = normal(0.02, 1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
     os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
     torch.save(sd, dest)
 

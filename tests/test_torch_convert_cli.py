@@ -48,6 +48,11 @@ def sources(tmp_path_factory):
     synthesize.write_stylegan2_pth(src["stylegan2"], tsg2.TINY, seed=5)
     synthesize.write_clip(src["clip-vit"], tclip.TINY, seed=6)
     synthesize.write_clip(src["clip-rn"], CLIP_RN, seed=7, jit=False)
+    src["vgg16"], src["lpips-linear"] = str(root / "vgg16.pth"), str(root / "vgg.pth")
+    src["inception"] = str(root / "pt_inception.pth")
+    synthesize.write_vgg16(src["vgg16"], div=8, seed=8)
+    synthesize.write_lpips_linear(src["lpips-linear"], div=8, seed=9)
+    synthesize.write_inception(src["inception"], seed=10)
     return src
 
 
@@ -59,6 +64,7 @@ CASES = {
     "biggan": ("biggan", "biggan.npz", ["--model-name", "auto"]),
     "stylegan2": ("stylegan2", "out", []),
     "stylegan2-tf": ("stylegan2-tf", "out", []),
+    "vgg16": ("lpips", "lpips.npz", ["--linear", "lpips-linear"]),
 }
 
 
@@ -76,6 +82,8 @@ def _files(root):
 
 def _convert_both(sources, case, tmp_path):
     kind, dst, extra = CASES[case]
+    # a source named in `extra` (the lpips kind's --linear file)
+    extra = [sources.get(e, e) for e in extra]
     outs = {}
     for side in ("jax", "port"):
         os.makedirs(tmp_path / side)
@@ -113,10 +121,61 @@ def test_cli_runs_as_a_module(sources, tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["lpips", "inception"])
-def test_metric_kinds_exit_2_naming_their_item(kind, capsys):
+def test_metric_kinds_exit_2_naming_their_item(kind, sources, capsys):
+    """The metric kinds are ported (ROADMAP item 15a); what they cannot
+    convert exits 2 naming the item missing: the lpips kind without its
+    --linear file, the inception kind on a file that is not an InceptionV3
+    state dict (here the vgg16 one)."""
+    args = {"lpips": ["lpips", sources["vgg16"], "b.npz"],
+            "inception": ["inception", sources["vgg16"], "b.npz"]}[kind]
     with pytest.raises(SystemExit) as e:
-        convert_weights.main([kind, "a.pth", "b.npz"])
-    assert e.value.code == 2 and "item 15" in capsys.readouterr().err
+        convert_weights.main(args)
+    want = {"lpips": "--linear", "inception": "Conv2d_1a_3x3"}[kind]
+    assert e.value.code == 2 and want in capsys.readouterr().err
+
+
+def test_inception_kind_writes_the_jax_converters_tree(sources, tmp_path, monkeypatch):
+    """The inception kind's npz holds, key for key and bitwise, the JAX
+    package's `convert_torch_inception` of the same pt_inception file (real
+    geometry). In-process: the JAX converter walks the structure of its
+    `init`, which is jitted here (eager, it draws 22M values op by op)."""
+    from clip_glass_tpu.core import pytree as jpytree
+    from clip_glass_tpu.metrics import inception as jinc
+
+    monkeypatch.setattr(jinc, "init", jax.jit(jinc.init))
+    want = jpytree.flatten(jax.tree.map(np.asarray, jinc.convert_torch_inception(
+        torch.load(sources["inception"], weights_only=False))))
+    dst = str(tmp_path / "inception.npz")
+    assert convert_weights.main(["inception", sources["inception"], dst]) == 0
+    with np.load(dst) as got:
+        assert sorted(got.files) == sorted(want)
+        for k in got.files:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+
+def test_metric_npz_load_into_the_metrics(sources, tmp_path):
+    """What the lpips and inception kinds write loads through the metrics'
+    `load_npz` into the trees their forwards read: OIHW convs, LPIPS's heads
+    a list, Inception's BN folded (scale = gamma / sqrt(var + 1e-3))."""
+    from clip_glass_torch.metrics import inception, lpips
+
+    assert convert_weights.main(["lpips", sources["vgg16"], str(tmp_path / "l.npz"),
+                                 "--linear", sources["lpips-linear"]]) == 0
+    assert convert_weights.main(["inception", sources["inception"],
+                                 str(tmp_path / "i.npz")]) == 0
+    lp = lpips.load_npz(str(tmp_path / "l.npz"))
+    sd = torch.load(sources["vgg16"])
+    assert torch.equal(lp["convs"]["28"]["w"], sd["features.28.weight"])
+    assert [h.shape[0] for h in lp["heads"]] == [c // 8 for c in lpips._SLICE_OUT]
+    inc = inception.load_npz(str(tmp_path / "i.npz"))
+    sd = torch.load(sources["inception"])
+    p = inc["Mixed_6e"]["branch7x7_2"]
+    assert torch.equal(p["w"], sd["Mixed_6e.branch7x7_2.conv.weight"])
+    scale = sd["Mixed_6e.branch7x7_2.bn.weight"] / torch.sqrt(
+        sd["Mixed_6e.branch7x7_2.bn.running_var"] + 1e-3)
+    torch.testing.assert_close(p["bn_scale"], scale, rtol=1e-6, atol=0)
+    x = torch.rand(1, 3, 48, 48, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(lpips.lpips(lp, x, x.flip(-1))).all()
 
 
 def test_stylegan2_dir_without_checkpoints_exits(tmp_path):

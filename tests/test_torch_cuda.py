@@ -613,7 +613,7 @@ def test_kernel_gradient_equals_plain_autograd(gpu, name, shape, dtype):
     launch."""
     import chip_smoke
 
-    err, _ = chip_smoke._grad_case(name, shape, dtype, gpu)
+    err, _, _ = chip_smoke._grad_case(name, shape, dtype, gpu)
     assert err <= TOL[dtype]
 
 
@@ -635,3 +635,67 @@ def test_conv_s8_raises_under_grad_on_gpu(gpu):
         conv_s8(x, wq, torch.ones(8, device="cuda"), pad0=1, pad1=1, x_inv_scale=2.0)
     with torch.inference_mode():
         conv_s8(x, wq, torch.ones(8, device="cuda"), pad0=1, pad1=1, x_inv_scale=2.0)
+
+
+def _projector_model(tmp_path):
+    """config-f cut to its top 5 levels (64 px, 512 channels at 4 px) from a
+    synthesized Gs.pth, and LPIPS-VGG16 at channels / 8 through the convert
+    CLI (chip_smoke's writers)."""
+    import dataclasses
+
+    import chip_smoke
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[4:]))
+    g, cfg = chip_smoke.synth_generator(str(tmp_path), cfg)
+    return g, cfg, chip_smoke.lpips_weights(str(tmp_path), div=8)
+
+
+def test_projector_step_on_gpu_matches_cpu(gpu, tmp_path):
+    """The first projector step at 64 px, card against CPU, TF32 off: loss,
+    distance, dlatents and noise planes within chip_smoke.STEP_TOL of their
+    scale, Adam's first moment within STEP_GRAD_TOL and its second within
+    twice that (`chip_smoke.projector_step_card_vs_cpu` raises past them)."""
+    import chip_smoke
+
+    rec = chip_smoke.projector_step_card_vs_cpu(*_projector_model(tmp_path))
+    assert rec["loss"] <= chip_smoke.STEP_TOL and rec["mu"] <= chip_smoke.STEP_GRAD_TOL
+
+
+def test_projector_gradient_through_kernels_equals_plain_route(gpu, tmp_path):
+    """The projector's dlatent gradient on the card through kernels 1-3 (each
+    recording through cuda._KernelGrad) against every wrapper taking its
+    plain version, within chip_smoke.PROJ_GRAD_TOL of its scale."""
+    import chip_smoke
+    from clip_glass_torch.projector import Projector, ProjectorConfig
+
+    g, cfg, lp = _projector_model(tmp_path)
+    proj = Projector(g, cfg, cfg=ProjectorConfig(dlatent_samples=256), lpips_params=lp,
+                     device="cuda")
+    target = torch.rand((1, 3, 64, 64), generator=gpu, device="cuda")
+    err, _ = chip_smoke.projector_grad_kernels_vs_plain(proj, target)
+    assert err <= chip_smoke.PROJ_GRAD_TOL
+
+
+def test_lpips_and_inception_on_gpu_match_cpu(gpu, tmp_path):
+    """LPIPS-VGG16 (real geometry) and the FID Inception features (real
+    geometry; one input upsampled to 299, one downsampled) on the card
+    against the CPU, fp32, TF32 off: the distances within 1e-5 of their
+    scale, the features within 1e-4 (94 convs deep)."""
+    import chip_smoke
+    from clip_glass_torch.core.dtypes import tree_to
+    from clip_glass_torch.metrics import inception, lpips
+
+    lp = chip_smoke.lpips_weights(str(tmp_path))
+    inc = chip_smoke.inception_weights(str(tmp_path))
+    gen = torch.Generator().manual_seed(3)
+    x0, x1 = torch.rand((2, 2, 3, 96, 96), generator=gen)
+    want = lpips.lpips(lp, x0, x1, 0.0, 1.0)
+    got = lpips.lpips(tree_to(lp, "cuda"), x0.cuda(), x1.cuda(), 0.0, 1.0).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    inc_gpu = tree_to(inc, "cuda")
+    for size in (160, 512):
+        x = torch.rand((1, 3, size, size), generator=gen)
+        want = inception.features(inc, x)
+        got = inception.features(inc_gpu, x.cuda()).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
