@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      fp32 and bf16, at one flagship shape (kernel 4 also at C' = 256 with
      one shared set): a grad_fn, input gradients within TOL of the plain
      version's autograd on the card, the direct launch under
-     inference_mode; the TINY G's latent gradient (plain domain) on the card
+     inference_mode, and in fp32 a second derivative equal to the plain
+     version's; the TINY G's latent gradient (plain domain) on the card
      against the CPU; conv_s8 raising under grad;
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
@@ -177,12 +178,25 @@ convert CLI:
      value, s a batch, kernels 1-4 launched (kernel 4 at 512 and 1024 px);
  27. fid: `FID` over 2 x 64 G samples: s an Inception batch and a G batch,
      FID(A, A) about 0, FID(A, B).
+Then the trainer (`training/trainer.py`), fp32, from the reference's resume
+files (G.pth, Gs.pth and D.pth that weights/synthesize.py writes, seed 0):
+ 28. trainer: config-f 1024 px, batch 4, `TrainerConfig` defaults, 5 steps
+     (R1 and the path length penalty at step 0, the penalty at step 4): per
+     step its seconds, phases, peak memory, the launches of kernels 1-3, those
+     under grad and the backward passes that kept their graph (the
+     penalty's second derivative through kernels 2 and 3), the five logs
+     (finite); G and D moved, Gs less than G; a checkpoint round trip,
+     bitwise; one TrainLogger grid from Gs (kernel 4); the penalty's G
+     gradient through the kernels vs the plain route; step 0 card vs CPU on
+     config-f cut to 256 px.
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
 record: phase 25's launches, those under grad and, for kernels 1-3, the
-errors at the step's shapes, and a `ppl` record: phase 26's launches), the
-card's name and power limit, and {"ok": true, "device": {...}}.
+errors at the step's shapes, a `ppl` record: phase 26's launches, and a
+`trainer` record: phase 28's launches, under grad and under a second
+derivative, kernel 4's in the grid), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -796,6 +810,63 @@ def _grad_inputs(args):
     return [a for a in args if isinstance(a, torch.Tensor) and a.is_floating_point()]
 
 
+def _wrapper_cases() -> dict:
+    """name -> (wrapper, plain version, operand maker) of kernels 1-4."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+
+    return {"noise_bias_lrelu": (bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
+                                 _nbl_case),
+            "upsample2x": (upfirdn.upsample2x, upfirdn.upsample2x_plain, _ups_case),
+            "modulated_matmul": (modulated_conv.modulated_matmul,
+                                 modulated_conv.modulated_matmul_plain, _rgb_case),
+            "s2d_conv2x2": (s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain, _s2d_case)}
+
+
+def _second_derivative_case(name, shape, gen):
+    """A second derivative through the kernel's wrapper on fp32 operands
+    (every float operand requiring grad): d/dinputs of sum_i (g_i * v_i),
+    g = d sum(out^2 * r) / dinputs taken with create_graph, r and v seeded;
+    through the wrapper (the kernel's forward, `cuda._KernelGrad`'s graph)
+    and through the plain version on the same operands. Returns the largest
+    difference relative to the plain second derivative's scale, after
+    checking that the wrapper launched its kernel once and its backward kept
+    its graph once."""
+    from clip_glass_torch.ops import cuda
+
+    wrapper, plain, make = _wrapper_cases()[name]
+    args = make(shape, torch.float32, gen)
+    inputs = _grad_inputs(args)
+    for t in inputs:
+        t.requires_grad_(True)
+    out_shape = plain(*args).shape
+    r = torch.randn(out_shape, generator=gen, device="cuda")
+    v = [torch.randn(t.shape, generator=gen, device="cuda") for t in inputs]
+
+    def second(fn):
+        grads = torch.autograd.grad((fn(*args).square() * r).sum(), inputs, create_graph=True)
+        total = sum((g * vv).sum() for g, vv in zip(grads, v))
+        return torch.autograd.grad(total, inputs, allow_unused=True)
+
+    key = plain.__name__.removesuffix("_plain")
+    n0, d0 = wrapper.launches, cuda.with_grad.double.get(key, 0)
+    got = second(wrapper)
+    if wrapper.launches != n0 + 1 or cuda.with_grad.double.get(key, 0) != d0 + 1:
+        raise AssertionError(f"{name} {shape}: {wrapper.launches - n0} launches, "
+                             f"{cuda.with_grad.double.get(key, 0) - d0} graph-keeping "
+                             f"backward passes")
+    want = second(plain)
+    torch.cuda.synchronize()
+    err, scale = 0.0, 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            if g is not None and g.abs().max().item() > 0:
+                raise AssertionError(f"{name}: a second derivative where the plain has none")
+            continue
+        err = max(err, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+    return err / max(scale, 1e-30)
+
+
 def _grad_case(name, shape, dtype, gen):
     """The kernel's wrapper and its plain version on one set of operands,
     every float operand requiring grad: loss = sum(out * r) with a seeded r.
@@ -803,15 +874,7 @@ def _grad_case(name, shape, dtype, gen):
     gradient, the inputs' shapes and the output's max abs error, after
     checking that the wrapper launched its kernel once and returned a result
     with a grad_fn that agrees with the plain version's output (`_check`)."""
-    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
-
-    wrapper, plain, make = {
-        "noise_bias_lrelu": (bias_act.noise_bias_lrelu, bias_act.noise_bias_lrelu_plain,
-                             _nbl_case),
-        "upsample2x": (upfirdn.upsample2x, upfirdn.upsample2x_plain, _ups_case),
-        "modulated_matmul": (modulated_conv.modulated_matmul,
-                             modulated_conv.modulated_matmul_plain, _rgb_case),
-        "s2d_conv2x2": (s2d.s2d_conv2x2, s2d.s2d_conv2x2_plain, _s2d_case)}[name]
+    wrapper, plain, make = _wrapper_cases()[name]
     args = make(shape, dtype, gen)
     inputs = _grad_inputs(args)
     for t in inputs:
@@ -865,7 +928,9 @@ def phase_gradients() -> dict:
     result with a grad_fn, whose input gradients equal the plain version's
     autograd on the card within TOL of their scale (the backward is that
     autograd, on the kernel's forward); under inference_mode the direct
-    launch. Then the TINY G's latent gradient on the card against the CPU's
+    launch; in fp32 a second derivative through the wrapper equals the
+    plain version's within TOL (`_second_derivative_case`). Then the TINY
+    G's latent gradient on the card against the CPU's
     (plain versions) within GRAD_G_TOL of its scale, and conv_s8 raising
     under grad."""
     from clip_glass_torch.ops import s2d
@@ -889,6 +954,14 @@ def phase_gradients() -> dict:
                                      f"scale, tolerance {TOL[dtype]}")
             out[name] = max(out.get(name, 0.0), err)
             torch.cuda.empty_cache()
+        err2 = _second_derivative_case(name, shape, gen)
+        log({"phase": "gradients", "kernel": name, "shape": list(shape),
+             "dtype": str(torch.float32), "check": "second derivative (create_graph) vs the "
+             "plain version's", "max_rel_err": err2, "tolerance": TOL[torch.float32]})
+        if not err2 <= TOL[torch.float32]:
+            raise AssertionError(f"second derivative of {name} {shape}: {err2}")
+        out[f"{name}_second"] = max(out.get(f"{name}_second", 0.0), err2)
+        torch.cuda.empty_cache()
     got, want = _tiny_g_latent_grad("cuda"), _tiny_g_latent_grad("cpu")
     g_err = ((got - want).abs().max() / want.abs().max()).item()
     log({"phase": "gradients", "check": "TINY StyleGAN2 G (plain domain, fp32): latent "
@@ -3239,12 +3312,29 @@ def projector_grad_kernels_vs_plain(proj, target01, seed: int = 4) -> float:
             _rel(grads["plain again"], grads["plain"]))
 
 
-def _projector_kernel_shapes(cfg):
-    """Kernels 1-3 at the projector's call shapes: the plain domain, B = 1."""
-    nbl, ups, rgb, _ = flagship_shapes(dataclasses.replace(cfg, s2d_min_res=2 ** 30), pop=1)
+def _plain_kernel_shapes(cfg, pop: int):
+    """Kernels 1-3 at the call shapes of a differentiated synthesis of `cfg`
+    (the projector's, B = 1; the trainer's, its batch): the plain domain."""
+    nbl, ups, rgb, _ = flagship_shapes(dataclasses.replace(cfg, s2d_min_res=2 ** 30), pop=pop)
     return [("noise_bias_lrelu", s) for s in dict.fromkeys(nbl)] + \
         [("upsample2x", s) for s in dict.fromkeys(ups)] + \
         [("modulated_matmul", s) for s in dict.fromkeys(rgb)]
+
+
+def _grad_cases(label: str, shapes, seed: int) -> dict:
+    """`_grad_case` in fp32 at each (kernel, shape) of `shapes`: by kernel,
+    the largest output error and gradient error; raises past TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
+    for name, shape in shapes:
+        err, _, out_err = _grad_case(name, shape, torch.float32, gen)
+        if not err <= TOL[torch.float32]:
+            raise AssertionError(f"{label} shapes: gradient of {name} {shape}: {err}")
+        prev = errs.get(name, {"max_abs_err": 0.0, "gradient_max_rel_err": 0.0})
+        errs[name] = {"max_abs_err": max(prev["max_abs_err"], out_err),
+                      "gradient_max_rel_err": max(prev["gradient_max_rel_err"], err)}
+        torch.cuda.empty_cache()
+    return errs
 
 
 def synthesis_launches(cfg) -> dict:
@@ -3354,20 +3444,11 @@ def phase_projector(kind: str, smi: str, root: str, g_params, cfg, lpips_params)
            "device": kind, "nvidia_smi": smi}
     log(rec)
 
-    gen_k = torch.Generator(device="cuda").manual_seed(41)
-    kernel_errs = {}
-    for name, shape in _projector_kernel_shapes(cfg):
-        err, _, out_err = _grad_case(name, shape, torch.float32, gen_k)
-        if not err <= TOL[torch.float32]:
-            raise AssertionError(f"projector shapes: gradient of {name} {shape}: {err}")
-        prev = kernel_errs.get(name, {"max_abs_err": 0.0, "gradient_max_rel_err": 0.0})
-        kernel_errs[name] = {"max_abs_err": max(prev["max_abs_err"], out_err),
-                             "gradient_max_rel_err": max(prev["gradient_max_rel_err"], err)}
-        torch.cuda.empty_cache()
+    shapes = _plain_kernel_shapes(cfg, pop=1)
+    kernel_errs = _grad_cases("projector", shapes, 41)
     log({"phase": "projector", "check": "kernels 1-3 at the step's fp32 shapes (B = 1, plain "
          "domain): output and input gradients against the plain version",
-         "shapes": len(_projector_kernel_shapes(cfg)), "kernels": kernel_errs,
-         "tolerance": TOL[torch.float32]})
+         "shapes": len(shapes), "kernels": kernel_errs, "tolerance": TOL[torch.float32]})
 
     g_err, g_spread = projector_grad_kernels_vs_plain(proj, target01)
     log({"phase": "projector", "check": "dlatent gradient of the loss through kernels 1-3 "
@@ -3494,6 +3575,421 @@ def phase_fid(kind: str, smi: str, root: str, g_params, cfg) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ phase 28
+
+TRAIN_STEPS = 5
+# the trainer's step, card against CPU (`trainer_step_card_vs_cpu`), at the
+# projector step's tolerances: the losses relative, STEP_TOL; the gradients
+# (Adam's first moment: with beta1 = 0 it is the step's gradient; the second,
+# its square, at twice the tolerance), the grad norms and pl_avg (a norm of
+# J^T y) relative to their scale, STEP_GRAD_TOL
+
+
+def trainer_weights(root: str, cfg):
+    """(G, Gs, D, config): the reference's own resume files of `cfg`
+    (`weights/synthesize.write_stylegan2_pth`, seed 0: G.pth, Gs.pth, D.pth,
+    random weights at a checkpoint's scale) read by
+    `convert_stylegan2.load_pth` and `from_jax`. `generator_init`'s dense
+    layers are N(0, 1) (ROADMAP §3): config-f from it trains nothing."""
+    from clip_glass_torch.weights import convert_stylegan2, from_jax, synthesize
+
+    paths = synthesize.write_stylegan2_pth(root, cfg, 0)
+    trees = {}
+    for stem, path in paths.items():
+        tree, got_cfg, kind = convert_stylegan2.load_pth(path)
+        if dataclasses.replace(got_cfg, s2d_min_res=cfg.s2d_min_res) != cfg \
+                or kind != stem[0]:
+            raise AssertionError(f"{stem}.pth read back as {kind} {got_cfg}")
+        trees[stem] = tree
+    return (from_jax.convert_generator(trees["G"]), from_jax.convert_generator(trees["Gs"]),
+            from_jax.convert_discriminator(trees["D"]), cfg)
+
+
+def _draws_to(x, dev):
+    """A trainer's StepDraws (nested NamedTuples and lists) on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_draws_to(v, dev) for v in x))
+    if isinstance(x, list):
+        return [_draws_to(v, dev) for v in x]
+    return x
+
+
+def _tree_rel(got, want) -> float:
+    """max |got - want| over a list of tensors relative to max |want|."""
+    err = max((a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()
+              for a, b in zip(got, want))
+    return err / max(max(b.abs().max().item() for b in want), 1e-30)
+
+
+def _assert_adam_moved_alike(label, got, want, got_g, want_g, names, lr) -> tuple:
+    """A first Adam step (beta1 = 0: the update is -lr * g / (|g| + eps)) on
+    the card (`got`, from gradient `got_g`) against the CPU's (`want`,
+    `want_g`), element by element, `dlatent_avg` aside (an EMA, not an Adam
+    update). Where the two gradients have one sign the update moves by at
+    most lr * eps * |dg| / (min |g| + eps)^2 (its slope between them), plus
+    1e-6 * lr and an fp32 spacing for the roundings: past that it raises.
+    Where their signs differ (a gradient within the card's difference from
+    the CPU's of zero) the update flips, by up to 2 * lr: those elements are
+    counted and must be under 1e-2 of all. Returns (flipped, total)."""
+    flipped = total = 0
+    for name, g, w, gg, wg in zip(names, got, want, got_g, want_g):
+        if name == ("dlatent_avg",):
+            continue
+        g, w, gg, wg = (t.detach().double().cpu() for t in (g, w, gg, wg))
+        spacing = torch.nextafter(w.float().abs(), torch.tensor(float("inf"))).double() \
+            - w.float().abs().double()
+        m = torch.minimum(gg.abs(), wg.abs())
+        bound = 1e-6 * lr + spacing + lr * 1e-8 * (gg - wg).abs() / (m + 1e-8) ** 2
+        apart = (g - w).abs() > bound
+        same = torch.sign(gg) == torch.sign(wg)
+        if (apart & same).any():
+            worst = ((g - w).abs() - bound)[apart & same].max().item()
+            raise AssertionError(f"{label} {name}: {int((apart & same).sum())} elements "
+                                 f"past the Adam step's bound (by {worst}, lr {lr})")
+        flipped += int((apart & ~same).sum())
+        total += g.numel()
+    if not flipped <= 1e-2 * total:
+        raise AssertionError(f"{label}: {flipped} of {total} elements flipped")
+    return flipped, total
+
+
+def _leaf_names(tree) -> list:
+    from clip_glass_torch.core.dtypes import map_tree
+
+    names = []
+    map_tree(lambda path, _: names.append(path), tree)
+    return names
+
+
+def trainer_step_card_vs_cpu(g_params, d_params, cfg, seed: int = 5) -> dict:
+    """Step 0 of a trainer (R1 and the path length penalty, batch 4,
+    `TrainerConfig` defaults) on the card and on the CPU from the same
+    weights, reals and draws (the CPU trainer's), twice: at both learning
+    rates 0, then at the defaults.
+
+    At a rate of 0 the parameters stay, as the projector's step at t = 0
+    keeps its dlatents, so the G phase runs against the same D on both: the
+    gradients show in Adam's moments (with beta1 = 0 the first is the step's
+    gradient). Its record holds the largest differences: the losses
+    relative, pl_avg and the grad norms relative, G's and D's first and
+    second moments and the parameters after the step (Gs and dlatent_avg
+    move) relative to their scale; raises past STEP_TOL (the losses, the
+    parameters) or STEP_GRAD_TOL (twice it for the second moments).
+
+    At the default rates (`real_rate`), the Adam update applied: G's and D's
+    parameters by `_assert_adam_moved_alike` (an update of lr * sign(g)
+    flips where g is within its rounding noise: counted), Gs by its EMA (it
+    moves by (1 - ema_beta) of G's difference, plus two fp32 spacings),
+    d_loss within STEP_TOL (the D phase precedes every update) and the G
+    phase's logs within STEP_GRAD_TOL (G's loss and gradient run through
+    the updated D, whose logits move with the flips)."""
+    from clip_glass_torch.core.dtypes import tree_leaves
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    reals = torch.rand((4, cfg.data_channels, cfg.resolution, cfg.resolution),
+                       generator=gen) * 2 - 1
+    rates = {"zero": TrainerConfig(g_lr=0.0, d_lr=0.0, checkpoint_every=0),
+             "real": TrainerConfig(checkpoint_every=0)}
+    out, draws = {}, None
+    for rate, tcfg in rates.items():
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(cfg, tcfg, g_params, d_params, device=dev)
+            if draws is None:
+                draws = tr.draw(4, 1, path_length=True)
+            t = time.perf_counter()
+            logs = tr.train_step(reals.to(dev), _draws_to(draws, dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[rate, dev] = {"s": time.perf_counter() - t, "state": tr.state,
+                              "lr": {"g": tr.g_adam[0], "d": tr.d_adam[0]},
+                              "logs": {k: v.item() for k, v in logs.items()}}
+            del tr
+
+    def log_rel(rate):
+        c, g = out[rate, "cpu"]["logs"], out[rate, "cuda"]["logs"]
+        return {k: abs(g[k] - c[k]) / max(abs(c[k]), 1e-30) for k in c}
+
+    c, g = out["zero", "cpu"], out["zero", "cuda"]
+    sc, sg = c["state"], g["state"]
+    rec = log_rel("zero")
+    rec.update({"g_mu": _tree_rel(sg.g_opt.mu, sc.g_opt.mu),
+                "d_mu": _tree_rel(sg.d_opt.mu, sc.d_opt.mu),
+                "g_nu": _tree_rel(sg.g_opt.nu, sc.g_opt.nu),
+                "d_nu": _tree_rel(sg.d_opt.nu, sc.d_opt.nu),
+                "params": max(_tree_rel(tree_leaves(getattr(sg, k)), tree_leaves(getattr(sc, k)))
+                              for k in ("g_params", "d_params", "gs_params")),
+                "cpu_step_s": c["s"], "card_step_s": g["s"], "logs_cpu": c["logs"],
+                "tolerance": STEP_TOL, "gradient_tolerance": [STEP_GRAD_TOL, 2 * STEP_GRAD_TOL]})
+    bad = [k for k in ("d_loss", "g_loss", "params") if not rec[k] <= STEP_TOL]
+    bad += [k for k in ("pl_avg", "g_grad_norm", "d_grad_norm", "g_mu", "d_mu")
+            if not rec[k] <= STEP_GRAD_TOL]
+    bad += [k for k in ("g_nu", "d_nu") if not rec[k] <= 2 * STEP_GRAD_TOL]
+    if bad:
+        raise AssertionError(f"trainer step, card vs CPU, past the tolerance: {bad}: {rec}")
+
+    c, g = out["real", "cpu"], out["real", "cuda"]
+    sc, sg = c["state"], g["state"]
+    real = log_rel("real")
+    bad = [k for k in ("d_loss",) if not real[k] <= STEP_TOL]
+    bad += [k for k in ("g_loss", "pl_avg", "g_grad_norm", "d_grad_norm")
+            if not real[k] <= STEP_GRAD_TOL]
+    if bad:
+        raise AssertionError(f"trainer step at the default rates, card vs CPU: {bad}: {real}")
+    lazy = c["lr"]                     # the interval-scaled rates (`_lazy_lr`)
+    for k in ("g", "d"):
+        params = f"{k}_params"
+        flipped, total = _assert_adam_moved_alike(
+            f"trainer step, {params}", tree_leaves(getattr(sg, params)),
+            tree_leaves(getattr(sc, params)), getattr(sg, f"{k}_opt").mu,
+            getattr(sc, f"{k}_opt").mu, _leaf_names(getattr(sc, params)), lazy[k])
+        real[f"{k}_flipped"], real[f"{k}_elements"] = flipped, total
+    one_minus_beta = 1 - rates["real"].ema_beta
+    for gs_a, gs_b, g_a, g_b in zip(tree_leaves(sg.gs_params), tree_leaves(sc.gs_params),
+                                    tree_leaves(sg.g_params), tree_leaves(sc.g_params)):
+        gs_a, gs_b, g_a, g_b = (t.detach().double().cpu() for t in (gs_a, gs_b, g_a, g_b))
+        bound = one_minus_beta * (g_a - g_b).abs() \
+            + 2.0 ** -22 * (gs_b.abs() + one_minus_beta * g_b.abs()) + 1e-30
+        if ((gs_a - gs_b).abs() > bound).any():
+            raise AssertionError("trainer step at the default rates: Gs moved apart past "
+                                 "(1 - ema_beta) of G's difference")
+    real.update({"cpu_step_s": c["s"], "card_step_s": g["s"], "logs_cpu": c["logs"],
+                 "learning_rates": lazy, "tolerance": STEP_TOL,
+                 "gradient_tolerance": STEP_GRAD_TOL, "flipped_bound": 1e-2})
+    rec["real_rate"] = real
+    return rec
+
+
+def trainer_grad_kernels_vs_plain(trainer, phase: str, g_params=None, d_params=None,
+                                  seed: int = 6) -> tuple:
+    """A G gradient of the trainer (`phase` "g": `Trainer.g_loss`, D's
+    logistic loss of fakes drawn with noise; "pl": `Trainer.g_reg`, the path
+    length penalty scaled by its interval) at `g_params` / `d_params` (the
+    state's by default), on the card through kernels 1-3 against the same
+    with every wrapper taking its plain version (`cuda.takes_plain` forced),
+    twice: the largest difference of the kernels' gradient from the first
+    plain one, and of the second plain one from the first, relative to the
+    gradient's scale; and the counts of the kernels' run (launches under
+    grad, backward passes that kept their graph), which the plain runs must
+    not have: a synthesis's launches of kernels 1-3 under grad, none keeping
+    its graph, for "g"; kernels 2 and 3 (no noise) under grad and keeping
+    their graph (the second derivative) for "pl".
+
+    Only "g" holds the kernels' outputs: the fakes go through D, which is
+    not linear in them. The penalty's gradient does not see them: without
+    noise kernels 2 and 3 are linear in the skip image, the only operand
+    they produce, and `_KernelGrad`'s backward recomputes the plain version,
+    so "pl" checks the Function's double backward wiring."""
+    from clip_glass_torch.ops import cuda
+    from clip_glass_torch.training.trainer import ChunkDraws, value_and_grad
+
+    cfg, B = trainer.model_cfg, trainer.cfg.batch_size
+    g_params = trainer.state.g_params if g_params is None else g_params
+    d_params = trainer.state.d_params if d_params is None else d_params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if phase == "g":
+        draw = ChunkDraws(trainer._latents(gen, B), trainer._noise(gen))
+
+        def fn(p):
+            return trainer.g_loss(p, d_params, draw)
+    else:
+        draw = ChunkDraws(trainer._latents(gen, B), y=torch.randn(
+            (B, cfg.data_channels, cfg.resolution, cfg.resolution), generator=gen,
+            device="cuda"))
+        pl_avg = torch.tensor(0.1, device="cuda")
+
+        def fn(p):
+            return trainer.g_reg(p, draw, pl_avg)[0]
+    grads, counts = {}, {}
+    for route in ("kernels", "plain", "plain again"):
+        before = (dict(cuda.with_grad.recorded), dict(cuda.with_grad.double))
+        saved = cuda.takes_plain
+        if route != "kernels":
+            cuda.takes_plain = lambda t: True
+        try:
+            _, grads[route] = value_and_grad(fn, g_params)
+        finally:
+            cuda.takes_plain = saved
+        counts[route] = [_delta(b, dict(a)) for b, a in
+                         zip(before, (cuda.with_grad.recorded, cuda.with_grad.double))]
+        torch.cuda.empty_cache()
+    syn = synthesis_launches(trainer.plain_cfg)
+    if phase == "g":
+        want = [syn, {}]
+    else:
+        no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+        want = [no_noise, no_noise]
+    if counts["kernels"] != want or any(any(c) for c in counts["plain"]) \
+            or any(any(c) for c in counts["plain again"]):
+        raise AssertionError(f"{phase} gradient: recorded / kept the graph {counts}, "
+                             f"expected {want}")
+    return (_tree_rel(grads["kernels"], grads["plain"]),
+            _tree_rel(grads["plain again"], grads["plain"]), counts["kernels"])
+
+
+def phase_trainer(kind: str, smi: str, root: str) -> dict:
+    """Phase 28: the trainer at full width: config-f 1024 px, fp32,
+    `TrainerConfig` defaults (batch 4, R1 every 16 steps, the path length
+    penalty every 4, one subdivision), G, Gs and D from the reference's resume
+    files (`trainer_weights`), reals seeded uniform noise in [-1, 1].
+    TRAIN_STEPS steps: step 0 runs R1 and the path length penalty, step 4
+    the penalty again. Per step its seconds, the phases it ran, the peak
+    memory, the launches of kernels 1-3 (a plain-domain synthesis under
+    no_grad for D's fakes, one under grad for G's loss, one without noise
+    under grad for the penalty: 17/8/9, 17/8/9, 0/8/9), those through
+    `cuda._KernelGrad` and the backward passes of those that kept their
+    graph (the penalty's second derivative: 8 and 9), and the five logs,
+    which must be finite. Then: G's and D's parameters moved and Gs less
+    than G; a checkpoint written and read back bitwise; one TrainLogger grid
+    from Gs (the default domain: kernel 4 at 512 and 1024 px); kernels 1-3
+    at the step's fp32 shapes, output and input gradients against the plain
+    version (TOL); G's loss gradient at the weights before step 0, which
+    goes through D and so through the kernels' outputs, and the penalty's G
+    gradient, each through the kernels against the plain route on the card
+    (STEP_GRAD_TOL, and the plain route against itself); step 0 card vs CPU
+    on config-f cut to 256 px (the top two levels left out) at learning
+    rates 0 and at the defaults. Returns the kernels' records."""
+    from clip_glass_torch.core.dtypes import tree_leaves, tree_unflatten
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.ops import cuda
+    from clip_glass_torch.training.logging import TrainLogger
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    t = time.perf_counter()
+    g, gs, d, cfg = trainer_weights(os.path.join(root, "trainer"), sg2.CONFIG_F)
+    tcfg = TrainerConfig(checkpoint_every=0, checkpoint_dir=os.path.join(root, "ckpt"))
+    tr = Trainer(cfg, tcfg, g, d, device="cuda")
+    tr.load_state(tr.state.g_params, tr.state.d_params, gs, tr.state.g_opt, tr.state.d_opt,
+                  0.0, 0)
+    del g, gs, d
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    reals = torch.rand((tcfg.batch_size, 3, cfg.resolution, cfg.resolution), generator=gen,
+                       device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    def leaves(key):
+        return [x.clone() for x in tree_leaves(getattr(tr.state, key))]
+
+    before = {k: leaves(k) for k in ("g_params", "d_params", "gs_params")}
+    plain = dataclasses.replace(cfg, s2d_min_res=2 ** 30)
+    syn = synthesis_launches(plain)                       # 17/8/9 at 1024 px
+    no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+    steps = []
+    _zero_counts(_kernels())
+    for i in range(TRAIN_STEPS):
+        phases = ["d", "g"] + (["r1"] if i % tcfg.d_reg_interval == 0 else []) + \
+            (["pl"] if i % tcfg.g_reg_interval == 0 else [])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0, d0 = _counters(), dict(cuda.with_grad.double)
+        t0 = time.perf_counter()
+        logs = tr.train_step(reals)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        c1 = _counters()
+        rec = {"step": i, "s": s, "phases": phases,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": _delta(c0[0], c1[0]), "under_grad": _delta(c0[1], c1[1]),
+               "under_double_grad": _delta(d0, dict(cuda.with_grad.double)),
+               "logs": {k: v.item() for k, v in logs.items()}}
+        steps.append(rec)
+        pl = "pl" in phases
+        want = {k: 2 * syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+        want_grad = {k: syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+        if rec["launches"] != want or rec["under_grad"] != want_grad \
+                or rec["under_double_grad"] != (no_noise if pl else {}) \
+                or not all(math.isfinite(v) for v in rec["logs"].values()):
+            raise AssertionError(f"trainer step {i}: {rec}; expected launches {want}, under "
+                                 f"grad {want_grad}, kept the graph {no_noise if pl else {}}")
+    moved = {k: max((a - b).abs().max().item() for a, b in zip(leaves(k), before[k]))
+             for k in before}
+    if not (moved["g_params"] > 0 and moved["d_params"] > 0
+            and 0 < moved["gs_params"] < moved["g_params"]):
+        raise AssertionError(f"trainer: the largest moves {moved}")
+    log({"phase": "trainer", "model": "CONFIG_F 1024px (synthesized G.pth, Gs.pth, D.pth, "
+         "seed 0)", "dtype": "float32", "batch": tcfg.batch_size, "steps": TRAIN_STEPS,
+         "setup_s": setup_s, "step_s": [r["s"] for r in steps], "first_step_s": steps[0]["s"],
+         "by_step": steps, "largest_move": moved, "device": kind, "nvidia_smi": smi})
+
+    t = time.perf_counter()
+    folder = tr.save_checkpoint()
+    save_s = time.perf_counter() - t
+    saved = tr.state
+    t = time.perf_counter()
+    tr.load_checkpoint(folder)
+    load_s = time.perf_counter() - t
+    for key in ("g_params", "d_params", "gs_params"):
+        for a, b in zip(tree_leaves(getattr(tr.state, key)), tree_leaves(getattr(saved, key))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"trainer: checkpoint round trip changed {key}")
+    for key in ("g_opt", "d_opt"):
+        a, b = getattr(tr.state, key), getattr(saved, key)
+        if a.count != b.count or not all(torch.equal(x, y) for x, y in
+                                         zip(a.mu + a.nu, b.mu + b.nu)):
+            raise AssertionError(f"trainer: checkpoint round trip changed {key}")
+    if not (torch.equal(tr.state.pl_avg, saved.pl_avg) and tr.state.step == saved.step):
+        raise AssertionError("trainer: checkpoint round trip changed pl_avg or step")
+    del saved
+    size = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder))
+
+    sinks = TrainLogger(os.path.join(root, "logs"), image_every=1, n_image_latents=4)
+    c0 = _counters()
+    t = time.perf_counter()
+    grid = sinks.maybe_log_images(tr, tr.state.step)
+    grid_s = time.perf_counter() - t
+    grid_launches = _delta(c0[0], _counters()[0])
+    want_grid = {k: v for k, v in synthesis_launches(cfg).items() if k != "noise_bias_lrelu"}
+    if not (grid and os.path.getsize(grid) > 0) or grid_launches != want_grid:
+        raise AssertionError(f"trainer: grid {grid}, launches {grid_launches}, expected "
+                             f"{want_grid}")
+    log({"phase": "trainer", "check": "checkpoint round trip (bitwise) and a Gs grid",
+         "checkpoint_bytes": size, "save_s": save_s, "load_s": load_s,
+         "grid": os.path.basename(grid), "grid_s": grid_s, "grid_launches": grid_launches})
+
+    shapes = _plain_kernel_shapes(cfg, pop=tcfg.batch_size)
+    kernel_errs = _grad_cases("trainer", shapes, 42)
+    log({"phase": "trainer", "check": "kernels 1-3 at the step's fp32 shapes (batch 4, plain "
+         "domain): output and input gradients against the plain version",
+         "shapes": len(shapes), "kernels": kernel_errs, "tolerance": TOL[torch.float32]})
+
+    start = {k: tree_unflatten(getattr(tr.state, k), before[k])
+             for k in ("g_params", "d_params")}
+    err, spread, kern = trainer_grad_kernels_vs_plain(tr, "g", start["g_params"],
+                                                      start["d_params"])
+    log({"phase": "trainer", "check": "G loss's G gradient (through D) with kernels 1-3 vs the "
+         "plain versions, on the card (1024 px, batch 4, the weights before step 0)",
+         "max_rel_err": err, "plain_vs_plain": spread, "under_grad": kern[0],
+         "tolerance": STEP_GRAD_TOL})
+    if not err <= STEP_GRAD_TOL:
+        raise AssertionError(f"trainer: G loss gradient through the kernels: {err}")
+    del start
+    err, spread, kern = trainer_grad_kernels_vs_plain(tr, "pl")
+    log({"phase": "trainer", "check": "path length penalty's G gradient through kernels 2 and "
+         "3 (second derivative) vs the plain versions, on the card (1024 px, batch 4; the "
+         "kernels' outputs do not reach it: this checks _KernelGrad's wiring)",
+         "max_rel_err": err, "plain_vs_plain": spread, "under_grad": kern[0],
+         "under_double_grad": kern[1], "tolerance": STEP_GRAD_TOL})
+    if not err <= STEP_GRAD_TOL:
+        raise AssertionError(f"trainer: path length gradient through the kernels: {err}")
+    del tr, reals, before
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[2:]))
+    g, _, d, small = trainer_weights(os.path.join(root, "trainer_256"), small)
+    step = trainer_step_card_vs_cpu(g, d, small)
+    log({"phase": "trainer", "check": "step 0, card vs CPU (config-f cut to 256 px, batch 4, "
+         "fp32, TF32 off)", **step})
+    out = {name: {f: sum(r[f].get(name, 0) for r in steps)
+                  for f in ("launches", "under_grad", "under_double_grad")} for name in syn}
+    for name in syn:
+        out[name].update(kernel_errs[name])
+    out["s2d_conv2x2"] = {"launches": 0, "grid_launches": grid_launches["s2d_conv2x2"]}
+    return out
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -3548,6 +4044,9 @@ def main() -> int:
         projector = phase_projector(kind, smi, tmp, g_params, g_cfg, lp)
         ppl_launches = phase_ppl(kind, smi, g_params, g_cfg, lp)
         phase_fid(kind, smi, tmp, g_params, g_cfg)
+        del g_params, lp
+        torch.cuda.empty_cache()
+        trainer = phase_trainer(kind, smi, tmp)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -3562,6 +4061,7 @@ def main() -> int:
                         "host_us_per_call": host.get(name),
                         "launches_by_variant": variants.get(name),
                         "gradient_max_rel_err": grads[name],
+                        "second_derivative_max_rel_err": grads[f"{name}_second"],
                         "plain_path": {"launches": plain_launches[name],
                                        **{k: p[k] for k in keys}},
                         "batched": {
@@ -3574,6 +4074,7 @@ def main() -> int:
                                       "under_grad": projector["under_grad"].get(name, 0),
                                       **projector["kernels"].get(name, {})},
                         "ppl": {"launches": ppl_launches[name]},
+                        "trainer": trainer[name],
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -3603,7 +4104,14 @@ def main() -> int:
                                  f"default domain), max_abs_err and "
                                  f"gradient_max_rel_err at the step's fp32 shapes; "
                                  f"ppl: PPL.evaluate, {PPL_BATCHES} batches of "
-                                 f"{PPL_PAIRS} pairs at 1024 px, fp32"})
+                                 f"{PPL_PAIRS} pairs at 1024 px, fp32; trainer: "
+                                 f"Trainer.train_step, config-f 1024 px, fp32, batch 4, "
+                                 f"{TRAIN_STEPS} steps (launches; under_grad: through "
+                                 f"cuda._KernelGrad; under_double_grad: its backward "
+                                 f"passes that kept their graph, the path length "
+                                 f"penalty's), max_abs_err and gradient_max_rel_err at "
+                                 f"the step's fp32 shapes, grid_launches: one "
+                                 f"TrainLogger grid of 4 from Gs (the default domain)"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",

@@ -56,6 +56,24 @@ def map_tree(fn, tree, path=()):
     return tree
 
 
+def tree_leaves(tree) -> list:
+    """The tensor leaves of nested dicts/lists, in map_tree's order (dicts by
+    insertion, lists by index)."""
+    out = []
+    map_tree(lambda _, t: out.append(t), tree)
+    return out
+
+
+def tree_unflatten(template, leaves):
+    """`template`'s structure with its tensor leaves replaced, in
+    tree_leaves' order, by `leaves`."""
+    it = iter(leaves)
+    tree = map_tree(lambda _, t: next(it), template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return tree
+
+
 def precast_params(params, policy: Policy, exclude_prefixes: tuple = ()):
     """Cast every float leaf of a FROZEN parameter tree to the compute dtype,
     once, except leaves whose path holds a key starting with one of

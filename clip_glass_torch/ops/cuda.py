@@ -30,7 +30,6 @@ from pathlib import Path
 from typing import Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
@@ -253,11 +252,18 @@ def grad_wanted(*args) -> bool:
 
 class _KernelGrad(torch.autograd.Function):
     """The forward launches the hand-written kernel; the backward is the
-    gradient of its plain version, recomputed on detached copies of the
-    saved inputs on their device. The TPU kernels have no VJP either: the
-    JAX package differentiates the lax ops of their plain counterparts.
-    Once differentiable: a second derivative through it raises rather than
-    come out wrong."""
+    gradient of its plain version, recomputed on the saved inputs on their
+    device. The TPU kernels have no VJP either: the JAX package
+    differentiates the lax ops of their plain counterparts.
+
+    The plain version runs on views of the saved inputs themselves, made
+    with grad mode on; the views keep each input's gradient a partial
+    derivative where one input depends on another. Under `create_graph=True`
+    the gradient it returns carries the graph of the plain version's
+    backward, so a second derivative (R1, the path length penalty) goes
+    through the plain version's autograd as JAX's goes through lax ops;
+    under a plain `backward()` it carries none (a projector step costs the
+    same as with detached copies: scripts/projector_step_cost.py)."""
 
     @staticmethod
     def forward(ctx, launch, plain, *args):
@@ -268,21 +274,21 @@ class _KernelGrad(torch.autograd.Function):
         return launch(*args)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad_out):
+        create_graph = torch.is_grad_enabled()
         args = list(ctx.args)
-        wanted = []
-        for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
-            need = ctx.needs_input_grad[2 + i]
-            args[i] = t.detach().requires_grad_(need)
-            if need:
-                wanted.append(i)
+        wanted = [i for i in ctx.tensor_at if ctx.needs_input_grad[2 + i]]
         grads = [None] * len(args)
+        if wanted and create_graph:
+            name = ctx.plain.__name__.removesuffix("_plain")
+            with_grad.double[name] = with_grad.double.get(name, 0) + 1
         if wanted:
             with torch.enable_grad():
+                for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+                    args[i] = t.view_as(t) if i in wanted else t
                 out = ctx.plain(*args)
-            found = torch.autograd.grad(out, [args[i] for i in wanted], grad_out,
-                                        allow_unused=True)
+                found = torch.autograd.grad(out, [args[i] for i in wanted], grad_out,
+                                            create_graph=create_graph, allow_unused=True)
             for i, g in zip(wanted, found):
                 grads[i] = g
         return (None, None, *grads)
@@ -304,3 +310,6 @@ def with_grad(launch, plain, *args) -> torch.Tensor:
 
 # launches that recorded a gradient, by kernel wrapper name
 with_grad.recorded = {}
+# backward passes of those that kept their graph (create_graph=True: the
+# inner derivative of a second derivative), by kernel wrapper name
+with_grad.double = {}

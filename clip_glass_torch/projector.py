@@ -13,9 +13,9 @@ upsample, ToRGB) run under grad through `ops.cuda.with_grad`. The final
 render runs the config's default domain under `inference_mode` (kernel 4 too
 at the s2d levels).
 
-Adam is optax's `adam(1.0, b1=0.9, b2=0.999)` (eps 1e-8 outside the square
-root, bias correction from step 1) followed by a scale by the learning rate,
-written out (`adam_update`): `torch.optim.Adam` folds the rate in elsewhere.
+Adam is optax's `adam(1.0, b1=0.9, b2=0.999)` (`core.optim.adam_update`,
+re-exported here) followed by a scale by the learning rate, as the JAX
+projector scales its updates.
 The perceptual distance is pluggable: LPIPS-VGG16 (`lpips_params`, the
 reference's), any callable, or the `downsampled_l2` stand-in.
 """
@@ -31,9 +31,8 @@ import torch
 
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import FP32, tree_to
+from clip_glass_torch.core.optim import AdamState, adam_init, adam_update  # noqa: F401
 from clip_glass_torch.models.stylegan2 import model as sg2
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def downsampled_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,31 +97,6 @@ def noise_regularization(noises: Sequence[torch.Tensor]) -> torch.Tensor:
 def renormalize(n: torch.Tensor) -> torch.Tensor:
     """Zero mean, unit population std (jnp.std: correction 0)."""
     return (n - n.mean()) / n.std(correction=0).clamp_min(1e-8)
-
-
-@dataclasses.dataclass
-class AdamState:
-    count: int
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
-
-
-def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
-    return AdamState(0, [torch.zeros_like(p) for p in params],
-                     [torch.zeros_like(p) for p in params])
-
-
-def adam_update(grads: Sequence[torch.Tensor], state: AdamState):
-    """optax.adam(1.0, b1, b2, eps): the moments, their bias correction
-    (1 - b^count in fp32, count from 1) and -m_hat / (sqrt(v_hat) + eps).
-    Returns (updates, new state)."""
-    mu = [(1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.mu)]
-    nu = [(1 - ADAM_B2) * g ** 2 + ADAM_B2 * v for g, v in zip(grads, state.nu)]
-    count = state.count + 1
-    c1, c2 = (float(np.float32(1) - np.power(np.float32(b), np.float32(count)))
-              for b in (ADAM_B1, ADAM_B2))
-    updates = [-((m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)) for m, v in zip(mu, nu)]
-    return updates, AdamState(count, mu, nu)
 
 
 def _leaf(p: torch.Tensor) -> torch.Tensor:

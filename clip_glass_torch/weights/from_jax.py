@@ -34,6 +34,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from clip_glass_torch.core.dtypes import tree_leaves
+from clip_glass_torch.core.optim import AdamState
+
 
 def to_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
@@ -293,3 +296,22 @@ def convert_bundle(bundle) -> Dict[str, Any]:
     if bundle.get("d") is not None:
         out["d"] = convert_discriminator(bundle["d"])
     return out
+
+
+def convert_train_state(g, d, gs, g_opt, d_opt, pl_avg, step) -> Dict[str, Any]:
+    """A JAX `TrainState` carried across, as `Trainer.load_state`'s keyword
+    arguments: G, D and Gs trees; each optimizer's Adam state as (count, mu,
+    nu), mu and nu param-shaped trees (`state.g_opt[0].count`, `.mu`, `.nu`
+    of the JAX package's `optax.adam`), which go through the parameters' own
+    layout converters (HWIO -> OIHW, the ToRGB matrix) and are listed in the
+    port's leaf order; pl_avg and step. Every leaf as numpy (or a tensor).
+    The JAX PRNG key does not cross: the port's generator continues."""
+    def adam(opt, convert):
+        count, mu, nu = opt
+        return AdamState(int(np.asarray(count)), tree_leaves(convert(mu)),
+                         tree_leaves(convert(nu)))
+
+    return {"g_params": convert_generator(g), "d_params": convert_discriminator(d),
+            "gs_params": convert_generator(gs),
+            "g_opt": adam(g_opt, convert_generator), "d_opt": adam(d_opt, convert_discriminator),
+            "pl_avg": to_tensor(pl_avg), "step": int(np.asarray(step))}

@@ -17,7 +17,9 @@ patched to the plain version (`_*_cuda`), in float64:
 - the gradients equal plain autograd's bitwise (the backward is that
   autograd);
 - under torch.no_grad() and torch.inference_mode() the wrapper launches
-  directly and never enters the Function; a second derivative raises;
+  directly and never enters the Function;
+- a second derivative (create_graph) equals the plain version's, and
+  `torch.autograd.gradgradcheck` passes;
 - conv_s8 raises under grad, on the CPU as on the card.
 
 Then the port's TINY StyleGAN2 G in the plain domain against the JAX
@@ -51,6 +53,17 @@ from clip_glass_torch.weights import from_jax
 from torch_parity import N, T, assert_close_scaled
 
 D = torch.float64
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the lane runs six test processes on the
+    machine's cores, and these TINY computations gain nothing from more
+    threads but lose much to their contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _r(gen, *shape, scale=1.0, offset=0.0):
@@ -184,16 +197,78 @@ def test_direct_launch_without_a_gradient(card_branch, name, mode):
     assert torch.equal(out, plain(*args).detach())
 
 
-@pytest.mark.parametrize("name", ["noise_bias_lrelu", "s2d_conv2x2_pad1"])
-def test_second_derivative_raises(card_branch, name):
-    """The Function is once differentiable: a gradient of its gradient
-    raises rather than come out wrong."""
-    wrapper, _, _, _, make = CASES[name]
+def _second_derivative(fn, args, tensors, r):
+    """d/dinputs of sum(g_i * v_i), g = d sum(fn(*args)^2 * r) / dinputs (a
+    gradient that depends on the inputs, so that its own gradient is not 0
+    for the functions linear in x), v_i seeded: the second derivative that
+    R1 and the path length penalty take."""
+    out = fn(*args)
+    grads = torch.autograd.grad((out.square() * r).sum(), tensors, create_graph=True)
+    gen = torch.Generator().manual_seed(9)
+    total = sum((g * torch.randn(g.shape, generator=gen, dtype=D)).sum() for g in grads)
+    return torch.autograd.grad(total, tensors, allow_unused=True)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_second_derivative_equals_the_plain_version(card_branch, name):
+    """The Function is twice differentiable: under create_graph its backward
+    is the plain version's autograd graph on the saved inputs, so a gradient
+    of its gradient equals the plain version's, input by input, and the
+    kernel still launches once. Within 1e-6 of the scale: the plain versions
+    compute in fp32 inside, and the Function's graph adds the same terms in
+    another order (5e-8 apart here)."""
+    wrapper, _, launch, plain, make = CASES[name]
     args = make(torch.Generator().manual_seed(8))
-    x = args[0].requires_grad_(True)
-    (g,) = torch.autograd.grad(wrapper(*args).square().sum(), [x], create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(g.sum(), [x])
+    tensors = _tensors(args)
+    for t in tensors:
+        t.requires_grad_(True)
+    r = torch.randn(plain(*args).shape, generator=torch.Generator().manual_seed(3), dtype=D)
+    key = plain.__name__.removesuffix("_plain")
+    kept = cuda.with_grad.double.get(key, 0)
+    got = _second_derivative(wrapper, args, tensors, r)
+    assert card_branch["function"] == 1 and card_branch[launch] == 1
+    assert cuda.with_grad.double.get(key, 0) == kept + 1   # its backward kept the graph
+    want = _second_derivative(plain, args, tensors, r)
+    assert any(w is not None and w.abs().max() > 0 for w in want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None or not g.any()
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * w.abs().max().item())
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_wrapper_passes_gradgradcheck(card_branch, name):
+    """`torch.autograd.gradgradcheck` through the CUDA branch. The first
+    gradient is linear in each single input too (the leaky ReLU's kink
+    stays out of reach), so a central difference is exact at any step but
+    for rounding: the step is 0.1, ten times gradcheck's, because the fp32
+    rounding of a gradient, a sum of several products, divided by the step
+    would pass 1e-5 at 1e-2 for kernel 4."""
+    wrapper, _, _, _, make = CASES[name]
+    args = make(torch.Generator().manual_seed(10))
+    for t in _tensors(args):
+        t.requires_grad_(True)
+    assert torch.autograd.gradgradcheck(lambda *a: wrapper(*a), args, eps=1e-1, atol=1e-5,
+                                        rtol=1e-3)
+    assert card_branch["function"] > 0
+
+
+def test_plain_backward_keeps_no_graph(card_branch):
+    """Under a plain backward the gradient the Function returns has no
+    graph, so a projector step builds none; under create_graph it has one,
+    and the graph-keeping backward is counted."""
+    wrapper, _, _, _, make = CASES["modulated_matmul"]
+    args = make(torch.Generator().manual_seed(11))
+    for t in _tensors(args):
+        t.requires_grad_(True)
+    x = args[0]
+    (g,) = torch.autograd.grad(wrapper(*args).sum(), [x])
+    assert g.grad_fn is None and not g.requires_grad
+    kept = dict(cuda.with_grad.double)
+    (g2,) = torch.autograd.grad(wrapper(*args).sum(), [x], create_graph=True)
+    assert g2.requires_grad
+    assert cuda.with_grad.double["modulated_matmul"] == kept.get("modulated_matmul", 0) + 1
 
 
 def test_cpu_tensors_take_the_plain_version_with_its_gradient():

@@ -699,3 +699,57 @@ def test_lpips_and_inception_on_gpu_match_cpu(gpu, tmp_path):
         want = inception.features(inc, x)
         got = inception.features(inc_gpu, x.cuda()).cpu()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("noise_bias_lrelu", (2, 16, 16, 32)), ("upsample2x", (2, 16, 16, 3)),
+    ("modulated_matmul", (2, 256, 32, 3)), ("s2d_conv2x2", (2, 33, 128, 1, True)),
+    ("s2d_conv2x2", (2, 17, 256, 0, False))])
+def test_kernel_second_derivative_equals_plain_version(gpu, name, shape):
+    """A second derivative through each kernel's wrapper (the kernel's
+    forward, `cuda._KernelGrad`'s graph-keeping backward) against the plain
+    version's on the card, fp32, within TOL of its scale."""
+    import chip_smoke
+
+    assert chip_smoke._second_derivative_case(name, shape, gpu) <= TOL[torch.float32]
+
+
+def test_trainer_step_on_gpu_matches_cpu(gpu, tmp_path):
+    """Step 0 of the trainer (R1 and the path length penalty, batch 4) on
+    config-f cut to its top 5 levels (64 px) from synthesized G.pth / D.pth,
+    card against CPU, TF32 off, at learning rates 0 and at the defaults: the
+    losses within chip_smoke.STEP_TOL, the gradients, grad norms and pl_avg
+    within STEP_GRAD_TOL of their scale, the default rates' Adam update
+    element by element (`chip_smoke.trainer_step_card_vs_cpu` raises past
+    them)."""
+    import dataclasses
+
+    import chip_smoke
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[4:]))
+    g, _, d, cfg = chip_smoke.trainer_weights(str(tmp_path), cfg)
+    rec = chip_smoke.trainer_step_card_vs_cpu(g, d, cfg)
+    assert rec["g_mu"] <= chip_smoke.STEP_GRAD_TOL and rec["d_loss"] <= chip_smoke.STEP_TOL
+    assert rec["real_rate"]["d_loss"] <= chip_smoke.STEP_TOL
+
+
+@pytest.mark.parametrize("phase", ["g", "pl"])
+def test_trainer_gradient_through_kernels_equals_plain_route(gpu, tmp_path, phase):
+    """A G gradient of the trainer on the card through the kernels against
+    every wrapper taking its plain version, at 64 px, within
+    chip_smoke.STEP_GRAD_TOL of its scale: G's loss (through D, so through
+    the kernels' outputs) and the path length penalty (kernels 2 and 3's
+    graph-keeping backward)."""
+    import dataclasses
+
+    import chip_smoke
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[4:]))
+    g, _, d, cfg = chip_smoke.trainer_weights(str(tmp_path), cfg)
+    tr = Trainer(cfg, TrainerConfig(checkpoint_every=0), g, d, device="cuda")
+    err, _, counts = chip_smoke.trainer_grad_kernels_vs_plain(tr, phase)
+    assert err <= chip_smoke.STEP_GRAD_TOL and counts[0]
+    assert bool(counts[1]) == (phase == "pl")
