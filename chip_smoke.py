@@ -189,14 +189,27 @@ files (G.pth, Gs.pth and D.pth that weights/synthesize.py writes, seed 0):
      bitwise; one TrainLogger grid from Gs (kernel 4); the penalty's G
      gradient through the kernels vs the plain route; step 0 card vs CPU on
      config-f cut to 256 px.
+Then population sharding and multi-process runs (clip_glass_torch/parallel),
+from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
+ 29. sharded: (a) a one-process mesh over the box's cards, its evaluation
+     bitwise the unsharded one; (b) two ranks of this script on the card
+     (`--sharded-rank`, gloo), 8 rows a rank: F against the one-process F
+     within BATCHED_BF16_TOL, the naive split (each half a population of
+     its own) past it, then init + 3 generations with each rank's launches,
+     s a generation and peak memory; (c) NCCL at world size 1, one
+     generation; (d) `cli.main --distributed` in the two ranks: rank 0
+     writes each artifact once, rank 1 nothing; (e) the data-parallel
+     trainer in the two ranks, config-f cut to 256 px, batch 4, fp32, 2
+     steps, each held against the one-process step.
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
 record: phase 25's launches, those under grad and, for kernels 1-3, the
 errors at the step's shapes, a `ppl` record: phase 26's launches, and a
 `trainer` record: phase 28's launches, under grad and under a second
-derivative, kernel 4's in the grid), the card's name and power limit, and
-{"ok": true, "device": {...}}.
+derivative, kernel 4's in the grid, and a `sharded` record: phase 29's
+launches per rank in (b)'s generations and in (e)'s trainer steps), the
+card's name and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
 """
@@ -3591,9 +3604,15 @@ def trainer_weights(root: str, cfg):
     random weights at a checkpoint's scale) read by
     `convert_stylegan2.load_pth` and `from_jax`. `generator_init`'s dense
     layers are N(0, 1) (ROADMAP §3): config-f from it trains nothing."""
-    from clip_glass_torch.weights import convert_stylegan2, from_jax, synthesize
+    from clip_glass_torch.weights import synthesize
 
-    paths = synthesize.write_stylegan2_pth(root, cfg, 0)
+    return read_trainer_weights(synthesize.write_stylegan2_pth(root, cfg, 0), cfg)
+
+
+def read_trainer_weights(paths: dict, cfg):
+    """(G, Gs, D, config) from the stem -> path map `trainer_weights` writes."""
+    from clip_glass_torch.weights import convert_stylegan2, from_jax
+
     trees = {}
     for stem, path in paths.items():
         tree, got_cfg, kind = convert_stylegan2.load_pth(path)
@@ -3990,6 +4009,382 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 29
+
+SHARDED_RANKS = 2
+SHARDED_GENERATIONS = 3
+SHARDED_TRAIN_STEPS = 2
+# a rank process's time limit: a hang fails the phase instead of the script's
+RANK_TIMEOUT_S = 300
+
+
+def _sharded_config(weights: str):
+    from clip_glass_torch.config import get_config
+
+    return get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights=weights, pop_size=POP)
+
+
+def _small_cfg():
+    """Config-f cut to 256 px (its top two levels left out; the widths kept)."""
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    return dataclasses.replace(sg2.CONFIG_F, channels=tuple(sg2.CONFIG_F.channels[2:]))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(world: int, backend: str, cases: str, inputs: str, out: str) -> list:
+    """`world` rank processes of this script (`sharded_rank`) in one process
+    group; each must exit 0 within RANK_TIMEOUT_S. Returns their records."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), "--world",
+         str(world), "--port", str(port), "--backend", backend, "--cases", cases,
+         "--inputs", inputs, "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs + [""] * world)):
+        if p.returncode != 0:
+            raise AssertionError(f"{backend} rank {r} of {world} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    return [torch.load(os.path.join(out, f"rank-{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _count_writes(root: str) -> dict:
+    """scripts/dryrun_multihost_torch.py's `count_writes`: path under `root`
+    -> the times this process opens it for writing from here on."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_multihost_torch", os.path.join(ROOT, "scripts", "dryrun_multihost_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.count_writes(root)
+
+
+def sharded_rank(argv) -> int:
+    """One rank of phase 29 (`python3 chip_smoke.py --sharded-rank R ...`):
+    joins the process group on the card (the given backend), the mesh of its
+    card, and runs its cases: "search" (one flagship evaluation of the
+    inputs' X, then init + SHARDED_GENERATIONS generations with the kernels'
+    launches, seconds and peak memory), "cli" (`cli.main --distributed`, 2
+    generations, its writes counted) and "train" (SHARDED_TRAIN_STEPS
+    data-parallel trainer steps at 256 px from the inputs' reals and
+    draws, a rank-0 checkpoint after each). Saves its record to
+    <out>/rank-R.pt."""
+    import argparse
+
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.ops import cuda
+    from clip_glass_torch.parallel import distributed as dist
+    from clip_glass_torch.parallel import make_mesh
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--sharded-rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--backend", "--cases", "--inputs", "--out"):
+        ap.add_argument(flag, required=True)
+    args = ap.parse_args(argv)
+    spec = f"localhost:{args.port},{args.world},{args.sharded_rank}"
+    dist.initialize(spec, backend=args.backend, timeout_s=RANK_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(args.inputs, weights_only=False)
+    mesh = make_mesh()
+    rank = dist.rank()
+    rec = {"rank": rank, "backend": torch.distributed.get_backend(), "mesh_size": mesh.size,
+           "device": str(mesh.device)}
+    cases = args.cases.split(",")
+    kernels = _kernels()
+    if "search" in cases:
+        t = time.perf_counter()
+        problem = GenerationProblem(_sharded_config(inp["weights"]), device="cuda", mesh=mesh)
+        algorithm = problem.make_algorithm()
+        torch.cuda.synchronize()
+        rec["setup_s"] = time.perf_counter() - t
+        rec["F"] = problem.generator.eval_population(inp["X"]).cpu()
+        gen = algorithm.generator(0)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        t = time.perf_counter()
+        state = algorithm.init(gen)
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        rec["init_eval_s"] = stamps[0] - t
+
+        def on_generation(_state):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        res = minimize(algorithm, inp["generations"], gen, callback=on_generation,
+                       save_each=1, state=state)
+        rec["launches"] = {k.__name__: k.launches for k in kernels}
+        rec["launches_by_variant"] = {k.__name__: {v: n for v, n in
+                                                   k.launches_by_variant.items() if n}
+                                      for k in kernels if hasattr(k, "launches_by_variant")}
+        rec["generation_s"] = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["pop_F"], rec["pop_X"] = res.pop_F, res.pop_X
+        del problem, algorithm, res, state
+        torch.cuda.empty_cache()
+    if "cli" in cases:
+        from clip_glass_torch import cli
+
+        folder = os.path.join(args.out, "cli")
+        writes = _count_writes(folder)
+        rc = cli.main(["--config", "StyleGAN2_ffhq_d", "--target", TARGET, "--weights",
+                       inp["weights"], "--pop-size", str(POP), "--generations", "2",
+                       "--save-each", "1", "--tmp-folder", folder, "--distributed", spec,
+                       "--no-verbose"])
+        rec["cli_rc"], rec["cli_writes"] = rc, dict(writes)
+        torch.cuda.empty_cache()
+    if "train" in cases:
+        from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+        g, _, d, small = read_trainer_weights(inp["train_weights"], _small_cfg())
+        tr = Trainer(small, TrainerConfig(checkpoint_every=0), g, d, mesh=mesh)
+        steps = []
+        for i, (reals, draws) in enumerate(zip(inp["reals"], inp["draws"])):
+            c0, d0 = _counters(), dict(cuda.with_grad.double)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = tr.train_step(tr.local_rows(reals), draws)
+            torch.cuda.synchronize()
+            c1 = _counters()
+            steps.append({"s": time.perf_counter() - t, "launches": _delta(c0[0], c1[0]),
+                          "under_grad": _delta(c0[1], c1[1]),
+                          "under_double_grad": _delta(d0, dict(cuda.with_grad.double)),
+                          "logs": {k: v.item() for k, v in logs.items()}})
+            tr.save_checkpoint(os.path.join(args.out, "train", f"step-{i + 1}"))
+        rec["train"] = steps
+    torch.save(rec, os.path.join(args.out, f"rank-{rank}.pt"))
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def _trainer_steps_vs_ranks(steps: list, inp: dict, folder: str) -> list:
+    """Each step of the ranks (their checkpoints) against the one-process
+    step on the card from the same state (the ranks' checkpoint before it),
+    reals and draws: d_loss within STEP_TOL, g_loss, pl_avg and the grad
+    norms within STEP_GRAD_TOL (G's phase runs through the updated D), G's
+    and D's gradients (Adam's first moment, beta1 = 0) within
+    STEP_GRAD_TOL of their scale, and at step 0 the Adam update element by
+    element (`_assert_adam_moved_alike`)."""
+    from clip_glass_torch.core.dtypes import tree_leaves
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    g, _, d, small = read_trainer_weights(inp["train_weights"], _small_cfg())
+    tcfg = TrainerConfig(checkpoint_every=0)
+    out = []
+    for i, (reals, draws) in enumerate(zip(inp["reals"], inp["draws"])):
+        single = Trainer(small, tcfg, g, d, device="cuda")
+        if i:
+            single.load_checkpoint(os.path.join(folder, f"step-{i}"))
+        logs = {k: v.item() for k, v in single.train_step(reals, draws).items()}
+        ranks = Trainer(small, tcfg, g, d, device="cuda")
+        ranks.load_checkpoint(os.path.join(folder, f"step-{i + 1}"))
+        got, want = ranks.state, single.state
+        rel = {k: abs(steps[i]["logs"][k] - v) / max(abs(v), 1e-30) for k, v in logs.items()}
+        rec = {"step": i, "logs_rel": rel, "g_mu": _tree_rel(got.g_opt.mu, want.g_opt.mu),
+               "d_mu": _tree_rel(got.d_opt.mu, want.d_opt.mu)}
+        bad = [k for k in ("d_loss",) if not rel[k] <= STEP_TOL]
+        bad += [k for k in ("g_loss", "pl_avg", "g_grad_norm", "d_grad_norm")
+                if not rel[k] <= STEP_GRAD_TOL]
+        bad += [k for k in ("g_mu", "d_mu") if not rec[k] <= STEP_GRAD_TOL]
+        if got.step != want.step:
+            bad.append("step")
+        if i == 0:
+            for k, lr in (("g", single.g_adam[0]), ("d", single.d_adam[0])):
+                params = f"{k}_params"
+                rec[f"{k}_flipped"], rec[f"{k}_elements"] = _assert_adam_moved_alike(
+                    f"sharded trainer step 0, {params}", tree_leaves(getattr(got, params)),
+                    tree_leaves(getattr(want, params)), getattr(got, f"{k}_opt").mu,
+                    getattr(want, f"{k}_opt").mu, _leaf_names(getattr(want, params)), lr)
+        if bad:
+            raise AssertionError(f"sharded trainer step {i}, two ranks vs one process: "
+                                 f"{bad}: {rec}")
+        out.append(rec)
+        del single, ranks
+    return out
+
+
+def phase_sharded(kind: str, smi: str, root: str) -> dict:
+    """Phase 29: population sharding and multi-process runs
+    (clip_glass_torch/parallel) on the one card, from the reference-format
+    config-f files phase 28 wrote (G.pth, Gs.pth, D.pth, seed 0: random
+    weights at a checkpoint's scale; CLIP ViT-B/32 random:0), the flagship
+    StyleGAN2_ffhq_d at 1024 px, pop 16, bf16, the s2d path:
+      (a) a one-process mesh over the box's cards (one): the evaluation
+          bitwise the unsharded one, with its launches;
+      (b) two ranks on the card, gloo: F of one evaluation (8 rows a rank,
+          D's minibatch-std gathered across the ranks) against the
+          single process's within BATCHED_BF16_TOL of each objective's scale
+          (cuDNN may take other algorithms at 8 rows than at 16), and the
+          control, each half evaluated as a population of its own with no
+          mesh, which must move F past that tolerance; then init +
+          SHARDED_GENERATIONS generations: per rank the launches of kernels
+          1-4, seconds a generation and peak memory;
+      (c) NCCL at world size 1: one generation of the same search;
+      (d) `cli.main --distributed` in the two gloo ranks, 2 generations:
+          rank 0 writes each artifact once, rank 1 nothing;
+      (e) the data-parallel trainer in the two gloo ranks: config-f cut to
+          256 px, batch 4 (2 a rank), fp32, SHARDED_TRAIN_STEPS steps (R1 and
+          the path length penalty at step 0), each step held against the
+          one-process step on the card (`_trainer_steps_vs_ranks`), kernels
+          1-3 under grad in each rank.
+    Returns each kernel's launches per rank in (b)'s generations."""
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.parallel import make_mesh
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+    from clip_glass_torch.weights import synthesize
+
+    t_phase = time.perf_counter()
+    kernels = _kernels()
+    weights = os.path.join(root, "trainer")          # phase 28's config-f files
+    problem = GenerationProblem(_sharded_config(weights), device="cuda")
+    gen = problem.generator
+    if not gen._s2d_active:
+        raise AssertionError("sharded: the flagship fitness took the plain domain")
+    X = torch.randn((POP, gen.config.n_var), generator=torch.Generator().manual_seed(11))
+    X = X.cuda()
+    whole = gen.eval_population(X)
+    gen.mesh = make_mesh()
+    _zero_counts(kernels)
+    meshed = gen.eval_population(X)
+    launches_a = {k.__name__: k.launches for k in kernels}
+    gen.mesh = None
+    if not torch.equal(meshed, whole) or launches_a != PER_EVAL["s2d"]:
+        raise AssertionError(f"sharded (a): a one-process mesh of {torch.cuda.device_count()} "
+                             f"card(s) changed F ({(meshed - whole).abs().max().item()}) or "
+                             f"launched {launches_a}")
+    naive = torch.cat([gen.eval_population(X[:POP // 2]), gen.eval_population(X[POP // 2:])])
+    log({"phase": "sharded", "check": "(a) one-process mesh over the box's cards: F bitwise "
+         "the unsharded evaluation", "cards": torch.cuda.device_count(), "bitwise": True,
+         "launches": launches_a, "hinge": whole[:, 1].tolist()})
+    del problem, gen
+    torch.cuda.empty_cache()
+
+    small = _small_cfg()
+    train_weights = synthesize.write_stylegan2_pth(os.path.join(root, "sharded_256"), small, 0)
+    g, _, d, small = read_trainer_weights(train_weights, small)
+    drawer = Trainer(small, TrainerConfig(checkpoint_every=0), g, d, device="cuda")
+    tgen = torch.Generator(device="cuda").manual_seed(8)
+    reals = [torch.rand((4, 3, small.resolution, small.resolution), generator=tgen,
+                        device="cuda") * 2 - 1 for _ in range(SHARDED_TRAIN_STEPS)]
+    draws = [drawer.draw(4, 1, path_length=i % drawer.cfg.g_reg_interval == 0)
+             for i in range(SHARDED_TRAIN_STEPS)]
+    del drawer, g, d
+    inputs = os.path.join(root, "sharded_inputs.pt")
+    torch.save({"X": X, "weights": weights, "generations": SHARDED_GENERATIONS,
+                "train_weights": train_weights, "reals": reals, "draws": draws}, inputs)
+
+    out_b = os.path.join(root, "sharded_gloo")
+    os.makedirs(out_b, exist_ok=True)
+    t = time.perf_counter()
+    ranks = _run_ranks(SHARDED_RANKS, "gloo", "search,cli,train", inputs, out_b)
+    gloo_s = time.perf_counter() - t
+    if any(r["backend"] != "gloo" or r["mesh_size"] != SHARDED_RANKS for r in ranks):
+        raise AssertionError(f"sharded (b): {[(r['backend'], r['mesh_size']) for r in ranks]}")
+    F_ranks = ranks[0]["F"]
+    if not all(torch.equal(r["F"], F_ranks) for r in ranks):
+        raise AssertionError("sharded (b): the ranks' F differ")
+    want = whole.float().cpu()
+    b = _close_to_scale("sharded (b): two ranks vs one process", F_ranks, want,
+                        BATCHED_BF16_TOL)
+    scale = want.abs().max(dim=0).values.clamp_min(1e-6)
+    control = ((naive.float().cpu() - want).abs().max(dim=0).values / scale).tolist()
+    if not max(control) > BATCHED_BF16_TOL:
+        raise AssertionError(f"sharded (b): the naive split moved F by only {control} of the "
+                             f"scale, within the tolerance {BATCHED_BF16_TOL}: the check "
+                             "cannot see a missing minibatch-std gather")
+    per_gen = {name: n * (SHARDED_GENERATIONS + 1) for name, n in PER_EVAL["s2d"].items()}
+    for r in ranks:
+        if r["launches"] != per_gen:
+            raise AssertionError(f"sharded (b) rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {per_gen}")
+        if not torch.isfinite(r["pop_F"]).all() or not torch.equal(r["pop_X"],
+                                                                   ranks[0]["pop_X"]):
+            raise AssertionError(f"sharded (b) rank {r['rank']}: the state is not replicated")
+    log({"phase": "sharded", "check": "(b) two ranks on the card (gloo), 8 rows a rank: F "
+         "against the one-process F, and the naive split (no gather) as control",
+         **b, "tolerance": BATCHED_BF16_TOL, "naive_split_max_rel_to_scale": control,
+         "by_rank": [{k: r[k] for k in ("rank", "device", "setup_s", "init_eval_s",
+                                         "generation_s", "max_memory_allocated_bytes",
+                                         "launches", "launches_by_variant")} for r in ranks],
+         "generations": SHARDED_GENERATIONS, "ranks_s": gloo_s, "device": kind,
+         "nvidia_smi": smi})
+
+    folder = os.path.join(out_b, "cli")
+    final = {"genetic_result", "F.jpg", "ls_result.npz", "output.jpg", "genetic-it-1.jpg",
+             "genetic-it-final.jpg"}
+    files = set(os.listdir(folder))
+    w0, w1 = ranks[0]["cli_writes"], ranks[1]["cli_writes"]
+    if any(r["cli_rc"] for r in ranks) or not (final | {"ga_state.npz"}) <= files \
+            or w1 or any(w0.get(f) != 1 for f in final):
+        raise AssertionError(f"sharded (d): rc {[r['cli_rc'] for r in ranks]}, files {files}, "
+                             f"writes {w0} / {w1}")
+    log({"phase": "sharded", "check": "(d) cli.main --distributed, two ranks (gloo), 2 "
+         "generations: rank 0 writes each artifact once, rank 1 nothing",
+         "artifacts": sorted(files), "writes_rank0": w0, "writes_rank1": w1})
+
+    plain_small = dataclasses.replace(small, s2d_min_res=2 ** 30)
+    syn = synthesis_launches(plain_small)
+    no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+    for r in ranks:
+        for i, step in enumerate(r["train"]):
+            pl = i % TrainerConfig().g_reg_interval == 0
+            want_l = {k: 2 * syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+            want_g = {k: syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+            if step["launches"] != want_l or step["under_grad"] != want_g \
+                    or not all(math.isfinite(v) for v in step["logs"].values()):
+                raise AssertionError(f"sharded (e) rank {r['rank']} step {i}: {step}; expected "
+                                     f"launches {want_l}, under grad {want_g}")
+    steps = _trainer_steps_vs_ranks(ranks[0]["train"], torch.load(inputs, weights_only=False),
+                                    os.path.join(out_b, "train"))
+    log({"phase": "sharded", "check": "(e) the data-parallel trainer, two ranks (gloo): "
+         "config-f cut to 256 px, batch 4 (2 a rank), fp32, each step against the one-process "
+         "step on the card", "steps": steps,
+         "by_rank": [{"rank": r["rank"], "step_s": [s["s"] for s in r["train"]],
+                      "launches": [s["launches"] for s in r["train"]],
+                      "under_grad": [s["under_grad"] for s in r["train"]],
+                      "under_double_grad": [s["under_double_grad"] for s in r["train"]]}
+                     for r in ranks],
+         "tolerance": STEP_TOL, "gradient_tolerance": STEP_GRAD_TOL})
+
+    out_c = os.path.join(root, "sharded_nccl")
+    os.makedirs(out_c, exist_ok=True)
+    torch.save({"X": X, "weights": weights, "generations": 1}, inputs)
+    (c,) = _run_ranks(1, "nccl", "search", inputs, out_c)
+    one = {name: n * 2 for name, n in PER_EVAL["s2d"].items()}
+    if c["backend"] != "nccl" or c["launches"] != one or not torch.isfinite(c["pop_F"]).all():
+        raise AssertionError(f"sharded (c): {c['backend']}, launches {c['launches']}")
+    log({"phase": "sharded", "check": "(c) NCCL at world size 1: one generation",
+         "backend": c["backend"], "launches": c["launches"], "generation_s": c["generation_s"],
+         "F_vs_one_process_max_abs": (c["F"].float() - want).abs().max().item()})
+    log({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
+    return {name: {"launches_per_rank": ranks[0]["launches"][name],
+                   "trainer_launches_per_rank": sum(s["launches"].get(name, 0)
+                                                    for s in ranks[0]["train"])}
+            for name in PER_EVAL["s2d"]}
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -4003,6 +4398,8 @@ KERNEL_META = {
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return sharded_rank(sys.argv[1:])
     t0 = time.perf_counter()
     kind = phase_device()
     smi = smi_line()
@@ -4047,6 +4444,7 @@ def main() -> int:
         del g_params, lp
         torch.cuda.empty_cache()
         trainer = phase_trainer(kind, smi, tmp)
+        sharded = phase_sharded(kind, smi, tmp)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -4075,6 +4473,7 @@ def main() -> int:
                                       **projector["kernels"].get(name, {})},
                         "ppl": {"launches": ppl_launches[name]},
                         "trainer": trainer[name],
+                        "sharded": sharded[name],
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -4111,7 +4510,13 @@ def main() -> int:
                                  f"passes that kept their graph, the path length "
                                  f"penalty's), max_abs_err and gradient_max_rel_err at "
                                  f"the step's fp32 shapes, grid_launches: one "
-                                 f"TrainLogger grid of 4 from Gs (the default domain)"})
+                                 f"TrainLogger grid of 4 from Gs (the default domain); "
+                                 f"sharded: {SHARDED_RANKS} gloo ranks on the card, "
+                                 f"init + {SHARDED_GENERATIONS} generations of the "
+                                 f"flagship s2d path, {POP // SHARDED_RANKS} rows a rank "
+                                 f"(launches_per_rank), and {SHARDED_TRAIN_STEPS} "
+                                 f"data-parallel trainer steps at 256 px, batch 4 "
+                                 f"(trainer_launches_per_rank)"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
@@ -4125,6 +4530,7 @@ def main() -> int:
                                         "previous_int8_conv_work_ms", "ops", "route_ops",
                                         "gemm_ops", "shapes", "launches_per_evaluation")},
         "gradient": "raises (inference only)",
+        "sharded": {"launches_per_rank": 0},   # phase 29 runs the bf16 path
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
                  f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
                  f"of one int8 evaluation; ms, device_ms: the fused entry on the bf16 "

@@ -24,8 +24,12 @@ several --target (K searches batched in one run, evolve/batched.py: one
 `ga_state.npz` at the root) with --search-microbatch; --serve FILE|- with
 --slots (serving.SearchServer: one `request-NNNN/` folder per request with
 `target.txt` and the result artifacts); --quantize int8 (the int8 fitness,
-ops/quant.py, calibrated at setup from the seed). The JAX package's other flags are
-parsed and refused, each naming the ROADMAP item that ports it.
+ops/quant.py, calibrated at setup from the seed); --mesh (the evaluation's
+rows split over the cards, parallel/mesh.py) and --distributed SPEC (one
+process a card in a torch.distributed process group, parallel/
+distributed.py; implies --mesh), as the JAX CLI: every rank runs the search
+on the whole state, rank 0 alone writes the artifacts, and --serve and
+GPT2's host round trip refuse a process group.
 """
 
 from __future__ import annotations
@@ -38,12 +42,6 @@ import time
 import numpy as np
 
 DEFAULT_TARGET = "a wolf at night with the moon in the background"
-
-# flag (argparse dest) -> why this package refuses it
-REFUSED = {
-    "mesh": "population sharding is ROADMAP item 16",
-    "distributed": "multi-host runs are ROADMAP item 16",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,9 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from <tmp-folder>/ga_state.npz")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported: " + REFUSED["mesh"])
+                   help="split each evaluation's rows over the cards (every visible "
+                        "card; under --distributed each rank's own); F is unchanged")
     p.add_argument("--distributed", type=str, default=None, metavar="SPEC",
-                   help="not ported: " + REFUSED["distributed"])
+                   help="join a torch.distributed process group, one process a card: "
+                        "'auto' (torchrun's variables) or '<host:port>,<num>,<id>' "
+                        "(default: $CGT_DISTRIBUTED); implies --mesh; NCCL on cards, "
+                        "gloo with --device cpu")
     p.add_argument("--verbose", action=argparse.BooleanOptionalAction, default=True,
                    help="print the per-chunk, rate, dump and wallclock lines "
                         "(the default; --no-verbose is quiet)")
@@ -106,12 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """parser.error (exit 2) for a flag or config this package does not run;
-    a refused flag at its default value asks for nothing and passes."""
-    for dest, why in REFUSED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            parser.error(f"--{dest.replace('_', '-')}: {why}")
+def _refuse_unknown(parser: argparse.ArgumentParser, args) -> None:
+    """parser.error (exit 2) for a config this package does not know."""
     from clip_glass_torch.config import list_configs
 
     if args.config not in list_configs():
@@ -263,7 +261,7 @@ def main(argv=None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    _refuse_unknown(parser, args)
     targets = args.target or [DEFAULT_TARGET]
     if args.serve:
         if args.resume:
@@ -273,6 +271,26 @@ def main(argv=None) -> int:
             parser.error(f"--serve file not found: {args.serve}")
 
     import torch
+
+    from clip_glass_torch.parallel import distributed as dist
+    from clip_glass_torch.parallel import make_mesh
+
+    on_cpu = torch.device(args.device).type == "cpu"
+    # before any CUDA use: the rank takes its card here
+    try:
+        dist.initialize(args.distributed, backend="gloo" if on_cpu else None)
+    except ValueError as e:
+        parser.error(f"--distributed: {e}")
+    primary = dist.is_primary()
+    if dist.active():
+        if args.serve:
+            parser.error("--serve is one process: the server splits its slots over "
+                         "this process's cards; run one server a host")
+        if not args.mesh:
+            args.mesh = True   # a run over several processes is a sharded one
+            if primary and args.verbose:
+                print(f"[distributed] {dist.world_size()} processes; --mesh implied")
+    verbose = args.verbose and primary
 
     from clip_glass_torch.config import get_config
     from clip_glass_torch.core.checkpoint import (checkpoint_config_name, load_state,
@@ -314,8 +332,13 @@ def main(argv=None) -> int:
                         if os.path.exists(default_clip) and not args.tiny
                         else "random:0")
 
+    if dist.active() and config.task == "img2txt":
+        parser.error("GPT2's host round trip reads the population on the host each "
+                     "generation and runs in one process; a process group runs the "
+                     "txt2img configs")
+    mesh = make_mesh(["cpu"] if on_cpu else None) if args.mesh else None
     problem = GenerationProblem(config, device=args.device, clip_weights=clip_weights,
-                                clip_cfg=clip_cfg, model_cfg=model_cfg)
+                                clip_cfg=clip_cfg, model_cfg=model_cfg, mesh=mesh)
     if args.serve:
         from clip_glass_torch.serving import SearchServer
 
@@ -324,7 +347,8 @@ def main(argv=None) -> int:
                   f"placeholder); ignoring {len(targets) - 1} more")
         try:
             server = SearchServer(problem, n_slots=args.slots, chunk=args.save_each,
-                                  seed=config.seed, search_microbatch=args.search_microbatch)
+                                  seed=config.seed, search_microbatch=args.search_microbatch,
+                                  mesh=mesh)
         except ValueError as e:
             parser.error(f"--serve: {e}")
         return _serve_mode(server, problem, config, args)
@@ -337,7 +361,7 @@ def main(argv=None) -> int:
             parser.error(f"--search-microbatch: {e}")
         rng = algorithm.generators(config.seed)
         folders = [os.path.join(config.tmp_folder, f"search-{i:02d}") for i in range(n_search)]
-        for folder, target in zip(folders, targets):
+        for folder, target in zip(folders, targets) if primary else ():
             os.makedirs(folder, exist_ok=True)
             with open(os.path.join(folder, "target.txt"), "w") as f:
                 f.write(target)
@@ -384,13 +408,14 @@ def main(argv=None) -> int:
                 _write, rendered, os.path.join(folder, name))))
 
     def save_callback(state):
-        _dump(state)
+        if primary:   # rank 0 owns the artifact folder
+            _dump(state)
         save_state(state, rng, config.tmp_folder, config.name)
         gen = searches(state)[0]
         # the first chunk's wall time holds the kernel builds and the
         # libraries' warm-up: rebaseline there so rates are steady-state
         meter.set_generation(gen, rebaseline=(meter.generation == 0 and gen > 0))
-        if args.verbose and meter.gens_per_sec > 0:
+        if verbose and meter.gens_per_sec > 0:
             print(f"  rate: {meter.gens_per_sec:.2f} gen/s "
                   f"({meter.candidates_per_sec:.1f} candidates/s)")
 
@@ -404,7 +429,8 @@ def main(argv=None) -> int:
         if n_search > 1:
             want = tuple((n_search, *w) for w in want)
         if state is None:
-            print("no checkpoint found; starting fresh")
+            if primary:
+                print("no checkpoint found; starting fresh")
         elif (tuple(state.X.shape), tuple(state.F.shape)) != want:
             parser.error(f"--resume: the checkpoint's X {tuple(state.X.shape)} and F "
                          f"{tuple(state.F.shape)} do not fit this search ({config.name}, "
@@ -418,15 +444,15 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=1) as saver:
         with device_trace(args.profile):
             res = run(algorithm, max(remaining, 0), rng, callback=save_callback,
-                      save_each=config.save_each, verbose=args.verbose, state=state)
+                      save_each=config.save_each, verbose=verbose, state=state)
         writes = [fut.result() for _, _, fut in pending]  # surface any write error
     phases["search+dumps"] = time.perf_counter() - t0 - sum(phases.values())
 
     # ---- final artifacts (reference run.py:79-125), one set per search
-    for r, folder in zip(res if n_search > 1 else [res], folders):
+    for r, folder in zip(res if n_search > 1 else [res], folders) if primary else ():
         _final_artifacts(problem, config, r, folder)
     phases["final_artifacts"] = time.perf_counter() - t0 - sum(phases.values())
-    if args.verbose:
+    if verbose:
         for (name, render_s, _), write_s in zip(pending, writes):
             print(f"dump {name}: render={render_s:.3f}s write={write_s:.3f}s")
         total = time.perf_counter() - t0

@@ -37,6 +37,15 @@ inline unsigned grid_blocks(int64_t n, int threads, int64_t cap = 1 << 20) {
   return static_cast<unsigned>(b);
 }
 
+// Cards a process tells apart in the once-a-card settings below.
+constexpr int kMaxDevices = 64;
+
+// The current device's index in [0, kMaxDevices), or -1.
+inline int current_device() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices ? dev : -1;
+}
+
 // Streaming multiprocessors of the current device (asked once).
 inline int sm_count() {
   static int n = 0;

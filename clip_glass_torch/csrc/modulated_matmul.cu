@@ -412,11 +412,16 @@ int launch_mma(const void* x, const void* style, const void* w, const void* demo
   using S = MmaShape<G4>;
   const int64_t tiles = (P + WARPS * S::PIX - 1) / (WARPS * S::PIX);
   dim3 grid(blocks_per_sample(S::BLOCKS_PER_SM, B, tiles), static_cast<unsigned>(B));
-  if (S::RING_BYTES > 48 * 1024) {  // above the default limit: opt in, once
-    static const cudaError_t opted = cudaFuncSetAttribute(
-        modulated_matmul_mma_kernel<G4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        S::RING_BYTES);
-    if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (S::RING_BYTES > 48 * 1024) {  // above the default limit: opt in, once a card
+    static bool opted_in[cg::kMaxDevices] = {};
+    const int dev = cg::current_device();
+    if (dev < 0 || !opted_in[dev]) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          modulated_matmul_mma_kernel<G4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          S::RING_BYTES);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (dev >= 0) opted_in[dev] = true;
+    }
   }
   modulated_matmul_mma_kernel<G4><<<grid, THREADS, S::RING_BYTES, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(style),

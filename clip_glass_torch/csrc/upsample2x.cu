@@ -256,13 +256,16 @@ int launch_tiled(const void* x, void* out, int64_t B, int64_t H, int64_t W, int6
   if (n_tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t stage_elems = ((R + 1) * rowlen + VO - 1) / VO * VO;
   const size_t smem = 2 * stage_elems * sizeof(T);
-  static bool opted_in = false;  // above 48 KB of dynamic shared memory
-  if (!opted_in) {
+  // above 48 KB of dynamic shared memory: opt in once a card (the
+  // attribute is the current device's)
+  static bool opted_in[cg::kMaxDevices] = {};
+  const int dev = cg::current_device();
+  if (dev < 0 || !opted_in[dev]) {
     const cudaError_t e =
         cudaFuncSetAttribute(upsample2x_tiled_kernel<T, CT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * STAGE_BYTES + 32);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
+    if (dev >= 0) opted_in[dev] = true;
   }
   // 16-byte copies and stores where every row starts on a 16-byte line
   const bool in_vec = row_bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;

@@ -6,6 +6,12 @@ by fitness for the GA, by rank and crowding for NSGA-II. The genomes and
 fitness stay on the device; all randomness comes from one explicit
 torch.Generator, drawn in a fixed order, so a seed and the generator's state
 fix the whole search.
+
+Over a mesh (parallel.mesh) of several processes every rank runs this loop
+on the whole state: its generator is seeded alike, so every rank draws the
+same variation and X stays replicated, and the evaluation hands every rank
+the whole F (`parallel.distributed.fetch` of the shards' rows). Only rank 0
+prints.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from clip_glass_torch.evolve import sampling as smp
 from clip_glass_torch.evolve.nds import crowding_distance, non_dominated_rank
 from clip_glass_torch.evolve.selection import tournament_ga, tournament_nsga2
 from clip_glass_torch.evolve.survival import fitness_survival, nsga2_survival
+from clip_glass_torch.parallel import distributed as dist
 
 
 class GAState(NamedTuple):
@@ -233,7 +240,7 @@ def minimize(algorithm: Algorithm, n_gen: int,
         state = step(state, gen)
         if done % save_each and done != n_gen:
             continue
-        if verbose:
+        if verbose and dist.is_primary():
             F = state.F.cpu().numpy()
             print(f"gen {state.gen:5d}  best={F.min(0)}  mean={F.mean(0)}")
         if callback is not None:

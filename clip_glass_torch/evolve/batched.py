@@ -29,6 +29,7 @@ import torch
 
 from clip_glass_torch.evolve.algorithm import (Algorithm, GAState, Result, extract_result,
                                                make_step_halves)
+from clip_glass_torch.parallel import distributed as dist
 
 # the 64-bit golden-ratio constant: odd, so in its low 32 bits too, and
 # index -> seed + index * stride is a bijection modulo 2**32 and 2**64
@@ -81,11 +82,14 @@ def _auto_search_microbatch(K: int) -> Optional[int]:
 class BatchedAlgorithm:
     """K searches of `base`'s operators, population and algorithm, scored by
     `generator` (the problem's fitness.generator.Generator) against one
-    row of `targets` [K, D] each. States carry a leading search axis."""
+    row of `targets` [K, D] each. States carry a leading search axis.
+    `mesh` (parallel.mesh): the evaluations split their rows over it, and
+    every rank steps the whole state, as `minimize` does."""
     base: Algorithm
     generator: object
     targets: torch.Tensor
     search_microbatch: Optional[int] = None
+    mesh: object = None
 
     def __post_init__(self):
         smb = self.search_microbatch
@@ -125,7 +129,7 @@ class BatchedAlgorithm:
         if smb is not None:
             k = Xb.shape[0]
             smb = max(d for d in range(1, min(smb, k) + 1) if k % d == 0)
-        return self.generator.eval_population_batched(Xb, targets, smb)
+        return self.generator.eval_population_batched(Xb, targets, smb, self.mesh)
 
     def sample(self, gen: torch.Generator) -> torch.Tensor:
         return self.base.ops.sample(gen, self.pop_size)
@@ -149,19 +153,20 @@ class BatchedAlgorithm:
 
 
 def make_batched(problem, targets: Sequence[str],
-                 search_microbatch: Optional[int] = None) -> BatchedAlgorithm:
+                 search_microbatch: Optional[int] = None, mesh=None) -> BatchedAlgorithm:
     """K searches of `problem`'s config and weights, one per target (text
     prompts, or image paths for GPT2), their features from one CLIP call.
     GPT-2's argmax decode groups by `_auto_search_microbatch(K)` unless
     `search_microbatch` is given (stochastic decodes go one search at a
-    time regardless)."""
+    time regardless). `mesh`: the problem's unless given."""
     targets = list(targets)
     smb = search_microbatch
     if smb is None and problem.config.task == "img2txt" and not problem.config.stochastic:
         smb = _auto_search_microbatch(len(targets))
     return BatchedAlgorithm(base=problem.make_algorithm(), generator=problem.generator,
                             targets=problem.generator.encode_targets(targets),
-                            search_microbatch=smb)
+                            search_microbatch=smb,
+                            mesh=mesh if mesh is not None else problem.generator.mesh)
 
 
 @torch.inference_mode()
@@ -180,7 +185,7 @@ def minimize_batched(balgo: BatchedAlgorithm, n_gen: int,
         state = balgo.step(state, gens)
         if done % save_each and done != n_gen:
             continue
-        if verbose:
+        if verbose and dist.is_primary():
             best = state.F.min(dim=1).values.cpu().numpy()
             print(f"gen {state.gen[0]:5d}  best/search={best.tolist()}")
         if callback is not None:

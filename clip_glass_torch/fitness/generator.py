@@ -54,6 +54,7 @@ from clip_glass_torch.models.stylegan2 import model as sg2
 from clip_glass_torch.ops import quant
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import clip_preprocess_pil, resize_bilinear
+from clip_glass_torch.parallel.mesh import population_sharding
 from clip_glass_torch.tokenizers import get_gpt2_tokenizer, tokenize
 from clip_glass_torch.tokenizers.clip_bpe import CONTEXT_LENGTH
 from clip_glass_torch.weights import convert_biggan, convert_gpt2, convert_stylegan2, from_jax
@@ -77,6 +78,11 @@ def biggan_norm(images):
 def biggan_denorm(images):
     """[0,1] -> [-1,1] (reference utils.py:19-21)."""
     return images * 2.0 - 1.0
+
+
+def _weights(bundle) -> dict:
+    """A bundle without its target: the frozen weights alone."""
+    return {k: v for k, v in bundle.items() if k != "target"}
 
 
 def _cosine(a, b):
@@ -228,11 +234,14 @@ class Generator:
 
     def __init__(self, config, device=None, policy: Optional[Policy] = None,
                  clip_weights: str = "random:0", clip_cfg=None, model_cfg=None,
-                 bundle=None):
+                 bundle=None, mesh=None):
         if config.model not in ("stylegan2", "biggan", "gpt2"):
             raise ValueError(f"unknown model family {config.model!r}")
         self.config = config
         self.device = resolve_device(device)
+        # parallel.mesh.Mesh: the evaluations split their rows over it
+        self.mesh = mesh
+        self._replicas = {}   # card -> (the bundle's identity, its copy there)
         self.policy = policy or Policy.make(config.param_dtype, config.compute_dtype)
         if bundle is None:
             bundle, self.clip_cfg, self.model_cfg = load_bundle(
@@ -355,7 +364,8 @@ class Generator:
         cfg = self.config
         if cfg.model == "gpt2":
             (ids,) = latent_mod.decode_gpt2(X)
-            ctx = torch.cat([ids, self.init_tokens.expand(ids.shape[0], -1)], dim=1)
+            init = self.init_tokens.to(ids.device).expand(ids.shape[0], -1)
+            ctx = torch.cat([ids, init], dim=1)
             generator = (torch.Generator(device=X.device).manual_seed(cfg.seed)
                          if cfg.stochastic else None)
             return g2.sample_sequence(bundle["g"], ctx, cfg.max_tokens_len, self.model_cfg,
@@ -409,18 +419,29 @@ class Generator:
         return (torch.as_tensor(toks, device=X.device),
                 torch.as_tensor(ok, device=X.device))
 
-    def _text_similarity(self, toks: torch.Tensor, ok: torch.Tensor, bundle) -> torch.Tensor:
+    def _text_similarity(self, toks: torch.Tensor, ok: torch.Tensor, bundle,
+                         mesh=None) -> torch.Tensor:
         """CLIP text tower on the round trip's tokens -> the cosine to the
         target image, 0 where ok is False. With K target rows in
         bundle["target"], the tokens are K searches' consecutive blocks and
-        each block is scored against its own row."""
-        feats = clip_model.encode_text(bundle["clip"], toks, self.clip_cfg, self.policy)
+        each block is scored against its own row. With a mesh the tower's
+        rows split over it."""
+        def tower(b, t):
+            return clip_model.encode_text(b["clip"], t, self.clip_cfg, self.policy)
+
+        feats = (tower(bundle, toks) if mesh is None
+                 else self._map_rows(tower, mesh, _weights(bundle), toks))
         target = bundle["target"]
         sim = _cosine(feats.reshape(target.shape[0], -1, feats.shape[-1]), target[:, None, :])
         return torch.where(ok, sim.reshape(-1), 0.0)
 
+    def _decode(self, flat: torch.Tensor, bundle, rows: int) -> torch.Tensor:
+        """GPT-2's decode of genomes [n, n_var] in chunks of `rows` rows."""
+        return torch.cat([self.generate(flat[r:r + rows], bundle)
+                          for r in range(0, flat.shape[0], rows)])
+
     def _eval_img2txt(self, Xb: torch.Tensor, targets: torch.Tensor, bundle,
-                      rows: int) -> torch.Tensor:
+                      rows: int, mesh=None) -> torch.Tensor:
         """GPT-2 fitness in stages for K searches, Xb [K, pop, n_var] against
         targets [K, D] -> F [K, pop, 1] (the JAX package's
         host_eval_population, and for K > 1 host_eval_population_batched):
@@ -431,16 +452,21 @@ class Generator:
         decode's memory only: in eager PyTorch the host issues every launch
         of every chunk's decode before it reaches the first copy, so no round
         trip overlaps a decode (the JAX package's asynchronous dispatch
-        can)."""
+        can). With a mesh the decode and the text tower split their rows over
+        it; the round trip reads the whole population on every rank."""
         K, pop, n_var = Xb.shape
         flat = Xb.reshape(K * pop, n_var)
-        chunks = [self.generate(flat[r:r + rows], bundle) for r in range(0, K * pop, rows)]
-        ids = np.concatenate([c.cpu().numpy() for c in chunks])
+        if mesh is None:
+            ids = self._decode(flat, bundle, rows)
+        else:
+            ids = self._map_rows(lambda b, x: self._decode(x, b, rows), mesh,
+                                 _weights(bundle), flat)
+        ids = ids.cpu().numpy()
         toks, oks = zip(*(self._texts_to_clip_tokens(ids[r:r + pop])
                           for r in range(0, K * pop, pop)))
         sim = self._text_similarity(
             *self._place_like(Xb, np.concatenate(toks), np.concatenate(oks)),
-            {**bundle, "target": targets})
+            {**bundle, "target": targets}, mesh)
         return (-sim.reshape(K, pop, 1)).float()
 
     def clip_similarity(self, generated, bundle=None) -> torch.Tensor:
@@ -453,13 +479,15 @@ class Generator:
                                         self.policy)
         return _cosine(feats, bundle["target"])
 
-    def discriminate(self, images, bundle=None, n_search: int = 1) -> torch.Tensor:
+    def discriminate(self, images, bundle=None, n_search: int = 1,
+                     mesh=None) -> torch.Tensor:
         """[0,1] images -> D logits (reference generator.py:36-38 denorms
-        back to [-1,1] first); `n_search` as in sg2.discriminator_apply."""
+        back to [-1,1] first); `n_search` and `mesh` as in
+        sg2.discriminator_apply."""
         bundle = bundle if bundle is not None else self.bundle
         return sg2.discriminator_apply(bundle["d"], biggan_denorm(images),
                                        self.model_cfg, policy=self.policy,
-                                       n_search=n_search)
+                                       n_search=n_search, mesh=mesh)
 
     @property
     def _s2d_active(self) -> bool:
@@ -491,45 +519,101 @@ class Generator:
                                         self.policy)
         return _cosine(feats, bundle["target"])
 
-    def discriminate_packed(self, img, bundle=None, n_search: int = 1) -> torch.Tensor:
+    def discriminate_packed(self, img, bundle=None, n_search: int = 1,
+                            mesh=None) -> torch.Tensor:
         """discriminate of a packed image."""
         bundle = bundle if bundle is not None else self.bundle
         s4d = sg2.rgb_domain(self.model_cfg) == "s4d"
         return sg2.discriminator_apply(
             bundle["d"], biggan_denorm(img), self.model_cfg, policy=self.policy,
             input_s2d=not s4d, input_offset=sg2.s2d_output_offset(self.model_cfg),
-            input_s4d=s4d, n_search=n_search)
+            input_s4d=s4d, n_search=n_search, mesh=mesh)
 
-    def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
+    def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle, n_search: int = 1,
+                            mesh=None) -> torch.Tensor:
         """s2d-domain fitness: decode -> synthesis (s2d features, packed RGB)
         -> [0, 1] -> phase-aware 224 px resize -> CLIP; D reads the packed
-        image for the hinge."""
+        image for the hinge (its minibatch-std over `mesh`: X is a shard's
+        rows)."""
         img = self.generate_packed(X, bundle)
         sim = self.clip_similarity_packed(img, bundle)
         if self.config.n_obj == 2 and self.config.use_discriminator:
-            hinge = torch.relu(1.0 - self.discriminate_packed(img, bundle, n_search)[:, 0])
+            d = self.discriminate_packed(img, bundle, n_search, mesh)
+            hinge = torch.relu(1.0 - d[:, 0])
             return torch.stack([-sim, hinge], dim=1).float()
         return (-sim[:, None]).float()
 
-    def _eval_batch(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
+    def _on(self, bundle, device: torch.device, home: torch.device):
+        """`bundle` on `device`: itself on `home`, its own device; elsewhere
+        the weights copied once a card (again only when the bundle's trees
+        change) and the target each call."""
+        if device == home:
+            return bundle
+        weights = _weights(bundle)
+        key = tuple((k, id(v)) for k, v in sorted(weights.items()))
+        hit = self._replicas.get(device)
+        if hit is None or hit[0] != key:
+            hit = self._replicas[device] = (key, tree_to(weights, device))
+        out = dict(hit[1])
+        if "target" in bundle:
+            out["target"] = bundle["target"].to(device)
+        return out
+
+    def _map_rows(self, fn, mesh, bundle, *rows: torch.Tensor) -> torch.Tensor:
+        """fn(bundle on the shard's card, *the shard's row blocks) over the
+        mesh's shards of `rows` (tensors of one leading extent, contiguous
+        blocks, parallel.mesh.RowSharding), gathered whole on every rank on
+        the rows' device. A target with a row for each row splits with
+        them."""
+        sharding = population_sharding(mesh)
+        home, n = rows[0].device, rows[0].shape[0]
+        target = bundle.get("target")
+        targets = (sharding.split(target)
+                   if target is not None and n > 1 and target.shape[0] == n else None)
+        blocks = list(zip(*(sharding.split(r) for r in rows)))
+
+        def run(i, block):
+            b = self._on(bundle, mesh.devices[i], home)
+            if targets is not None:
+                b = {**b, "target": targets[i]}
+            return fn(b, *block)
+
+        return sharding.gather(mesh.map(run, blocks)).to(home)
+
+    def _eval_batch(self, X: torch.Tensor, bundle, n_search: int = 1,
+                    mesh=None) -> torch.Tensor:
         """F of one batch. `n_search`: X holds that many searches' rows in
         consecutive blocks, `bundle["target"]` one row per row of X, and D
         pools within each block. With config.quantize the batch runs in a
         fresh int8 scope (ops/quant.py), which every evaluation path goes
         through: whole populations, their microbatches, K searches' batches
-        and the server's. `generate` and `render` stay in the float path."""
-        if self._quant_scales is None:
-            return self._eval_batch_raw(X, bundle, n_search)
-        with quant.int8_scope(self._quant_scales, self.config.quantize_min_ch):
-            return self._eval_batch_raw(X, bundle, n_search)
+        and the server's. `generate` and `render` stay in the float path.
 
-    def _eval_batch_raw(self, X: torch.Tensor, bundle, n_search: int = 1) -> torch.Tensor:
+        `mesh`: the rows split over its shards in contiguous blocks, each
+        evaluated on its card (each in its own int8 scope), F gathered whole
+        on every rank. A shard that holds whole searches pools D within
+        them alone; otherwise D's minibatch-std gathers its input rows over
+        the mesh, so F is the unsplit batch's."""
+        if mesh is None:
+            return self._eval_shard(X, bundle, n_search, None)
+        whole = n_search % mesh.size == 0
+        k, d_mesh = (n_search // mesh.size, None) if whole else (n_search, mesh)
+        return self._map_rows(lambda b, x: self._eval_shard(x, b, k, d_mesh), mesh, bundle, X)
+
+    def _eval_shard(self, X: torch.Tensor, bundle, n_search: int, mesh) -> torch.Tensor:
+        if self._quant_scales is None:
+            return self._eval_batch_raw(X, bundle, n_search, mesh)
+        with quant.int8_scope(self._quant_scales, self.config.quantize_min_ch):
+            return self._eval_batch_raw(X, bundle, n_search, mesh)
+
+    def _eval_batch_raw(self, X: torch.Tensor, bundle, n_search: int = 1,
+                        mesh=None) -> torch.Tensor:
         if self._s2d_active:
-            return self._eval_stylegan2_s2d(X, bundle, n_search)
+            return self._eval_stylegan2_s2d(X, bundle, n_search, mesh)
         generated = self.generate(X, bundle)
         sim = self.clip_similarity(generated, bundle)
         if self.config.n_obj == 2 and self.config.use_discriminator:
-            d = self.discriminate(generated, bundle, n_search)
+            d = self.discriminate(generated, bundle, n_search, mesh)
             hinge = torch.relu(1.0 - d[:, 0])
             return torch.stack([-sim, hinge], dim=1).float()
         return (-sim[:, None]).float()
@@ -544,24 +628,29 @@ class Generator:
         (GPT-2: the decodes in chunks, the round trip and the text tower on
         the whole population; a microbatch that does not divide the
         population gives one chunk, as in the JAX package's
-        host_eval_population)."""
+        host_eval_population).
+
+        With `self.mesh` each batch splits its rows over the mesh
+        (`_eval_batch`) and F comes back whole on every rank: the single
+        process's F, up to the summation order of the smaller batches."""
         bundle = bundle if bundle is not None else self.bundle
         mb = self.config.eval_microbatch
         pop = X.shape[0]
         if self.config.task == "img2txt":
             mb = mb or pop
             return self._eval_img2txt(X[None], bundle["target"], bundle,
-                                      pop if pop % mb else mb)[0]
+                                      pop if pop % mb else mb, self.mesh)[0]
         if mb and pop > mb and pop % mb:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
         if not mb or pop <= mb:
-            return self._eval_batch(X, bundle)
-        return torch.cat([self._eval_batch(X[i:i + mb], bundle)
+            return self._eval_batch(X, bundle, mesh=self.mesh)
+        return torch.cat([self._eval_batch(X[i:i + mb], bundle, mesh=self.mesh)
                           for i in range(0, pop, mb)], dim=0)
 
     @torch.inference_mode()
     def eval_population_batched(self, Xb: torch.Tensor, targets: torch.Tensor,
-                                search_microbatch: Optional[int] = None) -> torch.Tensor:
+                                search_microbatch: Optional[int] = None,
+                                mesh=None) -> torch.Tensor:
         """K searches' populations at once: Xb [K, pop, n_var] against target
         features [K, D] (row i is search i's) -> F [K, pop, n_obj]; search
         i's F is what `eval_population` gives for Xb[i] against target i,
@@ -579,7 +668,12 @@ class Generator:
         decode in groups of `search_microbatch` searches, the host round
         trip per search (an overflow zeroes that search's population only),
         the text tower once at K*pop; `eval_microbatch` is not read. With
-        config.stochastic each search is evaluated alone, in turn."""
+        config.stochastic each search is evaluated alone, in turn.
+
+        `mesh` (default `self.mesh`): every batch splits its rows over it
+        (`_eval_batch`); where the shards hold whole searches, D pools
+        inside each card."""
+        mesh = mesh if mesh is not None else self.mesh
         K, pop, n_var = Xb.shape
         if targets.shape[0] != K:
             raise ValueError(f"{targets.shape[0]} targets for {K} searches")
@@ -592,7 +686,7 @@ class Generator:
                 return torch.stack([
                     self.eval_population(Xb[i], {**bundle, "target": targets[i:i + 1]})
                     for i in range(K)])
-            return self._eval_img2txt(Xb, targets, bundle, smb * pop)
+            return self._eval_img2txt(Xb, targets, bundle, smb * pop, mesh)
         mb = self.config.eval_microbatch
         if mb and pop > mb and pop % mb:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
@@ -603,7 +697,7 @@ class Generator:
             rows = {**bundle, "target": targets[s:s + smb].repeat_interleave(mb, dim=0)}
             out.append(torch.cat([
                 self._eval_batch(Xb[s:s + smb, c:c + mb].reshape(smb * mb, n_var), rows,
-                                 n_search=smb).reshape(smb, mb, -1)
+                                 n_search=smb, mesh=mesh).reshape(smb, mb, -1)
                 for c in range(0, pop, mb)], dim=1))
         return torch.cat(out)
 

@@ -502,7 +502,7 @@ def generator_apply(params, latents, cfg: SG2Config = CONFIG_F,
 def discriminator_apply(params, images, cfg: SG2Config = CONFIG_F,
                         policy: Policy = FP32, input_s2d: bool = False,
                         input_offset: int = 0, input_s4d: bool = False,
-                        n_search: int = 1):
+                        n_search: int = 1, mesh=None):
     """images: [B, C, H, W] in [-1, 1] -> score logits [B, 1]
     (reference stylegan2/models.py:1193-1230).
 
@@ -510,6 +510,9 @@ def discriminator_apply(params, images, cfg: SG2Config = CONFIG_F,
     blocks of B/n_search rows; the convolutions run on the whole batch and
     only the minibatch-std groups stay inside each block (`minibatch_std`),
     so each search's logits are those of a D pass over its rows alone.
+
+    mesh: `images` is this shard's row block of a batch split over the mesh
+    (parallel.mesh); the minibatch-std groups are those of the whole batch.
 
     input_s4d / input_s2d: `images` is the packed NHWC image of
     synthesis_apply(output_s2d=True) (s4d, or s2d at lattice `input_offset`),
@@ -592,7 +595,7 @@ def discriminator_apply(params, images, cfg: SG2Config = CONFIG_F,
     if x_s2d:  # the s2d cutoff reached the base block: plain for the head
         x = s2d_ops.un_s2d_off(x, x_off)
     if cfg.mbstd_group_size:
-        x = minibatch_std(x, cfg.mbstd_group_size, cfg.eps, n_search=n_search)
+        x = minibatch_std(x, cfg.mbstd_group_size, cfg.eps, n_search=n_search, mesh=mesh)
     x = conv2d(x, policy.cast_compute(params["final_conv"]["w"]))
     x = bias_act(x, policy.cast_compute(params["final_conv"]["b"]), act="lrelu")
     # flatten in the reference's NCHW order (stylegan2/models.py:1224)

@@ -37,7 +37,7 @@ def bias_act(x: torch.Tensor, bias=None, act: str = "linear",
 
 
 def minibatch_std(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
-                  center_input: bool = True, n_search: int = 1) -> torch.Tensor:
+                  center_input: bool = True, n_search: int = 1, mesh=None) -> torch.Tensor:
     """Minibatch-std extra channel (reference stylegan2/modules.py:679-750).
     x: [B, H, W, C] -> [B, H, W, C+1]; stats in fp32.
 
@@ -50,7 +50,20 @@ def minibatch_std(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
     consecutive block of B/n_search rows, and the groups form inside each
     block (the JAX package gets the same from `vmap` over searches): no row
     is pooled with another search's. With 1 the blocks are the batch.
+
+    `mesh` (parallel.mesh.Mesh): x is this shard's row block of a batch
+    split over the mesh. The groups are strided (row b pools with rows
+    b + k*B/g), so a split changes them; as GSPMD does in the JAX package,
+    the rows are gathered (`gather_rows`, differentiable across ranks), the
+    groups formed over the whole batch (n_search blocks of it), the
+    centered features taken from the global group means too, and this
+    shard's rows kept.
     """
+    if mesh is not None and mesh.size > 1:
+        from clip_glass_torch.parallel.mesh import gather_rows, own_rows
+
+        full = minibatch_std(gather_rows(x, mesh), group_size, eps, center_input, n_search)
+        return own_rows(full, x.shape[0], mesh)
     B, H, W, C = x.shape
     n = B // n_search                                # rows of one search
     g = group_size if group_size and group_size > 0 else n
@@ -102,10 +115,11 @@ def _noise_bias_lrelu_cuda(x: torch.Tensor, noise: torch.Tensor,
     out = torch.empty_like(x)
     vec = cuda.vector_width(x.dtype, C, x, bias, out)
     lib = cuda.library()
-    status = lib.cg_noise_bias_lrelu(
-        x.data_ptr(), noise.data_ptr(), noise_scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), x.numel(), H * W, C, alpha, gain,
-        cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
+    with cuda.launch_device(x):
+        status = lib.cg_noise_bias_lrelu(
+            x.data_ptr(), noise.data_ptr(), noise_scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), x.numel(), H * W, C, alpha, gain,
+            cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
     cuda.check(status, "noise_bias_lrelu")
     noise_bias_lrelu.launches += 1
     return out

@@ -219,19 +219,21 @@ def conv_s8_launch(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, geome
         phase_list = phases(kh, kw, stride, pad0, lhs_dilation, Ho, Wo)
         packed = pack_weights(wq, phase_list, lhs_dilation)
         table = (ctypes.c_int * (8 * len(phase_list)))(*(v for ph in phase_list for v in ph[2:]))
-        status = lib.cg_conv_s8_wgmma(
-            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, H, W, I, Ho,
-            Wo, O, packed.shape[2], stride, lhs_dilation, len(phase_list), table,
-            X_CODES[x.dtype], float(x_inv_scale or 0.0), OUT_CODES[out_dtype],
-            cuda.stream_handle(x))
+        with cuda.launch_device(x):
+            status = lib.cg_conv_s8_wgmma(
+                x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, H, W,
+                I, Ho, Wo, O, packed.shape[2], stride, lhs_dilation, len(phase_list), table,
+                X_CODES[x.dtype], float(x_inv_scale or 0.0), OUT_CODES[out_dtype],
+                cuda.stream_handle(x))
     else:
         xq = x if x_inv_scale is None else quantize(x, x_inv_scale)
         packed = pack_weights(wq)
         vec16 = int(I % 16 == 0 and xq.data_ptr() % 16 == 0)
-        status = lib.cg_conv_s8(
-            xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, H, W, I,
-            Ho, Wo, O, kh, kw, packed.shape[2], stride, pad0, lhs_dilation,
-            OUT_CODES[out_dtype], vec16, cuda.stream_handle(x))
+        with cuda.launch_device(x):
+            status = lib.cg_conv_s8(
+                xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, H, W,
+                I, Ho, Wo, O, kh, kw, packed.shape[2], stride, pad0, lhs_dilation,
+                OUT_CODES[out_dtype], vec16, cuda.stream_handle(x))
     cuda.check(status, "conv_s8")
     conv_s8.launches += 1
     conv_s8.launches_by_variant[variant] += 1

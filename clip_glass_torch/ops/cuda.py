@@ -19,6 +19,7 @@ libcuda.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -189,6 +190,20 @@ def stream_handle(t: torch.Tensor) -> int:
     if _raw_stream is not None:
         return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_CURRENT = contextlib.nullcontext()
+
+
+def launch_device(t: torch.Tensor):
+    """The wrappers' device guard: a context in which t's card is the
+    current device, so that a launch runs where t's memory is (the kernels
+    launch on the current device, with the stream of t's device). Costs one
+    device query when that card is current already."""
+    idx = t.device.index
+    current = _get_device() if _get_device is not None else torch.cuda.current_device()
+    return _CURRENT if idx is None or idx == current else torch.cuda.device(idx)
 
 
 def require_cuda(name: str, *tensors: Optional[torch.Tensor],

@@ -270,14 +270,15 @@ def modulated_matmul_launch(x, style, w, demod, bias, variant: str) -> torch.Ten
     ptrs = (x.data_ptr(), style.data_ptr() if style is not None else None,
             w.data_ptr(), demod.data_ptr() if demod is not None else None,
             bias.data_ptr(), out.data_ptr())
-    if variant == "mma":
-        status = fn(*ptrs, B, P, I, cuda.stream_handle(x))
-    else:
-        if 4 * 4 * I > 48 * 1024:
-            raise ValueError(f"modulated_matmul: I={I} exceeds the kernel's "
-                             "shared-memory weight tile")
-        status = fn(*ptrs, B, P, I, O, cuda.DTYPE_CODES[x.dtype],
-                    cuda.vector_width(x.dtype, I, x), cuda.stream_handle(x))
+    if variant != "mma" and 4 * 4 * I > 48 * 1024:
+        raise ValueError(f"modulated_matmul: I={I} exceeds the kernel's "
+                         "shared-memory weight tile")
+    with cuda.launch_device(x):
+        if variant == "mma":
+            status = fn(*ptrs, B, P, I, cuda.stream_handle(x))
+        else:
+            status = fn(*ptrs, B, P, I, O, cuda.DTYPE_CODES[x.dtype],
+                        cuda.vector_width(x.dtype, I, x), cuda.stream_handle(x))
     if status:
         cuda.check(status, "modulated_matmul")
     modulated_matmul.launches += 1

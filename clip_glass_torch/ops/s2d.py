@@ -427,24 +427,24 @@ def conv2x2_launch(x: torch.Tensor, Kb: torch.Tensor, pad0: int,
     n_out = n + 1 if pad0 else n - 1
     out = torch.empty((B, n_out, n_out, C), dtype=x.dtype, device=x.device)
     lib = cuda.library()
-    if variant.startswith("wgmma"):
-        if any(t.data_ptr() % 16 for t in (x, Kb, out)):
-            raise ValueError("s2d_conv2x2: the TMA kernel needs 16-byte aligned tensors")
+    if variant.startswith("wgmma") and any(t.data_ptr() % 16 for t in (x, Kb, out)):
+        raise ValueError("s2d_conv2x2: the TMA kernel needs 16-byte aligned tensors")
+    if variant == "wgmma_stream" and Kb.shape[0] != 1:
+        raise ValueError("s2d_conv2x2: wgmma_stream takes one shared weight set")
+    with cuda.launch_device(x):
         if variant == "wgmma":
             status = lib.cg_s2d_conv2x2_wgmma(
                 x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
                 Kb.shape[0], cuda.stream_handle(x))
-        else:
-            if Kb.shape[0] != 1:
-                raise ValueError("s2d_conv2x2: wgmma_stream takes one shared weight set")
+        elif variant == "wgmma_stream":
             status = lib.cg_s2d_conv2x2_wgmma_stream(
                 x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
                 cuda.stream_handle(x))
-    else:
-        vec = cuda.vector_width(x.dtype, C, x, Kb, out)
-        status = lib.cg_s2d_conv2x2(
-            x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
-            Kb.shape[0], cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
+        else:
+            vec = cuda.vector_width(x.dtype, C, x, Kb, out)
+            status = lib.cg_s2d_conv2x2(
+                x.data_ptr(), Kb.data_ptr(), out.data_ptr(), B, n, n_out, C, pad0,
+                Kb.shape[0], cuda.DTYPE_CODES[x.dtype], vec, cuda.stream_handle(x))
     cuda.check(status, "s2d_conv2x2")
     s2d_conv2x2.launches += 1
     s2d_conv2x2.launches_by_variant[variant] += 1

@@ -134,8 +134,9 @@ def upsample2x_launch(x: torch.Tensor, taps: tuple, variant: str) -> torch.Tenso
     fn = _entries.get(variant)
     if fn is None:
         fn = _entries[variant] = getattr(cuda.library(), UPSAMPLE2X_ENTRY[variant])
-    status = fn(x.data_ptr(), out.data_ptr(), B, H, W, C, *taps,
-                cuda.DTYPE_CODES[x.dtype], cuda.stream_handle(x))
+    with cuda.launch_device(x):
+        status = fn(x.data_ptr(), out.data_ptr(), B, H, W, C, *taps,
+                    cuda.DTYPE_CODES[x.dtype], cuda.stream_handle(x))
     if status:
         cuda.check(status, "upsample2x")
     upsample2x.launches += 1

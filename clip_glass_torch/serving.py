@@ -18,6 +18,11 @@ tick; a request's `n_gen` rounds up to a multiple of `chunk`. An idle slot
 (queue drained) keeps evolving its previous target and that work is counted
 in `total_evals`, as in the JAX package; `stats.occupancy` is the useful
 share. Skipping idle slots is open work (ROADMAP.md, under item 7).
+
+Scale-out: `mesh` (parallel.mesh) splits the slots over its cards, whole
+searches a card (n_slots must divide over the mesh), so that a tick's
+evaluation moves only its fitness rows between cards; the weights go to
+each card once. The GA state stays whole on the mesh's first card.
 """
 
 from __future__ import annotations
@@ -70,18 +75,19 @@ class SearchServer:
 
     def __init__(self, problem, n_slots: int, chunk: int = 25, seed: int = 0,
                  search_microbatch: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise ValueError("serving over a mesh of cards is population sharding, "
-                             "ROADMAP item 16")
         if n_slots < 1 or chunk < 1:
             raise ValueError("n_slots and chunk must be >= 1")
+        if mesh is not None and n_slots % mesh.size:
+            raise ValueError(f"n_slots {n_slots} must divide over the mesh's "
+                             f"{mesh.size}-card slot axis")
+        self.mesh = mesh
         self.problem = problem
         self.chunk = int(chunk)
         self.seed = int(seed)
         # every slot starts on the problem's own target, a placeholder that
         # an admission overwrites
         self.balgo = make_batched(problem, [problem.config.target] * n_slots,
-                                  search_microbatch=search_microbatch)
+                                  search_microbatch=search_microbatch, mesh=mesh)
         self._gens = self.balgo.generators(self.seed)
         self.state: GAState = self.balgo.init(self._gens)
         self._slots = [_Slot() for _ in range(n_slots)]

@@ -91,7 +91,8 @@ def r2_penalty(d_apply: Callable, params, fakes, gamma: float = 10.0) -> torch.T
 def path_length_reg(synthesis_apply: Callable, params, dlatents: torch.Tensor,
                     pl_avg: torch.Tensor, pl_decay: float = 0.01, pl_weight: float = 2.0,
                     y: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    batch_mean: Callable = torch.mean
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Path-length regularization (loss_fns.py:198-243): penalize the
     deviation of |J^T y| from its running mean; returns (penalty,
@@ -99,7 +100,10 @@ def path_length_reg(synthesis_apply: Callable, params, dlatents: torch.Tensor,
 
     dlatents: [B, n_latents, D], part of the caller's graph or not. `y` is
     the random projection's standard normal draw, the image's shape, drawn
-    from `generator` unless given; it is divided by sqrt(H * W) here."""
+    from `generator` unless given; it is divided by sqrt(H * W) here.
+    `batch_mean` takes the batch's mean path length for the pl_avg update
+    (a data-parallel trainer passes the mean over every rank's rows); the
+    penalty is the mean over these rows."""
     with torch.enable_grad():
         if not dlatents.requires_grad:
             dlatents = dlatents.detach().requires_grad_(True)
@@ -110,6 +114,6 @@ def path_length_reg(synthesis_apply: Callable, params, dlatents: torch.Tensor,
         y = y / math.sqrt(H * W)
         (grads,) = torch.autograd.grad(imgs, [dlatents], y, create_graph=True)
     lengths = torch.sqrt(grads.square().sum(dim=-1).mean(dim=-1) + 1e-8)  # [B]
-    new_pl_avg = pl_avg + pl_decay * (lengths.mean() - pl_avg)
+    new_pl_avg = pl_avg + pl_decay * (batch_mean(lengths) - pl_avg)
     penalty = pl_weight * (lengths - new_pl_avg).square().mean()
     return penalty, new_pl_avg

@@ -1,4 +1,4 @@
-"""StyleGAN2 trainer, one process on one device.
+"""StyleGAN2 trainer, one process a card, data parallel over a mesh.
 
 Behavioral reference: stylegan2/train.py: G/D alternating steps with the
 non-saturating logistic loss (505-600), LAZY regularization (R1 every 16
@@ -7,8 +7,19 @@ correction, 101-124 and 946-958), style mixing with probability 0.9
 (130-131), the moving-average generator Gs (293-302), checkpoint save and
 resume with latest-directory discovery (820-939), a pluggable metric
 registry (679-705) and scalar logging. The port of the JAX package's
-`training/trainer.py` for `mesh=None`: training over a mesh of cards is
-ROADMAP item 16.
+`training/trainer.py`.
+
+Data parallelism (`mesh`, parallel.mesh, one card a rank, the reference's
+layout, train.py:258-277): each rank takes its rows of the global batch,
+draws the global batch's draws from the same generator and keeps its rows,
+and computes its share of each loss (its rows' sum over the global batch
+size). D's minibatch-std gathers its input rows over the ranks
+(`parallel.mesh.gather_rows`, whose gradient is an all_reduce and itself
+differentiable: R1's and the path length penalty's second derivatives go
+through it), the path length penalty's pl_avg follows the mean over every
+rank's rows, and the gradients and logged losses are summed over the ranks
+(one all_reduce a phase), so every rank takes the single process's Adam
+step. Rank 0 writes the checkpoints.
 
 The step differentiates through synthesis in the plain domain
 (`s2d_min_res=2**30`, as the JAX package passes `s2d=False`), in fp32: on the
@@ -35,12 +46,15 @@ from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequenc
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from clip_glass_torch.core import pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import FP32, map_tree, tree_leaves, tree_to, tree_unflatten
 from clip_glass_torch.core.optim import AdamState, adam_init, adam_update, global_norm
 from clip_glass_torch.models.stylegan2 import model as sg2
+from clip_glass_torch.parallel import distributed as dist
+from clip_glass_torch.parallel.mesh import all_reduce_sum
 from clip_glass_torch.training import losses
 
 
@@ -221,14 +235,28 @@ CHECKPOINT_FILES = ("kwargs.json", "G.npz", "D.npz", "Gs.npz", "G_opt.npz", "D_o
 class Trainer:
     """Entry point: runs on the card unless `device="cpu"`; the parameter
     trees are moved there. `g_params` / `d_params` in the port's layout
-    (`weights.from_jax`), or None for the random init from `cfg.seed`."""
+    (`weights.from_jax`), or None for the random init from `cfg.seed`.
+
+    `mesh` (parallel.mesh.Mesh, one card a rank): data parallelism over its
+    ranks; the trainer runs on the mesh's card, `batch_axes` (default: the
+    mesh's axis) name its batch axis, and `cfg.batch_size` is the global
+    batch: `train_step` takes this rank's rows (`local_rows`)."""
 
     def __init__(self, model_cfg: Optional[sg2.SG2Config] = None,
                  cfg: Optional[TrainerConfig] = None, g_params=None, d_params=None,
                  mesh=None, batch_axes=None, device: Optional[str] = None):
-        if mesh is not None or batch_axes is not None:
-            raise ValueError("training over a mesh of cards is data parallelism, "
-                             "ROADMAP item 16")
+        if mesh is None and batch_axes is not None:
+            raise ValueError("batch_axes names axes of a mesh; pass the mesh")
+        self.mesh, self.batch_axes, self.world = mesh, None, 1
+        if mesh is not None:
+            if mesh.local_size != 1:
+                raise ValueError(f"the trainer runs one process a card; this mesh gives "
+                                 f"the process {mesh.local_size} (one rank a card)")
+            self.batch_axes = tuple(batch_axes) if batch_axes is not None else mesh.axis_names
+            if not set(self.batch_axes) <= set(mesh.axis_names):
+                raise ValueError(f"batch axes {self.batch_axes} are not axes of the mesh "
+                                 f"{mesh.axis_names}")
+            device, self.world = mesh.device, mesh.world
         self.device = resolve_device(device)
         self.model_cfg = model_cfg or sg2.TINY
         # the differentiated synthesis: the plain domain throughout
@@ -280,6 +308,58 @@ class Trainer:
         return [torch.randn(s, generator=gen, device=self.device)
                 for s in self.model_cfg.noise_shapes()]
 
+    def _own(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor of the global batch's rows."""
+        if self.world == 1:
+            return x
+        n = x.shape[0] // self.world
+        return x[self.mesh.rank * n:(self.mesh.rank + 1) * n]
+
+    def local_rows(self, reals: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch [B, ...]: its share of each
+        subdivision chunk, in chunk order (its slice of the batch when
+        subdivisions is 1). The batch itself without a process group."""
+        S = max(1, int(self.cfg.subdivisions))
+        return torch.cat(list(map(self._own, split_batch(reals, S))))
+
+    def own_draws(self, draws: StepDraws) -> StepDraws:
+        """This rank's rows of a step's draws of the global batch (the noise
+        planes and the dlatent-average batch stay whole)."""
+        if self.world == 1:
+            return draws
+
+        def chunk(c: ChunkDraws) -> ChunkDraws:
+            return ChunkDraws(Latents(*map(self._own, c.latents)), c.noise,
+                              None if c.y is None else self._own(c.y))
+
+        return StepDraws([chunk(c) for c in draws.d], [chunk(c) for c in draws.g],
+                         None if draws.pl is None else [chunk(c) for c in draws.pl],
+                         draws.z_avg)
+
+    def _share(self, loss: torch.Tensor) -> torch.Tensor:
+        """A loss averaged over this rank's rows -> its share of the mean
+        over the global batch (the ranks' equal shares sum to it)."""
+        return loss if self.world == 1 else loss / self.world
+
+    def _batch_mean(self, v: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-row vector over every rank's rows
+        (differentiable)."""
+        if self.world == 1:
+            return v.mean()
+        return all_reduce_sum(v.sum(), self.mesh) / (v.shape[0] * self.world)
+
+    def _all_reduce(self, value: torch.Tensor, grads: List[torch.Tensor]):
+        """(value, grads) summed over the ranks in one all_reduce."""
+        if self.world == 1:
+            return value, grads
+        flat = torch.cat([value.reshape(1)] + [g.reshape(-1) for g in grads])
+        tdist.all_reduce(flat)
+        out, at = [], 1
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return flat[0], out
+
     def draw(self, sub: int, S: int, path_length: bool) -> StepDraws:
         """A step's draws from the state's generator, for S chunks of `sub`."""
         gen, cfg = self.state.key, self.model_cfg
@@ -314,27 +394,28 @@ class Trainer:
                                    noise=noise, policy=FP32)
 
     def _d_apply(self, d_params, images) -> torch.Tensor:
-        return sg2.discriminator_apply(d_params, images, self.model_cfg)
+        return sg2.discriminator_apply(d_params, images, self.model_cfg, mesh=self.mesh)
 
     # ------------------------------------------------------------ phases
 
     def d_loss(self, d_params, g_params, reals, draw: ChunkDraws) -> torch.Tensor:
-        """D's logistic loss on reals and on fakes made without a gradient."""
+        """D's logistic loss on reals and on fakes made without a gradient
+        (this rank's share under a mesh)."""
         with torch.no_grad():
             fakes = self._synthesize(g_params, self._gen_dlatents(g_params, draw.latents),
                                      draw.noise)
-        return losses.d_logistic(self._d_apply(d_params, reals),
-                                 self._d_apply(d_params, fakes))
+        return self._share(losses.d_logistic(self._d_apply(d_params, reals),
+                                             self._d_apply(d_params, fakes)))
 
     def d_reg(self, d_params, reals) -> torch.Tensor:
         """R1, scaled by its interval (lazy regularization)."""
-        return losses.r1_penalty(self._d_apply, d_params, reals,
-                                 self.cfg.r1_gamma) * self.cfg.d_reg_interval
+        return self._share(losses.r1_penalty(self._d_apply, d_params, reals,
+                                             self.cfg.r1_gamma)) * self.cfg.d_reg_interval
 
     def g_loss(self, g_params, d_params, draw: ChunkDraws) -> torch.Tensor:
         fakes = self._synthesize(g_params, self._gen_dlatents(g_params, draw.latents),
                                  draw.noise)
-        return losses.g_logistic_ns(self._d_apply(d_params, fakes))
+        return self._share(losses.g_logistic_ns(self._d_apply(d_params, fakes)))
 
     def g_reg(self, g_params, draw: ChunkDraws, pl_avg):
         """(path length penalty scaled by its interval, new pl_avg); the
@@ -345,8 +426,9 @@ class Trainer:
             return self._synthesize(p, d, None)
 
         pen, new_avg = losses.path_length_reg(synth, g_params, dl, pl_avg, self.cfg.pl_decay,
-                                              self.cfg.pl_weight, y=draw.y)
-        return pen * self.cfg.g_reg_interval, new_avg
+                                              self.cfg.pl_weight, y=draw.y,
+                                              batch_mean=self._batch_mean)
+        return self._share(pen) * self.cfg.g_reg_interval, new_avg
 
     # ------------------------------------------------------------ step
 
@@ -356,18 +438,23 @@ class Trainer:
         length penalty every g_reg_interval steps, pl_avg carried through the
         subdivisions in turn), the dlatent_avg and Gs EMAs. Draws from the
         state's generator unless `draws` is given. Returns the logs (0-d
-        tensors on the device, the grad norms of the pre-update grads)."""
+        tensors on the device, the grad norms of the pre-update grads).
+
+        Under a mesh `reals` is this rank's rows (`local_rows` of the global
+        batch) and `draws`, if given, the global batch's; every rank must
+        call it, and the logs and the step are the global batch's."""
         if torch.is_inference_mode_enabled():
             raise RuntimeError("Trainer.train_step differentiates G and D: call it "
                                "outside torch.inference_mode()")
         cfg, st = self.cfg, self.state
         S = max(1, int(cfg.subdivisions))
         reals_s = split_batch(reals, S)
-        sub = reals_s.shape[1]
+        sub = reals_s.shape[1] * self.world     # a chunk's rows over every rank
         do_d_reg = cfg.d_reg_interval > 0 and st.step % cfg.d_reg_interval == 0
         do_g_reg = cfg.g_reg_interval > 0 and st.step % cfg.g_reg_interval == 0
         if draws is None:
             draws = self.draw(sub, S, do_g_reg)
+        draws = self.own_draws(draws)
 
         # ---- D phase
         d_loss, d_grads = accumulate_value_and_grads(
@@ -379,6 +466,7 @@ class Trainer:
                 lambda i: value_and_grad(lambda d: self.d_reg(d, reals_s[i]), st.d_params),
                 range(S))
             d_grads = [a + b for a, b in zip(d_grads, r1_grads)]
+        d_loss, d_grads = self._all_reduce(d_loss, d_grads)
         with torch.no_grad():
             d_updates, d_opt = adam_update(d_grads, st.d_opt, *self.d_adam, cfg.eps)
             d_params = _apply(st.d_params, d_updates)
@@ -397,6 +485,7 @@ class Trainer:
                 pl_grads = grads if pl_grads is None else [a + b for a, b in
                                                            zip(pl_grads, grads)]
             g_grads = [a + b / S for a, b in zip(g_grads, pl_grads)]
+        g_loss, g_grads = self._all_reduce(g_loss, g_grads)
         with torch.no_grad():
             g_updates, g_opt = adam_update(g_grads, st.g_opt, *self.g_adam, cfg.eps)
             g_params = _apply(st.g_params, g_updates)
@@ -427,19 +516,25 @@ class Trainer:
         """data yields [B, 3, H, W] arrays or tensors in [-1, 1] (reference
         train.py:465-677). `sinks`: an optional training.logging.TrainLogger.
         The host reads the logs only every `log_every` steps. Returns the last
-        logs (0-d tensors)."""
+        logs (0-d tensors). Under a mesh each rank's `data` yields its slice
+        of the global batch (the reference's per-rank DataLoader,
+        train.py:465), and rank 0 alone logs and writes the sinks."""
         logs = {}
+        primary = dist.is_primary()
         for it in range(iterations):
-            reals = torch.as_tensor(next(data), dtype=torch.float32).to(self.device)
+            raw = next(data)
+            if self.mesh is not None:
+                raw = dist.global_batch_from_local(self.mesh, raw, self.batch_axes)
+            reals = torch.as_tensor(raw, dtype=torch.float32).to(self.device)
             logs = self.train_step(reals)
             step = self.state.step
             seen = step * self.cfg.batch_size
-            if log_every and (it + 1) % log_every == 0:
+            if log_every and (it + 1) % log_every == 0 and primary:
                 vals = {k: float(v) for k, v in logs.items()}
                 (logger or (lambda s, v: print(f"[{s}] {v}")))(step, vals)
                 if sinks is not None:
                     sinks.log_scalars(vals, step)
-            if sinks is not None:
+            if sinks is not None and primary:
                 sinks.maybe_log_images(self, step)
             # fire when `seen` CROSSES a checkpoint_every boundary (a
             # divisibility test misses every boundary whose multiple is not
@@ -466,10 +561,18 @@ class Trainer:
     def save_checkpoint(self, folder: Optional[str] = None) -> str:
         """G, D, Gs and both optimizers' states as npz trees in the port's
         layout, then kwargs.json (seen, pl_avg, step, the config) last, so a
-        save cut short never looks complete. Not the generator's state."""
+        save cut short never looks complete. Not the generator's state.
+        Under a process group rank 0 writes and every rank returns once the
+        folder is complete (every rank must call it)."""
         st = self.state
         seen = st.step * self.cfg.batch_size
         folder = folder or os.path.join(self.cfg.checkpoint_dir, str(seen))
+        if dist.is_primary():
+            self._write_checkpoint(folder, st, seen)
+        dist.barrier()
+        return folder
+
+    def _write_checkpoint(self, folder: str, st: TrainState, seen: int) -> None:
         os.makedirs(folder, exist_ok=True)
         pytree.save_npz(os.path.join(folder, "G.npz"), _map_np(st.g_params))
         pytree.save_npz(os.path.join(folder, "D.npz"), _map_np(st.d_params))
@@ -479,7 +582,6 @@ class Trainer:
         with open(os.path.join(folder, "kwargs.json"), "w") as f:
             json.dump({"seen": seen, "pl_avg": float(st.pl_avg), "step": st.step,
                        "trainer": dataclasses.asdict(self.cfg)}, f)
-        return folder
 
     def load_checkpoint(self, folder: str):
         """Restore a save_checkpoint folder; the structure comes from the

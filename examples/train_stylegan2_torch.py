@@ -12,11 +12,15 @@ sample from Gs.
 
 By default it trains the TINY model on synthetic noise images for a few
 steps; --tiny false trains config-f at 1024 px, --data DIR reads an image
-folder. It runs on the card unless --device cpu. --mesh (data parallelism
-over cards) is ROADMAP item 16 and exits 2.
+folder. It runs on the card unless --device cpu. --mesh trains data
+parallel over a mesh of one card a process: alone it is one rank; under a
+process group (--distributed, or torchrun with --distributed auto) every
+rank takes its rows of each global batch and rank 0 logs and writes.
 
 Run:
   python examples/train_stylegan2_torch.py --device cpu --iterations 4
+  torchrun --nproc-per-node 2 examples/train_stylegan2_torch.py --mesh \
+      --distributed auto            # one rank a card (NCCL)
 """
 
 import argparse
@@ -49,21 +53,36 @@ def main():
                     help="image folder (utils.data.ImageFolder); synthetic "
                          "noise images when omitted")
     ap.add_argument("--mesh", type=bool_type, default=False, nargs="?", const=True,
-                    help="not ported: data parallelism over cards is ROADMAP item 16")
+                    help="data parallel over the process group's ranks, one card each")
+    ap.add_argument("--distributed", default=None, metavar="SPEC",
+                    help="join a process group: 'auto' (torchrun) or "
+                         "'<host:port>,<num>,<id>' (default: $CGT_DISTRIBUTED); "
+                         "implies --mesh")
     ap.add_argument("--tensorboard", type=bool_type, default=False, nargs="?", const=True,
                     help="also write tensorboard event files under <out>/logs/tb "
                          "(needs a tensorboard backend; reference train.py:620-635)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default="./tmp_train_example")
     args = ap.parse_args()
-    if args.mesh:
-        ap.error("--mesh: data parallelism over cards is ROADMAP item 16")
 
     import torch
 
     from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.parallel import distributed as dist
+    from clip_glass_torch.parallel import make_mesh
     from clip_glass_torch.training.logging import TrainLogger
     from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    on_cpu = torch.device(args.device).type == "cpu"
+    try:
+        dist.initialize(args.distributed, backend="gloo" if on_cpu else None)
+    except ValueError as e:
+        ap.error(f"--distributed: {e}")
+    mesh = None
+    if args.mesh or dist.active():   # one card a process: this rank's own
+        mesh = make_mesh(["cpu"] if on_cpu
+                         else [torch.device("cuda", torch.cuda.current_device())])
+    primary = dist.is_primary()
 
     cfg = TrainerConfig(batch_size=args.batch_size,
                         checkpoint_every=0,  # checkpoint explicitly below
@@ -71,7 +90,7 @@ def main():
                         subdivisions=2,      # gradient accumulation
                         seed=0)
     model_cfg = sg2.TINY if args.tiny else sg2.CONFIG_F
-    trainer = Trainer(model_cfg=model_cfg, cfg=cfg, device=args.device)
+    trainer = Trainer(model_cfg=model_cfg, cfg=cfg, device=args.device, mesh=mesh)
 
     if args.data:
         from clip_glass_torch.utils.data import ImageFolder
@@ -79,6 +98,8 @@ def main():
                                 batch_size=args.batch_size))
     else:
         data = synthetic_batches(args.batch_size, model_cfg.resolution)
+    if mesh is not None:   # every rank reads the same stream and keeps its rows
+        data = (trainer.local_rows(torch.as_tensor(b)) for b in data)
 
     # scalar CSV + image-grid sinks (reference train.py:620-635, 761-777)
     sinks = TrainLogger(os.path.join(args.out, "logs"),
@@ -86,6 +107,9 @@ def main():
                         tensorboard=args.tensorboard)
     logs = trainer.train(data, args.iterations, log_every=1, sinks=sinks)
     folder = trainer.save_checkpoint()
+    if not primary:
+        dist.shutdown()
+        return
 
     # the EMA generator is what one samples from (reference train.py:293-302)
     gen = torch.Generator(device=trainer.device).manual_seed(1)
@@ -98,6 +122,7 @@ def main():
     print(f"checkpoint: {folder}")
     print(f"Gs sample:  {tuple(imgs.shape)} in [{float(imgs.min()):.2f}, "
           f"{float(imgs.max()):.2f}]")
+    dist.shutdown()
 
 
 if __name__ == "__main__":

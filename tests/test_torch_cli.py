@@ -21,6 +21,7 @@
 import dataclasses
 import os
 import pickle
+import socket
 
 import numpy as np
 import pytest
@@ -46,6 +47,7 @@ from clip_glass_torch.evolve.algorithm import extract_result
 from clip_glass_torch.fitness.problem import GenerationProblem
 from clip_glass_torch.models.clip import model as tclip
 from clip_glass_torch.models.stylegan2 import model as tsg2
+from clip_glass_torch.parallel import distributed as dist
 from clip_glass_torch.weights import from_jax
 
 from torch_parity import T
@@ -268,8 +270,11 @@ def test_scatter_without_matplotlib(tmp_path):
     # item 13 is ported: the int8 fitness runs (a no-op at TINY's widths,
     # below quantize_min_ch = 64, as in the JAX CLI)
     pytest.param(["--quantize", "int8"], None, id="quantize_int8-item 13"),
-    (["--mesh"], "item 16"),
-    (["--distributed", "auto"], "item 16"),
+    # item 16 is ported: --mesh splits the evaluation over the mesh (one CPU
+    # here); --distributed auto joins torchrun's group (one rank here, set
+    # up by the test)
+    pytest.param(["--mesh"], None, id="mesh-item 16"),
+    pytest.param(["--distributed", "auto"], None, id="distributed_auto-item 16"),
     # item 9 is ported: these two configs now run (why = None)
     pytest.param(["--config", "DeepMindBigGAN512"], None, id="config_DeepMindBigGAN512-item 9"),
     pytest.param(["--config", "DeepMindBigGAN256"], None, id="config_DeepMindBigGAN256-item 9"),
@@ -288,8 +293,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch, argv, why
         monkeypatch.chdir(tmp_path)
         if argv[0] == "--serve":
             (tmp_path / argv[1]).write_text("a red flower\na blue car\n")
-        assert cli.main([*base, "--generations", "1", "--save-each", "1",
-                         "--no-verbose", *argv]) == 0
+        if argv[0] == "--distributed":
+            for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                             RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+                monkeypatch.setenv(k, v)
+        try:
+            assert cli.main([*base, "--generations", "1", "--save-each", "1",
+                             "--no-verbose", *argv]) == 0
+        finally:
+            dist.shutdown()
         config = argv[1] if argv[0] == "--config" else "StyleGAN2_ffhq_d"
         want = GPT2_ARTIFACTS if config == "GPT2" else ARTIFACTS
         want = {a for a in want if "-it-2." not in a}
@@ -318,6 +330,29 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch, argv, why
     assert e.value.code == 2
     assert why in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--serve", "targets.txt"], "--serve is one process"),
+    (["--config", "GPT2", "--target", DOG], "GPT2's host round trip"),
+], ids=["serve", "gpt2"])
+def test_cli_refuses_under_a_process_group(tmp_path, capsys, monkeypatch, argv, why):
+    """Under a process group of several ranks --serve and GPT2's host round
+    trip exit 2, as the JAX CLI's (cli.py:366-371, 395-398); the group is
+    stood in for here (the two-process runs: tests/test_torch_parallel.py)."""
+    monkeypatch.setattr(dist, "initialize", lambda *a, **k: True)
+    monkeypatch.setattr(dist, "active", lambda: True)
+    (tmp_path / "targets.txt").write_text("a red flower\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--tiny", "--device", "cpu", "--tmp-folder", str(tmp_path / "out"), *argv])
+    assert e.value.code == 2 and why in capsys.readouterr().err
 
 
 def test_cli_resume_refuses_a_jax_checkpoint(tmp_path, capsys):

@@ -753,3 +753,73 @@ def test_trainer_gradient_through_kernels_equals_plain_route(gpu, tmp_path, phas
     err, _, counts = chip_smoke.trainer_grad_kernels_vs_plain(tr, phase)
     assert err <= chip_smoke.STEP_GRAD_TOL and counts[0]
     assert bool(counts[1]) == (phase == "pl")
+
+
+def test_sharded_tiny_fitness_on_gpu_matches_unsharded(gpu):
+    """The TINY `_d` fitness on the card split over a mesh of two shards on
+    that card (one thread each, D's minibatch-std gathered across them)
+    against the unsharded evaluation, both domains, fp32, TF32 off: cuDNN may
+    take other algorithms at 4 rows than at 8, hence rtol 1e-4, atol 1e-5;
+    each kernel launches once a shard a call site."""
+    import dataclasses
+
+    import chip_smoke
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.parallel import make_mesh
+
+    cfg = get_config("StyleGAN2_ffhq_d").replace(
+        pop_size=8, dim_z=32, n_var=32, weights="random:0", target="a face",
+        compute_dtype="float32")
+    X = torch.randn((8, 32), generator=torch.Generator().manual_seed(1)).cuda()
+    for model_cfg, per_eval in ((sg2.TINY, (5, 2, 3, 0)),
+                                (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))):
+        F = {}
+        for label, mesh in (("whole", None), ("sharded", make_mesh(["cuda:0", "cuda:0"]))):
+            p = GenerationProblem(cfg, device="cuda", clip_cfg=clip_model.TINY,
+                                  model_cfg=model_cfg, mesh=mesh)
+            before = [k.launches for k in chip_smoke._kernels()]
+            F[label] = p.generator.eval_population(X)
+            moved = tuple(k.launches - n for k, n in zip(chip_smoke._kernels(), before))
+            assert moved == tuple(n * (2 if mesh else 1) for n in per_eval), (label, moved)
+        torch.testing.assert_close(F["sharded"], F["whole"], rtol=1e-4, atol=1e-5)
+
+
+def test_launch_device_guard(gpu):
+    """A wrapper launches under its tensor's card: nothing to switch when it
+    is the current one."""
+    from clip_glass_torch.ops import cuda
+
+    x = _randn(gpu, 2, 4, 4, 8)
+    assert isinstance(cuda.launch_device(x), type(cuda._CURRENT))
+
+
+def test_kernels_launch_on_the_tensors_card():
+    """Every kernel on tensors of card 1 while card 0 is current (a process
+    that drives two cards of a mesh): the result equals the plain version,
+    and card 0 stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the guard makes a tensor's card current for "
+                    "its launch, which one card cannot show")
+    gen = torch.Generator(device="cuda:1").manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda:1").to(dtype)
+
+    torch.cuda.set_device(0)
+    x, noise, ns, b = r(2, 8, 8, 64), r(8, 8), torch.tensor(0.7, device="cuda:1").bfloat16(), r(64)
+    _close(bias_act.noise_bias_lrelu(x, noise, ns, b),
+           bias_act.noise_bias_lrelu_plain(x, noise, ns, b), torch.bfloat16)
+    x = r(4, 32, 32, 3)
+    _close(upfirdn.upsample2x(x), upfirdn.upsample2x_plain(x), torch.bfloat16)
+    x, style, w, demod, bias = r(2, 1024, 64), r(2, 64), r(64, 3), None, r(3)
+    _close(modulated_conv.modulated_matmul(x, style, w, demod, bias),
+           modulated_conv.modulated_matmul_plain(x, style, w, demod, bias), torch.bfloat16)
+    x, K, s, d = r(2, 9, 9, 64), r(2, 2, 64, 64), r(2, 64), r(2, 64)
+    got, want = s2d.s2d_conv2x2(x, K, s, d, 0), s2d.s2d_conv2x2_plain(x, K, s, d, 0)
+    torch.cuda.synchronize(1)
+    scale = want.float().abs().max()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
+    assert torch.cuda.current_device() == 0

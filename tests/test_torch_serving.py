@@ -159,8 +159,12 @@ def test_server_map_and_occupancy(problems):
 
 
 def test_server_refuses_a_mesh_and_bad_sizes(problems):
-    with pytest.raises(ValueError, match="item 16"):
-        SearchServer(problems[False], n_slots=2, mesh=object())
+    # a mesh runs (tests/test_torch_parallel.py); slots that do not split
+    # over it are a bad fit
+    from clip_glass_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="must divide"):
+        SearchServer(problems[False], n_slots=3, mesh=make_mesh(["cpu", "cpu"]))
     with pytest.raises(ValueError):
         SearchServer(problems[False], n_slots=0)
     server = SearchServer(problems[False], n_slots=1, chunk=1)

@@ -695,8 +695,13 @@ def test_adam_takes_a_missing_gradient_as_zero():
 
 
 def test_trainer_refuses_a_mesh_and_needs_a_card(monkeypatch):
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        ttr.Trainer(tsg2.TINY, mesh=object(), device="cpu")
+    # a mesh of one card a process runs (tests/test_torch_parallel.py); two
+    # cards in one process are refused: the trainer runs one process a card
+    from clip_glass_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="one process a card"):
+        ttr.Trainer(tsg2.TINY, mesh=make_mesh(["cpu", "cpu"]), device="cpu")
+    assert ttr.Trainer(tsg2.TINY, mesh=make_mesh(["cpu"])).device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.Trainer(tsg2.TINY)
@@ -813,5 +818,13 @@ def test_example_trains_tiny_on_the_cpu(tmp_path):
 
 
 def test_example_refuses_a_mesh(tmp_path):
-    res = _example("--tiny", "--device", "cpu", "--mesh", "--out", str(tmp_path))
-    assert res.returncode == 2 and "ROADMAP item 16" in res.stderr
+    """--mesh runs now (one rank, a mesh of its card); a bad --distributed
+    spec still exits 2."""
+    out = str(tmp_path / "ex")
+    res = _example("--tiny", "--device", "cpu", "--mesh", "--iterations", "2", "--out", out)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "Gs sample:" in res.stdout
+    ck = os.path.join(out, "checkpoints")
+    assert ttr.Trainer.latest_checkpoint(ck) == os.path.join(ck, "8")
+    res = _example("--tiny", "--device", "cpu", "--distributed", "bad", "--out", out)
+    assert res.returncode == 2 and "--distributed" in res.stderr
