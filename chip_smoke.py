@@ -201,14 +201,27 @@ from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
      writes each artifact once, rank 1 nothing; (e) the data-parallel
      trainer in the two ranks, config-f cut to 256 px, batch 4, fp32, 2
      steps, each held against the one-process step.
+ 30. tp: CLIP tensor parallelism on the 2-D (pop, model) mesh and the
+     memory from shapes alone: (a) two gloo ranks on the card as a (1, 2)
+     mesh, CLIP split over them (12 -> 6 heads, 3072 -> 1536 MLP columns;
+     text 8 -> 4 heads): the hinge bitwise the one-process hinge, the CLIP
+     objective within BATCHED_BF16_TOL, fp32 image features within 1e-4 of
+     the whole tower's, kernels 1-4 in each rank; (b) one process whose
+     mesh lists the card 4 times, a (2, 2) mesh: F within BATCHED_BF16_TOL,
+     init + 2 generations, kernels 1-4 in each position; (c)
+     `dryrun_multichip(4)` on the card, and the estimates from shapes of the
+     flagship evaluation (pop 16) and of the regularized training step
+     (config-f 1024 px, batch 4, fp32) each within 0.75-1.15 of its measured
+     peak.
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
 record: phase 25's launches, those under grad and, for kernels 1-3, the
 errors at the step's shapes, a `ppl` record: phase 26's launches, and a
 `trainer` record: phase 28's launches, under grad and under a second
-derivative, kernel 4's in the grid, and a `sharded` record: phase 29's
-launches per rank in (b)'s generations and in (e)'s trainer steps), the
+derivative, kernel 4's in the grid, a `sharded` record: phase 29's
+launches per rank in (b)'s generations and in (e)'s trainer steps, and a
+`tp` record: phase 30's launches per rank in (a) and per position in (b)), the
 card's name and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
@@ -4142,6 +4155,8 @@ def sharded_rank(argv) -> int:
         rec["pop_F"], rec["pop_X"] = res.pop_F, res.pop_X
         del problem, algorithm, res, state
         torch.cuda.empty_cache()
+    if "tp" in cases:
+        _tp_rank_case(inp, rec, kernels)
     if "cli" in cases:
         from clip_glass_torch import cli
 
@@ -4385,6 +4400,254 @@ def phase_sharded(kind: str, smi: str, root: str) -> dict:
             for name in PER_EVAL["s2d"]}
 
 
+# ------------------------------------------------------------ phase 30
+
+TP_GENERATIONS = 2
+# (c): an estimate from shapes alone within these shares of the measured peak
+ESTIMATE_RANGE = (0.75, 1.15)
+# (a): CLIP's fp32 image features, tensor-parallel against the whole tower
+TP_FEATURE_TOL = 1e-4
+
+
+def _vit_fp32():
+    """CLIP ViT-B/32 random:0, fp32, on the card."""
+    from clip_glass_torch.core.dtypes import tree_to
+    from clip_glass_torch.models.clip import model as clip_model
+
+    return tree_to(clip_model.init(torch.Generator().manual_seed(0), clip_model.VIT_B_32), "cuda")
+
+
+def _tp_rank_case(inp: dict, rec: dict, kernels) -> None:
+    """Phase 30 (a) in one rank: the (1, world) mesh (a model group of the
+    ranks, CLIP split over them), one flagship evaluation of the inputs' X
+    with the kernels' launches, and CLIP's fp32 image features of the
+    inputs' images through this rank's shard."""
+    from clip_glass_torch.core.dtypes import FP32
+    from clip_glass_torch.core.memory import tree_bytes
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.parallel import distributed as dist
+    from clip_glass_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(model_axis_size=dist.world_size())
+    problem = GenerationProblem(_sharded_config(inp["weights"]), device="cuda", mesh=mesh)
+    _zero_counts(kernels)
+    rec["tp_F"] = problem.generator.eval_population(inp["X"]).cpu()
+    rec["tp_launches"] = {k.__name__: k.launches for k in kernels}
+    rec["tp_mesh_shape"] = mesh.shape
+    rec["tp_clip_bytes"] = tree_bytes(problem.generator.clip_params)
+    del problem
+    shard = pmesh.clip_shard(_vit_fp32(), mesh.tp, mesh.model_index(0))
+    images = inp["images"].cuda()
+    rec["tp_features"] = mesh.map(lambda i, x: clip_model.encode_image(
+        shard, x, clip_model.VIT_B_32, FP32), [images])[0].cpu()
+    del shard
+    torch.cuda.empty_cache()
+
+
+def _count_by_shard(kernels):
+    """Wrap each kernel's checked launch so that it counts by the mesh
+    position of the calling thread; returns (counts, undo)."""
+    import threading
+
+    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+    from clip_glass_torch.parallel import mesh as pmesh
+
+    counts, lock, undo = {}, threading.Lock(), []
+    for module, name, kernel in ((bias_act, "_noise_bias_lrelu_cuda", "noise_bias_lrelu"),
+                                 (upfirdn, "_upsample2x_cuda", "upsample2x"),
+                                 (modulated_conv, "_modulated_matmul_cuda", "modulated_matmul"),
+                                 (s2d, "_s2d_conv2x2_cuda", "s2d_conv2x2")):
+        real = getattr(module, name)
+
+        def counted(*args, _real=real, _kernel=kernel):
+            pos = getattr(pmesh._shard, "index", None)
+            with lock:
+                row = counts.setdefault(pos, {})
+                row[_kernel] = row.get(_kernel, 0) + 1
+            return _real(*args)
+
+        setattr(module, name, counted)
+        undo.append((module, name, real))
+
+    def restore():
+        for module, name, real in undo:
+            setattr(module, name, real)
+
+    return counts, restore
+
+
+def _measured_peak(fn) -> int:
+    """The card's allocated bytes at their peak while fn() builds and runs
+    its work, above what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_tp(kind: str, smi: str, root: str) -> dict:
+    """Phase 30: CLIP tensor parallelism on the 2-D (pop, model) mesh and
+    the memory from shapes alone (clip_glass_torch/parallel/mesh.py,
+    parallel/dryrun.py, core/memory.py), from phase 28's config-f files and
+    CLIP ViT-B/32 random:0, the flagship at 1024 px, pop 16, bf16, the s2d
+    path:
+      (a) two ranks of this script on the card (gloo), a (1, 2) mesh: one
+          model group, ViT-B/32 split 12 -> 6 heads and 3072 -> 1536 MLP
+          columns a rank, the text tower 8 -> 4 heads. F of one evaluation
+          (both ranks run G and D on all 16 rows): the hinge bitwise the
+          one-process hinge, the CLIP objective within BATCHED_BF16_TOL of
+          its scale; CLIP's image features at fp32 within TP_FEATURE_TOL of
+          the whole tower's (relative to their largest); kernels 1-4's
+          launches in each rank;
+      (b) one process whose mesh lists the card 4 times, a (2, 2) mesh (one
+          thread a position, 8 rows a model group): F of one evaluation
+          within BATCHED_BF16_TOL of each objective's scale, then init +
+          TP_GENERATIONS generations with each position's launches and the
+          seconds a generation (noted; four positions on one card are no
+          speed);
+      (c) `dryrun_multichip(4)` on the card (the TINY live part on the card
+          listed 4 times, the full-size estimates of one rank of 4 against
+          the card's memory), then each estimate of the one-process work
+          beside its measured peak (`torch.cuda.max_memory_allocated`): the
+          flagship's evaluation at pop 16, and the trainer's regularized
+          step (R1 and the path length penalty) at config-f 1024 px, batch
+          4, fp32; each ratio within ESTIMATE_RANGE.
+    Returns each kernel's launches per rank in (a) and per position in (b)."""
+    from clip_glass_torch.core.dtypes import FP32
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.parallel import make_mesh
+    from clip_glass_torch.parallel.dryrun import (dryrun_multichip, evaluation_bytes,
+                                                  train_step_bytes)
+    from clip_glass_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    kernels = _kernels()
+    weights = os.path.join(root, "trainer")          # phase 28's config-f files
+    config = _sharded_config(weights)
+    problem = GenerationProblem(config, device="cuda")
+    X = torch.randn((POP, config.n_var), generator=torch.Generator().manual_seed(12)).cuda()
+    whole = problem.generator.eval_population(X).float().cpu()
+    del problem
+    images = torch.rand((4, 3, 224, 224), generator=torch.Generator().manual_seed(13))
+    params = _vit_fp32()
+    want_feats = clip_model.encode_image(params, images.cuda(), clip_model.VIT_B_32,
+                                         FP32).cpu()
+    del params
+    torch.cuda.empty_cache()
+
+    # (a) two ranks, one model group
+    inputs = os.path.join(root, "tp_inputs.pt")
+    torch.save({"X": X, "weights": weights, "images": images}, inputs)
+    out_a = os.path.join(root, "tp_gloo")
+    os.makedirs(out_a, exist_ok=True)
+    t = time.perf_counter()
+    ranks = _run_ranks(2, "gloo", "tp", inputs, out_a)
+    ranks_s = time.perf_counter() - t
+    F_a = ranks[0]["tp_F"].float()
+    if any(tuple(r["tp_mesh_shape"]) != (1, 2) for r in ranks) or \
+            not all(torch.equal(r["tp_F"], ranks[0]["tp_F"]) for r in ranks):
+        raise AssertionError(f"tp (a): meshes {[r['tp_mesh_shape'] for r in ranks]}, or the "
+                             "ranks' F differ")
+    if not torch.equal(F_a[:, 1], whole[:, 1]):
+        raise AssertionError(f"tp (a): the hinge moved by "
+                             f"{(F_a[:, 1] - whole[:, 1]).abs().max().item()}")
+    clip_a = _close_to_scale("tp (a): the CLIP objective, two ranks vs one process",
+                             F_a[:, :1], whole[:, :1], BATCHED_BF16_TOL)
+    feats = {}
+    for r in ranks:
+        err = (r["tp_features"] - want_feats).abs().max().item()
+        feats[r["rank"]] = err / want_feats.abs().max().item()
+        if not feats[r["rank"]] <= TP_FEATURE_TOL:
+            raise AssertionError(f"tp (a) rank {r['rank']}: fp32 features {feats[r['rank']]} "
+                                 f"of their scale from the whole tower's")
+        if r["tp_launches"] != PER_EVAL["s2d"]:
+            raise AssertionError(f"tp (a) rank {r['rank']}: launches {r['tp_launches']}")
+    log({"phase": "tp", "check": "(a) two ranks on the card (gloo), a (1, 2) mesh: CLIP "
+         "split over the ranks, G and D on all 16 rows in each", "hinge_bitwise": True,
+         "clip_objective": clip_a, "tolerance": BATCHED_BF16_TOL,
+         "features_fp32_max_rel": feats, "features_tolerance": TP_FEATURE_TOL,
+         "by_rank": [{"rank": r["rank"], "launches": r["tp_launches"],
+                      "clip_bytes": r["tp_clip_bytes"]} for r in ranks],
+         "ranks_s": ranks_s, "device": kind, "nvidia_smi": smi})
+
+    # (b) one process, the card listed 4 times
+    mesh = make_mesh(["cuda:0"] * 4, model_axis_size=2)
+    problem = GenerationProblem(config, device="cuda", mesh=mesh)
+    F_b = problem.generator.eval_population(X).float().cpu()
+    close_b = _close_to_scale("tp (b): a (2, 2) mesh vs one process", F_b, whole,
+                              BATCHED_BF16_TOL)
+    counts, restore = _count_by_shard(kernels)
+    stamps = []
+    try:
+        _zero_counts(kernels)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+        def on_generation(_state):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        res = minimize(problem.make_algorithm(), TP_GENERATIONS, 0, callback=on_generation,
+                       save_each=1)
+    finally:
+        restore()
+    launches_b = {k.__name__: k.launches for k in kernels}
+    per_shard = {name: n * (TP_GENERATIONS + 1) for name, n in PER_EVAL["s2d"].items()}
+    if sorted(counts) != [0, 1, 2, 3] or any(counts[i] != per_shard for i in counts) or \
+            not torch.isfinite(res.pop_F).all():
+        raise AssertionError(f"tp (b): launches by position {counts}, expected {per_shard} "
+                             "in each")
+    log({"phase": "tp", "check": "(b) one process, the card listed 4 times: a (2, 2) mesh, "
+         "8 rows a model group", **close_b, "tolerance": BATCHED_BF16_TOL,
+         "launches_by_position": counts, "launches": launches_b,
+         "generation_s_noted": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
+         "generation_s_scope": "the first with the init", "generations": TP_GENERATIONS})
+    del problem, res
+    torch.cuda.empty_cache()
+
+    # (c) the dry run on the card, then the estimates against measured peaks
+    t = time.perf_counter()
+    dry = dryrun_multichip(4)
+    dry_s = time.perf_counter() - t
+    flagship = config.replace(pop_size=POP, compute_dtype="bfloat16")
+    est_eval = evaluation_bytes(flagship)
+    est_train = train_step_bytes(sg2.CONFIG_F, 4)
+
+    def run_eval():
+        gen = GenerationProblem(flagship, device="cuda").generator
+        gen.eval_population(X)
+
+    def run_train():
+        tr = Trainer(sg2.CONFIG_F, TrainerConfig(checkpoint_every=0), device="cuda")
+        reals = torch.rand((4, 3, 1024, 1024), device="cuda") * 2 - 1
+        tr.train_step(reals)
+
+    measured = {"flagship_pop16_bf16": (est_eval, _measured_peak(run_eval)),
+                "train_config_f_batch4_fp32": (est_train, _measured_peak(run_train))}
+    torch.cuda.empty_cache()
+    ratios = {k: e["total"] / m for k, (e, m) in measured.items()}
+    log({"phase": "tp", "check": "(c) dryrun_multichip(4) on the card; estimates from shapes "
+         "of the one-process work beside its measured peak", "mesh": dry["mesh"],
+         "live": dry["live"], "fullsize_one_rank_of_4": dry["fullsize"],
+         "budget_bytes": dry["budget_bytes"], "dryrun_s": dry_s,
+         "estimate_vs_measured": {k: {"estimate": e, "measured_peak_bytes": m,
+                                      "ratio": ratios[k]} for k, (e, m) in measured.items()},
+         "range": ESTIMATE_RANGE, "device": kind, "nvidia_smi": smi})
+    bad = {k: r for k, r in ratios.items() if not ESTIMATE_RANGE[0] <= r <= ESTIMATE_RANGE[1]}
+    if bad:
+        raise AssertionError(f"tp (c): estimate / measured peak outside {ESTIMATE_RANGE}: {bad}")
+    log({"phase": "tp", "seconds": time.perf_counter() - t_phase})
+    return {name: {"launches_per_rank": ranks[0]["tp_launches"][name],
+                   "launches_per_position": counts[0][name]} for name in PER_EVAL["s2d"]}
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -4445,6 +4708,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         trainer = phase_trainer(kind, smi, tmp)
         sharded = phase_sharded(kind, smi, tmp)
+        tp = phase_tp(kind, smi, tmp)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -4474,6 +4738,7 @@ def main() -> int:
                         "ppl": {"launches": ppl_launches[name]},
                         "trainer": trainer[name],
                         "sharded": sharded[name],
+                        "tp": tp[name],
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -4516,7 +4781,11 @@ def main() -> int:
                                  f"flagship s2d path, {POP // SHARDED_RANKS} rows a rank "
                                  f"(launches_per_rank), and {SHARDED_TRAIN_STEPS} "
                                  f"data-parallel trainer steps at 256 px, batch 4 "
-                                 f"(trainer_launches_per_rank)"})
+                                 f"(trainer_launches_per_rank); tp: one flagship "
+                                 f"evaluation in each of 2 gloo ranks of a (1, 2) mesh "
+                                 f"(launches_per_rank), and init + {TP_GENERATIONS} "
+                                 f"generations on a (2, 2) mesh of the card listed 4 "
+                                 f"times (launches_per_position)"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
@@ -4530,7 +4799,8 @@ def main() -> int:
                                         "previous_int8_conv_work_ms", "ops", "route_ops",
                                         "gemm_ops", "shapes", "launches_per_evaluation")},
         "gradient": "raises (inference only)",
-        "sharded": {"launches_per_rank": 0},   # phase 29 runs the bf16 path
+        "sharded": {"launches_per_rank": 0},   # phases 29 and 30 run the bf16 path
+        "tp": {"launches_per_rank": 0, "launches_per_position": 0},
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
                  f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
                  f"of one int8 evaluation; ms, device_ms: the fused entry on the bf16 "

@@ -43,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from clip_glass_torch.core import pytree
+from clip_glass_torch.core import memory, pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
 from clip_glass_torch.fitness import latent as latent_mod
@@ -54,7 +54,8 @@ from clip_glass_torch.models.stylegan2 import model as sg2
 from clip_glass_torch.ops import quant
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import clip_preprocess_pil, resize_bilinear
-from clip_glass_torch.parallel.mesh import population_sharding
+from clip_glass_torch.parallel.mesh import (ModelShards, clip_heads_divide, population_sharding,
+                                            shard_clip_tp)
 from clip_glass_torch.tokenizers import get_gpt2_tokenizer, tokenize
 from clip_glass_torch.tokenizers.clip_bpe import CONTEXT_LENGTH
 from clip_glass_torch.weights import convert_biggan, convert_gpt2, convert_stylegan2, from_jax
@@ -205,7 +206,15 @@ def load_bundle(config, clip_cfg=None, model_cfg=None, clip_weights: str = "rand
     configs (a StyleGAN2 checkpoint's sidecar wins over the one passed in).
     Random draws happen on the CPU, so one seed gives the same weights on
     every device; noise planes a checkpoint does not hold are drawn from
-    NOISE_SEED."""
+    NOISE_SEED.
+
+    "abstract" for either (the JAX package's weights="abstract"): every tree
+    on `meta` at its real shapes and dtypes, from the configs alone (the
+    defaults, or those passed in), with no draw and no file read
+    (`core.memory.abstract_construction`)."""
+    if memory.is_abstract(config.weights) or memory.is_abstract(clip_weights):
+        with memory.abstract_construction():
+            return load_bundle(config.replace(weights="random:0"), clip_cfg, model_cfg)
     clip, clip_cfg = _load_clip(clip_weights, clip_cfg)
     if config.model in ("biggan", "gpt2"):
         load = _load_biggan if config.model == "biggan" else _load_gpt2
@@ -238,8 +247,14 @@ class Generator:
         if config.model not in ("stylegan2", "biggan", "gpt2"):
             raise ValueError(f"unknown model family {config.model!r}")
         self.config = config
-        self.device = resolve_device(device)
-        # parallel.mesh.Mesh: the evaluations split their rows over it
+        # weights="abstract": every tree on meta, shapes alone (load_bundle)
+        self.abstract = memory.is_abstract(config.weights) or memory.is_abstract(clip_weights)
+        self.device = memory.META if self.abstract else resolve_device(device)
+        if mesh is not None and mesh.abstract != self.abstract:
+            raise ValueError("abstract weights go with an abstract mesh "
+                             "(parallel.mesh.abstract_mesh), and only they")
+        # parallel.mesh.Mesh: the evaluations split their rows over its pop
+        # axis, CLIP's towers over its model axis
         self.mesh = mesh
         self._replicas = {}   # card -> (the bundle's identity, its copy there)
         self.policy = policy or Policy.make(config.param_dtype, config.compute_dtype)
@@ -257,6 +272,10 @@ class Generator:
             return tree_to(precast_params(tree, self.policy, exclude), self.device)
 
         self.clip_params = stage(bundle["clip"], clip_model.PRECAST_EXCLUDE)
+        if mesh is not None and mesh.tp > 1:
+            # each local card holds its model shard of CLIP alone
+            clip_heads_divide(self.clip_cfg, mesh.tp)
+            self.clip_params = shard_clip_tp(self.clip_params, mesh)
         self.d_params = self.noise = None
         if config.model == "biggan":
             # the BN running statistics stay fp32 (bg.PRECAST_EXCLUDE)
@@ -283,9 +302,11 @@ class Generator:
             target = self.encode_target(config.target)
         self.text_features = target if config.task == "txt2img" else None
         self.image_features = target if config.task == "img2txt" else None
-        # the opt-in int8 fitness (ops/quant.py): activation scales per call site
+        # the opt-in int8 fitness (ops/quant.py): activation scales per call
+        # site; shapes alone have no values to calibrate on (the JAX
+        # package skips it too), so an abstract run sizes the float path
         self._quant_scales = None
-        if config.quantize:
+        if config.quantize and not self.abstract:
             self._calibrate_quant()
 
     @torch.inference_mode()
@@ -310,11 +331,17 @@ class Generator:
         if X0 is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
             X0 = operators_for_config(cfg).sample(gen, cfg.eval_microbatch or cfg.pop_size)
-        with quant.calibration(cfg.quantize_min_ch) as records:
-            self._eval_batch_raw(X0.to(self.device), self.bundle)
-        if records:
-            self._quant_scales = (torch.stack(records).double().cpu().numpy()
-                                  * cfg.quantize_margin)
+        base = {k: v for k, v in self.bundle.items() if k != "clip"}
+
+        def calibrate(clip, dev):
+            with quant.calibration(cfg.quantize_min_ch) as records:
+                self._eval_batch_raw(X0.to(dev), {**self._on(base, dev, self.device),
+                                                  "clip": clip})
+            return torch.stack(records).cpu() if records else None
+
+        records = self._each_shard(calibrate)
+        if records is not None:
+            self._quant_scales = records.double().numpy() * cfg.quantize_margin
 
     @torch.inference_mode()
     def encode_target(self, target: str) -> torch.Tensor:
@@ -331,17 +358,28 @@ class Generator:
         targets = list(targets)
         if self.config.task == "txt2img":
             tokens = torch.as_tensor(tokenize(targets), device=self.device)
-            return clip_model.encode_text(self.clip_params, tokens, self.clip_cfg,
-                                          self.policy)
+            return self._each_shard(lambda clip, dev: clip_model.encode_text(
+                clip, tokens.to(dev), self.clip_cfg, self.policy)).to(self.device)
         from PIL import Image
 
         imgs = []
         for path in targets:
             with Image.open(path) as im:
                 imgs.append(clip_preprocess_pil(im, self.clip_cfg.image_resolution))
-        return clip_model.encode_image(
-            self.clip_params, torch.as_tensor(np.concatenate(imgs), device=self.device),
-            self.clip_cfg, self.policy)
+        imgs = torch.as_tensor(np.concatenate(imgs), device=self.device)
+        return self._each_shard(lambda clip, dev: clip_model.encode_image(
+            clip, imgs.to(dev), self.clip_cfg, self.policy)).to(self.device)
+
+    def _each_shard(self, fn):
+        """fn(CLIP's tree, its device) with the whole tower on the
+        generator's device, or on a tensor-parallel mesh on every local card
+        with the CLIP shard it holds (every model group computes the same
+        value): the first card's result."""
+        clip = self.clip_params
+        if not isinstance(clip, ModelShards):
+            return fn(clip, self.device)
+        m = self.mesh
+        return m.map(lambda i, _: fn(clip[i], m.devices[i]), [None] * m.local_size)[0]
 
     @property
     def bundle(self):
@@ -454,6 +492,9 @@ class Generator:
         trip overlaps a decode (the JAX package's asynchronous dispatch
         can). With a mesh the decode and the text tower split their rows over
         it; the round trip reads the whole population on every rank."""
+        if self.abstract:
+            raise NotImplementedError("GPT-2's host round trip reads the decoded ids: "
+                                      "weights='abstract' sizes txt2img evaluations only")
         K, pop, n_var = Xb.shape
         flat = Xb.reshape(K * pop, n_var)
         if mesh is None:
@@ -562,11 +603,19 @@ class Generator:
     def _map_rows(self, fn, mesh, bundle, *rows: torch.Tensor) -> torch.Tensor:
         """fn(bundle on the shard's card, *the shard's row blocks) over the
         mesh's shards of `rows` (tensors of one leading extent, contiguous
-        blocks, parallel.mesh.RowSharding), gathered whole on every rank on
-        the rows' device. A target with a row for each row splits with
-        them."""
+        blocks over the pop axis, parallel.mesh.RowSharding), gathered whole
+        on every rank on the rows' device. A target with a row for each row
+        splits with them; on a tensor-parallel mesh each card gets its CLIP
+        shard, and the cards of a model group compute the same rows."""
         sharding = population_sharding(mesh)
         home, n = rows[0].device, rows[0].shape[0]
+        shards = bundle.get("clip")
+        if isinstance(shards, ModelShards):   # each card's CLIP shard
+            if mesh is not self.mesh:
+                raise ValueError("CLIP's model shards belong to the generator's own mesh")
+            bundle = {k: v for k, v in bundle.items() if k != "clip"}
+        else:
+            shards = None
         target = bundle.get("target")
         targets = (sharding.split(target)
                    if target is not None and n > 1 and target.shape[0] == n else None)
@@ -576,6 +625,8 @@ class Generator:
             b = self._on(bundle, mesh.devices[i], home)
             if targets is not None:
                 b = {**b, "target": targets[i]}
+            if shards is not None:
+                b = {**b, "clip": shards[i]}
             return fn(b, *block)
 
         return sharding.gather(mesh.map(run, blocks)).to(home)
@@ -591,13 +642,15 @@ class Generator:
 
         `mesh`: the rows split over its shards in contiguous blocks, each
         evaluated on its card (each in its own int8 scope), F gathered whole
-        on every rank. A shard that holds whole searches pools D within
+        on every rank. A row block that holds whole searches pools D within
         them alone; otherwise D's minibatch-std gathers its input rows over
-        the mesh, so F is the unsplit batch's."""
+        the mesh's pop axis, so F is the unsplit batch's. On a 2-D mesh G
+        and D run on the model group's block on each of its cards, CLIP
+        tensor-parallel over the group."""
         if mesh is None:
             return self._eval_shard(X, bundle, n_search, None)
-        whole = n_search % mesh.size == 0
-        k, d_mesh = (n_search // mesh.size, None) if whole else (n_search, mesh)
+        whole = n_search % mesh.dp == 0
+        k, d_mesh = (n_search // mesh.dp, None) if whole else (n_search, mesh)
         return self._map_rows(lambda b, x: self._eval_shard(x, b, k, d_mesh), mesh, bundle, X)
 
     def _eval_shard(self, X: torch.Tensor, bundle, n_search: int, mesh) -> torch.Tensor:

@@ -24,7 +24,7 @@ import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
 from clip_glass_torch.models.clip import resnet
-from clip_glass_torch.ops.attention import multi_head_attention
+from clip_glass_torch.ops.attention import multi_head_attention, project
 from clip_glass_torch.ops.norms import layer_norm
 from clip_glass_torch.weights import from_jax
 
@@ -141,7 +141,7 @@ def init_tree(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
         "text_projection": scale_t * _randn(gen, tw, cfg.embed_dim),
     }
     return {"visual": visual, "text": text,
-            "logit_scale": torch.tensor(float(torch.log(torch.tensor(1 / 0.07))))}
+            "logit_scale": torch.log(torch.tensor(1 / 0.07))}
 
 
 def init(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
@@ -152,25 +152,38 @@ def init(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32):
 # ---------------------------------------------------------------- forward
 
 def _block_forward(x, bp, n_head: int, mask: Optional[torch.Tensor],
-                   policy: Policy):
-    """Pre-LN residual attention block (reference clip/model.py:164-187)."""
+                   policy: Policy, reduce=None):
+    """Pre-LN residual attention block (reference clip/model.py:164-187). On
+    a model shard `n_head` is the shard's heads and `reduce` its sum over
+    the model group: out_proj and c_proj give partial products, each summed
+    once (`ops.attention.project`), so the block is the whole one's
+    function, as the JAX package's under GSPMD."""
     h = layer_norm(x, bp["ln_1"]["scale"], bp["ln_1"]["bias"])
     a = bp["attn"]
     h = multi_head_attention(policy.cast_compute(h), a["in_proj_weight"],
                              a["in_proj_bias"], a["out_proj_weight"],
-                             a["out_proj_bias"], n_head, mask=mask, policy=policy)
+                             a["out_proj_bias"], n_head, mask=mask, policy=policy,
+                             reduce=reduce)
     x = x + h
     h = policy.cast_compute(layer_norm(x, bp["ln_2"]["scale"], bp["ln_2"]["bias"]))
     m = bp["mlp"]
     h = h @ policy.cast_compute(m["c_fc_weight"]) + policy.cast_compute(m["c_fc_bias"])
     h = h * torch.sigmoid(1.702 * h)  # QuickGELU (reference clip/model.py:160-161)
-    h = h @ policy.cast_compute(m["c_proj_weight"]) + policy.cast_compute(m["c_proj_bias"])
+    h = project(h, m["c_proj_weight"], m["c_proj_bias"], policy, reduce)
     return x + h
 
 
-def _transformer(x, blocks, n_head: int, mask, policy: Policy):
+def _transformer(x, params, blocks, n_head: int, mask, policy: Policy):
+    """The blocks of a tower of `params`: a whole tree, or a model shard's
+    (parallel.mesh.clip_shard: its heads, summed over the calling shard's
+    model group)."""
+    tp = params.get("model_shards", 1)
+    reduce = None
+    if tp > 1:
+        from clip_glass_torch.parallel.mesh import model_sum
+        reduce = model_sum
     for bp in blocks:
-        x = _block_forward(x, bp, n_head, mask, policy)
+        x = _block_forward(x, bp, n_head // tp, mask, policy, reduce)
     return x
 
 
@@ -191,7 +204,7 @@ def encode_image(params, images, cfg: CLIPConfig = VIT_B_32,
     x = torch.cat([cls, x], dim=1)
     x = x + policy.cast_compute(v["positional_embedding"])
     x = policy.cast_compute(layer_norm(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"]))
-    x = _transformer(x, v["blocks"], cfg.vision_heads, None, policy)
+    x = _transformer(x, params, v["blocks"], cfg.vision_heads, None, policy)
     x = layer_norm(x[:, 0, :], v["ln_post"]["scale"], v["ln_post"]["bias"])
     return policy.cast_compute(x) @ policy.cast_compute(v["proj"])
 
@@ -210,7 +223,7 @@ def encode_text(params, text_ids, cfg: CLIPConfig = VIT_B_32,
     x = policy.cast_compute(t["token_embedding"][text_ids])
     x = x + policy.cast_compute(t["positional_embedding"])
     mask = _causal_mask(cfg.context_length, x.device)
-    x = _transformer(x, t["blocks"], cfg.transformer_heads, mask, policy)
+    x = _transformer(x, params, t["blocks"], cfg.transformer_heads, mask, policy)
     x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
     eot = text_ids.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

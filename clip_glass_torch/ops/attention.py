@@ -5,26 +5,48 @@ use it (reference clip/model.py:164-187): fused QKV in-projection,
 1/sqrt(head_dim) scaling, additive mask, fp32 softmax, output projection.
 Weights are right-multiply ([D, 3D] and [D, D]) like the JAX package's, so
 the numbers follow it step for step.
+
+On a model shard (parallel.mesh.shard_clip_tp) the weights hold the
+shard's heads only: the in-projection [D, 3D/tp] (its heads of q, k and
+v), out_proj's rows [D/tp, D]; the output projection is then a partial
+product that `project` sums over the model group before its bias.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
 
 
+def project(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, policy: Policy,
+            reduce: Optional[Callable] = None) -> torch.Tensor:
+    """h @ w + b in the compute dtype. With `reduce` (a model shard's sum
+    over its group: h and w hold a slice of the contraction) the partial
+    product is taken and summed in fp32, rounded once to the compute dtype
+    (as the whole matmul's fp32 accumulator is), and the bias added once,
+    after the sum."""
+    if reduce is None:
+        return h @ policy.cast_compute(w) + policy.cast_compute(b)
+    part = reduce(h.float() @ w.float())
+    return policy.cast_compute(part) + policy.cast_compute(b)
+
+
 def multi_head_attention(x: torch.Tensor, in_proj_w, in_proj_b, out_proj_w,
                          out_proj_b, n_head: int,
                          mask: Optional[torch.Tensor] = None,
-                         policy: Policy = FP32) -> torch.Tensor:
-    """x: [B, T, D]; in_proj_w: [D, 3D]; out_proj_w: [D, D]."""
-    B, T, D = x.shape
-    hd = D // n_head
+                         policy: Policy = FP32,
+                         reduce: Optional[Callable] = None) -> torch.Tensor:
+    """x: [B, T, D]; in_proj_w: [D, 3D']; out_proj_w: [D', D], where D' = D
+    for the whole layer and D/tp for a model shard of its heads (`n_head`:
+    the heads the weights hold; `reduce`: the shard's sum over its group)."""
+    B, T, _ = x.shape
+    width = in_proj_w.shape[-1] // 3    # the heads' width this layer holds
+    hd = width // n_head
     qkv = x @ policy.cast_compute(in_proj_w) + policy.cast_compute(in_proj_b)
-    q, k, v = qkv.split(D, dim=-1)
+    q, k, v = qkv.split(width, dim=-1)
 
     def heads(t):
         return t.reshape(B, T, n_head, hd).transpose(1, 2)
@@ -36,5 +58,5 @@ def multi_head_attention(x: torch.Tensor, in_proj_w, in_proj_b, out_proj_w,
         logits = logits + mask.float()
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", w, v)
-    out = out.transpose(1, 2).reshape(B, T, D)
-    return out @ policy.cast_compute(out_proj_w) + policy.cast_compute(out_proj_b)
+    out = out.transpose(1, 2).reshape(B, T, width)
+    return project(out, out_proj_w, out_proj_b, policy, reduce)

@@ -59,7 +59,7 @@ def minibatch_std(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
     centered features taken from the global group means too, and this
     shard's rows kept.
     """
-    if mesh is not None and mesh.size > 1:
+    if mesh is not None and mesh.dp > 1:
         from clip_glass_torch.parallel.mesh import gather_rows, own_rows
 
         full = minibatch_std(gather_rows(x, mesh), group_size, eps, center_input, n_search)
@@ -94,11 +94,14 @@ def noise_bias_lrelu(x: torch.Tensor, noise: torch.Tensor,
     """Fused noise injection + bias + leaky ReLU + gain. CUDA: the
     hand-written kernel (noise, scale and bias in x's dtype; the scale stays
     on the device), differentiable as its plain version (`cuda.with_grad`);
-    CPU: `noise_bias_lrelu_plain`."""
-    if cuda.takes_plain(x):
-        return noise_bias_lrelu_plain(x, noise, noise_scale, bias, alpha, gain)
-    return cuda.with_grad(_noise_bias_lrelu_cuda, noise_bias_lrelu_plain, x, noise,
-                          noise_scale, bias, alpha, gain)
+    CPU: `noise_bias_lrelu_plain`; meta: the kernel's output (`cuda.dispatch`)."""
+    return cuda.dispatch(x, _noise_bias_lrelu_cuda, _noise_bias_lrelu_meta,
+                         noise_bias_lrelu_plain, x, noise, noise_scale, bias, alpha, gain)
+
+
+def _noise_bias_lrelu_meta(x, noise, noise_scale, bias, alpha, gain) -> torch.Tensor:
+    """The kernel's shape rule: its output, x's shape and dtype."""
+    return torch.empty_like(x)
 
 
 def _noise_bias_lrelu_cuda(x: torch.Tensor, noise: torch.Tensor,

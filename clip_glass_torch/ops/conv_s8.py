@@ -32,6 +32,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from clip_glass_torch.core import memory
 from clip_glass_torch.ops import cuda
 
 # output and input dtype codes of csrc/conv_s8.cu
@@ -163,8 +164,9 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, stride=1,
     """[B, Ho, Wo, O] of `conv_s8_plain`'s function on x, or on x quantized
     by `x_inv_scale` when it is float. CUDA: the hand-written kernel on the
     route `conv_s8_variant` picks (raises on what it does not take, or if it
-    does not build); CPU: `conv_s8_plain`. Raises when a gradient is wanted
-    (`cuda.grad_wanted`): the int8 conv has none."""
+    does not build); CPU: `conv_s8_plain` (one kernel under a
+    `core.memory.PeakMemory`); meta: the kernel's output. Raises when a
+    gradient is wanted (`cuda.grad_wanted`): the int8 conv has none."""
     if x.dtype == torch.int8:
         if x_inv_scale is not None:
             raise TypeError("conv_s8: x_inv_scale given with an int8 x")
@@ -176,8 +178,13 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, stride=1,
                            "grad mode on (use torch.no_grad() or torch.inference_mode())")
     geometry = dict(stride=stride, pad0=pad0, pad1=pad1, lhs_dilation=lhs_dilation)
     if cuda.takes_plain(x):
-        xq = x if x_inv_scale is None else quantize(x, x_inv_scale)
-        return conv_s8_plain(xq, wq, scale, out_dtype=out_dtype, **geometry)
+        def plain(x):
+            xq = x if x_inv_scale is None else quantize(x, x_inv_scale)
+            return conv_s8_plain(xq, wq, scale, out_dtype=out_dtype, **geometry)
+
+        return memory.as_kernel(plain)(x) if memory.tracking() else plain(x)
+    if x.is_meta:
+        return _conv_s8_meta(x, wq, out_dtype, geometry)
     B, H, W, I = x.shape
     O, Iw, kh, kw = wq.shape
     if x.device.type != "cuda" or any(t.device != x.device for t in (wq, scale)):
@@ -193,6 +200,17 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, stride=1,
                          f"{tuple(scale.shape)}, stride {stride}, lhs_dilation {lhs_dilation}")
     return conv_s8_launch(x, wq, scale, geometry, out_dtype, x_inv_scale,
                           conv_s8_variant(I, stride, lhs_dilation))
+
+
+def _conv_s8_meta(x: torch.Tensor, wq: torch.Tensor, out_dtype: torch.dtype,
+                  geometry: dict) -> torch.Tensor:
+    """The kernel's shape rule: [B, Ho, Wo, O] in out_dtype."""
+    B, H, W, _ = x.shape
+    O, _, kh, kw = wq.shape
+    g = geometry
+    Ho = out_size(H, kh, g["stride"], g["pad0"], g["pad1"], g["lhs_dilation"])
+    Wo = out_size(W, kw, g["stride"], g["pad0"], g["pad1"], g["lhs_dilation"])
+    return torch.empty((B, Ho, Wo, O), dtype=out_dtype, device=x.device)
 
 
 def conv_s8_launch(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, geometry: dict,

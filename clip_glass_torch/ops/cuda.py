@@ -32,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from clip_glass_torch.core import memory
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
            "s2d_conv2x2.cu", "conv_s8.cu")
@@ -253,8 +255,28 @@ def vector_width(dtype: torch.dtype, n_inner: int, *tensors: torch.Tensor) -> in
 
 def takes_plain(t: torch.Tensor) -> bool:
     """Whether a wrapper takes its kernel's plain version for `t`: a tensor
-    on the CPU. A CUDA tensor launches the kernel or raises."""
+    on the CPU. A CUDA tensor launches the kernel or raises; a meta tensor
+    takes the kernel's shape rule."""
     return t.device.type == "cpu"
+
+
+def dispatch(x: torch.Tensor, launch, rule, plain, *args) -> torch.Tensor:
+    """A wrapper's route for its first operand x: on the CPU `plain(*args)`;
+    on `meta` the shape rule `rule(*args)`, the counterpart of a Pallas
+    call's abstract evaluation, which allocates the kernel's output and
+    nothing else; on a card the checked launch `launch(*args)`. The rule
+    and the launch go through `with_grad`, so a meta tensor under grad
+    records the plain version's backward as the card's launch does.
+
+    Under a `core.memory.PeakMemory` on the CPU the plain version runs as
+    one kernel (`memory.as_kernel`: its output counted, not its
+    intermediates) and through `with_grad` too, so the tracker counts on
+    real tensors what it counts on meta ones."""
+    if takes_plain(x):
+        if memory.tracking():
+            return with_grad(memory.as_kernel(plain), plain, *args)
+        return plain(*args)
+    return with_grad(rule if x.is_meta else launch, plain, *args)
 
 
 def grad_wanted(*args) -> bool:

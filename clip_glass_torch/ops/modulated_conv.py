@@ -231,11 +231,14 @@ def modulated_matmul(x: torch.Tensor, style: Optional[torch.Tensor],
     bias: [O]. Returns [B, P, O]. CUDA: the hand-written kernel (every
     operand in x's dtype), the variant `modulated_matmul_variant` picks,
     differentiable as its plain version (`cuda.with_grad`); CPU:
-    `modulated_matmul_plain`."""
-    if cuda.takes_plain(x):
-        return modulated_matmul_plain(x, style, w, demod, bias)
-    return cuda.with_grad(_modulated_matmul_cuda, modulated_matmul_plain, x, style, w,
-                          demod, bias)
+    `modulated_matmul_plain`; meta: the kernel's output (`cuda.dispatch`)."""
+    return cuda.dispatch(x, _modulated_matmul_cuda, _modulated_matmul_meta,
+                         modulated_matmul_plain, x, style, w, demod, bias)
+
+
+def _modulated_matmul_meta(x, style, w, demod, bias) -> torch.Tensor:
+    """The kernel's shape rule: [B, P, O] in x's dtype."""
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[1]))
 
 
 def _modulated_matmul_cuda(x, style, w, demod, bias) -> torch.Tensor:

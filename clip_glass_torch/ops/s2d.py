@@ -396,10 +396,17 @@ def s2d_conv2x2(x: torch.Tensor, K: torch.Tensor, style, demod,
     (csrc/s2d_conv2x2.cu) on x's dtype, the variant `conv2x2_variant` picks,
     with the weights from `conv2x2_weights`, differentiable as its plain
     version (`cuda.with_grad`); an unmodulated call (both None) hands it one
-    weight set for every sample. CPU: `s2d_conv2x2_plain`."""
-    if cuda.takes_plain(x):
-        return s2d_conv2x2_plain(x, K, style, demod, pad0)
-    return cuda.with_grad(_s2d_conv2x2_cuda, s2d_conv2x2_plain, x, K, style, demod, pad0)
+    weight set for every sample. CPU: `s2d_conv2x2_plain`; meta: the
+    kernel's output (`cuda.dispatch`)."""
+    return cuda.dispatch(x, _s2d_conv2x2_cuda, _s2d_conv2x2_meta, s2d_conv2x2_plain, x, K,
+                         style, demod, pad0)
+
+
+def _s2d_conv2x2_meta(x: torch.Tensor, K, style, demod, pad0: int) -> torch.Tensor:
+    """The kernel's shape rule: [B, n +- 1, n +- 1, C'] in x's dtype."""
+    B, n, _, C = x.shape
+    n_out = n + 1 if pad0 else n - 1
+    return torch.empty((B, n_out, n_out, C), dtype=x.dtype, device=x.device)
 
 
 def _s2d_conv2x2_cuda(x: torch.Tensor, K: torch.Tensor, style, demod,

@@ -111,10 +111,16 @@ def upsample2x(x: torch.Tensor, filter_taps=(1, 3, 3, 1),
                gain: float = 1.0) -> torch.Tensor:
     """[B, H, W, C] -> [B, 2H, 2W, C]. CUDA: the hand-written kernel
     (4 taps only), the variant `upsample2x_variant` picks, differentiable as
-    its plain version (`cuda.with_grad`); CPU: `upsample2x_plain`."""
-    if cuda.takes_plain(x):
-        return upsample2x_plain(x, filter_taps, gain)
-    return cuda.with_grad(_upsample2x_cuda, upsample2x_plain, x, filter_taps, gain)
+    its plain version (`cuda.with_grad`); CPU: `upsample2x_plain`; meta: the
+    kernel's output (`cuda.dispatch`)."""
+    return cuda.dispatch(x, _upsample2x_cuda, _upsample2x_meta, upsample2x_plain, x,
+                         filter_taps, gain)
+
+
+def _upsample2x_meta(x: torch.Tensor, filter_taps, gain: float) -> torch.Tensor:
+    """The kernel's shape rule: [B, 2H, 2W, C] in x's dtype."""
+    B, H, W, C = x.shape
+    return x.new_empty((B, 2 * H, 2 * W, C))
 
 
 def _upsample2x_cuda(x: torch.Tensor, filter_taps, gain: float) -> torch.Tensor:

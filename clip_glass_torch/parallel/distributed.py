@@ -123,14 +123,19 @@ def barrier() -> None:
         dist.barrier()
 
 
-def fetch(x: torch.Tensor) -> torch.Tensor:
+def fetch(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """This rank's row block -> the whole tensor, rank blocks in rank order,
     on every rank and on x's device (an all_gather; every rank's block has
-    x's shape). One process: x itself."""
-    if not active():
+    x's shape). With a 2-D `mesh` whose model axis spans ranks, over its pop
+    axis: one block a model group. One process: x itself. On meta tensors
+    (`parallel.mesh.abstract_mesh`) the output's allocation alone."""
+    n = mesh.pop_ranks if mesh is not None else world_size()
+    if n == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(n)]
+    if not x.is_meta:
+        dist.all_gather(parts, x.contiguous(),
+                        group=mesh.pop_group if mesh is not None else None)
     return torch.cat(parts)
 
 
@@ -145,16 +150,14 @@ def fetch_tree(tree):
 
 def make_global_mesh(model_axis_size: int = 1, pop_axis: str = "pop",
                      model_axis: str = "model", devices=None):
-    """The mesh over every rank's cards with the population on its one
-    axis (`parallel.mesh.make_mesh`). A CLIP model axis
-    (`model_axis_size` > 1) is ROADMAP item 16b and raises."""
+    """The mesh over every rank's cards (`parallel.mesh.make_mesh`): the
+    population on its one axis, or with `model_axis_size` = tp > 1 the 2-D
+    (pop, model) mesh of shape (positions / tp, tp), CLIP's towers
+    tensor-parallel over the model axis, which never spans hosts."""
     from clip_glass_torch.parallel.mesh import make_mesh
 
-    if model_axis_size != 1:
-        raise NotImplementedError(
-            f"a {model_axis!r} axis of {model_axis_size} (CLIP tensor parallelism) is "
-            "ROADMAP item 16b")
-    return make_mesh(devices, axis=pop_axis)
+    return make_mesh(devices, axis=pop_axis, model_axis_size=model_axis_size,
+                     model_axis=model_axis)
 
 
 def global_batch_from_local(mesh, local_batch, axis=None) -> torch.Tensor:

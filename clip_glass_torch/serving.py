@@ -19,8 +19,8 @@ tick; a request's `n_gen` rounds up to a multiple of `chunk`. An idle slot
 in `total_evals`, as in the JAX package; `stats.occupancy` is the useful
 share. Skipping idle slots is open work (ROADMAP.md, under item 7).
 
-Scale-out: `mesh` (parallel.mesh) splits the slots over its cards, whole
-searches a card (n_slots must divide over the mesh), so that a tick's
+Scale-out: `mesh` (parallel.mesh) splits the slots over its row blocks,
+whole searches a block (n_slots must divide over them), so that a tick's
 evaluation moves only its fitness rows between cards; the weights go to
 each card once. The GA state stays whole on the mesh's first card.
 """
@@ -77,9 +77,9 @@ class SearchServer:
                  search_microbatch: Optional[int] = None, mesh=None):
         if n_slots < 1 or chunk < 1:
             raise ValueError("n_slots and chunk must be >= 1")
-        if mesh is not None and n_slots % mesh.size:
+        if mesh is not None and n_slots % mesh.dp:
             raise ValueError(f"n_slots {n_slots} must divide over the mesh's "
-                             f"{mesh.size}-card slot axis")
+                             f"{mesh.dp} row blocks")
         self.mesh = mesh
         self.problem = problem
         self.chunk = int(chunk)

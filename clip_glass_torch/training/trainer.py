@@ -38,6 +38,7 @@ value is read: `train` at `log_every`, and the checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from clip_glass_torch.core import pytree
+from clip_glass_torch.core import memory, pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import FP32, map_tree, tree_leaves, tree_to, tree_unflatten
 from clip_glass_torch.core.optim import AdamState, adam_init, adam_update, global_norm
@@ -130,7 +131,7 @@ class TrainState(NamedTuple):
     gs_params: dict          # EMA generator
     pl_avg: torch.Tensor     # 0-d, on the trainer's device
     step: int
-    key: torch.Generator     # every draw of the steps; not checkpointed
+    key: Optional[torch.Generator]   # every draw of the steps (None: abstract); not checkpointed
 
 
 class Latents(NamedTuple):
@@ -240,34 +241,51 @@ class Trainer:
     `mesh` (parallel.mesh.Mesh, one card a rank): data parallelism over its
     ranks; the trainer runs on the mesh's card, `batch_axes` (default: the
     mesh's axis) name its batch axis, and `cfg.batch_size` is the global
-    batch: `train_step` takes this rank's rows (`local_rows`)."""
+    batch: `train_step` takes this rank's rows (`local_rows`).
+
+    `abstract=True` (the JAX package's, trainer.py:133-143): the state (G,
+    D, Gs, both Adams, pl_avg, the step) is built on `meta` from shapes
+    alone, no draw and no data, and a step runs at its real shapes for its
+    memory (core.memory.PeakMemory); the draws are empty meta tensors (no
+    generator lives on meta). With an abstract mesh of n positions
+    (parallel.mesh.abstract_mesh: no process group) the step is one rank's:
+    its batch / n rows, the collectives their outputs' allocations."""
 
     def __init__(self, model_cfg: Optional[sg2.SG2Config] = None,
                  cfg: Optional[TrainerConfig] = None, g_params=None, d_params=None,
-                 mesh=None, batch_axes=None, device: Optional[str] = None):
+                 mesh=None, batch_axes=None, device: Optional[str] = None,
+                 abstract: bool = False):
         if mesh is None and batch_axes is not None:
             raise ValueError("batch_axes names axes of a mesh; pass the mesh")
+        if mesh is not None and mesh.abstract != bool(abstract):
+            raise ValueError("an abstract trainer goes with an abstract mesh "
+                             "(parallel.mesh.abstract_mesh), and only it")
         self.mesh, self.batch_axes, self.world = mesh, None, 1
         if mesh is not None:
             if mesh.local_size != 1:
                 raise ValueError(f"the trainer runs one process a card; this mesh gives "
                                  f"the process {mesh.local_size} (one rank a card)")
+            if mesh.tp != 1:
+                raise ValueError("the trainer is data parallel over a 1-D mesh; a model "
+                                 "axis splits CLIP, which the trainer does not run")
             self.batch_axes = tuple(batch_axes) if batch_axes is not None else mesh.axis_names
             if not set(self.batch_axes) <= set(mesh.axis_names):
                 raise ValueError(f"batch axes {self.batch_axes} are not axes of the mesh "
                                  f"{mesh.axis_names}")
             device, self.world = mesh.device, mesh.world
-        self.device = resolve_device(device)
+        self.abstract = bool(abstract)
+        self.device = memory.META if abstract else resolve_device(device)
         self.model_cfg = model_cfg or sg2.TINY
         # the differentiated synthesis: the plain domain throughout
         self.plain_cfg = dataclasses.replace(self.model_cfg, s2d_min_res=2 ** 30)
         self.cfg = cfg or TrainerConfig()
         self.metrics: Dict[str, Callable] = {}
         init = torch.Generator().manual_seed(self.cfg.seed)
-        if g_params is None:
-            g_params = sg2.generator_init(init, self.model_cfg)
-        if d_params is None:
-            d_params = sg2.discriminator_init(init, self.model_cfg)
+        with memory.abstract_construction() if abstract else contextlib.nullcontext():
+            if g_params is None:
+                g_params = sg2.generator_init(init, self.model_cfg)
+            if d_params is None:
+                d_params = sg2.discriminator_init(init, self.model_cfg)
         c = self.cfg
         self.g_adam = _lazy_lr(c.g_lr, c.beta1, c.beta2, c.g_reg_interval)
         self.d_adam = _lazy_lr(c.d_lr, c.beta1, c.beta2, c.d_reg_interval)
@@ -276,7 +294,7 @@ class Trainer:
             g_params=g_params, d_params=d_params,
             g_opt=adam_init(tree_leaves(g_params)), d_opt=adam_init(tree_leaves(d_params)),
             gs_params=g_params, pl_avg=torch.zeros((), device=self.device), step=0,
-            key=torch.Generator(device=self.device).manual_seed(c.seed))
+            key=None if abstract else torch.Generator(device=self.device).manual_seed(c.seed))
 
     def load_state(self, g_params, d_params, gs_params, g_opt: AdamState, d_opt: AdamState,
                    pl_avg, step: int) -> None:
@@ -353,7 +371,8 @@ class Trainer:
         if self.world == 1:
             return value, grads
         flat = torch.cat([value.reshape(1)] + [g.reshape(-1) for g in grads])
-        tdist.all_reduce(flat)
+        if not flat.is_meta:   # an abstract mesh's rank moves nothing
+            tdist.all_reduce(flat)
         out, at = [], 1
         for g in grads:
             out.append(flat[at:at + g.numel()].view_as(g))

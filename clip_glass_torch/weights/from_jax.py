@@ -40,7 +40,8 @@ from clip_glass_torch.core.optim import AdamState
 
 def to_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        t = a.detach().cpu()
+        # a meta tensor (shapes alone, core.memory) stays where it is
+        t = a.detach() if a.is_meta else a.detach().cpu()
     else:
         arr = np.asarray(a)
         if arr.dtype.name == "bfloat16":

@@ -823,3 +823,75 @@ def test_kernels_launch_on_the_tensors_card():
     scale = want.float().abs().max()
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
     assert torch.cuda.current_device() == 0
+
+
+# ------------------------------------------------------------ meta rules, CLIP tensor parallelism
+
+def _kernel_operands(gen, dtype):
+    """name -> (wrapper, operands on the card) at a flagship-like shape."""
+    r = lambda *shape: _randn(gen, *shape, dtype=dtype)  # noqa: E731
+    return {
+        "noise_bias_lrelu": (bias_act.noise_bias_lrelu,
+                             (r(2, 16, 16, 64), r(16, 16), torch.tensor(0.5, device="cuda")
+                              .to(dtype), r(64))),
+        "upsample2x": (upfirdn.upsample2x, (r(4, 32, 32, 3),)),
+        "modulated_matmul": (modulated_conv.modulated_matmul,
+                             (r(2, 1024, 64), r(2, 64), r(64, 3), r(2, 3), r(3))),
+        "s2d_conv2x2": (s2d.s2d_conv2x2, (r(2, 9, 9, 64), r(2, 2, 64, 64), r(2, 64),
+                                          r(2, 64), 1)),
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["noise_bias_lrelu", "upsample2x", "modulated_matmul",
+                                  "s2d_conv2x2"])
+def test_meta_rule_equals_the_kernels_output(gpu, dtype, name):
+    """A wrapper on meta operands (core.memory's estimates) allocates what
+    its kernel returns on the card: shape, dtype and strides."""
+    wrapper, args = _kernel_operands(gpu, dtype)[name]
+    got = wrapper(*args)
+    meta = wrapper(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args))
+    assert meta.is_meta
+    assert (meta.shape, meta.dtype, meta.stride()) == (got.shape, got.dtype, got.stride())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_conv_s8_meta_rule_equals_the_kernels_output(gpu, out_dtype):
+    from clip_glass_torch.ops.conv_s8 import conv_s8
+
+    x = _randn(gpu, 2, 16, 16, 64, dtype=torch.bfloat16)
+    wq = torch.randint(-127, 128, (32, 64, 3, 3), generator=gpu, device="cuda",
+                       dtype=torch.int8)
+    scale = torch.rand(32, generator=gpu, device="cuda")
+    kw = dict(stride=1, pad0=1, pad1=1, out_dtype=out_dtype, x_inv_scale=10.0)
+    got = conv_s8(x, wq, scale, **kw)
+    meta = conv_s8(x.to("meta"), wq.to("meta"), scale.to("meta"), **kw)
+    assert (meta.shape, meta.dtype) == (got.shape, got.dtype)
+
+
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_clip_tensor_parallel_equals_the_whole_tower(gpu, tower):
+    """TINY CLIP at fp32 on a (1, 2) mesh of the card listed twice: the
+    heads and MLP columns split over the model group, the partial products
+    summed; the features equal the whole tower's."""
+    import dataclasses
+
+    from clip_glass_torch.core.dtypes import FP32, tree_to
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.parallel.mesh import make_mesh, shard_clip_tp
+
+    cfg = dataclasses.replace(clip_model.TINY, vision_width=256, transformer_heads=4)
+    params = tree_to(clip_model.init(torch.Generator().manual_seed(0), cfg), "cuda")
+    if tower == "image":
+        x = torch.rand((4, 3, 32, 32), generator=gpu, device="cuda")
+        fn = clip_model.encode_image
+    else:
+        x = torch.randint(1, 49406, (4, 77), generator=gpu, device="cuda")
+        x[:, 5] = 49407
+        fn = clip_model.encode_text
+    want = fn(params, x, cfg, FP32)
+    mesh = make_mesh(["cuda:0", "cuda:0"], model_axis_size=2)
+    shards = shard_clip_tp(params, mesh)
+    got = mesh.map(lambda i, rows: fn(shards[i], rows, cfg, FP32), [x, x])
+    for g in got:
+        torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)

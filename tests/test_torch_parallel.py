@@ -161,9 +161,11 @@ def test_make_mesh_devices_and_state():
     assert (m.world, m.rank) == (1, 0)
     s = shard_state(GAState(torch.ones(4, 2), torch.zeros(4, 1), 3), m)
     assert s.gen == 3 and torch.equal(s.X, torch.ones(4, 2))
-    with pytest.raises(NotImplementedError, match="16b"):
+    with pytest.raises(ValueError, match="must divide"):
         dist.make_global_mesh(model_axis_size=2, devices=["cpu"])
     assert dist.make_global_mesh(devices=["cpu"]).size == 1
+    m2 = dist.make_global_mesh(model_axis_size=2, devices=["cpu"] * 4)
+    assert m2.axis_names == ("pop", "model") and m2.shape == (2, 2)
 
 
 def test_gather_rows_meets_in_map():

@@ -10,8 +10,12 @@ the dcp checkpoint written by every rank, and `fetch`. Rank 0 saves the
 results to `<out>/results.pt`; the trainers' states after every step go
 through their rank-0 checkpoints, `<out>/trainer/<case>/step-<n>`.
 
+With `--model-axis 2` the ranks build `make_global_mesh(2)` instead (CLIP
+tensor-parallel over model groups of two ranks, tests/test_torch_tp.py) and
+run the search cases and `fetch` over its pop axis only.
+
 Run: python tests/torch_parallel_worker.py --rank R --world N --port P \
-    --inputs IN.pt --out DIR
+    --inputs IN.pt --out DIR [--model-axis 2]
 """
 
 import argparse
@@ -74,15 +78,25 @@ def main() -> int:
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--model-axis", type=int, default=1)
     args = ap.parse_args()
     torch.set_num_threads(1)
     dist.initialize(f"localhost:{args.port},{args.world},{args.rank}", backend="gloo",
                     timeout_s=120)
-    mesh = make_mesh(["cpu"])
     inp = torch.load(args.inputs, weights_only=False)
-    out = {"world": dist.world_size(), "mesh_size": mesh.size}
-
     block = torch.full((2, 3), float(args.rank))
+    if args.model_axis > 1:
+        mesh = dist.make_global_mesh(args.model_axis, devices=["cpu"])
+        out = {"world": dist.world_size(), "mesh_shape": mesh.shape,
+               "fetch": dist.fetch(block, mesh)}
+        run_search(inp, mesh, out)
+        if dist.is_primary():
+            torch.save(out, os.path.join(args.out, "results.pt"))
+        dist.barrier()
+        dist.shutdown()
+        return 0
+    mesh = make_mesh(["cpu"])
+    out = {"world": dist.world_size(), "mesh_size": mesh.size}
     out["fetch"] = dist.fetch(block)
     run_search(inp, mesh, out)
     for name, case in inp["trainer"].items():
