@@ -4440,7 +4440,8 @@ def _tp_rank_case(inp: dict, rec: dict, kernels) -> None:
     shard = pmesh.clip_shard(_vit_fp32(), mesh.tp, mesh.model_index(0))
     images = inp["images"].cuda()
     rec["tp_features"] = mesh.map(lambda i, x: clip_model.encode_image(
-        shard, x, clip_model.VIT_B_32, FP32), [images])[0].cpu()
+        shard, x, clip_model.VIT_B_32, FP32, tp=mesh.tp, reduce=pmesh.model_sum),
+        [images])[0].cpu()
     del shard
     torch.cuda.empty_cache()
 
@@ -4502,7 +4503,8 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
           one-process hinge, the CLIP objective within BATCHED_BF16_TOL of
           its scale; CLIP's image features at fp32 within TP_FEATURE_TOL of
           the whole tower's (relative to their largest); kernels 1-4's
-          launches in each rank;
+          launches in each rank; the time of a rank's c_proj partial
+          product by route (noted);
       (b) one process whose mesh lists the card 4 times, a (2, 2) mesh (one
           thread a position, 8 rows a model group): F of one evaluation
           within BATCHED_BF16_TOL of each objective's scale, then init +
@@ -4522,6 +4524,7 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
     from clip_glass_torch.fitness.problem import GenerationProblem
     from clip_glass_torch.models.clip import model as clip_model
     from clip_glass_torch.models.stylegan2 import model as sg2
+    from clip_glass_torch.ops import attention
     from clip_glass_torch.parallel import make_mesh
     from clip_glass_torch.parallel.dryrun import (dryrun_multichip, evaluation_bytes,
                                                   train_step_bytes)
@@ -4577,6 +4580,23 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
                       "clip_bytes": r["tp_clip_bytes"]} for r in ranks],
          "ranks_s": ranks_s, "device": kind, "nvidia_smi": smi})
 
+    # the partial product of (a)'s c_proj on one rank (16 images x 50
+    # tokens, 1536 of ViT-B/32's 3072 MLP columns), bf16: the route the
+    # shard takes (tensor cores, fp32 out), fp32 operands, and the whole
+    # layer's bf16 matmul
+    g = torch.Generator(device="cuda").manual_seed(14)
+    h = torch.randn((POP, 50, 3072), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((3072, 768), generator=g, device="cuda") * 0.02).bfloat16()
+    hs, ws = h[..., :1536].contiguous(), w[:1536].contiguous()
+    part = {"tensor_cores_fp32_out": time_ms(lambda: attention._fp32_product(hs, ws), 50),
+            "fp32_operands": time_ms(lambda: hs.float() @ ws.float(), 50),
+            "whole_layer_bf16": time_ms(lambda: h @ w, 50)}
+    part_err = (attention._fp32_product(hs, ws) - hs.float() @ ws.float()).abs().max().item()
+    del g, h, w, hs, ws
+    log({"phase": "tp", "check": "(a) c_proj's partial product on a rank, [16, 50, 1536] x "
+         "[1536, 768] bf16", "ms": part, "max_abs_diff_of_routes": part_err,
+         "device": kind, "nvidia_smi": smi})
+
     # (b) one process, the card listed 4 times
     mesh = make_mesh(["cuda:0"] * 4, model_axis_size=2)
     problem = GenerationProblem(config, device="cuda", mesh=mesh)
@@ -4604,6 +4624,11 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
             not torch.isfinite(res.pop_F).all():
         raise AssertionError(f"tp (b): launches by position {counts}, expected {per_shard} "
                              "in each")
+    # the positions' calls are the kernels' own launches, each counted once
+    summed = {name: sum(counts[i][name] for i in counts) for name in per_shard}
+    if any(launches_b[name] != summed[name] for name in per_shard):
+        raise AssertionError(f"tp (b): the kernels counted {launches_b} launches, the "
+                             f"positions' calls sum to {summed}")
     log({"phase": "tp", "check": "(b) one process, the card listed 4 times: a (2, 2) mesh, "
          "8 rows a model group", **close_b, "tolerance": BATCHED_BF16_TOL,
          "launches_by_position": counts, "launches": launches_b,

@@ -25,10 +25,7 @@ versions would.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import weakref
-from typing import List
-
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -83,17 +80,6 @@ def _tensors(tree):
             yield from _tensors(getattr(tree, f.name))
 
 
-# the trackers active in this thread, innermost last (a dispatch mode
-# sees its own thread's ops)
-_local = threading.local()
-
-
-def _active() -> List["PeakMemory"]:
-    if not hasattr(_local, "trackers"):
-        _local.trackers = []
-    return _local.trackers
-
-
 class PeakMemory(TorchDispatchMode):
     """`with PeakMemory() as m: ...` then `m.peak`: the most bytes of
     storages created inside the block that were alive at once; `m.live`:
@@ -105,22 +91,18 @@ class PeakMemory(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._seen = WeakIdKeyDictionary()
-        self._paused = 0
-
-    def __enter__(self):
-        _active().append(self)
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        _active().remove(self)
-        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if self._paused:
-            return out
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        # an output on an input's storage (a view, a no-op cast, an in-place
+        # op) allocates nothing: a storage from before the block stays out.
+        # lift_fresh's input is a tensor that torch.tensor() has just made.
+        given = set() if func is torch.ops.aten.lift_fresh.default else {
+            id(a.untyped_storage()) for a in tree_leaves((args, kwargs))
+            if isinstance(a, torch.Tensor)}
         for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
+            if isinstance(t, torch.Tensor) and id(t.untyped_storage()) not in given:
                 self.track(t)
         return out
 
@@ -138,32 +120,3 @@ class PeakMemory(TorchDispatchMode):
     def _free(self, n: int) -> None:
         self.live -= n
 
-
-def tracking() -> bool:
-    """Whether a PeakMemory is counting in this thread."""
-    return bool(_active())
-
-
-def as_kernel(fn):
-    """fn, run as one kernel for the active trackers: its inner
-    allocations unseen, its output counted (a copy where the output is a
-    view of a larger buffer, as a kernel writes its own). How a wrapper's
-    plain version stands in for its kernel on real CPU tensors under a
-    tracker, so that they count what the meta rule and the card do."""
-    def run(*args):
-        trackers = list(_active())
-        for m in trackers:
-            m._paused += 1
-        try:
-            out = fn(*args)
-            if out.untyped_storage().nbytes() != out.numel() * out.element_size():
-                out = out.clone()
-        finally:
-            for m in trackers:
-                m._paused -= 1
-        for m in trackers:
-            m.track(out)
-        return out
-
-    run.__name__ = getattr(fn, "__name__", "kernel")
-    return run

@@ -54,8 +54,8 @@ from clip_glass_torch.models.stylegan2 import model as sg2
 from clip_glass_torch.ops import quant
 from clip_glass_torch.ops import s2d as s2d_ops
 from clip_glass_torch.ops.resize import clip_preprocess_pil, resize_bilinear
-from clip_glass_torch.parallel.mesh import (ModelShards, clip_heads_divide, population_sharding,
-                                            shard_clip_tp)
+from clip_glass_torch.parallel.mesh import (ModelShards, clip_heads_divide, model_sum,
+                                            population_sharding, shard_clip_tp)
 from clip_glass_torch.tokenizers import get_gpt2_tokenizer, tokenize
 from clip_glass_torch.tokenizers.clip_bpe import CONTEXT_LENGTH
 from clip_glass_torch.weights import convert_biggan, convert_gpt2, convert_stylegan2, from_jax
@@ -84,6 +84,12 @@ def biggan_denorm(images):
 def _weights(bundle) -> dict:
     """A bundle without its target: the frozen weights alone."""
     return {k: v for k, v in bundle.items() if k != "target"}
+
+
+def _shard_entries(shard, mesh) -> dict:
+    """A bundle's CLIP entries on a tensor-parallel mesh: a card's model
+    shard and the size of its model group (`Generator._encode`)."""
+    return {"clip": shard, "clip_tp": mesh.tp}
 
 
 def _cosine(a, b):
@@ -335,8 +341,7 @@ class Generator:
 
         def calibrate(clip, dev):
             with quant.calibration(cfg.quantize_min_ch) as records:
-                self._eval_batch_raw(X0.to(dev), {**self._on(base, dev, self.device),
-                                                  "clip": clip})
+                self._eval_batch_raw(X0.to(dev), {**self._on(base, dev, self.device), **clip})
             return torch.stack(records).cpu() if records else None
 
         records = self._each_shard(calibrate)
@@ -358,8 +363,8 @@ class Generator:
         targets = list(targets)
         if self.config.task == "txt2img":
             tokens = torch.as_tensor(tokenize(targets), device=self.device)
-            return self._each_shard(lambda clip, dev: clip_model.encode_text(
-                clip, tokens.to(dev), self.clip_cfg, self.policy)).to(self.device)
+            return self._each_shard(lambda clip, dev: self._encode(
+                clip_model.encode_text, clip, tokens.to(dev))).to(self.device)
         from PIL import Image
 
         imgs = []
@@ -367,19 +372,28 @@ class Generator:
             with Image.open(path) as im:
                 imgs.append(clip_preprocess_pil(im, self.clip_cfg.image_resolution))
         imgs = torch.as_tensor(np.concatenate(imgs), device=self.device)
-        return self._each_shard(lambda clip, dev: clip_model.encode_image(
-            clip, imgs.to(dev), self.clip_cfg, self.policy)).to(self.device)
+        return self._each_shard(lambda clip, dev: self._encode(
+            clip_model.encode_image, clip, imgs.to(dev))).to(self.device)
 
     def _each_shard(self, fn):
-        """fn(CLIP's tree, its device) with the whole tower on the
-        generator's device, or on a tensor-parallel mesh on every local card
-        with the CLIP shard it holds (every model group computes the same
-        value): the first card's result."""
+        """fn(CLIP's bundle entries, their device) with the whole tower on
+        the generator's device, or on a tensor-parallel mesh on every local
+        card with the CLIP shard it holds (`_shard_entries`; every model
+        group computes the same value): the first card's result."""
         clip = self.clip_params
         if not isinstance(clip, ModelShards):
-            return fn(clip, self.device)
+            return fn({"clip": clip}, self.device)
         m = self.mesh
-        return m.map(lambda i, _: fn(clip[i], m.devices[i]), [None] * m.local_size)[0]
+        return m.map(lambda i, _: fn(_shard_entries(clip[i], m), m.devices[i]),
+                     [None] * m.local_size)[0]
+
+    def _encode(self, tower, bundle, x: torch.Tensor) -> torch.Tensor:
+        """tower (clip_model.encode_image or encode_text) of bundle's CLIP on
+        x: the whole tower, or a model shard with its group's size
+        (`"clip_tp"`, `_shard_entries`) and the sum over its group."""
+        tp = bundle.get("clip_tp", 1)
+        return tower(bundle["clip"], x, self.clip_cfg, self.policy, tp=tp,
+                     reduce=model_sum if tp > 1 else None)
 
     @property
     def bundle(self):
@@ -465,7 +479,7 @@ class Generator:
         each block is scored against its own row. With a mesh the tower's
         rows split over it."""
         def tower(b, t):
-            return clip_model.encode_text(b["clip"], t, self.clip_cfg, self.policy)
+            return self._encode(clip_model.encode_text, b, t)
 
         feats = (tower(bundle, toks) if mesh is None
                  else self._map_rows(tower, mesh, _weights(bundle), toks))
@@ -516,8 +530,7 @@ class Generator:
         normalization (GPT-2's captions: `_eval_img2txt`)."""
         bundle = bundle if bundle is not None else self.bundle
         imgs = resize_bilinear(generated, self.clip_cfg.image_resolution)
-        feats = clip_model.encode_image(bundle["clip"], imgs, self.clip_cfg,
-                                        self.policy)
+        feats = self._encode(clip_model.encode_image, bundle, imgs)
         return _cosine(feats, bundle["target"])
 
     def discriminate(self, images, bundle=None, n_search: int = 1,
@@ -556,8 +569,7 @@ class Generator:
         else:
             i224 = s2d_ops.resize_bilinear_from_s2d(
                 img, size, in_off=sg2.s2d_output_offset(self.model_cfg))
-        feats = clip_model.encode_image(bundle["clip"], i224, self.clip_cfg,
-                                        self.policy)
+        feats = self._encode(clip_model.encode_image, bundle, i224)
         return _cosine(feats, bundle["target"])
 
     def discriminate_packed(self, img, bundle=None, n_search: int = 1,
@@ -626,7 +638,7 @@ class Generator:
             if targets is not None:
                 b = {**b, "target": targets[i]}
             if shards is not None:
-                b = {**b, "clip": shards[i]}
+                b = {**b, **_shard_entries(shards[i], mesh)}
             return fn(b, *block)
 
         return sharding.gather(mesh.map(run, blocks)).to(home)

@@ -173,24 +173,23 @@ def _block_forward(x, bp, n_head: int, mask: Optional[torch.Tensor],
     return x + h
 
 
-def _transformer(x, params, blocks, n_head: int, mask, policy: Policy):
-    """The blocks of a tower of `params`: a whole tree, or a model shard's
-    (parallel.mesh.clip_shard: its heads, summed over the calling shard's
-    model group)."""
-    tp = params.get("model_shards", 1)
-    reduce = None
-    if tp > 1:
-        from clip_glass_torch.parallel.mesh import model_sum
-        reduce = model_sum
+def _transformer(x, blocks, n_head: int, mask, policy: Policy, tp: int = 1, reduce=None):
+    """A tower's blocks: a whole tree's (tp 1), or a model shard's
+    (parallel.mesh.clip_shard: n_head / tp heads, its partial products
+    summed by `reduce` over the shard's model group)."""
+    if tp > 1 and reduce is None:
+        raise ValueError(f"a CLIP model shard of {tp} needs the sum over its model group")
     for bp in blocks:
         x = _block_forward(x, bp, n_head // tp, mask, policy, reduce)
     return x
 
 
 def encode_image(params, images, cfg: CLIPConfig = VIT_B_32,
-                 policy: Policy = FP32) -> torch.Tensor:
+                 policy: Policy = FP32, tp: int = 1, reduce=None) -> torch.Tensor:
     """images: [B, 3, H, W] floats (the fitness path feeds [0,1] images with
-    no CLIP mean/std normalization, like the reference, generator.py:45)."""
+    no CLIP mean/std normalization, like the reference, generator.py:45).
+    `tp` > 1: `params` is one of tp model shards (parallel.mesh.clip_shard)
+    and `reduce` its sum over the model group (parallel.mesh.model_sum)."""
     if cfg.vision_kind == "rn":
         return resnet.apply(params["visual"], images, cfg.rn_config(), policy)
     v = params["visual"]
@@ -204,7 +203,7 @@ def encode_image(params, images, cfg: CLIPConfig = VIT_B_32,
     x = torch.cat([cls, x], dim=1)
     x = x + policy.cast_compute(v["positional_embedding"])
     x = policy.cast_compute(layer_norm(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"]))
-    x = _transformer(x, params, v["blocks"], cfg.vision_heads, None, policy)
+    x = _transformer(x, v["blocks"], cfg.vision_heads, None, policy, tp, reduce)
     x = layer_norm(x[:, 0, :], v["ln_post"]["scale"], v["ln_post"]["bias"])
     return policy.cast_compute(x) @ policy.cast_compute(v["proj"])
 
@@ -215,15 +214,16 @@ def _causal_mask(n: int, device) -> torch.Tensor:
 
 
 def encode_text(params, text_ids, cfg: CLIPConfig = VIT_B_32,
-                policy: Policy = FP32) -> torch.Tensor:
+                policy: Policy = FP32, tp: int = 1, reduce=None) -> torch.Tensor:
     """text_ids: [B, 77] integer ids from tokenizers.tokenize; EOT pooling by
-    argmax (EOT is the largest id in every sequence, clip/model.py:318)."""
+    argmax (EOT is the largest id in every sequence, clip/model.py:318).
+    `tp` and `reduce`: a model shard's, as in `encode_image`."""
     t = params["text"]
     text_ids = text_ids.long()
     x = policy.cast_compute(t["token_embedding"][text_ids])
     x = x + policy.cast_compute(t["positional_embedding"])
     mask = _causal_mask(cfg.context_length, x.device)
-    x = _transformer(x, params, t["blocks"], cfg.transformer_heads, mask, policy)
+    x = _transformer(x, t["blocks"], cfg.transformer_heads, mask, policy, tp, reduce)
     x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
     eot = text_ids.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

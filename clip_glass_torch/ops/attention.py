@@ -25,13 +25,26 @@ def project(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, policy: Policy,
             reduce: Optional[Callable] = None) -> torch.Tensor:
     """h @ w + b in the compute dtype. With `reduce` (a model shard's sum
     over its group: h and w hold a slice of the contraction) the partial
-    product is taken and summed in fp32, rounded once to the compute dtype
-    (as the whole matmul's fp32 accumulator is), and the bias added once,
-    after the sum."""
+    product of the compute-dtype operands is taken with an fp32 result and
+    summed in fp32, rounded once to the compute dtype (as the whole
+    matmul's fp32 accumulator is), and the bias added once, after the
+    sum."""
+    w = policy.cast_compute(w)
     if reduce is None:
-        return h @ policy.cast_compute(w) + policy.cast_compute(b)
-    part = reduce(h.float() @ w.float())
+        return h @ w + policy.cast_compute(b)
+    part = reduce(_fp32_product(h, w))
     return policy.cast_compute(part) + policy.cast_compute(b)
+
+
+def _fp32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h @ w with an fp32 result. bf16 operands on a card stay on the
+    tensor cores with fp32 accumulation (`torch.mm`'s out_dtype, which
+    the CPU lacks; on meta it allocates the card's output alone);
+    otherwise the operands widen to fp32, exactly."""
+    if h.dtype == w.dtype == torch.bfloat16 and h.device.type in ("cuda", "meta"):
+        flat = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+        return flat.reshape(*h.shape[:-1], w.shape[-1])
+    return h.float() @ w.float()
 
 
 def multi_head_attention(x: torch.Tensor, in_proj_w, in_proj_b, out_proj_w,

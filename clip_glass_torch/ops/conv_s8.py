@@ -32,7 +32,6 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from clip_glass_torch.core import memory
 from clip_glass_torch.ops import cuda
 
 # output and input dtype codes of csrc/conv_s8.cu
@@ -164,8 +163,7 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, stride=1,
     """[B, Ho, Wo, O] of `conv_s8_plain`'s function on x, or on x quantized
     by `x_inv_scale` when it is float. CUDA: the hand-written kernel on the
     route `conv_s8_variant` picks (raises on what it does not take, or if it
-    does not build); CPU: `conv_s8_plain` (one kernel under a
-    `core.memory.PeakMemory`); meta: the kernel's output. Raises when a
+    does not build); CPU: `conv_s8_plain`; meta: the kernel's output. Raises when a
     gradient is wanted (`cuda.grad_wanted`): the int8 conv has none."""
     if x.dtype == torch.int8:
         if x_inv_scale is not None:
@@ -182,7 +180,7 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, stride=1,
             xq = x if x_inv_scale is None else quantize(x, x_inv_scale)
             return conv_s8_plain(xq, wq, scale, out_dtype=out_dtype, **geometry)
 
-        return memory.as_kernel(plain)(x) if memory.tracking() else plain(x)
+        return plain(x)
     if x.is_meta:
         return _conv_s8_meta(x, wq, out_dtype, geometry)
     B, H, W, I = x.shape

@@ -32,7 +32,6 @@ from typing import Optional
 
 import torch
 
-from clip_glass_torch.core import memory
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
@@ -262,21 +261,17 @@ def takes_plain(t: torch.Tensor) -> bool:
 
 def dispatch(x: torch.Tensor, launch, rule, plain, *args) -> torch.Tensor:
     """A wrapper's route for its first operand x: on the CPU `plain(*args)`;
-    on `meta` the shape rule `rule(*args)`, the counterpart of a Pallas
-    call's abstract evaluation, which allocates the kernel's output and
-    nothing else; on a card the checked launch `launch(*args)`. The rule
-    and the launch go through `with_grad`, so a meta tensor under grad
-    records the plain version's backward as the card's launch does.
-
-    Under a `core.memory.PeakMemory` on the CPU the plain version runs as
-    one kernel (`memory.as_kernel`: its output counted, not its
-    intermediates) and through `with_grad` too, so the tracker counts on
-    real tensors what it counts on meta ones."""
+    on a card the checked launch `launch(*args)` through `with_grad`; on
+    `meta` the shape rule `rule(*args)`, the counterpart of a Pallas call's
+    abstract evaluation, which allocates the kernel's output and nothing
+    else. Under grad the rule goes through `_KernelGrad` as a launch does,
+    so a meta tensor records the plain version's backward, but it is not
+    counted in `with_grad.recorded`: it launches nothing."""
     if takes_plain(x):
-        if memory.tracking():
-            return with_grad(memory.as_kernel(plain), plain, *args)
         return plain(*args)
-    return with_grad(rule if x.is_meta else launch, plain, *args)
+    if x.is_meta:
+        return _KernelGrad.apply(rule, plain, *args) if grad_wanted(*args) else rule(*args)
+    return with_grad(launch, plain, *args)
 
 
 def grad_wanted(*args) -> bool:
@@ -316,7 +311,7 @@ class _KernelGrad(torch.autograd.Function):
         args = list(ctx.args)
         wanted = [i for i in ctx.tensor_at if ctx.needs_input_grad[2 + i]]
         grads = [None] * len(args)
-        if wanted and create_graph:
+        if wanted and create_graph and not grad_out.is_meta:
             name = ctx.plain.__name__.removesuffix("_plain")
             with_grad.double[name] = with_grad.double.get(name, 0) + 1
         if wanted:
@@ -348,5 +343,6 @@ def with_grad(launch, plain, *args) -> torch.Tensor:
 # launches that recorded a gradient, by kernel wrapper name
 with_grad.recorded = {}
 # backward passes of those that kept their graph (create_graph=True: the
-# inner derivative of a second derivative), by kernel wrapper name
+# inner derivative of a second derivative), by kernel wrapper name; a meta
+# tensor's shape rule launched nothing and counts in neither
 with_grad.double = {}

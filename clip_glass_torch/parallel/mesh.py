@@ -392,8 +392,8 @@ def clip_shard(params, tp: int, j: int):
     """Model position j of tp's shard of a CLIP tree (the port's layout):
     every block of both towers sliced by `clip_tp_spec`, its own copy;
     embeddings, LNs, the projections, logit_scale and a ResNet image tower
-    whole. The tree records tp (`"model_shards"`), which tells the forward
-    that its block outputs are partial sums (models/clip/model.py)."""
+    whole. Its towers run with `encode_image` / `encode_text`'s `tp` and
+    `reduce=model_sum` (models/clip/model.py), inside `Mesh.map`."""
     spec = clip_tp_spec(tp, j)
 
     def block(bp):
@@ -404,8 +404,7 @@ def clip_shard(params, tp: int, j: int):
     def tower(t):
         return {k: ([block(b) for b in v] if k == "blocks" else v) for k, v in t.items()}
 
-    return {**{k: (tower(v) if k in ("visual", "text") else v) for k, v in params.items()},
-            "model_shards": tp}
+    return {k: (tower(v) if k in ("visual", "text") else v) for k, v in params.items()}
 
 
 def clip_heads_divide(cfg, tp: int) -> None:

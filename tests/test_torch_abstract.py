@@ -204,7 +204,11 @@ def test_meta_never_runs_the_plain_forward(monkeypatch, name, grad):
 # ------------------------------------------------------------ the tracker
 
 def test_peak_memory_counts_live_storages():
+    w = torch.empty(100, device=META)                      # from before the block
     with memory.PeakMemory() as m:
+        aliases = (w.view(10, 10), w.to(torch.float32), w.detach(), w.add_(1))
+        assert m.live == 0                                  # nothing allocated
+        del aliases
         a = torch.empty(1000, device=META)               # 4000 bytes
         b = torch.empty(500, dtype=torch.bfloat16, device=META)
         v = a[10:]                                          # a view: no new storage
@@ -224,8 +228,58 @@ def _peak(fn):
     return m.peak
 
 
+class _PlainAsKernels(memory.PeakMemory):
+    """A PeakMemory under which a kernel wrapper's plain version on the CPU
+    counts as its kernel does on the card and its meta rule on meta: its
+    output alone (a copy where the output is a view of a larger buffer),
+    its intermediates unseen, and under grad through cuda._KernelGrad,
+    which saves the inputs as a launch does. The real-CPU side of the
+    meta peak's equality."""
+
+    def __init__(self, monkeypatch):
+        super().__init__()
+        self._inside = 0
+        real = cuda.dispatch
+
+        def dispatch(x, launch, rule, plain, *args):
+            if not cuda.takes_plain(x):
+                return real(x, launch, rule, plain, *args)
+            kernel = self._as_kernel(plain)
+            if cuda.grad_wanted(*args):
+                return cuda._KernelGrad.apply(kernel, plain, *args)
+            return kernel(*args)
+
+        monkeypatch.setattr(cuda, "dispatch", dispatch)
+
+    def _as_kernel(self, fn):
+        def run(*args):
+            self._inside += 1
+            try:
+                out = fn(*args)
+                if out.untyped_storage().nbytes() != out.numel() * out.element_size():
+                    out = out.clone()
+            finally:
+                self._inside -= 1
+            self.track(out)
+            return out
+
+        run.__name__ = fn.__name__
+        return run
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._inside:
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+def _peak_as_kernels(monkeypatch, fn):
+    with _PlainAsKernels(monkeypatch) as m:
+        fn()
+    return m.peak
+
+
 @pytest.mark.parametrize("case", ["stylegan2_d_plain", "stylegan2_d_s2d", "biggan"])
-def test_tracker_meta_peak_equals_real_cpu_peak_evaluation(case):
+def test_tracker_meta_peak_equals_real_cpu_peak_evaluation(monkeypatch, case):
     name = "DeepMindBigGAN256" if case == "biggan" else "StyleGAN2_ffhq_d"
     model_cfg = {"stylegan2_d_plain": tsg2.TINY, "stylegan2_d_s2d": TINY_S2D,
                  "biggan": tbg.TINY}[case]
@@ -237,7 +291,7 @@ def test_tracker_meta_peak_equals_real_cpu_peak_evaluation(case):
     # (core.device.constant), which another test may have filled already
     real.eval_population(_X(config))
     abstract.eval_population(_X(config, META))
-    want = _peak(lambda: real.eval_population(_X(config)))
+    want = _peak_as_kernels(monkeypatch, lambda: real.eval_population(_X(config)))
     got = _peak(lambda: abstract.eval_population(_X(config, META)))
     assert got == want > 0
 
@@ -248,7 +302,7 @@ def _reals(batch, device="cpu"):
     return x.to(device)
 
 
-def test_tracker_meta_peak_equals_real_cpu_peak_trainer_step():
+def test_tracker_meta_peak_equals_real_cpu_peak_trainer_step(monkeypatch):
     """Step 0: the D phase with R1 and the G phase with the path length
     penalty (their second derivatives through cuda._KernelGrad on both)."""
     cfg = TrainerConfig(batch_size=4, checkpoint_every=0)
@@ -256,9 +310,21 @@ def test_tracker_meta_peak_equals_real_cpu_peak_trainer_step():
         Trainer(tsg2.TINY, cfg, device="cpu", abstract=device == META).train_step(
             _reals(4, device))
     real, abstract = Trainer(tsg2.TINY, cfg, device="cpu"), Trainer(tsg2.TINY, cfg, abstract=True)
-    want = _peak(lambda: real.train_step(_reals(4)))
+    want = _peak_as_kernels(monkeypatch, lambda: real.train_step(_reals(4)))
     got = _peak(lambda: abstract.train_step(_reals(4, META)))
     assert got == want > 0
+
+
+def test_meta_rules_under_grad_count_no_launch():
+    """An abstract trainer step records the plain versions' backward
+    through cuda._KernelGrad, and launches nothing: with_grad.recorded,
+    the card's count of launches that recorded a gradient, stays as it
+    was."""
+    cfg = TrainerConfig(batch_size=4, checkpoint_every=0)
+    before = (dict(cuda.with_grad.recorded), dict(cuda.with_grad.double))
+    logs = Trainer(tsg2.TINY, cfg, abstract=True).train_step(_reals(4, META))
+    assert logs and all(v.is_meta for v in logs.values())
+    assert (cuda.with_grad.recorded, cuda.with_grad.double) == before
 
 
 def test_abstract_trainer_state_is_the_real_ones_in_shapes_alone():

@@ -878,7 +878,7 @@ def test_clip_tensor_parallel_equals_the_whole_tower(gpu, tower):
 
     from clip_glass_torch.core.dtypes import FP32, tree_to
     from clip_glass_torch.models.clip import model as clip_model
-    from clip_glass_torch.parallel.mesh import make_mesh, shard_clip_tp
+    from clip_glass_torch.parallel.mesh import make_mesh, model_sum, shard_clip_tp
 
     cfg = dataclasses.replace(clip_model.TINY, vision_width=256, transformer_heads=4)
     params = tree_to(clip_model.init(torch.Generator().manual_seed(0), cfg), "cuda")
@@ -892,6 +892,7 @@ def test_clip_tensor_parallel_equals_the_whole_tower(gpu, tower):
     want = fn(params, x, cfg, FP32)
     mesh = make_mesh(["cuda:0", "cuda:0"], model_axis_size=2)
     shards = shard_clip_tp(params, mesh)
-    got = mesh.map(lambda i, rows: fn(shards[i], rows, cfg, FP32), [x, x])
+    got = mesh.map(lambda i, rows: fn(shards[i], rows, cfg, FP32, tp=2, reduce=model_sum),
+                   [x, x])
     for g in got:
         torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)

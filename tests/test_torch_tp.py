@@ -104,10 +104,12 @@ def _ids(n=8):
 
 
 def _tp_tower(mesh, params, rows, fn, shards=None):
-    """fn(the card's CLIP shard, its row block) over the mesh, gathered."""
+    """fn(the card's CLIP shard, its row block, tp=, reduce=) over the mesh,
+    gathered."""
     shards = shards if shards is not None else pmesh.shard_clip_tp(params, mesh)
     sharding = population_sharding(mesh)
-    out = mesh.map(lambda i, x: fn(shards[i], x), sharding.split(rows))
+    out = mesh.map(lambda i, x: fn(shards[i], x, tp=mesh.tp, reduce=pmesh.model_sum),
+                   sharding.split(rows))
     return sharding.gather(out)
 
 
@@ -119,7 +121,8 @@ def test_encode_image_tensor_parallel_equals_jax(towers, mesh_name):
     assert mesh.shape == shape and mesh.axis_names == ("pop", "model")
     imgs = _images()
     want = np.asarray(jclip.encode_image(jp, jnp.asarray(imgs), jcfg, JFP32))
-    got = _tp_tower(mesh, tp, T(imgs), lambda p, x: tclip.encode_image(p, x, tcfg, FP32))
+    got = _tp_tower(mesh, tp, T(imgs),
+                    lambda p, x, **kw: tclip.encode_image(p, x, tcfg, FP32, **kw))
     np.testing.assert_allclose(N(got), want, **TOL)
 
 
@@ -130,18 +133,22 @@ def test_encode_text_tensor_parallel_equals_jax(towers, mesh_name):
     ids = _ids()
     want = np.asarray(jclip.encode_text(jp, jnp.asarray(ids, jnp.int32), jcfg, JFP32))
     got = _tp_tower(mesh, tp, torch.as_tensor(ids),
-                    lambda p, t: tclip.encode_text(p, t, tcfg, FP32))
+                    lambda p, t, **kw: tclip.encode_text(p, t, tcfg, FP32, **kw))
     np.testing.assert_allclose(N(got), want, **TOL)
 
 
 def test_shards_hold_their_slices(towers):
     """Shard j of tp 2: c_fc's and the q/k/v heads' columns, c_proj's and
-    out_proj's rows, the output biases whole; the tree records tp."""
+    out_proj's rows, the output biases whole; the tree has the whole
+    one's keys alone, and its towers refuse to run without the group's
+    sum."""
     name, jcfg, tcfg, jp, tp = towers
     w = tcfg.vision_width
     s0, s1 = (pmesh.clip_shard(tp, 2, j) for j in range(2))
     b, b0 = tp["visual"]["blocks"][0], s0["visual"]["blocks"][0]
-    assert s0["model_shards"] == 2 and "model_shards" not in tp
+    assert set(s0) == set(tp) and set(s0["visual"]) == set(tp["visual"])
+    with pytest.raises(ValueError, match="model group"):
+        tclip.encode_image(s0, T(_images()), tcfg, FP32, tp=2)
     assert b0["mlp"]["c_fc_weight"].shape == (w, 2 * w)
     assert b0["mlp"]["c_proj_weight"].shape == (2 * w, w)
     assert b0["attn"]["in_proj_weight"].shape == (w, 3 * w // 2)
@@ -171,10 +178,12 @@ def test_literal_in_proj_split_moves_the_features(towers, tower):
 
     shards = pmesh.ModelShards(literal(j) for j in range(2))
     if tower == "image":
-        rows, fn = T(_images()), lambda p, x: tclip.encode_image(p, x, tcfg, FP32)
+        rows = T(_images())
+        fn = lambda p, x, **kw: tclip.encode_image(p, x, tcfg, FP32, **kw)  # noqa: E731
         want = np.asarray(jclip.encode_image(jp, jnp.asarray(_images()), jcfg, JFP32))
     else:
-        rows, fn = torch.as_tensor(_ids()), lambda p, t: tclip.encode_text(p, t, tcfg, FP32)
+        rows = torch.as_tensor(_ids())
+        fn = lambda p, t, **kw: tclip.encode_text(p, t, tcfg, FP32, **kw)  # noqa: E731
         want = np.asarray(jclip.encode_text(jp, jnp.asarray(_ids(), jnp.int32), jcfg, JFP32))
     got = N(_tp_tower(mesh, tp, rows, fn, shards))
     err = np.abs(got - want) - (TOL["atol"] + TOL["rtol"] * np.abs(want))
