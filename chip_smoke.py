@@ -211,8 +211,18 @@ from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
      init + 2 generations, kernels 1-4 in each position; (c)
      `dryrun_multichip(4)` on the card, and the estimates from shapes of the
      flagship evaluation (pop 16) and of the regularized training step
-     (config-f 1024 px, batch 4, fp32) each within 0.75-1.15 of its measured
-     peak.
+     (config-f 1024 px, batch 4, fp32), cuDNN's TF32 off and allowed, each
+     within 1.0-1.15 of its measured allocated peak (an upper bound), with
+     what the tracker did not see on the same run.
+Then the port's contract entry point and its bench, on the flagship:
+ 31. bench: (a) `clip_glass_torch.entry.entry()` on the card, F [4, 2]
+     finite with kernels 1-4's launches of one evaluation; (b)
+     `bench_torch.py` twice, each in its own process (BENCH_GENS=3,
+     BENCH_REPEATS=2, BENCH_CHECKSUM=1): bench.py's fields, 0 < mfu <= 1,
+     the FLOP count of core/flops.py, the launches a timed evaluation; (c)
+     the two runs' checksum_F, column sums and sha256_F, and whether F is
+     bitwise equal across them: the hashes equal (noted);
+     (d) `bench_torch.py` with BENCH_QUANT=int8 (conv_s8 at every site).
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
@@ -221,7 +231,8 @@ errors at the step's shapes, a `ppl` record: phase 26's launches, and a
 `trainer` record: phase 28's launches, under grad and under a second
 derivative, kernel 4's in the grid, a `sharded` record: phase 29's
 launches per rank in (b)'s generations and in (e)'s trainer steps, and a
-`tp` record: phase 30's launches per rank in (a) and per position in (b)), the
+`tp` record: phase 30's launches per rank in (a) and per position in (b), and
+a `bench` record: phase 31's launches a timed evaluation in (b) and (d)), the
 card's name and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
@@ -4403,8 +4414,9 @@ def phase_sharded(kind: str, smi: str, root: str) -> dict:
 # ------------------------------------------------------------ phase 30
 
 TP_GENERATIONS = 2
-# (c): an estimate from shapes alone within these shares of the measured peak
-ESTIMATE_RANGE = (0.75, 1.15)
+# (c): an estimate from shapes alone within these shares of the measured
+# peak: at least the peak, and at most 15% above it
+ESTIMATE_RANGE = (1.0, 1.15)
 # (a): CLIP's fp32 image features, tensor-parallel against the whole tower
 TP_FEATURE_TOL = 1e-4
 
@@ -4478,16 +4490,39 @@ def _count_by_shard(kernels):
     return counts, restore
 
 
-def _measured_peak(fn) -> int:
-    """The card's allocated bytes at their peak while fn() builds and runs
-    its work, above what was allocated before."""
+def _measured_peak(fn) -> dict:
+    """While fn() builds and runs its work, above what was there before: the
+    card's allocated bytes at their peak (`allocated`, what
+    torch.cuda.max_memory_allocated reads: the caching allocator's blocks)
+    and its requested bytes at their peak (`requested`); the tracker's
+    requested and block peaks over the same run's CUDA storages; and
+    `untracked`, the allocated peak less the tracker's requested bytes (the
+    libraries' workspaces and the allocator's unsplit blocks). cuBLAS's
+    workspaces are freed first, so the work makes them, as in a fresh
+    process."""
+    from clip_glass_torch.core.memory import PeakMemory
+
+    class CudaPeak(PeakMemory):
+        def track(self, t):
+            if t.device.type == "cuda":
+                super().track(t)
+
+    def requested():
+        return torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)
+
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
     torch.cuda.reset_peak_memory_stats()
-    fn()
+    with CudaPeak() as m:
+        fn()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base
+    allocated = torch.cuda.max_memory_allocated() - base
+    return {"allocated": allocated, "requested": requested() - base_req,
+            "tracker_requested": m.requested_peak, "tracker_blocks": m.peak,
+            "untracked": allocated - m.requested_peak}
 
 
 def phase_tp(kind: str, smi: str, root: str) -> dict:
@@ -4514,10 +4549,13 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
       (c) `dryrun_multichip(4)` on the card (the TINY live part on the card
           listed 4 times, the full-size estimates of one rank of 4 against
           the card's memory), then each estimate of the one-process work
-          beside its measured peak (`torch.cuda.max_memory_allocated`): the
-          flagship's evaluation at pop 16, and the trainer's regularized
-          step (R1 and the path length penalty) at config-f 1024 px, batch
-          4, fp32; each ratio within ESTIMATE_RANGE.
+          beside its measured peak (`_measured_peak`: allocated and
+          requested, the tracker on the same run, what it did not see):
+          the flagship's evaluation at pop 16, and the trainer's
+          regularized step (R1 and the path length penalty) at config-f
+          1024 px, batch 4, fp32, each with cuDNN's TF32 off (as this
+          script runs) and allowed (PyTorch's default); each estimate /
+          allocated peak within ESTIMATE_RANGE: an upper bound.
     Returns each kernel's launches per rank in (a) and per position in (b)."""
     from clip_glass_torch.core.dtypes import FP32
     from clip_glass_torch.evolve.algorithm import minimize
@@ -4654,16 +4692,25 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
         reals = torch.rand((4, 3, 1024, 1024), device="cuda") * 2 - 1
         tr.train_step(reals)
 
-    measured = {"flagship_pop16_bf16": (est_eval, _measured_peak(run_eval)),
-                "train_config_f_batch4_fp32": (est_train, _measured_peak(run_train))}
+    measured = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            label = "tf32_allowed" if tf32 else "tf32_off"
+            measured[f"flagship_pop16_bf16_{label}"] = (est_eval, _measured_peak(run_eval))
+            measured[f"train_config_f_batch4_fp32_{label}"] = (est_train,
+                                                              _measured_peak(run_train))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
-    ratios = {k: e["total"] / m for k, (e, m) in measured.items()}
+    ratios = {k: e["total"] / m["allocated"] for k, (e, m) in measured.items()}
     log({"phase": "tp", "check": "(c) dryrun_multichip(4) on the card; estimates from shapes "
          "of the one-process work beside its measured peak", "mesh": dry["mesh"],
          "live": dry["live"], "fullsize_one_rank_of_4": dry["fullsize"],
          "budget_bytes": dry["budget_bytes"], "dryrun_s": dry_s,
-         "estimate_vs_measured": {k: {"estimate": e, "measured_peak_bytes": m,
-                                      "ratio": ratios[k]} for k, (e, m) in measured.items()},
+         "estimate_vs_measured": {k: {"estimate": e, "measured": m, "ratio": ratios[k],
+                                      "requested_ratio": e["requested"] / m["requested"]}
+                                  for k, (e, m) in measured.items()},
          "range": ESTIMATE_RANGE, "device": kind, "nvidia_smi": smi})
     bad = {k: r for k, r in ratios.items() if not ESTIMATE_RANGE[0] <= r <= ESTIMATE_RANGE[1]}
     if bad:
@@ -4671,6 +4718,119 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
     log({"phase": "tp", "seconds": time.perf_counter() - t_phase})
     return {name: {"launches_per_rank": ranks[0]["tp_launches"][name],
                    "launches_per_position": counts[0][name]} for name in PER_EVAL["s2d"]}
+
+
+# ------------------------------------------------------------ phase 31
+
+# (b): bench_torch.py on the flagship, cut to fit the script's time limit
+BENCH_ENV = {"BENCH_GENS": "3", "BENCH_REPEATS": "2", "BENCH_CHECKSUM": "1"}
+# (d): the int8 flagship, one window
+BENCH_INT8_ENV = {"BENCH_QUANT": "int8", "BENCH_GENS": "2", "BENCH_REPEATS": "1"}
+# bench.py's fields (bench.py:169-197) and the launches a timed evaluation
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "model_gflops_per_candidate",
+                "model_tflops_per_sec_per_chip", "device_kind", "mfu",
+                "launches_per_evaluation")
+
+
+def _bench_run(label: str, env: dict) -> dict:
+    """`python3 bench_torch.py` in a process of its own with `env` (ambient
+    BENCH_* dropped); its JSON line, with the process's wall seconds."""
+    full = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    full.update(env)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          env=full, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t
+    line = next((ln for ln in reversed(proc.stdout.splitlines()) if ln.startswith("{")), None)
+    if proc.returncode or line is None:
+        raise AssertionError(f"bench {label}: rc {proc.returncode}, {proc.stderr[-2000:]}")
+    out = json.loads(line)
+    missing = [k for k in BENCH_FIELDS if k not in out]
+    if missing or out["vs_baseline"] is not None:
+        raise AssertionError(f"bench {label}: fields missing {missing}, or a baseline: {out}")
+    out["process_s"] = wall
+    return out
+
+
+def phase_bench(kind: str, smi: str, int8_main: dict) -> dict:
+    """Phase 31: the port's contract entry point and its bench (clip_glass_torch/
+    entry.py, bench_torch.py), on the flagship at full width:
+      (a) `entry()` on the card: F of its pop-4 bf16 evaluation is [4, 2]
+          and finite, with kernels 1-4's launches of one s2d evaluation;
+      (b) `bench_torch.py` twice, each in a process of its own, with
+          BENCH_ENV: each JSON line holds bench.py's fields, device_kind the
+          card's name, 0 < mfu <= 1, model_gflops_per_candidate equal to
+          core.flops.fitness_flops_per_candidate at the bench's config / 1e9,
+          and each kernel's launches a timed evaluation those of the s2d
+          path (PER_EVAL);
+      (c) both runs' checksum_F, checksum_F_columns and sha256_F, and
+          whether F is bitwise equal: the same search from the same seed in
+          two processes, equal where the hashes are (noted, not asserted;
+          the float64 sum alone cannot see the similarities beside a hinge
+          of 1e21);
+      (d) `bench_torch.py` once with BENCH_INT8_ENV: conv_s8 at every live
+          site of phase 23's evaluation, kernel 4 at none.
+    Returns each kernel's launches a timed evaluation in (b) and (d)."""
+    import bench_torch
+    from clip_glass_torch.core import flops
+    from clip_glass_torch.entry import entry
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    t_phase = time.perf_counter()
+    kernels = (*_kernels(), _conv_s8())
+    fn, (X, bundle) = entry()
+    _zero_counts(kernels)
+    F_a = fn(X, bundle)
+    torch.cuda.synchronize()
+    launches_a = {k.__name__: k.launches for k in kernels}
+    if tuple(F_a.shape) != (4, 2) or not torch.isfinite(F_a).all():
+        raise AssertionError(f"bench (a): entry() gave F {tuple(F_a.shape)}: {F_a}")
+    if launches_a != {**PER_EVAL["s2d"], "conv_s8": 0}:
+        raise AssertionError(f"bench (a): entry()'s evaluation launched {launches_a}")
+    log({"phase": "bench", "check": "(a) entry() on the card", "F": F_a.float().cpu().tolist(),
+         "launches": launches_a, "device": kind, "nvidia_smi": smi})
+    del fn, X, bundle, F_a
+    torch.cuda.empty_cache()
+
+    fpc = flops.fitness_flops_per_candidate(bench_torch.bench_config(), sg2.CONFIG_F,
+                                            clip_model.VIT_B_32)
+    runs = [_bench_run(f"(b) run {i}", BENCH_ENV) for i in (1, 2)]
+    want_b = {**{k: float(n) for k, n in PER_EVAL["s2d"].items()}, "conv_s8": 0.0}
+    for i, r in enumerate(runs, 1):
+        if r["device_kind"] != kind or r["mfu"] is None or not 0 < r["mfu"] <= 1:
+            raise AssertionError(f"bench (b) run {i}: device {r['device_kind']}, mfu "
+                                 f"{r['mfu']}")
+        if r["model_gflops_per_candidate"] != fpc / 1e9:
+            raise AssertionError(f"bench (b) run {i}: {r['model_gflops_per_candidate']} "
+                                 f"GFLOP a candidate, core.flops says {fpc / 1e9}")
+        if r["launches_per_evaluation"] != want_b:
+            raise AssertionError(f"bench (b) run {i}: launches an evaluation "
+                                 f"{r['launches_per_evaluation']}, expected {want_b}")
+        log({"phase": "bench", "check": f"(b) bench_torch.py run {i}", **r,
+             "env": BENCH_ENV, "nvidia_smi": smi})
+    hashes = [r["sha256_F"] for r in runs]
+    log({"phase": "bench", "check": "(c) F of the two processes (noted)",
+         "checksum_F": [r["checksum_F"] for r in runs],
+         "checksum_F_columns": [r["checksum_F_columns"] for r in runs],
+         "sha256_F": hashes, "bitwise_equal": hashes[0] == hashes[1]})
+
+    int8 = _bench_run("(d) int8", BENCH_INT8_ENV)
+    n_eval = GENERATIONS + 1
+    want_d = {**{k: float(n) for k, n in PER_EVAL["s2d"].items()}, "s2d_conv2x2": 0.0,
+              "conv_s8": int8_main["launches"]["conv_s8"] / n_eval}
+    if int8["launches_per_evaluation"] != want_d or int8["device_kind"] != kind or \
+            not 0 < (int8["mfu"] or 0) <= 1:
+        raise AssertionError(f"bench (d): launches an evaluation "
+                             f"{int8['launches_per_evaluation']}, expected {want_d}; mfu "
+                             f"{int8['mfu']}")
+    log({"phase": "bench", "check": "(d) bench_torch.py, int8", **int8,
+         "env": BENCH_INT8_ENV, "nvidia_smi": smi})
+    log({"phase": "bench", "seconds": time.perf_counter() - t_phase})
+    return {name: {"launches_per_evaluation": runs[0]["launches_per_evaluation"][name],
+                   "int8_launches_per_evaluation": int8["launches_per_evaluation"][name],
+                   "entry_launches": launches_a[name]}
+            for name in launches_a}
 
 
 KERNEL_META = {
@@ -4734,6 +4894,7 @@ def main() -> int:
         trainer = phase_trainer(kind, smi, tmp)
         sharded = phase_sharded(kind, smi, tmp)
         tp = phase_tp(kind, smi, tmp)
+    bench = phase_bench(kind, smi, int8_main)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -4764,6 +4925,7 @@ def main() -> int:
                         "trainer": trainer[name],
                         "sharded": sharded[name],
                         "tp": tp[name],
+                        "bench": bench[name],
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -4810,7 +4972,11 @@ def main() -> int:
                                  f"evaluation in each of 2 gloo ranks of a (1, 2) mesh "
                                  f"(launches_per_rank), and init + {TP_GENERATIONS} "
                                  f"generations on a (2, 2) mesh of the card listed 4 "
-                                 f"times (launches_per_position)"})
+                                 f"times (launches_per_position); bench: a timed "
+                                 f"evaluation of bench_torch.py on the flagship "
+                                 f"(launches_per_evaluation), of its int8 run "
+                                 f"(int8_launches_per_evaluation), and entry()'s "
+                                 f"evaluation (entry_launches)"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
@@ -4826,6 +4992,7 @@ def main() -> int:
         "gradient": "raises (inference only)",
         "sharded": {"launches_per_rank": 0},   # phases 29 and 30 run the bf16 path
         "tp": {"launches_per_rank": 0, "launches_per_position": 0},
+        "bench": bench["conv_s8"],
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
                  f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
                  f"of one int8 evaluation; ms, device_ms: the fused entry on the bf16 "

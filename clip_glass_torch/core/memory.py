@@ -20,6 +20,14 @@ versions would.
   when the storage dies (PyTorch keeps a storage's Python object alive as
   long as the storage, so a tensor autograd saved counts until the graph
   lets it go). It works on meta and on real tensors alike.
+
+Bytes are counted twice, as the CUDA caching allocator's statistics count
+them: as requested (`requested_bytes` in `torch.cuda.memory_stats`) and as
+the allocator's blocks hold them (`allocated_bytes`, what
+`torch.cuda.max_memory_allocated` reads), each storage rounded up to the
+allocator's block size (`allocator_bytes`). The libraries' workspaces
+(cuBLAS, cuDNN) are no op's output and stay unseen: parallel/dryrun.py
+adds a margin for them.
 """
 
 from __future__ import annotations
@@ -56,14 +64,27 @@ def is_abstract(weights) -> bool:
     return weights == "abstract"
 
 
-def tree_bytes(tree) -> int:
+# The CUDA caching allocator hands out blocks in multiples of 512 bytes and
+# none for an empty storage (c10/cuda/CUDACachingAllocator.cpp: kMinBlockSize,
+# round_size, with PYTORCH_CUDA_ALLOC_CONF's roundup_power2_divisions unset).
+ALLOCATOR_BLOCK = 512
+
+
+def allocator_bytes(n: int) -> int:
+    """The bytes the caching allocator's block holds for a request of n."""
+    return -(-n // ALLOCATOR_BLOCK) * ALLOCATOR_BLOCK
+
+
+def tree_bytes(tree, requested: bool = False) -> int:
     """The bytes of a tree's distinct storages (dicts, lists, tuples,
-    NamedTuples and dataclasses of tensors)."""
+    NamedTuples and dataclasses of tensors), each as the allocator's block
+    holds it, or as requested."""
     storages = {}
     for t in _tensors(tree):
         st = t.untyped_storage()
         storages[id(st)] = st
-    return sum(st.nbytes() for st in storages.values())
+    size = (lambda n: n) if requested else allocator_bytes
+    return sum(size(st.nbytes()) for st in storages.values())
 
 
 def _tensors(tree):
@@ -82,14 +103,16 @@ def _tensors(tree):
 
 class PeakMemory(TorchDispatchMode):
     """`with PeakMemory() as m: ...` then `m.peak`: the most bytes of
-    storages created inside the block that were alive at once; `m.live`:
-    those still alive. Storages that existed before (the weights, the
-    state) are not counted: add them (`tree_bytes`)."""
+    storages created inside the block that were alive at once, each rounded
+    to the allocator's block (`allocator_bytes`); `m.live`: those still
+    alive; `m.requested_peak`, `m.requested_live`: the same unrounded.
+    Storages that existed before (the weights, the state) are not counted:
+    add them (`tree_bytes`)."""
 
     def __init__(self):
         super().__init__()
-        self.live = 0
-        self.peak = 0
+        self.live = self.peak = 0
+        self.requested_live = self.requested_peak = 0
         self._seen = WeakIdKeyDictionary()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -111,12 +134,16 @@ class PeakMemory(TorchDispatchMode):
         st = t.untyped_storage()
         if st in self._seen:
             return
-        n = st.nbytes()
+        asked = st.nbytes()
+        n = allocator_bytes(asked)
         self._seen[st] = n
         self.live += n
+        self.requested_live += asked
         self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, n)
+        self.requested_peak = max(self.requested_peak, self.requested_live)
+        weakref.finalize(st, self._free, n, asked)
 
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, asked: int) -> None:
         self.live -= n
+        self.requested_live -= asked
 

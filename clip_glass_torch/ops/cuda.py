@@ -3,7 +3,8 @@
 The sources in `clip_glass_torch/csrc/*.cu` have a plain C interface. At the
 first CUDA use they are compiled for Hopper (`sm_90a`) by `nvcc`, one
 process per source started together, linked into one shared library under
-`build/clip_glass_torch/` beside the package, and bound with `ctypes`. The
+`build/clip_glass_torch/` beside the package (or a cache directory where
+the package's parent is read-only: core/cache.py), and bound with `ctypes`. The
 library's name carries a hash of the sources and flags, so an edit
 rebuilds it. A missing `nvcc` or a failed build raises: there is no
 fallback for a CUDA tensor.
@@ -32,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from clip_glass_torch.core.cache import build_root
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
@@ -91,7 +93,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "clip_glass_torch"
+    return build_root()
 
 
 def find_nvcc() -> str:

@@ -18,8 +18,9 @@ at least 4: the (n / 2, 2) mesh, else (n, 1)):
    config-f 1024 px training step at batch max(8, n), fp32, both
    regularizers. Each rank's bytes (`evaluation_bytes`, `train_step_bytes`:
    what it holds, plus the peak of what the work allocates,
-   core.memory.PeakMemory) must be below `budget_bytes`, the card's memory
-   by default.
+   core.memory.PeakMemory, each storage in the caching allocator's blocks,
+   plus WORKSPACE_BYTES for what no op's output shows) must be below
+   `budget_bytes`, the card's memory by default.
 
 The JAX check compiles the whole GA step; here the survival needs values
 (the non-dominated sort, the duplicate resampling), so the full-size part
@@ -46,6 +47,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 DOG = os.path.join(ROOT, "examples", "gpt2_images", "dog.jpeg")
 
 
+# What the tracker cannot see, by kind of work: the workspaces that cuBLAS
+# (32 MiB a handle, and a step's backward runs on a thread with a handle of
+# its own) and cuDNN take from the caching allocator outside any op's
+# output, and the large blocks the allocator hands out unsplit (up to 1 MiB
+# above the request). A margin above what chip_smoke.py phase 30 (c)
+# measures on the card (`untracked_bytes`: the allocated peak less the
+# tracker's requested bytes on the same run, cuBLAS's workspaces made
+# within it, cuDNN's TF32 off and allowed): some 46 MB for the flagship
+# evaluation, and for the config-f regularized step up to 1.6 GB, nearly
+# all cuDNN's workspaces for the double backward of R1 and the path length
+# penalty. PERF.md, section 6, has the readings.
+WORKSPACE_BYTES = {"evaluation": 128 * 2 ** 20, "train_step": 2 * 2 ** 30}
+
+
 def model_axis_for(n: int) -> int:
     """The JAX dry run's split: a model axis of 2 when n is even and >= 4."""
     return 2 if n % 2 == 0 and n >= 4 else 1
@@ -59,18 +74,33 @@ def evaluation_bytes(config, mesh=None, clip_cfg=None, model_cfg=None) -> dict:
     `abstract_mesh`, or None for one process): `resident` (the weights as
     the rank holds them, CLIP's model shard on a 2-D mesh, the target and
     the population), `work_peak` (the evaluation's allocations at their
-    peak) and `total`."""
+    peak), `workspace` (WORKSPACE_BYTES) and `total`, each as the caching
+    allocator's blocks hold them; `requested`: resident and work peak as
+    requested."""
     from clip_glass_torch.fitness.problem import GenerationProblem
 
     gen = GenerationProblem(config.replace(weights="abstract"), clip_weights="abstract",
                             clip_cfg=clip_cfg, model_cfg=model_cfg, mesh=mesh).generator
     X = torch.empty((config.pop_size, config.n_var), device=memory.META)
-    resident = memory.tree_bytes([gen.bundle, X])
-    with memory.PeakMemory() as m:
-        F = gen.eval_population(X)
+    return _estimate([gen.bundle, X], lambda: _check_F(gen.eval_population(X), config),
+                     "evaluation")
+
+
+def _check_F(F, config) -> None:
     if tuple(F.shape) != (config.pop_size, config.n_obj):
         raise AssertionError(f"abstract F {tuple(F.shape)}")
-    return {"resident": resident, "work_peak": m.peak, "total": resident + m.peak}
+
+
+def _estimate(resident_tree, work, kind: str) -> dict:
+    """The bytes of `resident_tree` as it stands before `work()` runs, the
+    peak of what `work()` allocates, and the workspace margin of `kind`."""
+    resident = memory.tree_bytes(resident_tree)
+    asked = memory.tree_bytes(resident_tree, requested=True)
+    with memory.PeakMemory() as m:
+        work()
+    ws = WORKSPACE_BYTES[kind]
+    return {"resident": resident, "work_peak": m.peak, "workspace": ws,
+            "total": resident + m.peak + ws, "requested": asked + m.requested_peak}
 
 
 def train_step_bytes(model_cfg, batch: int, mesh=None, trainer_cfg=None) -> dict:
@@ -78,7 +108,8 @@ def train_step_bytes(model_cfg, batch: int, mesh=None, trainer_cfg=None) -> dict
     length penalty: step 0) at `batch` global rows, fp32, on `mesh` (an
     `abstract_mesh` of n positions: its batch / n rows, or None):
     `resident` (G, D, Gs, both Adams, pl_avg and the rank's reals),
-    `work_peak` and `total`."""
+    `work_peak`, `workspace`, `total` and `requested`, as
+    `evaluation_bytes`'s."""
     from clip_glass_torch.training.trainer import Trainer, TrainerConfig
 
     cfg = dataclasses.replace(trainer_cfg or TrainerConfig(), batch_size=batch,
@@ -89,10 +120,7 @@ def train_step_bytes(model_cfg, batch: int, mesh=None, trainer_cfg=None) -> dict
         raise ValueError(f"batch {batch} does not split over {n} ranks")
     res = model_cfg.resolution
     reals = torch.empty((batch // n, model_cfg.data_channels, res, res), device=memory.META)
-    resident = memory.tree_bytes([list(tr.state[:6]), reals])
-    with memory.PeakMemory() as m:
-        tr.train_step(reals)
-    return {"resident": resident, "work_peak": m.peak, "total": resident + m.peak}
+    return _estimate([list(tr.state[:6]), reals], lambda: tr.train_step(reals), "train_step")
 
 
 def fullsize_estimates(n: int) -> dict:

@@ -1,8 +1,9 @@
 """ctypes binding of the native BPE merge core (clip_glass_torch/native/bpe_core.cpp).
 
 At first use the core is compiled with `g++` into `build/clip_glass_torch/`
-beside the package (the library's name carries a hash of the source, so an
-edit rebuilds it), and never next to the source. A tokenizer's string-keyed
+beside the package, or a cache directory where the package's parent is
+read-only (core/cache.py); the library's name carries a hash of the source,
+so an edit rebuilds it. A tokenizer's string-keyed
 merge ranks become integer-id tables once; `NativeMerger.apply(symbol_ids)`
 returns the merged ids. Without a working `g++` `get_native_merger` returns
 None and the tokenizers keep to their pure-Python merge loop, which gives
@@ -22,6 +23,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from clip_glass_torch.core.cache import build_root
+
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "bpe_core.cpp"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
@@ -30,8 +33,7 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
-    return (SOURCE.parent.parent.parent / "build" / "clip_glass_torch"
-            / f"libbpe_core_{h.hexdigest()[:16]}.so")
+    return build_root() / f"libbpe_core_{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:

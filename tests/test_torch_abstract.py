@@ -204,22 +204,36 @@ def test_meta_never_runs_the_plain_forward(monkeypatch, name, grad):
 # ------------------------------------------------------------ the tracker
 
 def test_peak_memory_counts_live_storages():
+    """Requested bytes, and the caching allocator's 512-byte blocks."""
     w = torch.empty(100, device=META)                      # from before the block
     with memory.PeakMemory() as m:
         aliases = (w.view(10, 10), w.to(torch.float32), w.detach(), w.add_(1))
-        assert m.live == 0                                  # nothing allocated
+        assert m.live == m.requested_live == 0              # nothing allocated
         del aliases
-        a = torch.empty(1000, device=META)               # 4000 bytes
-        b = torch.empty(500, dtype=torch.bfloat16, device=META)
+        a = torch.empty(1000, device=META)               # 4000 bytes, a 4096-byte block
+        b = torch.empty(500, dtype=torch.bfloat16, device=META)     # 1000, 1024
         v = a[10:]                                          # a view: no new storage
         del a
-        assert m.live == 5000                               # the view keeps a alive
+        assert (m.requested_live, m.live) == (5000, 5120)   # the view keeps a alive
         del v
-        c = b.float()
-    assert (m.peak, m.live) == (5000, 1000 + 2000)
+        c = b.float()                                       # 2000, 2048
+    assert (m.requested_peak, m.requested_live) == (5000, 1000 + 2000)
+    assert (m.peak, m.live) == (5120, 1024 + 2048)
     del b, c
-    assert m.live == 0
-    assert memory.tree_bytes({"x": [torch.empty(3), torch.empty(2, dtype=torch.int8)]}) == 14
+    assert m.live == m.requested_live == 0
+    tree = {"x": [torch.empty(3), torch.empty(2, dtype=torch.int8)]}
+    assert memory.tree_bytes(tree, requested=True) == 14
+    assert memory.tree_bytes(tree) == 2 * 512
+
+
+@pytest.mark.parametrize("n,block", [(0, 0), (1, 512), (511, 512), (512, 512), (513, 1024),
+                                     (4000, 4096), (2 ** 20 + 1, 2 ** 20 + 512)])
+def test_allocator_bytes_rounds_to_the_caching_allocators_block(n, block):
+    assert memory.allocator_bytes(n) == block
+    with memory.PeakMemory() as m:
+        t = torch.empty(n, dtype=torch.uint8, device=META)
+    assert (m.requested_peak, m.peak) == (n, block)
+    del t
 
 
 def _peak(fn):
@@ -395,3 +409,37 @@ def test_dryrun_multichip_full_size_estimates():
     with pytest.raises(AssertionError, match="over the budget"):
         dryrun_multichip(4, budget_bytes=2 ** 30, device="cpu")
     assert np.isfinite(est["flagship_pop16_bf16"]["total"])
+
+
+def test_estimates_add_the_workspace_margin_in_allocator_blocks():
+    """An estimate's total is its blocks (resident and work peak, multiples
+    of 512) plus the workspace margin of its kind of work."""
+    from clip_glass_torch.parallel import dryrun
+
+    est = dryrun.evaluation_bytes(_tiny_config("StyleGAN2_ffhq_d"), clip_cfg=tclip.TINY,
+                                  model_cfg=tsg2.TINY)
+    assert est["workspace"] == dryrun.WORKSPACE_BYTES["evaluation"]
+    assert est["total"] == est["resident"] + est["work_peak"] + est["workspace"]
+    assert est["resident"] % memory.ALLOCATOR_BLOCK == est["work_peak"] % 512 == 0
+    assert 0 < est["requested"] <= est["resident"] + est["work_peak"]
+    step = dryrun.train_step_bytes(tsg2.TINY, 4)
+    assert step["workspace"] == dryrun.WORKSPACE_BYTES["train_step"]
+    assert step["total"] == step["resident"] + step["work_peak"] + step["workspace"]
+
+
+@pytest.mark.parametrize("total,refused", [(99, False), (100, True), (101, True)])
+def test_dryrun_multichip_refuses_a_rank_over_budget(monkeypatch, total, refused):
+    """A rank whose estimate (workspace margin included) reaches the budget
+    is refused; one just under it passes."""
+    from clip_glass_torch.parallel import dryrun
+
+    fake = {"mesh": {"pop": 2, "model": 2},
+            "flagship_pop16_bf16": {"total": 10},
+            "train_config_f_batch8_fp32": {"total": total}}
+    monkeypatch.setattr(dryrun, "live_checks", lambda mesh, device: {})
+    monkeypatch.setattr(dryrun, "fullsize_estimates", lambda n: fake)
+    if refused:
+        with pytest.raises(AssertionError, match="over the budget of 100 bytes"):
+            dryrun.dryrun_multichip(4, budget_bytes=100, device="cpu")
+    else:
+        assert dryrun.dryrun_multichip(4, budget_bytes=100, device="cpu")["fullsize"] == fake

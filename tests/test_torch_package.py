@@ -33,7 +33,7 @@ def _port_modules():
 def test_importing_every_module_leaves_out_jax():
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
-            "import chip_smoke, run_torch\n"
+            "import chip_smoke, run_torch, bench_torch\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(len(sys.modules)); print(bad)\n"
             "assert not bad, bad\n")
@@ -58,11 +58,15 @@ def _imported_names(path: pathlib.Path):
             yield node.args[0].value
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-                             ROOT / "chip_smoke.py", ROOT / "run_torch.py",
-                             ROOT / "scripts" / "quant_fidelity_torch.py",
-                             ROOT / "examples" / "project_image_torch.py",
-                             ROOT / "examples" / "train_stylegan2_torch.py"],
+# every port-side file outside the package
+PORT_FILES = sorted(
+    [ROOT / "chip_smoke.py", ROOT / "run_torch.py", ROOT / "bench_torch.py",
+     *(ROOT / "scripts").glob("*_torch.py"), *(ROOT / "examples").glob("*_torch.py")]
+    + [ROOT / "scripts" / f"{n}.py" for n in ("profile_torch_flagship", "wrapper_host_cost",
+                                              "conv_s8_ablation", "projector_step_cost")])
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN]
@@ -139,3 +143,81 @@ def test_config_registry_matches_jax():
 
 def test_version():
     assert clip_glass_torch.__version__
+
+
+def test_port_files_outside_the_package_exist():
+    assert all(p.is_file() for p in PORT_FILES)
+    names = {p.name for p in PORT_FILES}
+    assert {"bench_torch.py", "bench_matrix_torch.py", "bench_serving_torch.py",
+            "bench_serving_curve_torch.py", "bench_wallclock_torch.py",
+            "api_search_torch.py"} <= names
+
+
+def test_build_root_is_the_checkout_build_dir():
+    """In a checkout the libraries go to build/clip_glass_torch beside the
+    package, which .gitignore lists."""
+    from clip_glass_torch.core.cache import build_root
+    from clip_glass_torch.tokenizers import native
+
+    assert cuda.build_dir() == build_root() == ROOT / "build" / "clip_glass_torch"
+    assert native.library_path().parent == build_root()
+    assert "build/" in (ROOT / ".gitignore").read_text().splitlines()
+
+
+def _installed_package(tmp_path):
+    site = tmp_path / "site-packages"
+    pkg = site / "clip_glass_torch"
+    pkg.mkdir(parents=True)
+    return site, pkg
+
+
+def test_build_root_leaves_a_read_only_parent(tmp_path, monkeypatch):
+    """An installed package whose parent is read-only builds under
+    $XDG_CACHE_HOME/clip_glass_torch, or ~/.cache/clip_glass_torch."""
+    from clip_glass_torch.core.cache import build_root
+
+    site, pkg = _installed_package(tmp_path)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert build_root(pkg) == site / "build" / "clip_glass_torch"   # writable: beside it
+    site.chmod(0o555)
+    try:
+        assert build_root(pkg) == tmp_path / "xdg" / "clip_glass_torch"
+        monkeypatch.delenv("XDG_CACHE_HOME")
+        monkeypatch.setenv("HOME", str(tmp_path / "home"))
+        assert build_root(pkg) == tmp_path / "home" / ".cache" / "clip_glass_torch"
+    finally:
+        site.chmod(0o755)
+
+
+def test_build_root_takes_an_existing_writable_build_dir(tmp_path, monkeypatch):
+    """A writable build/clip_glass_torch decides even under a read-only
+    parent; a read-only one sends the build to the cache."""
+    from clip_glass_torch.core.cache import build_root
+
+    site, pkg = _installed_package(tmp_path)
+    local = site / "build" / "clip_glass_torch"
+    local.mkdir(parents=True)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    site.chmod(0o555)
+    try:
+        assert build_root(pkg) == local
+        local.chmod(0o555)
+        assert build_root(pkg) == tmp_path / "xdg" / "clip_glass_torch"
+    finally:
+        local.chmod(0o755)
+        site.chmod(0o755)
+
+
+def test_package_data_ships_the_sources_built_at_run_time():
+    """A wheel carries what the package compiles at first use: the CUDA
+    sources and the native BPE core (as the JAX package ships its own)."""
+    import fnmatch
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]
+    for rel in [*(p.relative_to(PKG) for p in (PKG / "csrc").iterdir()),
+                *(p.relative_to(PKG) for p in (PKG / "native").glob("*.cpp"))]:
+        assert any(fnmatch.fnmatch(str(rel), pat) for pat in data["clip_glass_torch"]), rel
+    assert "native/*.cpp" in data["clip_glass_torch"]
+    assert (PKG / "native" / "bpe_core.cpp").is_file()

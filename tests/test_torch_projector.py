@@ -185,19 +185,29 @@ def test_project_reduces_the_distance(tiny, distance):
     assert np.isfinite(d0) and d1 < d0
 
 
+STEP_SEED = 0
+
+
 def test_step_takes_inference_tensors_and_refuses_inference_mode(tiny):
     """The statistics, a target or a start made under inference_mode still
     give a gradient; the step itself under inference_mode raises (autograd
-    records nothing there)."""
+    records nothing there). The start's noise planes and the jitter come
+    from the test's own generator (seed STEP_SEED), whatever ran before."""
     _, tg, _, target = tiny
     proj = tproj.Projector(tg, tsg2.TINY, cfg=tproj.ProjectorConfig(
         num_steps=4, dlatent_samples=64), device="cpu")
     mc = tsg2.TINY
+    g = torch.Generator().manual_seed(STEP_SEED)
     with torch.inference_mode():
         start = (proj.dlatent_avg[None, None, :].expand(1, mc.num_latents, mc.latent_size)
-                 .clone(), [torch.randn(s) for s in mc.noise_shapes()])
-        draw = torch.randn(start[0].shape)
+                 .clone(), [torch.randn(s, generator=g) for s in mc.noise_shapes()])
+        draw = torch.randn(start[0].shape, generator=g)
         tgt = T(target) * 1.0
+        image = proj.synthesize(start[0] + proj.noise_strength(0.5) * draw, start[1])
+    # a saturated image (ROADMAP item 19) has no gradient through the clamp
+    assert ((image > 0) & (image < 1)).any(), (
+        f"precondition: seed {STEP_SEED}'s start saturates the TINY image, so the step "
+        "gets no gradient")
     state = tproj.adam_init([start[0], *start[1]])
     (dl, _), state, _, _ = proj.step(start, state, tgt, draw, 0.5)
     assert state.count == 1 and not torch.equal(dl, start[0])
