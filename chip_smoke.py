@@ -223,6 +223,19 @@ Then the port's contract entry point and its bench, on the flagship:
      the two runs' checksum_F, column sums and sha256_F, and whether F is
      bitwise equal across them: the hashes equal (noted);
      (d) `bench_torch.py` with BENCH_QUANT=int8 (conv_s8 at every site).
+Then the pretrained-checkpoint harness and the search-dynamics A/B:
+ 32. harness (`phase_harness`): scripts/validate_pretrained_torch.py in this
+     process on files written at the published geometries into build/: the
+     convert CLI, the checks on the card (BigGAN-deep-256 / -512 against the
+     transcribed HF module in fp32, LPIPS and Inception against their state
+     dicts, the TF pickles' renders) and the CLI drive (StyleGAN2_ffhq_d at
+     1024 px, GPT2); every check PASSes but those that need the reference's
+     source tree or an official hash, kernels 1-4 each launch; each check's
+     seconds and the BigGAN oracle's errors; then
+     scripts/search_dynamics_ab_torch.py (TINY, 4 seeds x 10 generations:
+     its table and max Welch z) and a TINY stochastic GPT2 search twice from
+     seed 0 (sha256_F equal, two generations' seeds score one population
+     differently).
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
@@ -232,7 +245,8 @@ errors at the step's shapes, a `ppl` record: phase 26's launches, and a
 derivative, kernel 4's in the grid, a `sharded` record: phase 29's
 launches per rank in (b)'s generations and in (e)'s trainer steps, and a
 `tp` record: phase 30's launches per rank in (a) and per position in (b), and
-a `bench` record: phase 31's launches a timed evaluation in (b) and (d)), the
+a `bench` record: phase 31's launches a timed evaluation in (b) and (d), and a
+`harness` record: phase 32's launches), the
 card's name and power limit, and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py
@@ -3065,11 +3079,12 @@ def phase_main_int8(kind: str, smi: str, single: dict, int8_kernels: dict) -> di
     return rec
 
 
-def _quant_fidelity_module():
+def _script(name: str):
+    """scripts/<name>.py as a module (the scripts are not a package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "quant_fidelity_torch", os.path.join(ROOT, "scripts", "quant_fidelity_torch.py"))
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3083,7 +3098,7 @@ def phase_fidelity_int8(kind: str, smi: str) -> None:
     random weights they decide nothing (the gate reads them BLOCKED)."""
     from clip_glass_torch.config import get_config
 
-    qft = _quant_fidelity_module()
+    qft = _script("quant_fidelity_torch")
     cfg = get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights="random:0",
                                                  pop_size=POP)
     t = time.perf_counter()
@@ -4833,6 +4848,149 @@ def phase_bench(kind: str, smi: str, int8_main: dict) -> dict:
             for name in launches_a}
 
 
+# Phase 32: the A/B's size (TINY models) and the stochastic search's length
+HARNESS_AB_SEEDS = 4
+HARNESS_AB_GENS = 10
+STOCHASTIC_GENERATIONS = 3
+# the harness's checks that need the reference's source tree, or an official
+# hash: with synthetic files and no such tree, the only ones that may SKIP
+HARNESS_REFERENCE_CHECKS = (
+    "clip/ViT-B/32: convert + torch parity", "clip/RN50: convert + torch parity",
+    "gpt2: convert + logits/decode parity", "stylegan2/ffhq-config-f: torch parity",
+    "stylegan2/car-config-f: torch parity", "stylegan2/church-config-f: torch parity")
+HARNESS_HASH_CHECKS = ("clip/ViT-B/32: sha256", "clip/RN50: sha256")
+# the kernels that a check must launch
+HARNESS_CHECK_KERNELS = {
+    "stylegan2/ffhq-config-f: TF convert + render":
+        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2"),
+    "biggan/biggan-deep-256: convert + HF-oracle parity + render": ("s2d_conv2x2",),
+    "biggan/biggan-deep-512: convert + HF-oracle parity + render": ("s2d_conv2x2",),
+    "CLI drive: StyleGAN2_ffhq_d txt2img":
+        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2")}
+
+
+def _stochastic_gpt2_runs(runs: int = 2) -> dict:
+    """A TINY GPT2 search with config.stochastic, `runs` times from seed 0 on
+    the card: each evaluation's seed recorded. The two runs' sha256_F must be
+    equal, and one population scored under two generations' seeds must
+    differ (the per-generation draw)."""
+    import bench_torch
+    from clip_glass_torch.evolve.algorithm import minimize
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
+
+    problem = GenerationProblem(_gpt2_tiny_config().replace(stochastic=True), device="cuda",
+                                clip_cfg=clip_model.TINY, model_cfg=g2.TINY)
+    hashes, seeds = [], []
+    for _ in range(runs):
+        algo = problem.make_algorithm()
+        seen, evaluate = [], algo.eval_fn
+        algo.eval_fn = lambda X, seed, seen=seen, evaluate=evaluate: (
+            seen.append(seed) or evaluate(X, seed))
+        res = minimize(algo, STOCHASTIC_GENERATIONS, 0)
+        hashes.append(bench_torch.checksums(res.pop_F)["sha256_F"])
+        seeds.append(seen)
+    if len(set(hashes)) != 1 or len({tuple(s) for s in seeds}) != 1:
+        raise AssertionError(f"stochastic GPT2 from seed 0 is not repeatable: {hashes}, {seeds}")
+    if len(set(seeds[0])) != STOCHASTIC_GENERATIONS + 1:
+        raise AssertionError(f"an evaluation seed repeats: {seeds[0]}")
+    X = res.pop_X.to("cuda")
+    F1, F2 = evaluate(X, seeds[0][1]), evaluate(X, seeds[0][2])
+    if torch.equal(F1, F2):
+        raise AssertionError("two generations' seeds score one population alike")
+    return {"sha256_F": hashes, "seeds": seeds[0],
+            "F_max_abs_diff_between_generations": float((F1 - F2).abs().max())}
+
+
+def phase_harness(smi: str) -> dict:
+    """Phase 32: scripts/validate_pretrained_torch.py in this process on the
+    card at the published geometries, and the search-dynamics A/B:
+      (a) download_weights.sh's tree written by `synthesize.write_layout(
+          geometry="published")` into a directory under build/ (config-f TF
+          pickles of ffhq 1024, car 512 and church 256 px, ViT-B/32 and RN50
+          as fp16 TorchScript archives, BigGAN-deep-256 and -512, GPT-2 124M,
+          VGG16 at div 1 with the LPIPS heads, pt_inception), then the
+          harness's converter CLI, checks and CLI drive (StyleGAN2_ffhq_d at
+          1024 px and GPT2, pop 8, 4 generations);
+      (b) every check whose inputs are present and that needs no reference
+          tree PASSes; the only SKIPs are the reference-tree checks and the
+          synthetic files' sha256 checks; any FAIL fails the phase;
+      (c) kernels 1-4 each launched during the harness, and each check of
+          HARNESS_CHECK_KERNELS launched its kernels (the 1024 px render
+          and the CLI drive: 1-4; BigGAN against the HF oracle: kernel 4's
+          fp32 route);
+      (d) each check's seconds, and the BigGAN oracle's max abs error at 256
+          and 512 px;
+      (e) scripts/search_dynamics_ab_torch.py at TINY size, HARNESS_AB_SEEDS
+          seeds x HARNESS_AB_GENS generations (its table and each config's
+          max Welch z), and a TINY stochastic GPT2 search twice from seed 0
+          (`_stochastic_gpt2_runs`)."""
+    t_phase = time.perf_counter()
+    vp = _script("validate_pretrained_torch")
+    kernels = _kernels()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        _zero_counts(kernels)
+        rc = vp.main(["--synthetic", "--geometry", "published", "--weights-dir",
+                      os.path.join(tmp, "weights"), "--out", os.path.join(tmp, "out")])
+        launches = {k.__name__: k.launches for k in kernels}
+        variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
+                    if hasattr(k, "launches_by_variant")}
+    results = list(vp.RESULTS)
+    for r in results:
+        log({"phase": "harness", "check": r["name"], "status": r["status"],
+             "seconds": r["seconds"], "detail": r["detail"],
+             **{k: v for k, v in r.items() if k not in ("name", "status", "seconds", "detail")}})
+    failed = [r["name"] for r in results if r["status"] == "FAIL"]
+    if rc or failed:
+        raise AssertionError(f"harness: rc {rc}, failed {failed}")
+    for r in results:
+        if r["status"] != "SKIP":
+            continue
+        ok = ((r["name"] in HARNESS_REFERENCE_CHECKS
+               and r["detail"].startswith("reference source not found"))
+              or (r["name"] in HARNESS_HASH_CHECKS and r["detail"].startswith("synthetic")))
+        if not ok:
+            raise AssertionError(f"harness: {r['name']} skipped: {r['detail']}")
+    idle = [name for name, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"harness: kernels {idle} never launched: {launches}")
+    by = {r["name"]: r for r in results}
+    # the render at 1024 px runs kernels 1-4 (fp32); BigGAN's s2d mid
+    # segments run kernel 4's fp32 route against the HF oracle
+    for name, want in HARNESS_CHECK_KERNELS.items():
+        got = by[name].get("launches", {})
+        if not all(got.get(k) for k in want):
+            raise AssertionError(f"harness: {name} launched {got}, not all of {want}")
+    biggan = {name: by[f"biggan/{name}: convert + HF-oracle parity + render"]["max_abs_err"]
+              for name in ("biggan-deep-256", "biggan-deep-512")}
+    harness_s = time.perf_counter() - t_phase
+    log({"phase": "harness", "check": "(b)-(d) outcome",
+         "statuses": {s: sum(r["status"] == s for r in results) for s in ("PASS", "SKIP", "FAIL")},
+         "launches": launches, "launches_by_variant": variants,
+         "biggan_oracle_max_abs_err": biggan, "seconds": harness_s, "nvidia_smi": smi})
+
+    t = time.perf_counter()
+    ab = _script("search_dynamics_ab_torch")
+    rows = ab.run(HARNESS_AB_SEEDS, HARNESS_AB_GENS, "cuda")
+    print(ab.table(rows, HARNESS_AB_SEEDS, HARNESS_AB_GENS), flush=True)
+    log({"phase": "harness", "check": "(e) search-dynamics A/B",
+         "seeds": HARNESS_AB_SEEDS, "generations": HARNESS_AB_GENS,
+         "max_welch_z": {r["name"]: {"host": float(r["z"].max()),
+                                     "fresh_noise": float(r["zf"].max())} for r in rows},
+         "seconds": time.perf_counter() - t, "nvidia_smi": smi})
+    t = time.perf_counter()
+    stochastic = _stochastic_gpt2_runs()
+    log({"phase": "harness", "check": "(e) stochastic GPT2, twice from seed 0", **stochastic,
+         "seconds": time.perf_counter() - t})
+    log({"phase": "harness", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "launches_by_variant": variants,
+            "launches_by_check": {name: by[name]["launches"] for name in HARNESS_CHECK_KERNELS},
+            "biggan_oracle_max_abs_err": biggan}
+
+
 KERNEL_META = {
     "noise_bias_lrelu": ("clip_glass_torch/csrc/noise_bias_lrelu.cu",
                          "clip_glass_tpu/ops/pallas/fused_bias_act.py:33"),
@@ -4895,6 +5053,7 @@ def main() -> int:
         sharded = phase_sharded(kind, smi, tmp)
         tp = phase_tp(kind, smi, tmp)
     bench = phase_bench(kind, smi, int8_main)
+    harness = phase_harness(smi)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -4926,6 +5085,15 @@ def main() -> int:
                         "sharded": sharded[name],
                         "tp": tp[name],
                         "bench": bench[name],
+                        "harness": {
+                            "launches": harness["launches"][name],
+                            "launches_by_variant": harness["launches_by_variant"].get(name),
+                            "launches_by_check": {
+                                check: n[name] for check, n in
+                                harness["launches_by_check"].items() if name in n},
+                            **({"biggan_oracle_max_abs_err":
+                                harness["biggan_oracle_max_abs_err"]}
+                               if name == "s2d_conv2x2" else {})},
                         **({"biggan": {
                             cfg: {"launches": biggan[cfg][0],
                                   "launches_by_variant": biggan[cfg][1],
@@ -4976,7 +5144,11 @@ def main() -> int:
                                  f"evaluation of bench_torch.py on the flagship "
                                  f"(launches_per_evaluation), of its int8 run "
                                  f"(int8_launches_per_evaluation), and entry()'s "
-                                 f"evaluation (entry_launches)"})
+                                 f"evaluation (entry_launches); harness: "
+                                 f"scripts/validate_pretrained_torch.py --synthetic "
+                                 f"--geometry published (its renders, BigGAN against "
+                                 f"the HF oracle in fp32 and its CLI drive; "
+                                 f"biggan_oracle_max_abs_err per config)"})
     kernels.append({
         "name": "conv_s8", "route": "cuda", "source": "clip_glass_torch/csrc/conv_s8.cu",
         "replaces": "XLA's int8 conv, clip_glass_tpu/ops/quant.py:137",
@@ -4993,6 +5165,7 @@ def main() -> int:
         "sharded": {"launches_per_rank": 0},   # phases 29 and 30 run the bf16 path
         "tp": {"launches_per_rank": 0, "launches_per_position": 0},
         "bench": bench["conv_s8"],
+        "harness": {"launches": 0},   # phase 32 runs no int8
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
                  f"(--quantize int8, s2d path, pop {POP}); times: sums over the call shapes "
                  f"of one int8 evaluation; ms, device_ms: the fused entry on the bf16 "

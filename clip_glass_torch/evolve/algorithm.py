@@ -5,7 +5,10 @@ resampling, fitness evaluation, survival (reference run.py:53-76 with pymoo):
 by fitness for the GA, by rank and crowding for NSGA-II. The genomes and
 fitness stay on the device; all randomness comes from one explicit
 torch.Generator, drawn in a fixed order, so a seed and the generator's state
-fix the whole search.
+fix the whole search. A stochastic fitness (config.stochastic: GPT-2's
+sampled decode) gets a seed of its own for each evaluation, drawn from that
+generator after the variation (the JAX package's `k_eval`); no other config
+draws it.
 
 Over a mesh (parallel.mesh) of several processes every rank runs this loop
 on the whole state: its generator is seeded alike, so every rank draws the
@@ -108,6 +111,12 @@ def resample_duplicates(gen: torch.Generator, off: torch.Tensor,
     return resample_duplicates_core(off, pop_X, fresh, eps)
 
 
+def draw_seed(gen: torch.Generator) -> int:
+    """One evaluation's seed for a stochastic fitness, drawn from the search's
+    generator (the JAX package's `k_eval`, split off in `vary`)."""
+    return int(torch.randint(2 ** 62, (), generator=gen, device=gen.device))
+
+
 def make_step_halves(ops: Operators, pop_size: int, algorithm: str = "nsga2"):
     """The two halves of a generation around its evaluation (the JAX
     package's `make_step_halves`, algorithm.py:109), so that K searches can
@@ -148,23 +157,27 @@ def make_step_halves(ops: Operators, pop_size: int, algorithm: str = "nsga2"):
 
 
 def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
-              algorithm: str = "nsga2") -> Callable:
+              algorithm: str = "nsga2", stochastic: bool = False) -> Callable:
     """`step(state, gen) -> state`: mating -> variation -> dedup -> eval ->
-    survival. `algorithm`: "ga" (one objective) or "nsga2"."""
+    survival. `algorithm`: "ga" (one objective) or "nsga2". `stochastic`:
+    eval_fn takes (X, seed), the seed drawn from `gen` after the variation;
+    otherwise eval_fn(X) and `gen` serves the variation alone."""
     vary, survive = make_step_halves(ops, pop_size, algorithm)
 
     def step(state: GAState, gen: torch.Generator) -> GAState:
         off = vary(state, gen)
-        return survive(state, off, eval_fn(off))
+        F_off = eval_fn(off, draw_seed(gen)) if stochastic else eval_fn(off)
+        return survive(state, off, F_off)
 
     return step
 
 
 def make_algorithm(config, eval_fn: Callable, device=None) -> "Algorithm":
-    """eval_fn: (X [pop, n_var]) -> F [pop, n_obj]."""
+    """eval_fn: (X [pop, n_var]) -> F [pop, n_obj]; with config.stochastic
+    (X, seed) -> F."""
     return Algorithm(ops=operators_for_config(config), eval_fn=eval_fn,
                      pop_size=config.pop_size, algorithm=config.algorithm,
-                     device=resolve_device(device))
+                     device=resolve_device(device), stochastic=config.stochastic)
 
 
 @dataclasses.dataclass
@@ -184,21 +197,26 @@ class Result:
 @dataclasses.dataclass
 class Algorithm:
     ops: Operators
-    eval_fn: Callable          # (X) -> F
+    eval_fn: Callable          # (X) -> F; stochastic: (X, seed) -> F
     pop_size: int
     algorithm: str = "nsga2"
     device: torch.device = torch.device("cuda")
+    stochastic: bool = False   # each evaluation draws its seed (make_step)
 
     def generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.inference_mode()
     def init(self, gen: torch.Generator) -> GAState:
+        """The initial population: sampled, then its seed drawn when the
+        fitness is stochastic (the JAX package's init splits k_init, k_eval)."""
         X0 = self.ops.sample(gen, self.pop_size)
-        return GAState(X0, self.eval_fn(X0), 0)
+        return GAState(X0, self.eval_fn(X0, draw_seed(gen)) if self.stochastic
+                       else self.eval_fn(X0), 0)
 
     def step_fn(self) -> Callable:
-        return make_step(self.ops, self.eval_fn, self.pop_size, self.algorithm)
+        return make_step(self.ops, self.eval_fn, self.pop_size, self.algorithm,
+                         self.stochastic)
 
 
 def extract_result(pop_X: torch.Tensor, pop_F: torch.Tensor,

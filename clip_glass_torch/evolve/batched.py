@@ -7,7 +7,10 @@ search's `vary` half (selection, crossover, mutation, duplicate resampling)
 with its own generator, one evaluation of all K·pop offspring
 (`Generator.eval_population_batched`: G and CLIP at K·pop, the cosine per
 search, D's minibatch-std groups per search), then every search's
-`survive` half. Search i of a batch is an independent search with target i
+`survive` half. A stochastic fitness (GPT-2's sampled decode) gets one seed a
+search, drawn from that search's generator after its `vary` (its `init`
+after the sampling), as `Algorithm`'s step draws it. Search i of a batch is
+an independent search with target i
 and generator `search_generator(seed, i)`, as the JAX package's
 `evolve/batched.py` holds its batch to independent runs; the evaluation
 batch differs, so the fitness agrees to the convolutions' summation order,
@@ -27,8 +30,8 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
-from clip_glass_torch.evolve.algorithm import (Algorithm, GAState, Result, extract_result,
-                                               make_step_halves)
+from clip_glass_torch.evolve.algorithm import (Algorithm, GAState, Result, draw_seed,
+                                               extract_result, make_step_halves)
 from clip_glass_torch.parallel import distributed as dist
 
 # the 64-bit golden-ratio constant: odd, so in its low 32 bits too, and
@@ -119,27 +122,35 @@ class BatchedAlgorithm:
     def generators(self, seed: int) -> List[torch.Generator]:
         return [search_generator(seed, i, self.device) for i in range(self.n_search)]
 
-    def evaluate(self, Xb: torch.Tensor, targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def evaluate(self, Xb: torch.Tensor, targets: Optional[torch.Tensor] = None,
+                 seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """F [k, pop, n_obj] of Xb [k, pop, n_var] against `targets` [k, D]
         (default: all K of this batch), in chunks of `search_microbatch`
         searches or, where that does not divide k, of its largest divisor
-        below it."""
+        below it. `seeds`: each search's (`draw_seeds`), read by a
+        stochastic fitness alone."""
         targets = self.targets if targets is None else targets
         smb = self.search_microbatch
         if smb is not None:
             k = Xb.shape[0]
             smb = max(d for d in range(1, min(smb, k) + 1) if k % d == 0)
-        return self.generator.eval_population_batched(Xb, targets, smb, self.mesh)
+        return self.generator.eval_population_batched(Xb, targets, smb, self.mesh, seeds)
+
+    def draw_seeds(self, generators: Sequence[torch.Generator]) -> Optional[List[int]]:
+        """One evaluation seed from each search's generator when the fitness
+        is stochastic; None, and no draw, otherwise."""
+        return [draw_seed(g) for g in generators] if self.base.stochastic else None
 
     def sample(self, gen: torch.Generator) -> torch.Tensor:
         return self.base.ops.sample(gen, self.pop_size)
 
     @torch.inference_mode()
     def init(self, generators: Sequence[torch.Generator]) -> GAState:
-        """Each search samples with its generator (`Algorithm.init`'s draw),
+        """Each search samples with its generator (`Algorithm.init`'s draws),
         then one evaluation of all K populations."""
         X0 = torch.stack([self.sample(g) for g in generators])
-        return GAState(X0, self.evaluate(X0), (0,) * self.n_search)
+        return GAState(X0, self.evaluate(X0, seeds=self.draw_seeds(generators)),
+                       (0,) * self.n_search)
 
     @torch.inference_mode()
     def step(self, state: GAState, generators: Sequence[torch.Generator]) -> GAState:
@@ -148,7 +159,7 @@ class BatchedAlgorithm:
         vary, survive = self._halves
         states = [slice_state(state, i) for i in range(self.n_search)]
         off = torch.stack([vary(s, g) for s, g in zip(states, generators)])
-        F_off = self.evaluate(off)
+        F_off = self.evaluate(off, seeds=self.draw_seeds(generators))
         return stack_states([survive(s, off[i], F_off[i]) for i, s in enumerate(states)])
 
 

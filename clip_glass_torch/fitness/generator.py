@@ -38,7 +38,7 @@ reference.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ import torch
 from clip_glass_torch.core import memory, pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
+from clip_glass_torch.evolve.batched import search_seed
 from clip_glass_torch.fitness import latent as latent_mod
 from clip_glass_torch.models.biggan import model as bg
 from clip_glass_torch.models.clip import model as clip_model
@@ -406,20 +407,20 @@ class Generator:
             b["d"] = self.d_params
         return b
 
-    def generate(self, X: torch.Tensor, bundle=None) -> torch.Tensor:
+    def generate(self, X: torch.Tensor, bundle=None, seed: Optional[int] = None) -> torch.Tensor:
         """Genomes [pop, n_var] -> images [pop, 3, H, W] in [0, 1], or for
         GPT-2 token ids [pop, n_var + len(init_tokens) + max_tokens_len]: the
         decoded genome, the init text and the decode. With config.stochastic,
-        GPT-2 samples from a generator seeded config.seed at each call (the
-        JAX package's generate without a key)."""
+        GPT-2 samples from a generator seeded `seed`, or config.seed without
+        one (the JAX package's generate with and without a key)."""
         bundle = bundle if bundle is not None else self.bundle
         cfg = self.config
         if cfg.model == "gpt2":
             (ids,) = latent_mod.decode_gpt2(X)
             init = self.init_tokens.to(ids.device).expand(ids.shape[0], -1)
             ctx = torch.cat([ids, init], dim=1)
-            generator = (torch.Generator(device=X.device).manual_seed(cfg.seed)
-                         if cfg.stochastic else None)
+            generator = (torch.Generator(device=X.device).manual_seed(
+                cfg.seed if seed is None else seed) if cfg.stochastic else None)
             return g2.sample_sequence(bundle["g"], ctx, cfg.max_tokens_len, self.model_cfg,
                                       temperature=GPT2_TEMPERATURE, top_k=GPT2_TOP_K,
                                       sample=cfg.stochastic, generator=generator,
@@ -487,13 +488,18 @@ class Generator:
         sim = _cosine(feats.reshape(target.shape[0], -1, feats.shape[-1]), target[:, None, :])
         return torch.where(ok, sim.reshape(-1), 0.0)
 
-    def _decode(self, flat: torch.Tensor, bundle, rows: int) -> torch.Tensor:
-        """GPT-2's decode of genomes [n, n_var] in chunks of `rows` rows."""
-        return torch.cat([self.generate(flat[r:r + rows], bundle)
-                          for r in range(0, flat.shape[0], rows)])
+    def _decode(self, flat: torch.Tensor, bundle, rows: int,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """GPT-2's decode of genomes [n, n_var] in chunks of `rows` rows. A
+        sampled decode's chunk c is seeded search_seed(seed, c), seed being
+        config.seed when None (the JAX package splits the key per chunk)."""
+        seed = self.config.seed if seed is None else seed
+        return torch.cat([self.generate(flat[r:r + rows], bundle,
+                                        search_seed(seed, c))
+                          for c, r in enumerate(range(0, flat.shape[0], rows))])
 
     def _eval_img2txt(self, Xb: torch.Tensor, targets: torch.Tensor, bundle,
-                      rows: int, mesh=None) -> torch.Tensor:
+                      rows: int, mesh=None, seed: Optional[int] = None) -> torch.Tensor:
         """GPT-2 fitness in stages for K searches, Xb [K, pop, n_var] against
         targets [K, D] -> F [K, pop, 1] (the JAX package's
         host_eval_population, and for K > 1 host_eval_population_batched):
@@ -505,16 +511,18 @@ class Generator:
         of every chunk's decode before it reaches the first copy, so no round
         trip overlaps a decode (the JAX package's asynchronous dispatch
         can). With a mesh the decode and the text tower split their rows over
-        it; the round trip reads the whole population on every rank."""
+        it; the round trip reads the whole population on every rank. `seed`:
+        the sampled decode's (config.stochastic), each shard seeding its own
+        generator with it."""
         if self.abstract:
             raise NotImplementedError("GPT-2's host round trip reads the decoded ids: "
                                       "weights='abstract' sizes txt2img evaluations only")
         K, pop, n_var = Xb.shape
         flat = Xb.reshape(K * pop, n_var)
         if mesh is None:
-            ids = self._decode(flat, bundle, rows)
+            ids = self._decode(flat, bundle, rows, seed)
         else:
-            ids = self._map_rows(lambda b, x: self._decode(x, b, rows), mesh,
+            ids = self._map_rows(lambda b, x: self._decode(x, b, rows, seed), mesh,
                                  _weights(bundle), flat)
         ids = ids.cpu().numpy()
         toks, oks = zip(*(self._texts_to_clip_tokens(ids[r:r + pop])
@@ -684,9 +692,13 @@ class Generator:
         return (-sim[:, None]).float()
 
     @torch.inference_mode()
-    def eval_population(self, X: torch.Tensor, bundle=None) -> torch.Tensor:
+    def eval_population(self, X: torch.Tensor, bundle=None,
+                        seed: Optional[int] = None) -> torch.Tensor:
         """[pop, n_var] -> [pop, n_obj] fitness (reference problem.py:14-29):
         F0 = -cosine similarity; F1 = relu(1 - D) hinge for *_d configs.
+        `seed`: the sampled decode's under config.stochastic (GPT-2; a search
+        draws one each generation), config.seed without one; no other
+        fitness reads it.
 
         With config.eval_microbatch set, the population is evaluated in
         sequential chunks, so peak activation memory is that of one chunk
@@ -704,7 +716,7 @@ class Generator:
         if self.config.task == "img2txt":
             mb = mb or pop
             return self._eval_img2txt(X[None], bundle["target"], bundle,
-                                      pop if pop % mb else mb, self.mesh)[0]
+                                      pop if pop % mb else mb, self.mesh, seed)[0]
         if mb and pop > mb and pop % mb:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
         if not mb or pop <= mb:
@@ -715,7 +727,8 @@ class Generator:
     @torch.inference_mode()
     def eval_population_batched(self, Xb: torch.Tensor, targets: torch.Tensor,
                                 search_microbatch: Optional[int] = None,
-                                mesh=None) -> torch.Tensor:
+                                mesh=None, seeds: Optional[Sequence[int]] = None
+                                ) -> torch.Tensor:
         """K searches' populations at once: Xb [K, pop, n_var] against target
         features [K, D] (row i is search i's) -> F [K, pop, n_obj]; search
         i's F is what `eval_population` gives for Xb[i] against target i,
@@ -733,7 +746,9 @@ class Generator:
         decode in groups of `search_microbatch` searches, the host round
         trip per search (an overflow zeroes that search's population only),
         the text tower once at K*pop; `eval_microbatch` is not read. With
-        config.stochastic each search is evaluated alone, in turn.
+        config.stochastic each search is evaluated alone, in turn, its
+        decode seeded with its entry of `seeds` (each search's own draw,
+        evolve/batched.py), or config.seed without them.
 
         `mesh` (default `self.mesh`): every batch splits its rows over it
         (`_eval_batch`); where the shards hold whole searches, D pools
@@ -749,7 +764,8 @@ class Generator:
         if self.config.task == "img2txt":
             if self.config.stochastic:
                 return torch.stack([
-                    self.eval_population(Xb[i], {**bundle, "target": targets[i:i + 1]})
+                    self.eval_population(Xb[i], {**bundle, "target": targets[i:i + 1]},
+                                         None if seeds is None else seeds[i])
                     for i in range(K)])
             return self._eval_img2txt(Xb, targets, bundle, smb * pop, mesh)
         mb = self.config.eval_microbatch

@@ -27,8 +27,13 @@ class GenerationProblem:
         return self.generator.mesh
 
     def eval_fn(self):
-        """(X [pop, n_var]) -> F [pop, n_obj] (minimized)."""
-        return self.generator.eval_population
+        """(X [pop, n_var]) -> F [pop, n_obj] (minimized); with
+        config.stochastic (X, seed) -> F, the seed the generation's own
+        (evolve.algorithm.draw_seed)."""
+        gen = self.generator
+        if self.config.stochastic:
+            return lambda X, seed: gen.eval_population(X, seed=seed)
+        return gen.eval_population
 
     def make_algorithm(self):
         from clip_glass_torch.evolve.algorithm import make_algorithm

@@ -188,7 +188,7 @@ class SearchServer:
     def _admit(self) -> None:
         """Pop queued requests into free slots: their targets encoded in one
         CLIP call, each population sampled from its ticket's generator
-        (`Algorithm.init`'s draw), all of them evaluated in one batched
+        (`Algorithm.init`'s draws), all of them evaluated in one batched
         call, and the rows written into the slots."""
         free = [i for i, s in enumerate(self._slots) if s.ticket is None]
         picked = []
@@ -201,7 +201,7 @@ class SearchServer:
         feats = self.problem.generator.encode_targets([tgt for _, tgt, _ in picked])
         gens = [search_generator(self.seed, t, balgo.device) for t, _, _ in picked]
         X0 = torch.stack([balgo.sample(g) for g in gens])
-        F0 = balgo.evaluate(X0, feats)
+        F0 = balgo.evaluate(X0, feats, balgo.draw_seeds(gens))
         self.stats.admission_evals += len(picked) * balgo.pop_size
         idx = free[:len(picked)]
         # new tensors: views taken for harvest keep the old rows

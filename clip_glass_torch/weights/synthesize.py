@@ -29,6 +29,9 @@ of `weights/` can be exercised where no published checkpoint is at hand:
 
     python -m clip_glass_torch.weights.synthesize OUT_DIR [--seed N]
 
+`write_layout` writes `scripts/download_weights.sh`'s tree at a small or the
+published geometry (`scripts/validate_pretrained_torch.py --synthetic`).
+
 Weights are drawn so that the models stay well conditioned (He-scaled
 weights, BatchNorm gains near 1, positive running variances); they are not
 trained and carry no meaning.
@@ -586,6 +589,62 @@ def write_all(root: str, seed: int = 0) -> Dict[str, str]:
     write_biggan(paths["biggan-deep-512-pytorch_model.bin"], bg.BIGGAN_DEEP_512, seed)
     paths["gpt2-pytorch_model.bin"] = os.path.join(root, "gpt2-pytorch_model.bin")
     write_gpt2(paths["gpt2-pytorch_model.bin"], n_embd=768, n_layer=12, seed=seed)
+    return paths
+
+
+# ------------------------------------------------- download_weights.sh's tree
+
+# StyleGAN2's three published TF pickles and their resolutions (reference
+# convert_from_tf.py:12-38)
+LAYOUT_STYLEGAN2 = {"ffhq-config-f": 1024, "car-config-f": 512, "church-config-f": 256}
+LAYOUT_BIGGAN = ("biggan-deep-256", "biggan-deep-512")
+# the small geometry: the JAX package's scripts/synthesize_checkpoints.py's
+# CLIP towers (64 px, width 64, 2 layers), GPT-2 96 x 2, 8 px StyleGAN2 with
+# the real 512 latent (the StyleGAN2_* genomes drive its Gs), TINY BigGAN,
+# LPIPS at div 8; pt_inception always at its real geometry
+SMALL_VIT = clip_model.CLIPConfig(embed_dim=64, image_resolution=64, vision_layers=2,
+                                  vision_width=64, vision_patch_size=32, transformer_width=64,
+                                  transformer_heads=1, transformer_layers=2)
+SMALL_RN = clip_model.CLIPConfig(embed_dim=64, image_resolution=64, vision_layers=(1, 1, 1, 1),
+                                 vision_width=16, transformer_width=64, transformer_heads=1,
+                                 transformer_layers=2, vision_kind="rn")
+GEOMETRIES = ("small", "published")
+
+
+def write_layout(root: str, geometry: str = "small", seed: int = 0) -> Dict[str, str]:
+    """The tree `scripts/download_weights.sh` leaves under its WEIGHTS_DIR,
+    before its conversions: `clip/{ViT-B-32,RN50}.pt` (fp16 TorchScript
+    archives), `gpt2/gpt2-pytorch_model.bin`, `stylegan2/<config>/
+    stylegan2-<config>.pkl` for the three configs, `biggan/biggan-deep-
+    {256,512}-pytorch_model.bin` and `metrics/{vgg16-397923af.pth,
+    lpips_vgg_v0.1.pth, pt_inception-2015-12-05-6726825d.pth}`.
+    `geometry`: "small" (seconds on a CPU) or "published" (each file at its
+    published geometry, about 3 GB). Returns {path under root: path}."""
+    if geometry not in GEOMETRIES:
+        raise ValueError(f"geometry {geometry!r}: one of {GEOMETRIES}")
+    small = geometry == "small"
+    paths = {}
+
+    def at(rel: str) -> str:
+        paths[rel] = os.path.join(root, rel)
+        return paths[rel]
+
+    for i, (name, cfg) in enumerate((("ViT-B-32", SMALL_VIT if small else clip_model.VIT_B_32),
+                                     ("RN50", SMALL_RN if small else clip_model.RN50))):
+        write_clip(at(f"clip/{name}.pt"), cfg, seed + i)
+    write_gpt2(at("gpt2/gpt2-pytorch_model.bin"), *((96, 2) if small else (768, 12)), seed=seed)
+    for name, res in LAYOUT_STYLEGAN2.items():
+        levels = int(math.log2(res)) - 1
+        write_stylegan2_pkl(at(f"stylegan2/{name}/stylegan2-{name}.pkl"), latent=512,
+                            channels=(16, 24) if small else CONFIG_F_TF_CHANNELS[:levels],
+                            seed=seed, mapping_layers=2 if small else 8)
+    for name in LAYOUT_BIGGAN:
+        write_biggan(at(f"biggan/{name}-pytorch_model.bin"), bg.TINY if small else bg.CONFIGS[name],
+                     seed)
+    div = 8 if small else 1
+    write_vgg16(at("metrics/vgg16-397923af.pth"), div, seed)
+    write_lpips_linear(at("metrics/lpips_vgg_v0.1.pth"), div, seed)
+    write_inception(at("metrics/pt_inception-2015-12-05-6726825d.pth"), seed)
     return paths
 
 
