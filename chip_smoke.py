@@ -208,7 +208,10 @@ from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
      objective within BATCHED_BF16_TOL, fp32 image features within 1e-4 of
      the whole tower's, kernels 1-4 in each rank; (b) one process whose
      mesh lists the card 4 times, a (2, 2) mesh: F within BATCHED_BF16_TOL,
-     init + 2 generations, kernels 1-4 in each position; (c)
+     init + 2 generations, kernels 1-4 in each position; then the flagship
+     with --quantize int8 on that mesh (an int8 scope a position): F within
+     BATCHED_BF16_TOL of the one-process int8 F, conv_s8 at every live
+     site in each position, kernel 4 at none; (c)
      `dryrun_multichip(4)` on the card, and the estimates from shapes of the
      flagship evaluation (pop 16) and of the regularized training step
      (config-f 1024 px, batch 4, fp32), cuDNN's TF32 off and allowed, each
@@ -233,9 +236,15 @@ Then the pretrained-checkpoint harness and the search-dynamics A/B:
      source tree or an official hash, kernels 1-4 each launch; each check's
      seconds and the BigGAN oracle's errors; then
      scripts/search_dynamics_ab_torch.py (TINY, 4 seeds x 10 generations:
-     its table and max Welch z) and a TINY stochastic GPT2 search twice from
+     its table and max Welch z), a TINY stochastic GPT2 search twice from
      seed 0 (sha256_F equal, two generations' seeds score one population
-     differently).
+     differently), and stochastic GPT2 at full width (GPT-2 124M, ViT-B/32,
+     pop 100, decode chunks of 20, bf16 and fp32) whole and on a mesh of
+     the card listed twice, where chunk 2 crosses the rows' split: the rows
+     whose ids differ (none of those decoded in batches of one size on
+     both), F of the rows with equal ids within BATCHED_BF16_TOL, and for
+     one genome repeated the rows i whose ids equal row i + 50's (below
+     50).
 The last lines are the script's seconds, the kernels' summary (JSON; kernel
 4's entry carries a `biggan` record per config, every entry a `batched`
 record: phase 19's launches and phase 17's per-path sums, a `projector`
@@ -244,7 +253,8 @@ errors at the step's shapes, a `ppl` record: phase 26's launches, and a
 `trainer` record: phase 28's launches, under grad and under a second
 derivative, kernel 4's in the grid, a `sharded` record: phase 29's
 launches per rank in (b)'s generations and in (e)'s trainer steps, and a
-`tp` record: phase 30's launches per rank in (a) and per position in (b), and
+`tp` record: phase 30's launches per rank in (a) and per position in (b),
+conv_s8's per position in (b)'s int8 evaluation, and
 a `bench` record: phase 31's launches a timed evaluation in (b) and (d), and a
 `harness` record: phase 32's launches), the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -4474,18 +4484,22 @@ def _tp_rank_case(inp: dict, rec: dict, kernels) -> None:
 
 
 def _count_by_shard(kernels):
-    """Wrap each kernel's checked launch so that it counts by the mesh
-    position of the calling thread; returns (counts, undo)."""
+    """Wrap each kernel's checked launch (kernels 1-4 and conv_s8) so that it
+    counts by the mesh position of the calling thread; returns (counts,
+    undo)."""
+    import importlib
     import threading
 
     from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
     from clip_glass_torch.parallel import mesh as pmesh
 
+    conv_s8_module = importlib.import_module("clip_glass_torch.ops.conv_s8")
     counts, lock, undo = {}, threading.Lock(), []
     for module, name, kernel in ((bias_act, "_noise_bias_lrelu_cuda", "noise_bias_lrelu"),
                                  (upfirdn, "_upsample2x_cuda", "upsample2x"),
                                  (modulated_conv, "_modulated_matmul_cuda", "modulated_matmul"),
-                                 (s2d, "_s2d_conv2x2_cuda", "s2d_conv2x2")):
+                                 (s2d, "_s2d_conv2x2_cuda", "s2d_conv2x2"),
+                                 (conv_s8_module, "conv_s8_launch", "conv_s8")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _kernel=kernel):
@@ -4560,7 +4574,11 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
           within BATCHED_BF16_TOL of each objective's scale, then init +
           TP_GENERATIONS generations with each position's launches and the
           seconds a generation (noted; four positions on one card are no
-          speed);
+          speed); then the flagship with quantize="int8" on the same mesh
+          (each position's rows in its own int8 scope, from its own
+          thread): F of one evaluation within BATCHED_BF16_TOL of each
+          objective's scale of the one-process int8 F, and each position's
+          launches, conv_s8 at every live int8 site, kernel 4 at none;
       (c) `dryrun_multichip(4)` on the card (the TINY live part on the card
           listed 4 times, the full-size estimates of one rank of 4 against
           the card's memory), then each estimate of the one-process work
@@ -4571,7 +4589,8 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
           1024 px, batch 4, fp32, each with cuDNN's TF32 off (as this
           script runs) and allowed (PyTorch's default); each estimate /
           allocated peak within ESTIMATE_RANGE: an upper bound.
-    Returns each kernel's launches per rank in (a) and per position in (b)."""
+    Returns each kernel's launches per rank in (a) and per position in (b)
+    (conv_s8: per position in (b)'s int8 evaluation)."""
     from clip_glass_torch.core.dtypes import FP32
     from clip_glass_torch.evolve.algorithm import minimize
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -4690,6 +4709,46 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
     del problem, res
     torch.cuda.empty_cache()
 
+    # (b) int8 on the same mesh, against the one-process int8 evaluation
+    config8 = config.replace(quantize="int8")
+    one = GenerationProblem(config8, device="cuda").generator
+    F_one8 = one.eval_population(X).float().cpu()
+    scales_one = one._quant_scales
+    del one
+    torch.cuda.empty_cache()
+    gen8 = GenerationProblem(config8, device="cuda", mesh=mesh).generator
+    scales = gen8._quant_scales
+    live = int(((scales > 0) & (scales < float("inf"))).sum())
+    kernels8 = (*kernels, _conv_s8())
+    counts8, restore = _count_by_shard(kernels8)
+    try:
+        _zero_counts(kernels8)
+        F_b8 = gen8.eval_population(X).float().cpu()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches_b8 = {k.__name__: k.launches for k in kernels8}
+    close_b8 = _close_to_scale("tp (b): int8 on a (2, 2) mesh vs one process", F_b8, F_one8,
+                               BATCHED_BF16_TOL)
+    per_shard8 = {**PER_EVAL["s2d"], "s2d_conv2x2": 0, "conv_s8": live}
+    want8 = {k: n for k, n in per_shard8.items() if n}
+    if sorted(counts8) != [0, 1, 2, 3] or any(counts8[i] != want8 for i in counts8):
+        raise AssertionError(f"tp (b) int8: launches by position {counts8}, expected {want8} "
+                             "in each")
+    if any(launches_b8[name] != sum(counts8[i].get(name, 0) for i in counts8)
+           for name in per_shard8):
+        raise AssertionError(f"tp (b) int8: the kernels counted {launches_b8} launches, the "
+                             f"positions' calls {counts8}")
+    log({"phase": "tp", "check": "(b) int8 on the (2, 2) mesh: quantize='int8', an int8 "
+         "scope a position", **close_b8, "tolerance": BATCHED_BF16_TOL,
+         "call_sites": len(scales), "live_call_sites": live,
+         "scales_equal_one_process": bool((scales == scales_one).all()),
+         "launches_by_position": counts8, "launches": launches_b8,
+         "conv_s8_by_route": dict(kernels8[-1].launches_by_variant), "device": kind,
+         "nvidia_smi": smi})
+    del gen8
+    torch.cuda.empty_cache()
+
     # (c) the dry run on the card, then the estimates against measured peaks
     t = time.perf_counter()
     dry = dryrun_multichip(4)
@@ -4731,8 +4790,10 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
     if bad:
         raise AssertionError(f"tp (c): estimate / measured peak outside {ESTIMATE_RANGE}: {bad}")
     log({"phase": "tp", "seconds": time.perf_counter() - t_phase})
-    return {name: {"launches_per_rank": ranks[0]["tp_launches"][name],
-                   "launches_per_position": counts[0][name]} for name in PER_EVAL["s2d"]}
+    out = {name: {"launches_per_rank": ranks[0]["tp_launches"][name],
+                  "launches_per_position": counts[0][name]} for name in PER_EVAL["s2d"]}
+    out["conv_s8"] = {"launches_per_rank": 0, "launches_per_position": counts8[0]["conv_s8"]}
+    return out
 
 
 # ------------------------------------------------------------ phase 31
@@ -4903,7 +4964,102 @@ def _stochastic_gpt2_runs(runs: int = 2) -> dict:
             "F_max_abs_diff_between_generations": float((F1 - F2).abs().max())}
 
 
-def phase_harness(smi: str) -> dict:
+# (e) at full width: GPT2's pop 100 decoded in chunks of 20, whole and on a
+# mesh of the card listed twice, rows 0-49 and 50-99 a position, so chunk 2
+# (rows 40-59) crosses the boundary
+STOCHASTIC_MICROBATCH = 20
+STOCHASTIC_SEED = 11
+
+
+def _decode_batch_sizes(n: int, rows: int, blocks: int) -> torch.Tensor:
+    """The batch each of n rows is decoded in when `blocks` equal contiguous
+    row blocks each decode theirs in chunks of `rows` (`Generator._decode`)."""
+    b, sizes = n // blocks, []
+    for start in range(0, n, b):
+        for r in range(start, start + b, rows):
+            m = min(rows, start + b - r)
+            sizes += [m] * m
+    return torch.tensor(sizes)
+
+
+def _stochastic_gpt2_mesh(kind: str, smi: str) -> dict:
+    """GPT2 at full width with config.stochastic: GPT-2 124M and CLIP
+    ViT-B/32 (random weights from seed 0), pop 100, eval_microbatch
+    STOCHASTIC_MICROBATCH, one evaluation seed, in bf16 and in fp32. The
+    decode and F of one population whole and on a mesh of the card listed
+    twice. A row draws the same uniforms on both (`decode_draws`), so its
+    ids must be equal wherever its decode's arithmetic is: the rows decoded
+    in batches of one size on both (80 of 100; the mesh decodes rows 40-49
+    and 90-99 in batches of 10, whose bf16 matmuls may round apart, and
+    then the draw falls elsewhere: those rows are counted, not held). F of
+    the rows whose ids are equal within BATCHED_BF16_TOL of its scale (the
+    text tower's rows split over the mesh too). Then, in bf16, one genome
+    repeated pop times: the rows i whose ids equal row i + pop/2's, on both
+    (each row draws its own uniforms; seeding each position's chunks alike,
+    as before, gave pop/2 on the mesh)."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.evolve.sampling import int_random_sampling
+    from clip_glass_torch.fitness.generator import load_bundle
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.parallel import make_mesh
+
+    base = get_config("GPT2").replace(target=DOG, weights="random:0", stochastic=True,
+                                      eval_microbatch=STOCHASTIC_MICROBATCH)
+    pop, half = base.pop_size, base.pop_size // 2
+    bundle, clip_cfg, model_cfg = load_bundle(base)
+    mesh = make_mesh(["cuda:0"] * 2)
+    X = int_random_sampling(torch.Generator().manual_seed(21), pop, base.n_var, 0,
+                            50256).cuda()
+    same = X[:1].expand(pop, -1).contiguous()
+    out = {"pop": pop, "eval_microbatch": STOCHASTIC_MICROBATCH, "seed": STOCHASTIC_SEED}
+    for dtype in ("bfloat16", "float32"):
+        t = time.perf_counter()
+        config = base.replace(compute_dtype=dtype)
+        gens = {name: GenerationProblem(config, device="cuda", clip_cfg=clip_cfg,
+                                        model_cfg=model_cfg, bundle=bundle, mesh=m).generator
+                for name, m in (("whole", None), ("mesh", mesh))}
+        rows = gens["whole"]._decode_chunk(pop)
+        alike = _decode_batch_sizes(pop, rows, mesh.dp) == _decode_batch_sizes(pop, rows, 1)
+        ids, ids_same, F = {}, {}, {}
+        with torch.inference_mode():
+            for name, g in gens.items():
+                ids[name] = g._decode_rows(X, g.bundle, rows, g.mesh, STOCHASTIC_SEED).cpu()
+                F[name] = g.eval_population(X, seed=STOCHASTIC_SEED).float().cpu()
+                if dtype == "bfloat16":
+                    ids_same[name] = g._decode_rows(same, g.bundle, rows, g.mesh,
+                                                    STOCHASTIC_SEED).cpu()
+        torch.cuda.synchronize()
+        differ = (ids["whole"] != ids["mesh"]).any(dim=1)
+        rec = {"rows_decoded_in_batches_of_one_size": int(alike.sum()),
+               "rows_whose_ids_differ": int(differ.sum()),
+               "of_them_decoded_in_batches_of_one_size": int((differ & alike).sum()),
+               "F_max_abs_diff_all_rows": float((F["mesh"] - F["whole"]).abs().max())}
+        if ids_same:
+            rec["identical_genomes"] = {
+                name: {"rows_i_equal_to_row_i_plus_half": int(
+                    (v[:half] == v[half:]).all(dim=1).sum()),
+                       "distinct_rows": len({tuple(r) for r in v.tolist()})}
+                for name, v in ids_same.items()}
+        rec["seconds"] = time.perf_counter() - t
+        log({"phase": "harness", "check": f"(e) stochastic GPT2 at full width, {dtype}, whole "
+             "vs a mesh of the card listed twice", **rec, "device": kind, "nvidia_smi": smi})
+        if rec["of_them_decoded_in_batches_of_one_size"]:
+            raise AssertionError(f"(e) {dtype}: rows decoded alike on both have other ids: {rec}")
+        rec["F_rows_with_equal_ids"] = _close_to_scale(
+            f"(e) stochastic GPT2, {dtype}: F of the rows with equal ids, a mesh of 2 vs whole",
+            F["mesh"][~differ], F["whole"][~differ], BATCHED_BF16_TOL)
+        correlated = {name: r["rows_i_equal_to_row_i_plus_half"]
+                      for name, r in rec.get("identical_genomes", {}).items()}
+        if any(n >= half for n in correlated.values()):
+            raise AssertionError(f"(e) identical genomes: rows i and i + {half} share their "
+                                 f"ids {correlated}")
+        out[dtype] = rec
+        del gens
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_harness(smi: str, kind: str) -> dict:
     """Phase 32: scripts/validate_pretrained_torch.py in this process on the
     card at the published geometries, and the search-dynamics A/B:
       (a) download_weights.sh's tree written by `synthesize.write_layout(
@@ -4924,8 +5080,9 @@ def phase_harness(smi: str) -> dict:
           and 512 px;
       (e) scripts/search_dynamics_ab_torch.py at TINY size, HARNESS_AB_SEEDS
           seeds x HARNESS_AB_GENS generations (its table and each config's
-          max Welch z), and a TINY stochastic GPT2 search twice from seed 0
-          (`_stochastic_gpt2_runs`)."""
+          max Welch z), a TINY stochastic GPT2 search twice from seed 0
+          (`_stochastic_gpt2_runs`), and stochastic GPT2 at full width whole
+          and on a mesh of the card listed twice (`_stochastic_gpt2_mesh`)."""
     t_phase = time.perf_counter()
     vp = _script("validate_pretrained_torch")
     kernels = _kernels()
@@ -4984,6 +5141,12 @@ def phase_harness(smi: str) -> dict:
     t = time.perf_counter()
     stochastic = _stochastic_gpt2_runs()
     log({"phase": "harness", "check": "(e) stochastic GPT2, twice from seed 0", **stochastic,
+         "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    mesh_rec = _stochastic_gpt2_mesh(kind, smi)
+    log({"phase": "harness", "check": "(e) stochastic GPT2 at full width: F of the rows with "
+         f"equal ids within {BATCHED_BF16_TOL} of its scale",
+         **{d: mesh_rec[d]["F_rows_with_equal_ids"] for d in ("bfloat16", "float32")},
          "seconds": time.perf_counter() - t})
     log({"phase": "harness", "seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "launches_by_variant": variants,
@@ -5053,7 +5216,7 @@ def main() -> int:
         sharded = phase_sharded(kind, smi, tmp)
         tp = phase_tp(kind, smi, tmp)
     bench = phase_bench(kind, smi, int8_main)
-    harness = phase_harness(smi)
+    harness = phase_harness(smi, kind)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         s, p = summary[name]["s2d"], summary[name]["plain"]
@@ -5162,8 +5325,9 @@ def main() -> int:
                                         "previous_int8_conv_work_ms", "ops", "route_ops",
                                         "gemm_ops", "shapes", "launches_per_evaluation")},
         "gradient": "raises (inference only)",
-        "sharded": {"launches_per_rank": 0},   # phases 29 and 30 run the bf16 path
-        "tp": {"launches_per_rank": 0, "launches_per_position": 0},
+        "sharded": {"launches_per_rank": 0},   # phase 29 runs the bf16 path
+        # phase 30: (a)'s ranks run bf16; (b)'s int8 evaluation, a position
+        "tp": tp["conv_s8"],
         "bench": bench["conv_s8"],
         "harness": {"launches": 0},   # phase 32 runs no int8
         "scope": f"launches: init + {GENERATIONS} generations of the int8 flagship "
@@ -5181,7 +5345,8 @@ def main() -> int:
                  f"output); route_ops: the products the routes run (no dilation hole on "
                  f"wgmma); library_ms: an im2col copy + torch._int_mm; bf16_site_ms: the "
                  f"bf16 path's conv at the same sites (cuDNN, kernel 4 at the [2,2] "
-                 f"folds)"})
+                 f"folds); tp: launches_per_position, one int8 flagship evaluation on a "
+                 f"(2, 2) mesh of the card listed 4 times"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

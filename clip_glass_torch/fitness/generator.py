@@ -72,6 +72,21 @@ GPT2_TEMPERATURE = 0.7
 GPT2_TOP_K = 40
 
 
+def decode_draws(seed: int, n: int, steps: int, rows: int) -> torch.Tensor:
+    """The sampled decode's uniforms [n, steps] (fp32, CPU) for n rows of a
+    population decoded in chunks of `rows`: chunk c's rows and steps from a
+    CPU generator seeded search_seed(seed, c), as the JAX package splits its
+    key per chunk. They depend on the seed and the row's place in the whole
+    population alone, so any split of the rows over cards, shards or ranks
+    takes its slice and decodes as the whole would."""
+    return torch.cat([_uniforms(search_seed(seed, c), min(rows, n - r), steps)
+                      for c, r in enumerate(range(0, n, rows))])
+
+
+def _uniforms(seed: int, n: int, steps: int) -> torch.Tensor:
+    return torch.rand((n, steps), generator=torch.Generator().manual_seed(seed))
+
+
 def biggan_norm(images):
     """[-1,1] -> [0,1] clipped (reference utils.py:14-17)."""
     return ((images + 1.0) / 2.0).clamp(0.0, 1.0)
@@ -407,23 +422,27 @@ class Generator:
             b["d"] = self.d_params
         return b
 
-    def generate(self, X: torch.Tensor, bundle=None, seed: Optional[int] = None) -> torch.Tensor:
+    def generate(self, X: torch.Tensor, bundle=None, seed: Optional[int] = None,
+                 draws: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Genomes [pop, n_var] -> images [pop, 3, H, W] in [0, 1], or for
         GPT-2 token ids [pop, n_var + len(init_tokens) + max_tokens_len]: the
         decoded genome, the init text and the decode. With config.stochastic,
-        GPT-2 samples from a generator seeded `seed`, or config.seed without
-        one (the JAX package's generate with and without a key)."""
+        GPT-2 samples with `draws` [pop, max_tokens_len] (`decode_draws`),
+        or without them with uniforms from a CPU generator seeded `seed`, or
+        config.seed without one (the JAX package's generate with and without
+        a key)."""
         bundle = bundle if bundle is not None else self.bundle
         cfg = self.config
         if cfg.model == "gpt2":
             (ids,) = latent_mod.decode_gpt2(X)
             init = self.init_tokens.to(ids.device).expand(ids.shape[0], -1)
             ctx = torch.cat([ids, init], dim=1)
-            generator = (torch.Generator(device=X.device).manual_seed(
-                cfg.seed if seed is None else seed) if cfg.stochastic else None)
+            if cfg.stochastic and draws is None:
+                draws = _uniforms(cfg.seed if seed is None else seed, ids.shape[0],
+                                  cfg.max_tokens_len)
             return g2.sample_sequence(bundle["g"], ctx, cfg.max_tokens_len, self.model_cfg,
                                       temperature=GPT2_TEMPERATURE, top_k=GPT2_TOP_K,
-                                      sample=cfg.stochastic, generator=generator,
+                                      sample=cfg.stochastic, draws=draws,
                                       policy=self.policy)
         if cfg.model == "biggan":
             z, cv = latent_mod.decode_biggan(X, self.config.dim_z)
@@ -489,14 +508,30 @@ class Generator:
         return torch.where(ok, sim.reshape(-1), 0.0)
 
     def _decode(self, flat: torch.Tensor, bundle, rows: int,
-                seed: Optional[int] = None) -> torch.Tensor:
-        """GPT-2's decode of genomes [n, n_var] in chunks of `rows` rows. A
-        sampled decode's chunk c is seeded search_seed(seed, c), seed being
-        config.seed when None (the JAX package splits the key per chunk)."""
-        seed = self.config.seed if seed is None else seed
-        return torch.cat([self.generate(flat[r:r + rows], bundle,
-                                        search_seed(seed, c))
-                          for c, r in enumerate(range(0, flat.shape[0], rows))])
+                draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """GPT-2's decode of genomes [n, n_var] in chunks of `rows` rows, a
+        sampled decode's rows with their rows of `draws` [n, steps]."""
+        return torch.cat([self.generate(flat[r:r + rows], bundle, None,
+                                        None if draws is None else draws[r:r + rows])
+                          for r in range(0, flat.shape[0], rows)])
+
+    def _decode_rows(self, flat: torch.Tensor, bundle, rows: int, mesh=None,
+                     seed: Optional[int] = None) -> torch.Tensor:
+        """The ids of genomes [n, n_var] (`_decode`), on the generator's
+        device or with the rows split over `mesh`. A sampled decode
+        (config.stochastic) draws every row's uniforms first,
+        `decode_draws(seed, n, ...)` with config.seed when `seed` is None,
+        and each shard decodes its rows with theirs: the ids are the
+        one-device ids on any mesh."""
+        draws = None
+        if self.config.stochastic:
+            draws = decode_draws(self.config.seed if seed is None else seed, flat.shape[0],
+                                 self.config.max_tokens_len, rows)
+        if mesh is None:
+            return self._decode(flat, bundle, rows, draws)
+        blocks = (flat,) if draws is None else (flat, draws)
+        return self._map_rows(lambda b, x, d=None: self._decode(x, b, rows, d), mesh,
+                              _weights(bundle), *blocks)
 
     def _eval_img2txt(self, Xb: torch.Tensor, targets: torch.Tensor, bundle,
                       rows: int, mesh=None, seed: Optional[int] = None) -> torch.Tensor:
@@ -512,18 +547,14 @@ class Generator:
         trip overlaps a decode (the JAX package's asynchronous dispatch
         can). With a mesh the decode and the text tower split their rows over
         it; the round trip reads the whole population on every rank. `seed`:
-        the sampled decode's (config.stochastic), each shard seeding its own
-        generator with it."""
+        the sampled decode's (config.stochastic): every row's uniforms come
+        from it and the row's place in the whole population
+        (`decode_draws`), so F on any mesh is the one-device F."""
         if self.abstract:
             raise NotImplementedError("GPT-2's host round trip reads the decoded ids: "
                                       "weights='abstract' sizes txt2img evaluations only")
         K, pop, n_var = Xb.shape
-        flat = Xb.reshape(K * pop, n_var)
-        if mesh is None:
-            ids = self._decode(flat, bundle, rows, seed)
-        else:
-            ids = self._map_rows(lambda b, x: self._decode(x, b, rows, seed), mesh,
-                                 _weights(bundle), flat)
+        ids = self._decode_rows(Xb.reshape(K * pop, n_var), bundle, rows, mesh, seed)
         ids = ids.cpu().numpy()
         toks, oks = zip(*(self._texts_to_clip_tokens(ids[r:r + pop])
                           for r in range(0, K * pop, pop)))
@@ -691,6 +722,13 @@ class Generator:
             return torch.stack([-sim, hinge], dim=1).float()
         return (-sim[:, None]).float()
 
+    def _decode_chunk(self, pop: int) -> int:
+        """The rows a GPT-2 decode chunk of one population holds:
+        config.eval_microbatch where it divides pop, else pop (the JAX
+        package's host_eval_population)."""
+        mb = self.config.eval_microbatch or pop
+        return pop if pop % mb else mb
+
     @torch.inference_mode()
     def eval_population(self, X: torch.Tensor, bundle=None,
                         seed: Optional[int] = None) -> torch.Tensor:
@@ -709,14 +747,15 @@ class Generator:
 
         With `self.mesh` each batch splits its rows over the mesh
         (`_eval_batch`) and F comes back whole on every rank: the single
-        process's F, up to the summation order of the smaller batches."""
+        process's F, up to the summation order of the smaller batches. A
+        sampled decode draws the same uniforms for a row on any mesh
+        (`decode_draws`)."""
         bundle = bundle if bundle is not None else self.bundle
         mb = self.config.eval_microbatch
         pop = X.shape[0]
         if self.config.task == "img2txt":
-            mb = mb or pop
             return self._eval_img2txt(X[None], bundle["target"], bundle,
-                                      pop if pop % mb else mb, self.mesh, seed)[0]
+                                      self._decode_chunk(pop), self.mesh, seed)[0]
         if mb and pop > mb and pop % mb:
             raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
         if not mb or pop <= mb:
@@ -746,9 +785,11 @@ class Generator:
         decode in groups of `search_microbatch` searches, the host round
         trip per search (an overflow zeroes that search's population only),
         the text tower once at K*pop; `eval_microbatch` is not read. With
-        config.stochastic each search is evaluated alone, in turn, its
-        decode seeded with its entry of `seeds` (each search's own draw,
-        evolve/batched.py), or config.seed without them.
+        config.stochastic each search is evaluated alone, in turn, as
+        `eval_population` evaluates it (its decode in chunks of
+        `eval_microbatch`), over `mesh`, its decode's uniforms drawn from its
+        entry of `seeds` (each search's own draw, evolve/batched.py), or
+        config.seed without them.
 
         `mesh` (default `self.mesh`): every batch splits its rows over it
         (`_eval_batch`); where the shards hold whole searches, D pools
@@ -763,9 +804,10 @@ class Generator:
         bundle = self.bundle
         if self.config.task == "img2txt":
             if self.config.stochastic:
-                return torch.stack([
-                    self.eval_population(Xb[i], {**bundle, "target": targets[i:i + 1]},
-                                         None if seeds is None else seeds[i])
+                return torch.cat([
+                    self._eval_img2txt(Xb[i:i + 1], targets[i:i + 1], bundle,
+                                       self._decode_chunk(pop), mesh,
+                                       None if seeds is None else seeds[i])
                     for i in range(K)])
             return self._eval_img2txt(Xb, targets, bundle, smb * pop, mesh)
         mb = self.config.eval_microbatch

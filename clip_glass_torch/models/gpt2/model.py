@@ -203,12 +203,19 @@ def forward(params, input_ids: torch.Tensor, cfg: GPT2Config = GPT2_124M,
 # ---------------------------------------------------------------- sampling
 
 def _select_next(logits, temperature: float, top_k: int, sample: bool,
-                 generator: Optional[torch.Generator]):
+                 draws: Optional[torch.Tensor]):
     """Next-token rule of reference gpt2/sample.py:10-34: temperature scale,
     top-k floor to NEG_BIG, then a categorical draw (sample=True) or the
     argmax. The argmax is taken on the fp32 logits and elides the top-k mask,
     which only removes non-maximal logits; torch.argmax returns the first
-    maximum, as jnp.argmax does."""
+    maximum, as jnp.argmax does.
+
+    The draw inverts the kept tokens' CDF at `draws` [B], uniforms in [0, 1)
+    made by the caller: token ids in ascending order, each weighing
+    exp(logit - max). The kept tokens are the JAX package's: every logit
+    below the k-th largest is floored, so all tokens that tie at the k-th
+    value stay (more than k of them then). The pick is always a kept token,
+    and a row's pick depends on its own logits and uniform alone."""
     if temperature <= 0:
         # the argmax elision (and the reference's division) presuppose a
         # positive temperature
@@ -217,24 +224,37 @@ def _select_next(logits, temperature: float, top_k: int, sample: bool,
     if not sample:
         return logits.argmax(dim=-1)
     logits = logits / temperature
+    keep = torch.ones_like(logits, dtype=torch.bool)
     if top_k:
-        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
-        logits = torch.where(logits < kth, torch.full_like(logits, NEG_BIG), logits)
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
+        keep = logits >= torch.topk(logits, top_k, dim=-1).values[:, -1:]
+    w = torch.where(keep, torch.exp(logits - logits.max(dim=-1, keepdim=True).values), 0.0)
+    cdf = w.cumsum(dim=-1)
+    target = draws.to(cdf)[:, None] * cdf[:, -1:]
+    # the rank among the kept tokens of the first whose CDF passes the
+    # target; counting kept tokens only keeps the pick on one of them
+    rank = (keep & (cdf <= target)).sum(dim=-1, keepdim=True)
+    rank = torch.minimum(rank, keep.sum(dim=-1, keepdim=True) - 1)
+    return (keep & (keep.cumsum(dim=-1) == rank + 1)).byte().argmax(dim=-1)
 
 
 def sample_sequence(params, context: torch.Tensor, length: int,
                     cfg: GPT2Config = GPT2_124M, temperature: float = 1.0,
                     top_k: int = 0, sample: bool = False,
-                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[torch.Tensor] = None,
                     policy: Policy = FP32) -> torch.Tensor:
     """context: [B, T0] integer ids -> [B, T0 + length] (the context's dtype).
 
     Prefill fills the cache for the T0 context tokens and yields the first
     generated token; `length - 1` decode steps follow (reference
-    gpt2/sample.py:21-36). `generator` feeds the categorical draws of
-    sample=True."""
+    gpt2/sample.py:21-36). sample=True reads `draws` [B, length], uniforms
+    in [0, 1): column s picks the s-th generated token (`_select_next`), so
+    a row's tokens depend on its own context and uniforms alone."""
     B, T0 = context.shape
+    if sample:
+        if draws is None or tuple(draws.shape) != (B, length):
+            raise ValueError(f"a sampled decode of {B} rows x {length} tokens needs draws of "
+                             f"that shape, got {None if draws is None else tuple(draws.shape)}")
+        draws = draws.to(context.device)
     H, hd = cfg.n_head, cfg.n_embd // cfg.n_head
     cache = [torch.zeros((2, B, H, T0 + length, hd), dtype=policy.compute_dtype,
                          device=context.device) for _ in range(cfg.n_layer)]
@@ -243,10 +263,15 @@ def sample_sequence(params, context: torch.Tensor, length: int,
     params = precast_params(params, policy, PRECAST_EXCLUDE)
 
     logits, _ = forward(params, context, cfg, cache, 0, policy)
-    tok = _select_next(logits[:, -1], temperature, top_k, sample, generator)
+
+    def pick(logits, s):
+        return _select_next(logits[:, -1], temperature, top_k, sample,
+                            draws[:, s] if sample else None)
+
+    tok = pick(logits, 0)
     toks = [tok]
     for pos in range(T0, T0 + length - 1):
         logits, _ = forward(params, tok[:, None], cfg, cache, pos, policy)
-        tok = _select_next(logits[:, -1], temperature, top_k, sample, generator)
+        tok = pick(logits, pos - T0 + 1)
         toks.append(tok)
     return torch.cat([context, torch.stack(toks, dim=1).to(context.dtype)], dim=1)

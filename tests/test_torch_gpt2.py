@@ -144,11 +144,14 @@ def test_sampling_branch_draws_valid_ids_within_top_k(params):
     k of its step's (temperature-scaled) logits; temperature <= 0 raises."""
     _, tp = params
     ctx = torch.from_numpy(_ids(7, 6, 4))
-    gen = torch.Generator().manual_seed(0)
+
+    def draws():
+        return torch.rand((6, 5), generator=torch.Generator().manual_seed(0))
+
     out = tg2.sample_sequence(tp, ctx, 5, CFG, temperature=0.7, top_k=3, sample=True,
-                              generator=gen)
+                              draws=draws())
     again = tg2.sample_sequence(tp, ctx, 5, CFG, temperature=0.7, top_k=3, sample=True,
-                                generator=torch.Generator().manual_seed(0))
+                                draws=draws())
     torch.testing.assert_close(out, again, rtol=0, atol=0)
     assert ((0 <= out) & (out < CFG.vocab_size)).all()
     logits, _ = tg2.forward(tp, out[:, :-1], CFG)

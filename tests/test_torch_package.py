@@ -221,3 +221,17 @@ def test_package_data_ships_the_sources_built_at_run_time():
         assert any(fnmatch.fnmatch(str(rel), pat) for pat in data["clip_glass_torch"]), rel
     assert "native/*.cpp" in data["clip_glass_torch"]
     assert (PKG / "native" / "bpe_core.cpp").is_file()
+
+
+def test_every_module_directory_is_a_package():
+    """setuptools' `find` (pyproject.toml) takes a directory into the wheel
+    only with its `__init__.py`: every directory of the package that holds
+    modules has one (models/gpt2 had none), so each ships as the JAX
+    package's counterpart does."""
+    from setuptools import find_packages
+
+    dirs = {p.parent for p in PKG.rglob("*.py")}
+    missing = sorted(str(d.relative_to(ROOT)) for d in dirs if not (d / "__init__.py").is_file())
+    assert not missing, missing
+    found = set(find_packages(str(ROOT), include=["clip_glass_torch*"]))
+    assert {".".join(d.relative_to(ROOT).parts) for d in dirs} <= found
