@@ -1,0 +1,35 @@
+"""What the harness does differently by model family, one module a family,
+found by the configuration file's `family` key
+(`benchmark/families/<family>.py`), so that a new family is a new file.
+
+Each module gives:
+- `make_weights(config, gen, log)`: the family's trees (CLIP's is drawn
+  beside them by the harness), drawn from `gen` (harness/weights.py);
+- `model_config(config)`: the port's model config of the file's geometry;
+- `block_rows(config, pop, block)`: the rows the reference scores at once;
+- `targets(config, weights, prompts, device)`: each search's target as the
+  reference encodes it;
+- `score(config, weights, x, target)`: the reference's fitness columns of
+  the genomes x against one search's target, the share of the image's
+  pixels at the clip limits and D's logits (or None);
+- `flops_per_candidate(config)`: the frozen model FLOPs to score a candidate
+  (benchmark/yardstick/flops.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+
+def family(config: dict):
+    """The module of `config`'s model family."""
+    return importlib.import_module(f"benchmark.families.{config['family']}")
+
+
+def replace_fields(cfg, group: dict):
+    """A port config dataclass with the fields that `group` names."""
+    names = {f.name for f in dataclasses.fields(cfg)}
+    fix = {k: (tuple(tuple(x) if isinstance(x, list) else x for x in v)
+               if isinstance(v, list) else v) for k, v in group.items() if k in names}
+    return dataclasses.replace(cfg, **fix)

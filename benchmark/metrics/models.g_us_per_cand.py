@@ -1,0 +1,8 @@
+"""models.g_us_per_cand: CUDA events around every call of the generator
+(StyleGAN2's generator_apply, BigGAN's apply) in the traced window: their
+device time over the rows they scored, in us a candidate."""
+
+
+def read(ctx):
+    seconds, rows = ctx["spans"].get("models.G", (0.0, 0))
+    return 1e6 * seconds / rows if rows else None

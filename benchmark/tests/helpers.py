@@ -1,0 +1,24 @@
+"""Shared pieces of the benchmark's CPU tests: the tiny benchmark written
+into a temporary directory, and one run of one of its cells on the CPU."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from benchmark.harness.cell import run_cell
+from benchmark.tests import tiny
+
+SEED = 2 ** 31 + 12345   # above 32 signed bits, as the driver's seeds are
+
+
+def tiny_bench(tmp_path):
+    root = tmp_path / "benchmark"
+    return root, tiny.write(root)
+
+
+def run_tiny(root, bench, name: str, seed: int = SEED, trace: bool = False, **kw):
+    workload = next(w for w in bench["workloads"] if w["name"] == name)
+    return run_cell(bench, workload, seed, 0.3, trace, time.perf_counter(),
+                    torch.device("cpu"), bench_dir=root, log=lambda s: None, **kw)
