@@ -163,7 +163,7 @@ def measure(config, pop: int, gens: int, repeats: int = 3, n_targets: int = 1,
     if profile:
         repeats = 1
     seconds = []
-    with device_trace(profile):
+    with device_trace(profile, dev):
         for _ in range(max(1, repeats)):
             sync()
             t0 = time.perf_counter()

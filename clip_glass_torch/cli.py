@@ -41,6 +41,8 @@ import time
 
 import numpy as np
 
+from clip_glass_torch.core.profiling import TRACER, now_ns
+
 DEFAULT_TARGET = "a wolf at night with the moon in the background"
 
 
@@ -198,10 +200,13 @@ def _serve_mode(server, problem, config, args) -> int:
     resident searches (`--save-each` generations a tick); each finished
     request gets `request-NNNN/` with `target.txt` and the result artifacts
     (reference run.py:79-125), written by a one-worker saver thread while
-    the next tick runs. A writer's error ends the serve at once."""
+    the next tick runs. A writer's error ends the serve at once. With
+    --profile the serve is traced as a search is (`device_trace`)."""
     import sys
     import threading
     from concurrent.futures import ThreadPoolExecutor
+
+    from clip_glass_torch.core.profiling import device_trace
 
     # opened here, so that a bad path fails before any thread starts
     src = sys.stdin if args.serve == "-" else open(args.serve)
@@ -226,14 +231,17 @@ def _serve_mode(server, problem, config, args) -> int:
         with open(os.path.join(folder, "target.txt"), "w") as f:
             f.write(server.meta[ticket])
         _final_artifacts(problem, config, res, folder)
+        # the request's stamps go with its line
+        submitted, admitted, harvested = server.times.pop(ticket)
         if args.verbose:
-            print(f"[serve] done #{ticket}: best F={float(res.pop_F.min()):+.4f} -> {folder}",
-                  flush=True)
+            print(f"[serve] done #{ticket}: best F={float(res.pop_F.min()):+.4f} -> {folder} "
+                  f"(queued {(admitted - submitted) / 1e9:.3f}s, "
+                  f"served {(harvested - admitted) / 1e9:.3f}s)", flush=True)
 
     th = threading.Thread(target=reader, daemon=True)
-    th.start()
     written = {}   # ticket -> future of its artifacts
-    with ThreadPoolExecutor(max_workers=1) as saver:
+    with device_trace(args.profile, args.device), ThreadPoolExecutor(max_workers=1) as saver:
+        th.start()   # after the profiler's start, which queue waits do not hold
         while True:
             worked = server.tick()
             for ticket in sorted(set(server.results) - set(written)):
@@ -250,220 +258,254 @@ def _serve_mode(server, problem, config, args) -> int:
             fut.result()
     s = server.stats
     if args.verbose:
+        wait = s.queue_wait_ns / s.admissions / 1e9 if s.admissions else 0.0
         print(f"[serve] {s.completed} requests in {s.ticks} ticks, "
-              f"slot occupancy {s.occupancy:.0%}")
+              f"slot occupancy {s.occupancy:.0%}, mean queue wait {wait:.3f}s")
     return 0
 
 
+def _seconds(before: dict, after: dict, name: str) -> float:
+    """Seconds the tracer's spans `name` took between two `totals()`."""
+    if name not in after:
+        return 0.0
+    return (after[name].ns - (before[name].ns if name in before else 0)) / 1e9
+
+
+# the wallclock line's phases: (span, label)
+PHASES = (("cli.imports", "imports"), ("cli.setup", "setup"), ("cli.init", "init(gen0)"),
+          ("cli.search", "search+dumps"), ("cli.final", "final_artifacts"))
+
+
 def main(argv=None) -> int:
-    t0 = time.perf_counter()
-    phases = {}  # wallclock breakdown (printed when --verbose)
-
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    _refuse_unknown(parser, args)
-    targets = args.target or [DEFAULT_TARGET]
-    if args.serve:
-        if args.resume:
-            parser.error("--serve does not take --resume: a server's state is resident "
-                         "and per request; submit unfinished targets again")
-        if args.serve != "-" and not os.path.exists(args.serve):
-            parser.error(f"--serve file not found: {args.serve}")
-
-    import torch
-
-    from clip_glass_torch.parallel import distributed as dist
-    from clip_glass_torch.parallel import make_mesh
-
-    on_cpu = torch.device(args.device).type == "cpu"
-    # before any CUDA use: the rank takes its card here
-    try:
-        dist.initialize(args.distributed, backend="gloo" if on_cpu else None)
-    except ValueError as e:
-        parser.error(f"--distributed: {e}")
-    primary = dist.is_primary()
-    if dist.active():
+    t0 = now_ns()
+    before = TRACER.totals()   # the phases are this call's spans
+    with TRACER.span("cli.imports"):
+        parser = build_parser()
+        args = parser.parse_args(argv)
+        _refuse_unknown(parser, args)
+        targets = args.target or [DEFAULT_TARGET]
         if args.serve:
-            parser.error("--serve is one process: the server splits its slots over "
-                         "this process's cards; run one server a host")
-        if not args.mesh:
-            args.mesh = True   # a run over several processes is a sharded one
-            if primary and args.verbose:
-                print(f"[distributed] {dist.world_size()} processes; --mesh implied")
-    verbose = args.verbose and primary
+            if args.resume:
+                parser.error("--serve does not take --resume: a server's state is "
+                             "resident and per request; submit unfinished targets again")
+            if args.serve != "-" and not os.path.exists(args.serve):
+                parser.error(f"--serve file not found: {args.serve}")
 
-    from clip_glass_torch.config import get_config
-    from clip_glass_torch.core.checkpoint import (checkpoint_config_name, load_state,
-                                                  save_state)
-    from clip_glass_torch.core.profiling import GenerationMeter, Timer, device_trace
-    from clip_glass_torch.evolve.algorithm import minimize
-    from clip_glass_torch.evolve.batched import make_batched, minimize_batched
-    from clip_glass_torch.fitness.problem import GenerationProblem
+        import torch
 
-    phases["imports"] = time.perf_counter() - t0
+        from clip_glass_torch.parallel import distributed as dist
+        from clip_glass_torch.parallel import make_mesh
 
-    config = get_config(args.config).replace(
-        target=targets[0], tmp_folder=args.tmp_folder, seed=args.seed,
-        generations=args.generations, save_each=args.save_each)
-    if args.pop_size:
-        config = config.replace(pop_size=args.pop_size)
-    if args.eval_microbatch:
-        config = config.replace(eval_microbatch=args.eval_microbatch)
-    if args.weights:
-        config = config.replace(weights=args.weights)
-    if args.quantize:
-        config = config.replace(quantize=args.quantize)
+        on_cpu = torch.device(args.device).type == "cpu"
+        # before any CUDA use: the rank takes its card here
+        try:
+            dist.initialize(args.distributed, backend="gloo" if on_cpu else None)
+        except ValueError as e:
+            parser.error(f"--distributed: {e}")
+        primary = dist.is_primary()
+        if dist.active():
+            if args.serve:
+                parser.error("--serve is one process: the server splits its slots over "
+                             "this process's cards; run one server a host")
+            if not args.mesh:
+                args.mesh = True   # a run over several processes is a sharded one
+                if primary and args.verbose:
+                    print(f"[distributed] {dist.world_size()} processes; --mesh implied")
+        verbose = args.verbose and primary
 
-    clip_cfg = model_cfg = None
-    if args.tiny:
-        config, clip_cfg, model_cfg = _tinyfy(config)
+        from clip_glass_torch.config import get_config
+        from clip_glass_torch.core.checkpoint import (checkpoint_config_name, load_state,
+                                                      save_state)
+        from clip_glass_torch.core.profiling import GenerationMeter, Timer, device_trace
+        from clip_glass_torch.evolve.algorithm import minimize
+        from clip_glass_torch.evolve.batched import make_batched, minimize_batched
+        from clip_glass_torch.fitness.problem import GenerationProblem
 
-    if args.resume:
-        saved = checkpoint_config_name(config.tmp_folder)
-        if saved is not None and saved != config.name:
-            parser.error(f"--resume: the checkpoint in {config.tmp_folder} was written "
-                         f"by a {saved or 'unnamed'} search, not {config.name}")
+    with TRACER.span("cli.setup"):
+        config = get_config(args.config).replace(
+            target=targets[0], tmp_folder=args.tmp_folder, seed=args.seed,
+            generations=args.generations, save_each=args.save_each)
+        if args.pop_size:
+            config = config.replace(pop_size=args.pop_size)
+        if args.eval_microbatch:
+            config = config.replace(eval_microbatch=args.eval_microbatch)
+        if args.weights:
+            config = config.replace(weights=args.weights)
+        if args.quantize:
+            config = config.replace(quantize=args.quantize)
 
-    os.makedirs(config.tmp_folder, exist_ok=True)
-    clip_weights = args.clip_weights
-    if clip_weights is None:
-        default_clip = "./weights/clip/ViT-B-32.npz"
-        clip_weights = (default_clip
-                        if os.path.exists(default_clip) and not args.tiny
-                        else "random:0")
+        clip_cfg = model_cfg = None
+        if args.tiny:
+            config, clip_cfg, model_cfg = _tinyfy(config)
 
-    if dist.active() and config.task == "img2txt":
-        parser.error("GPT2's host round trip reads the population on the host each "
-                     "generation and runs in one process; a process group runs the "
-                     "txt2img configs")
-    mesh = make_mesh(["cpu"] if on_cpu else None) if args.mesh else None
-    problem = GenerationProblem(config, device=args.device, clip_weights=clip_weights,
-                                clip_cfg=clip_cfg, model_cfg=model_cfg, mesh=mesh)
+        if args.resume:
+            saved = checkpoint_config_name(config.tmp_folder)
+            if saved is not None and saved != config.name:
+                parser.error(f"--resume: the checkpoint in {config.tmp_folder} was written "
+                             f"by a {saved or 'unnamed'} search, not {config.name}")
+
+        os.makedirs(config.tmp_folder, exist_ok=True)
+        clip_weights = args.clip_weights
+        if clip_weights is None:
+            default_clip = "./weights/clip/ViT-B-32.npz"
+            clip_weights = (default_clip
+                            if os.path.exists(default_clip) and not args.tiny
+                            else "random:0")
+
+        if dist.active() and config.task == "img2txt":
+            parser.error("GPT2's host round trip reads the population on the host each "
+                         "generation and runs in one process; a process group runs the "
+                         "txt2img configs")
+        mesh = make_mesh(["cpu"] if on_cpu else None) if args.mesh else None
+        problem = GenerationProblem(config, device=args.device, clip_weights=clip_weights,
+                                    clip_cfg=clip_cfg, model_cfg=model_cfg, mesh=mesh)
+        n_search = len(targets)
+        if args.serve:
+            from clip_glass_torch.serving import SearchServer
+
+            if len(targets) > 1:
+                print(f"[serve] only the first --target is used (as the idle slots' "
+                      f"placeholder); ignoring {len(targets) - 1} more")
+            try:
+                server = SearchServer(problem, n_slots=args.slots, chunk=args.save_each,
+                                      seed=config.seed,
+                                      search_microbatch=args.search_microbatch, mesh=mesh)
+            except ValueError as e:
+                parser.error(f"--serve: {e}")
+        elif n_search > 1:
+            # K searches, one per --target, evaluated as one batch
+            try:
+                algorithm = make_batched(problem, targets,
+                                         search_microbatch=args.search_microbatch)
+            except ValueError as e:
+                parser.error(f"--search-microbatch: {e}")
+            rng = algorithm.generators(config.seed)
+            folders = [os.path.join(config.tmp_folder, f"search-{i:02d}")
+                       for i in range(n_search)]
+            for folder, target in zip(folders, targets) if primary else ():
+                os.makedirs(folder, exist_ok=True)
+                with open(os.path.join(folder, "target.txt"), "w") as f:
+                    f.write(target)
+        else:
+            algorithm = problem.make_algorithm()
+            rng = algorithm.generator(config.seed)
+            folders = [config.tmp_folder]
     if args.serve:
-        from clip_glass_torch.serving import SearchServer
-
-        if len(targets) > 1:
-            print(f"[serve] only the first --target is used (as the idle slots' "
-                  f"placeholder); ignoring {len(targets) - 1} more")
-        try:
-            server = SearchServer(problem, n_slots=args.slots, chunk=args.save_each,
-                                  seed=config.seed, search_microbatch=args.search_microbatch,
-                                  mesh=mesh)
-        except ValueError as e:
-            parser.error(f"--serve: {e}")
         return _serve_mode(server, problem, config, args)
-    n_search = len(targets)
-    if n_search > 1:
-        # K searches, one per --target, evaluated as one batch
-        try:
-            algorithm = make_batched(problem, targets, search_microbatch=args.search_microbatch)
-        except ValueError as e:
-            parser.error(f"--search-microbatch: {e}")
-        rng = algorithm.generators(config.seed)
-        folders = [os.path.join(config.tmp_folder, f"search-{i:02d}") for i in range(n_search)]
-        for folder, target in zip(folders, targets) if primary else ():
-            os.makedirs(folder, exist_ok=True)
-            with open(os.path.join(folder, "target.txt"), "w") as f:
-                f.write(target)
-    else:
-        algorithm = problem.make_algorithm()
-        rng = algorithm.generator(config.seed)
-        folders = [config.tmp_folder]
-    phases["setup"] = time.perf_counter() - t0 - sum(phases.values())
 
-    meter = GenerationMeter(config.pop_size * n_search)
-    # artifact dumps: the device work (render, quantize, copy to the host)
-    # runs here on the main thread; a one-worker saver thread (`saver`,
-    # below) assembles the grid and encodes the JPEG (or decodes the
-    # captions) while the next chunk of generations runs
-    from concurrent.futures import ThreadPoolExecutor
-    pending = []   # (name, render seconds, future of the write's seconds)
+    with TRACER.span("cli.init"):
+        meter = GenerationMeter(config.pop_size * n_search)
+        # artifact dumps: the device work (render, quantize, copy to the host)
+        # runs here on the main thread; a one-worker saver thread (`saver`,
+        # below) assembles the grid and encodes the JPEG (or decodes the
+        # captions) while the next chunk of generations runs
+        from concurrent.futures import ThreadPoolExecutor
+        pending = []   # (name, render seconds, future of the write's seconds)
 
-    def _write(rendered, path):
-        with Timer() as write:
-            problem.generator.save(rendered, path)
-        return write.seconds
+        def _write(rendered, path):
+            with Timer() as write:
+                problem.generator.save(rendered, path)
+            return write.seconds
 
-    ext = artifact_ext(config)
+        ext = artifact_ext(config)
 
-    def searches(state):
-        """(gen, [(X, F) of each search]) of a single or batched state."""
-        if n_search == 1:
-            return state.gen, [(state.X, state.F)]
-        return state.gen[0], list(zip(state.X, state.F))
+        def searches(state):
+            """(gen, [(X, F) of each search]) of a single or batched state."""
+            if n_search == 1:
+                return state.gen, [(state.X, state.F)]
+            return state.gen[0], list(zip(state.X, state.F))
 
-    @torch.inference_mode()
-    def _dump(state):
-        gen, pops = searches(state)
-        name = (f"genetic-it-{gen}.{ext}" if gen < config.generations
-                else f"genetic-it-final.{ext}")
-        for folder, (X, F) in zip(folders, pops):
-            with Timer() as render:
-                if config.n_obj == 1:  # sorted by fitness (reference run.py:36-38)
-                    order = fitness_order(F.cpu().numpy())
-                    X = X[torch.from_numpy(order).to(X.device)]
-                rendered = problem.generator.render(X)
-            label = os.path.relpath(os.path.join(folder, name), config.tmp_folder)
-            pending.append((label, render.seconds, saver.submit(
-                _write, rendered, os.path.join(folder, name))))
+        @torch.inference_mode()
+        def _dump(state):
+            gen, pops = searches(state)
+            name = (f"genetic-it-{gen}.{ext}" if gen < config.generations
+                    else f"genetic-it-final.{ext}")
+            for folder, (X, F) in zip(folders, pops):
+                with Timer() as render:
+                    if config.n_obj == 1:  # sorted by fitness (reference run.py:36-38)
+                        order = fitness_order(F.cpu().numpy())
+                        X = X[torch.from_numpy(order).to(X.device)]
+                    rendered = problem.generator.render(X)
+                label = os.path.relpath(os.path.join(folder, name), config.tmp_folder)
+                pending.append((label, render.seconds, saver.submit(
+                    _write, rendered, os.path.join(folder, name))))
 
-    def save_callback(state):
-        if primary:   # rank 0 owns the artifact folder
-            _dump(state)
-        save_state(state, rng, config.tmp_folder, config.name)
-        gen = searches(state)[0]
-        # the first chunk's wall time holds the kernel builds and the
-        # libraries' warm-up: rebaseline there so rates are steady-state
-        meter.set_generation(gen, rebaseline=(meter.generation == 0 and gen > 0))
-        if verbose and meter.gens_per_sec > 0:
-            print(f"  rate: {meter.gens_per_sec:.2f} gen/s "
-                  f"({meter.candidates_per_sec:.1f} candidates/s)")
+        def save_callback(state):
+            if primary:   # rank 0 owns the artifact folder
+                _dump(state)
+            save_state(state, rng, config.tmp_folder, config.name)
+            gen = searches(state)[0]
+            # the first chunk's wall time holds the kernel builds and the
+            # libraries' warm-up: rebaseline there so rates are steady-state
+            meter.set_generation(gen, rebaseline=(meter.generation == 0 and gen > 0))
+            if verbose and meter.gens_per_sec > 0:
+                print(f"  rate: {meter.gens_per_sec:.2f} gen/s "
+                      f"({meter.candidates_per_sec:.1f} candidates/s)")
 
-    state = None
-    if args.resume:
-        try:
-            state = load_state(config.tmp_folder, rng)
-        except ValueError as e:
-            parser.error(f"--resume: {e}")
-        want = ((config.pop_size, config.n_var), (config.pop_size, config.n_obj))
-        if n_search > 1:
-            want = tuple((n_search, *w) for w in want)
+        state = None
+        if args.resume:
+            try:
+                state = load_state(config.tmp_folder, rng)
+            except ValueError as e:
+                parser.error(f"--resume: {e}")
+            want = ((config.pop_size, config.n_var), (config.pop_size, config.n_obj))
+            if n_search > 1:
+                want = tuple((n_search, *w) for w in want)
+            if state is None:
+                if primary:
+                    print("no checkpoint found; starting fresh")
+            elif (tuple(state.X.shape), tuple(state.F.shape)) != want:
+                parser.error(f"--resume: the checkpoint's X {tuple(state.X.shape)} and F "
+                             f"{tuple(state.F.shape)} do not fit this search "
+                             f"({config.name}, pop {config.pop_size})")
         if state is None:
-            if primary:
-                print("no checkpoint found; starting fresh")
-        elif (tuple(state.X.shape), tuple(state.F.shape)) != want:
-            parser.error(f"--resume: the checkpoint's X {tuple(state.X.shape)} and F "
-                         f"{tuple(state.F.shape)} do not fit this search ({config.name}, "
-                         f"pop {config.pop_size})")
-    if state is None:
-        state = algorithm.init(rng)
+            state = algorithm.init(rng)
 
-    remaining = config.generations - searches(state)[0]
-    phases["init(gen0)"] = time.perf_counter() - t0 - sum(phases.values())
+        remaining = config.generations - searches(state)[0]
     run = minimize if n_search == 1 else minimize_batched
-    with ThreadPoolExecutor(max_workers=1) as saver:
-        with device_trace(args.profile):
+    with TRACER.span("cli.search"), ThreadPoolExecutor(max_workers=1) as saver:
+        with device_trace(args.profile, args.device):
             res = run(algorithm, max(remaining, 0), rng, callback=save_callback,
                       save_each=config.save_each, verbose=verbose, state=state)
         writes = [fut.result() for _, _, fut in pending]  # surface any write error
-    phases["search+dumps"] = time.perf_counter() - t0 - sum(phases.values())
 
     # ---- final artifacts (reference run.py:79-125), one set per search
-    for r, folder in zip(res if n_search > 1 else [res], folders) if primary else ():
-        _final_artifacts(problem, config, r, folder)
-    phases["final_artifacts"] = time.perf_counter() - t0 - sum(phases.values())
+    with TRACER.span("cli.final"):
+        for r, folder in zip(res if n_search > 1 else [res], folders) if primary else ():
+            _final_artifacts(problem, config, r, folder)
     if verbose:
         for (name, render_s, _), write_s in zip(pending, writes):
             print(f"dump {name}: render={render_s:.3f}s write={write_s:.3f}s")
-        total = time.perf_counter() - t0
-        parts = "  ".join(f"{k}={v:.3f}s" for k, v in phases.items())
-        print(f"wallclock: total={total:.3f}s  {parts}")
+        total = (now_ns() - t0) / 1e9
+        if TRACER.enabled:
+            after = TRACER.totals()
+            parts = "  ".join(f"{label}={_seconds(before, after, span):.3f}s"
+                              for span, label in PHASES)
+            print(f"wallclock: total={total:.3f}s  {parts}")
+            _print_kernels(before, after)
+        else:   # the phases and the kernels' load are the tracer's spans
+            print(f"wallclock: total={total:.3f}s  (no phases: the tracer is off)")
     # main keeps nothing (the closures see these names through their cells):
     # free the card's cache for the next run in the same process
     del problem, algorithm, res, state
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
     return 0
+
+
+def _print_kernels(before: dict, after: dict) -> None:
+    """Whether this call built the CUDA kernels or loaded them, and the
+    seconds it took (the span `kernels.load`); nothing when it did neither
+    (the CPU, or a library loaded by an earlier call in this process)."""
+    load = after.get("kernels.load")
+    if load is None or "kernels.load" in before:
+        return
+    seconds = (load.first.t1_ns - load.first.t0_ns) / 1e9
+    if load.first.attrs.get("built"):
+        builds = TRACER.counters().get("kernels.builds", 0)
+        print(f"kernels: built in {seconds:.3f}s ({builds} nvcc runs)")
+    else:
+        print(f"kernels: loaded in {seconds:.3f}s")
 
 
 if __name__ == "__main__":

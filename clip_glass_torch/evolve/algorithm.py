@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from clip_glass_torch.core.device import constant, resolve_device
+from clip_glass_torch.core.profiling import TRACER
 from clip_glass_torch.evolve import crossover as xo
 from clip_glass_torch.evolve import mutation as mut
 from clip_glass_torch.evolve import sampling as smp
@@ -126,6 +127,9 @@ def make_step_halves(ops: Operators, pop_size: int, algorithm: str = "nsga2"):
       vary(state, gen) -> offspring: selection, crossover, mutation and
         duplicate resampling, drawing from `gen` in that order;
       survive(state, offspring, F_offspring) -> the next state (no draws).
+
+    Each half is a span (`search.vary`, `search.survive`) whose `search`
+    attr is the keyword of that name: the search's index in a batch.
     """
     if algorithm not in ("ga", "nsga2"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
@@ -134,24 +138,27 @@ def make_step_halves(ops: Operators, pop_size: int, algorithm: str = "nsga2"):
     n_matings = pop_size // 2
     is_nsga2 = algorithm == "nsga2"
 
-    def vary(state: GAState, gen: torch.Generator) -> torch.Tensor:
-        if is_nsga2:
-            rank = non_dominated_rank(state.F)
-            crowd = crowding_distance(state.F, rank)
-            pairs = tournament_nsga2(gen, state.F, crowd, n_matings)
-        else:
-            pairs = tournament_ga(gen, state.F, n_matings)
-        o1, o2 = ops.cross(gen, state.X[pairs[:, 0]], state.X[pairs[:, 1]])
-        off = ops.mutate(gen, torch.cat([o1, o2], dim=0))
-        return resample_duplicates(gen, off, state.X, ops.sample)
+    def vary(state: GAState, gen: torch.Generator, search: int = 0) -> torch.Tensor:
+        with TRACER.span("search.vary", search=search):
+            if is_nsga2:
+                rank = non_dominated_rank(state.F)
+                crowd = crowding_distance(state.F, rank)
+                pairs = tournament_nsga2(gen, state.F, crowd, n_matings)
+            else:
+                pairs = tournament_ga(gen, state.F, n_matings)
+            o1, o2 = ops.cross(gen, state.X[pairs[:, 0]], state.X[pairs[:, 1]])
+            off = ops.mutate(gen, torch.cat([o1, o2], dim=0))
+            return resample_duplicates(gen, off, state.X, ops.sample)
 
-    def survive(state: GAState, off: torch.Tensor, F_off: torch.Tensor) -> GAState:
-        X_all, F_all = torch.cat([state.X, off]), torch.cat([state.F, F_off])
-        if is_nsga2:
-            X_new, F_new, _, _ = nsga2_survival(X_all, F_all, pop_size)
-        else:
-            X_new, F_new = fitness_survival(X_all, F_all, pop_size)
-        return GAState(X_new, F_new, state.gen + 1)
+    def survive(state: GAState, off: torch.Tensor, F_off: torch.Tensor,
+                search: int = 0) -> GAState:
+        with TRACER.span("search.survive", search=search):
+            X_all, F_all = torch.cat([state.X, off]), torch.cat([state.F, F_off])
+            if is_nsga2:
+                X_new, F_new, _, _ = nsga2_survival(X_all, F_all, pop_size)
+            else:
+                X_new, F_new = fitness_survival(X_all, F_all, pop_size)
+            return GAState(X_new, F_new, state.gen + 1)
 
     return vary, survive
 
@@ -165,9 +172,10 @@ def make_step(ops: Operators, eval_fn: Callable, pop_size: int,
     vary, survive = make_step_halves(ops, pop_size, algorithm)
 
     def step(state: GAState, gen: torch.Generator) -> GAState:
-        off = vary(state, gen)
-        F_off = eval_fn(off, draw_seed(gen)) if stochastic else eval_fn(off)
-        return survive(state, off, F_off)
+        with TRACER.span("search.step"):
+            off = vary(state, gen)
+            F_off = eval_fn(off, draw_seed(gen)) if stochastic else eval_fn(off)
+            return survive(state, off, F_off)
 
     return step
 

@@ -30,6 +30,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from clip_glass_torch.core.profiling import TRACER
 from clip_glass_torch.evolve.algorithm import (Algorithm, GAState, Result, draw_seed,
                                                extract_result, make_step_halves)
 from clip_glass_torch.parallel import distributed as dist
@@ -157,10 +158,13 @@ class BatchedAlgorithm:
         """One generation of every search: K `vary` halves, one evaluation,
         K `survive` halves."""
         vary, survive = self._halves
-        states = [slice_state(state, i) for i in range(self.n_search)]
-        off = torch.stack([vary(s, g) for s, g in zip(states, generators)])
-        F_off = self.evaluate(off, seeds=self.draw_seeds(generators))
-        return stack_states([survive(s, off[i], F_off[i]) for i, s in enumerate(states)])
+        with TRACER.span("search.step"):
+            states = [slice_state(state, i) for i in range(self.n_search)]
+            off = torch.stack([vary(s, g, search=i)
+                               for i, (s, g) in enumerate(zip(states, generators))])
+            F_off = self.evaluate(off, seeds=self.draw_seeds(generators))
+            return stack_states([survive(s, off[i], F_off[i], search=i)
+                                 for i, s in enumerate(states)])
 
 
 def make_batched(problem, targets: Sequence[str],

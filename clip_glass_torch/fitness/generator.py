@@ -46,6 +46,7 @@ import torch
 from clip_glass_torch.core import memory, pytree
 from clip_glass_torch.core.device import resolve_device
 from clip_glass_torch.core.dtypes import Policy, precast_params, tree_to
+from clip_glass_torch.core.profiling import TRACER
 from clip_glass_torch.evolve.batched import search_seed
 from clip_glass_torch.fitness import latent as latent_mod
 from clip_glass_torch.models.biggan import model as bg
@@ -280,43 +281,44 @@ class Generator:
         self.mesh = mesh
         self._replicas = {}   # card -> (the bundle's identity, its copy there)
         self.policy = policy or Policy.make(config.param_dtype, config.compute_dtype)
-        if bundle is None:
-            bundle, self.clip_cfg, self.model_cfg = load_bundle(
-                config, clip_cfg, model_cfg, clip_weights)
-        else:
-            self.clip_cfg = clip_cfg or clip_model.VIT_B_32
-            self.model_cfg = model_cfg or _default_model_cfg(config)
-        if config.use_discriminator and bundle.get("d") is None:
-            raise ValueError(f"config {config.name!r} needs discriminator weights")
+        with TRACER.span("setup.stage"):
+            if bundle is None:
+                bundle, self.clip_cfg, self.model_cfg = load_bundle(
+                    config, clip_cfg, model_cfg, clip_weights)
+            else:
+                self.clip_cfg = clip_cfg or clip_model.VIT_B_32
+                self.model_cfg = model_cfg or _default_model_cfg(config)
+            if config.use_discriminator and bundle.get("d") is None:
+                raise ValueError(f"config {config.name!r} needs discriminator weights")
 
-        def stage(tree, exclude=()):
-            # frozen weights: cast to the compute dtype once, then move
-            return tree_to(precast_params(tree, self.policy, exclude), self.device)
+            def stage(tree, exclude=()):
+                # frozen weights: cast to the compute dtype once, then move
+                return tree_to(precast_params(tree, self.policy, exclude), self.device)
 
-        self.clip_params = stage(bundle["clip"], clip_model.PRECAST_EXCLUDE)
-        if mesh is not None and mesh.tp > 1:
-            # each local card holds its model shard of CLIP alone
-            clip_heads_divide(self.clip_cfg, mesh.tp)
-            self.clip_params = shard_clip_tp(self.clip_params, mesh)
-        self.d_params = self.noise = None
-        if config.model == "biggan":
-            # the BN running statistics stay fp32 (bg.PRECAST_EXCLUDE)
-            self.g_params = stage(bundle["g"], bg.PRECAST_EXCLUDE)
-        elif config.model == "gpt2":
-            # the matmul weights in the compute dtype once, for every decode
-            # (sample_sequence's own cast is then a no-op); LN stays raw
-            self.g_params = stage(bundle["g"], g2.PRECAST_EXCLUDE)
-            ids = get_gpt2_tokenizer().encode(config.init_text)
-            self.init_tokens = torch.tensor(ids, dtype=torch.int32, device=self.device)
-        else:
-            self.g_params = stage(bundle["g"], sg2.PRECAST_EXCLUDE)
-            # D stays fp32, as in the JAX package: its s2d down-composite
-            # folds compose FIR taps with the raw weights and round once at
-            # the end (its plain branch casts every weight through the policy)
-            self.d_params = (tree_to(bundle["d"], self.device)
-                             if config.use_discriminator else None)
-            self.noise = sg2.pack_noise(stage(list(bundle["noise"])), self.model_cfg,
-                                        self.policy)
+            self.clip_params = stage(bundle["clip"], clip_model.PRECAST_EXCLUDE)
+            if mesh is not None and mesh.tp > 1:
+                # each local card holds its model shard of CLIP alone
+                clip_heads_divide(self.clip_cfg, mesh.tp)
+                self.clip_params = shard_clip_tp(self.clip_params, mesh)
+            self.d_params = self.noise = None
+            if config.model == "biggan":
+                # the BN running statistics stay fp32 (bg.PRECAST_EXCLUDE)
+                self.g_params = stage(bundle["g"], bg.PRECAST_EXCLUDE)
+            elif config.model == "gpt2":
+                # the matmul weights in the compute dtype once, for every decode
+                # (sample_sequence's own cast is then a no-op); LN stays raw
+                self.g_params = stage(bundle["g"], g2.PRECAST_EXCLUDE)
+                ids = get_gpt2_tokenizer().encode(config.init_text)
+                self.init_tokens = torch.tensor(ids, dtype=torch.int32, device=self.device)
+            else:
+                self.g_params = stage(bundle["g"], sg2.PRECAST_EXCLUDE)
+                # D stays fp32, as in the JAX package: its s2d down-composite
+                # folds compose FIR taps with the raw weights and round once at
+                # the end (its plain branch casts every weight through the policy)
+                self.d_params = (tree_to(bundle["d"], self.device)
+                                 if config.use_discriminator else None)
+                self.noise = sg2.pack_noise(stage(list(bundle["noise"])), self.model_cfg,
+                                            self.policy)
         # the target's features, computed once (reference generator.py:22-27)
         if bundle.get("target") is not None:
             target = bundle["target"].to(self.device)
@@ -329,7 +331,8 @@ class Generator:
         # package skips it too), so an abstract run sizes the float path
         self._quant_scales = None
         if config.quantize and not self.abstract:
-            self._calibrate_quant()
+            with TRACER.span("setup.stage", part="int8"):
+                self._calibrate_quant()
 
     @torch.inference_mode()
     def _calibrate_quant(self, X0: Optional[torch.Tensor] = None) -> None:
@@ -377,19 +380,20 @@ class Generator:
         `encode_targets` (generator.py:573-587); multi-search batching and
         serving score each search against its row."""
         targets = list(targets)
-        if self.config.task == "txt2img":
-            tokens = torch.as_tensor(tokenize(targets), device=self.device)
-            return self._each_shard(lambda clip, dev: self._encode(
-                clip_model.encode_text, clip, tokens.to(dev))).to(self.device)
-        from PIL import Image
+        with TRACER.span("setup.targets", n=len(targets)):
+            if self.config.task == "txt2img":
+                tokens = torch.as_tensor(tokenize(targets), device=self.device)
+                return self._each_shard(lambda clip, dev: self._encode(
+                    clip_model.encode_text, clip, tokens.to(dev))).to(self.device)
+            from PIL import Image
 
-        imgs = []
-        for path in targets:
-            with Image.open(path) as im:
-                imgs.append(clip_preprocess_pil(im, self.clip_cfg.image_resolution))
-        imgs = torch.as_tensor(np.concatenate(imgs), device=self.device)
-        return self._each_shard(lambda clip, dev: self._encode(
-            clip_model.encode_image, clip, imgs.to(dev))).to(self.device)
+            imgs = []
+            for path in targets:
+                with Image.open(path) as im:
+                    imgs.append(clip_preprocess_pil(im, self.clip_cfg.image_resolution))
+            imgs = torch.as_tensor(np.concatenate(imgs), device=self.device)
+            return self._each_shard(lambda clip, dev: self._encode(
+                clip_model.encode_image, clip, imgs.to(dev))).to(self.device)
 
     def _each_shard(self, fn):
         """fn(CLIP's bundle entries, their device) with the whole tower on
@@ -433,26 +437,27 @@ class Generator:
         a key)."""
         bundle = bundle if bundle is not None else self.bundle
         cfg = self.config
-        if cfg.model == "gpt2":
-            (ids,) = latent_mod.decode_gpt2(X)
-            init = self.init_tokens.to(ids.device).expand(ids.shape[0], -1)
-            ctx = torch.cat([ids, init], dim=1)
-            if cfg.stochastic and draws is None:
-                draws = _uniforms(cfg.seed if seed is None else seed, ids.shape[0],
-                                  cfg.max_tokens_len)
-            return g2.sample_sequence(bundle["g"], ctx, cfg.max_tokens_len, self.model_cfg,
-                                      temperature=GPT2_TEMPERATURE, top_k=GPT2_TOP_K,
-                                      sample=cfg.stochastic, draws=draws,
-                                      policy=self.policy)
-        if cfg.model == "biggan":
-            z, cv = latent_mod.decode_biggan(X, self.config.dim_z)
-            imgs = bg.apply(bundle["g"], z, cv, self.config.truncation, self.model_cfg,
-                            self.policy)
+        with TRACER.span("models.G", rows=X.shape[0]):
+            if cfg.model == "gpt2":
+                (ids,) = latent_mod.decode_gpt2(X)
+                init = self.init_tokens.to(ids.device).expand(ids.shape[0], -1)
+                ctx = torch.cat([ids, init], dim=1)
+                if cfg.stochastic and draws is None:
+                    draws = _uniforms(cfg.seed if seed is None else seed, ids.shape[0],
+                                      cfg.max_tokens_len)
+                return g2.sample_sequence(bundle["g"], ctx, cfg.max_tokens_len,
+                                          self.model_cfg, temperature=GPT2_TEMPERATURE,
+                                          top_k=GPT2_TOP_K, sample=cfg.stochastic,
+                                          draws=draws, policy=self.policy)
+            if cfg.model == "biggan":
+                z, cv = latent_mod.decode_biggan(X, self.config.dim_z)
+                imgs = bg.apply(bundle["g"], z, cv, self.config.truncation, self.model_cfg,
+                                self.policy)
+                return biggan_norm(imgs)
+            (z,) = latent_mod.decode_stylegan2(X)
+            imgs = sg2.generator_apply(bundle["g"], z, self.model_cfg,
+                                       noise=bundle["noise"], policy=self.policy)
             return biggan_norm(imgs)
-        (z,) = latent_mod.decode_stylegan2(X)
-        imgs = sg2.generator_apply(bundle["g"], z, self.model_cfg,
-                                   noise=bundle["noise"], policy=self.policy)
-        return biggan_norm(imgs)
 
     @torch.inference_mode()
     def render(self, X: torch.Tensor) -> np.ndarray:
@@ -569,7 +574,8 @@ class Generator:
         normalization (GPT-2's captions: `_eval_img2txt`)."""
         bundle = bundle if bundle is not None else self.bundle
         imgs = resize_bilinear(generated, self.clip_cfg.image_resolution)
-        feats = self._encode(clip_model.encode_image, bundle, imgs)
+        with TRACER.span("models.CLIP", rows=imgs.shape[0]):
+            feats = self._encode(clip_model.encode_image, bundle, imgs)
         return _cosine(feats, bundle["target"])
 
     def discriminate(self, images, bundle=None, n_search: int = 1,
@@ -578,9 +584,10 @@ class Generator:
         back to [-1,1] first); `n_search` and `mesh` as in
         sg2.discriminator_apply."""
         bundle = bundle if bundle is not None else self.bundle
-        return sg2.discriminator_apply(bundle["d"], biggan_denorm(images),
-                                       self.model_cfg, policy=self.policy,
-                                       n_search=n_search, mesh=mesh)
+        with TRACER.span("models.D", rows=images.shape[0]):
+            return sg2.discriminator_apply(bundle["d"], biggan_denorm(images),
+                                           self.model_cfg, policy=self.policy,
+                                           n_search=n_search, mesh=mesh)
 
     @property
     def _s2d_active(self) -> bool:
@@ -593,11 +600,12 @@ class Generator:
         """Genomes -> the packed [0, 1] image of the s2d path (the layout
         sg2.rgb_domain(model_cfg) names)."""
         bundle = bundle if bundle is not None else self.bundle
-        (z,) = latent_mod.decode_stylegan2(X)
-        img = sg2.generator_apply(bundle["g"], z, self.model_cfg,
-                                  noise=bundle["noise"], policy=self.policy,
-                                  output_s2d=True)
-        return biggan_norm(img)
+        with TRACER.span("models.G", rows=X.shape[0]):
+            (z,) = latent_mod.decode_stylegan2(X)
+            img = sg2.generator_apply(bundle["g"], z, self.model_cfg,
+                                      noise=bundle["noise"], policy=self.policy,
+                                      output_s2d=True)
+            return biggan_norm(img)
 
     def clip_similarity_packed(self, img, bundle=None) -> torch.Tensor:
         """clip_similarity of a packed image: the phase-aware 224 px resize."""
@@ -608,7 +616,8 @@ class Generator:
         else:
             i224 = s2d_ops.resize_bilinear_from_s2d(
                 img, size, in_off=sg2.s2d_output_offset(self.model_cfg))
-        feats = self._encode(clip_model.encode_image, bundle, i224)
+        with TRACER.span("models.CLIP", rows=i224.shape[0]):
+            feats = self._encode(clip_model.encode_image, bundle, i224)
         return _cosine(feats, bundle["target"])
 
     def discriminate_packed(self, img, bundle=None, n_search: int = 1,
@@ -616,10 +625,11 @@ class Generator:
         """discriminate of a packed image."""
         bundle = bundle if bundle is not None else self.bundle
         s4d = sg2.rgb_domain(self.model_cfg) == "s4d"
-        return sg2.discriminator_apply(
-            bundle["d"], biggan_denorm(img), self.model_cfg, policy=self.policy,
-            input_s2d=not s4d, input_offset=sg2.s2d_output_offset(self.model_cfg),
-            input_s4d=s4d, n_search=n_search, mesh=mesh)
+        with TRACER.span("models.D", rows=img.shape[0]):
+            return sg2.discriminator_apply(
+                bundle["d"], biggan_denorm(img), self.model_cfg, policy=self.policy,
+                input_s2d=not s4d, input_offset=sg2.s2d_output_offset(self.model_cfg),
+                input_s4d=s4d, n_search=n_search, mesh=mesh)
 
     def _eval_stylegan2_s2d(self, X: torch.Tensor, bundle, n_search: int = 1,
                             mesh=None) -> torch.Tensor:
@@ -753,15 +763,16 @@ class Generator:
         bundle = bundle if bundle is not None else self.bundle
         mb = self.config.eval_microbatch
         pop = X.shape[0]
-        if self.config.task == "img2txt":
-            return self._eval_img2txt(X[None], bundle["target"], bundle,
-                                      self._decode_chunk(pop), self.mesh, seed)[0]
-        if mb and pop > mb and pop % mb:
-            raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
-        if not mb or pop <= mb:
-            return self._eval_batch(X, bundle, mesh=self.mesh)
-        return torch.cat([self._eval_batch(X[i:i + mb], bundle, mesh=self.mesh)
-                          for i in range(0, pop, mb)], dim=0)
+        with TRACER.span("fitness.eval", rows=pop):
+            if self.config.task == "img2txt":
+                return self._eval_img2txt(X[None], bundle["target"], bundle,
+                                          self._decode_chunk(pop), self.mesh, seed)[0]
+            if mb and pop > mb and pop % mb:
+                raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
+            if not mb or pop <= mb:
+                return self._eval_batch(X, bundle, mesh=self.mesh)
+            return torch.cat([self._eval_batch(X[i:i + mb], bundle, mesh=self.mesh)
+                              for i in range(0, pop, mb)], dim=0)
 
     @torch.inference_mode()
     def eval_population_batched(self, Xb: torch.Tensor, targets: torch.Tensor,
@@ -794,35 +805,36 @@ class Generator:
         `mesh` (default `self.mesh`): every batch splits its rows over it
         (`_eval_batch`); where the shards hold whole searches, D pools
         inside each card."""
-        mesh = mesh if mesh is not None else self.mesh
-        K, pop, n_var = Xb.shape
-        if targets.shape[0] != K:
-            raise ValueError(f"{targets.shape[0]} targets for {K} searches")
-        smb = min(search_microbatch or K, K)
-        if K % smb:
-            raise ValueError(f"search_microbatch {smb} must divide n_search {K}")
-        bundle = self.bundle
-        if self.config.task == "img2txt":
-            if self.config.stochastic:
-                return torch.cat([
-                    self._eval_img2txt(Xb[i:i + 1], targets[i:i + 1], bundle,
-                                       self._decode_chunk(pop), mesh,
-                                       None if seeds is None else seeds[i])
-                    for i in range(K)])
-            return self._eval_img2txt(Xb, targets, bundle, smb * pop, mesh)
-        mb = self.config.eval_microbatch
-        if mb and pop > mb and pop % mb:
-            raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
-        if not mb or pop <= mb:
-            mb = pop
-        out = []
-        for s in range(0, K, smb):
-            rows = {**bundle, "target": targets[s:s + smb].repeat_interleave(mb, dim=0)}
-            out.append(torch.cat([
-                self._eval_batch(Xb[s:s + smb, c:c + mb].reshape(smb * mb, n_var), rows,
-                                 n_search=smb, mesh=mesh).reshape(smb, mb, -1)
-                for c in range(0, pop, mb)], dim=1))
-        return torch.cat(out)
+        with TRACER.span("fitness.eval", rows=Xb.shape[0] * Xb.shape[1]):
+            mesh = mesh if mesh is not None else self.mesh
+            K, pop, n_var = Xb.shape
+            if targets.shape[0] != K:
+                raise ValueError(f"{targets.shape[0]} targets for {K} searches")
+            smb = min(search_microbatch or K, K)
+            if K % smb:
+                raise ValueError(f"search_microbatch {smb} must divide n_search {K}")
+            bundle = self.bundle
+            if self.config.task == "img2txt":
+                if self.config.stochastic:
+                    return torch.cat([
+                        self._eval_img2txt(Xb[i:i + 1], targets[i:i + 1], bundle,
+                                           self._decode_chunk(pop), mesh,
+                                           None if seeds is None else seeds[i])
+                        for i in range(K)])
+                return self._eval_img2txt(Xb, targets, bundle, smb * pop, mesh)
+            mb = self.config.eval_microbatch
+            if mb and pop > mb and pop % mb:
+                raise ValueError(f"eval_microbatch {mb} must divide pop_size {pop}")
+            if not mb or pop <= mb:
+                mb = pop
+            out = []
+            for s in range(0, K, smb):
+                rows = {**bundle, "target": targets[s:s + smb].repeat_interleave(mb, dim=0)}
+                out.append(torch.cat([
+                    self._eval_batch(Xb[s:s + smb, c:c + mb].reshape(smb * mb, n_var), rows,
+                                     n_search=smb, mesh=mesh).reshape(smb, mb, -1)
+                    for c in range(0, pop, mb)], dim=1))
+            return torch.cat(out)
 
     def save(self, generated: np.ndarray, path: str):
         """Artifact dump (reference generator.py:63-72) of what `render`

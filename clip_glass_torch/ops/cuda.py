@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from clip_glass_torch.core.cache import build_root
+from clip_glass_torch.core.profiling import TRACER
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
@@ -126,7 +127,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels into the shared library (no-op when the library
-    for these exact sources exists). Returns its path."""
+    for these exact sources exists). Returns its path. Each run of nvcc
+    counts in the tracer's `kernels.builds`."""
     out = library_path()
     if out.exists():
         return out
@@ -139,6 +141,7 @@ def build() -> Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            TRACER.count("kernels.builds")
         failures, log = [], []
         for cmd, _, p in procs:
             stdout, stderr = p.communicate()
@@ -153,6 +156,7 @@ def build() -> Path:
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib,
                *[obj for _, obj, _ in procs]]
         res = subprocess.run(cmd, capture_output=True, text=True)
+        TRACER.count("kernels.builds")
         if res.returncode != 0:
             raise RuntimeError(f"CUDA kernel link failed:\n$ {' '.join(cmd)}\n"
                                f"{res.stdout}{res.stderr}")
@@ -162,20 +166,22 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use; the lock guards only
-    that first build and load)."""
+    that first build and load, the span `kernels.load`, whose `built` says
+    whether nvcc ran)."""
     global _lib
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.cg_error_string.argtypes = [ctypes.c_int]
-            lib.cg_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with TRACER.span("kernels.load", built=not library_path().exists()):
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                lib.cg_error_string.argtypes = [ctypes.c_int]
+                lib.cg_error_string.restype = ctypes.c_char_p
+                _lib = lib
         return _lib
 
 

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from clip_glass_torch.core.profiling import TRACER, now_ns
 from clip_glass_torch.evolve.algorithm import GAState, Result, extract_result
 from clip_glass_torch.evolve.batched import make_batched, search_generator, slice_state
 
@@ -54,6 +55,8 @@ class ServerStats:
     # the admitted requests' initial populations (scored, but kept out of
     # useful_evals so that rates compare with the steady state)
     admission_evals: int = 0
+    admissions: int = 0            # requests admitted into a slot
+    queue_wait_ns: int = 0         # their summed waits from submit to admission
 
     @property
     def occupancy(self) -> float:
@@ -97,6 +100,11 @@ class SearchServer:
         self._stop = False
         self.results: Dict[int, Result] = {}
         self.meta: Dict[int, str] = {}   # ticket -> target, set in submit()
+        # ticket -> [submitted, admitted, harvested] (profiling.now_ns; None
+        # until then), for the operator's line of a finished request; its
+        # reader pops the entry (the CLI's `done` line). `stats` keeps the
+        # running sums, which the benchmark subtracts between two readings
+        self.times: Dict[int, list] = {}
         self.stats = ServerStats()
 
     # ---------------------------------------------------------------- API
@@ -116,6 +124,7 @@ class SearchServer:
             ticket = self._next_ticket
             self._next_ticket += 1
             self.meta[ticket] = target
+            self.times[ticket] = [now_ns(), None, None]
             self._queue.append((ticket, target, n_eff))
         return ticket
 
@@ -131,29 +140,35 @@ class SearchServer:
         requests into free slots, advance every slot `chunk` generations,
         and only then copy the finished slots' populations to the host.
         Returns False when there was nothing to do."""
-        harvest = []
-        for i, slot in enumerate(self._slots):
-            if slot.ticket is not None and slot.remaining <= 0:
-                # the rows of the state before this tick: the step makes new
-                # tensors, so these views keep the finished populations
-                harvest.append((slot.ticket, slice_state(self.state, i)))
-                slot.ticket, slot.remaining = None, 0
-        self._admit()
-        occupied = self.active()
-        if occupied:
-            for _ in range(self.chunk):
-                self.state = self.balgo.step(self.state, self._gens)
-            self.stats.ticks += 1
-            per_slot = self.balgo.pop_size * self.chunk
-            self.stats.useful_evals += occupied * per_slot
-            self.stats.total_evals += self.n_slots * per_slot
-            for slot in self._slots:
-                if slot.ticket is not None:
-                    slot.remaining -= self.chunk
-        for ticket, s in harvest:
-            self.results[ticket] = extract_result(s.X.cpu(), s.F.cpu(), self.balgo.algorithm, s)
-            self.stats.completed += 1
-        return bool(occupied or harvest)
+        with TRACER.span("serve.tick") as attrs:
+            harvest = []
+            for i, slot in enumerate(self._slots):
+                if slot.ticket is not None and slot.remaining <= 0:
+                    # the rows of the state before this tick: the step makes
+                    # new tensors, so these views keep the finished populations
+                    harvest.append((slot.ticket, slice_state(self.state, i)))
+                    slot.ticket, slot.remaining = None, 0
+            self._admit()
+            attrs["tickets"] = [slot.ticket for slot in self._slots]
+            occupied = self.active()
+            if occupied:
+                for _ in range(self.chunk):
+                    self.state = self.balgo.step(self.state, self._gens)
+                self.stats.ticks += 1
+                per_slot = self.balgo.pop_size * self.chunk
+                self.stats.useful_evals += occupied * per_slot
+                self.stats.total_evals += self.n_slots * per_slot
+                for slot in self._slots:
+                    if slot.ticket is not None:
+                        slot.remaining -= self.chunk
+            if harvest:
+                with TRACER.span("serve.harvest", tickets=[t for t, _ in harvest]):
+                    for ticket, s in harvest:
+                        self.results[ticket] = extract_result(s.X.cpu(), s.F.cpu(),
+                                                              self.balgo.algorithm, s)
+                        self.times[ticket][2] = now_ns()
+                        self.stats.completed += 1
+            return bool(occupied or harvest)
 
     def run(self, forever: bool = False) -> None:
         """Tick until the queue and all slots drain, or with forever=True
@@ -197,19 +212,25 @@ class SearchServer:
                 picked.append(self._queue.popleft())
         if not picked:
             return
-        balgo = self.balgo
-        feats = self.problem.generator.encode_targets([tgt for _, tgt, _ in picked])
-        gens = [search_generator(self.seed, t, balgo.device) for t, _, _ in picked]
-        X0 = torch.stack([balgo.sample(g) for g in gens])
-        F0 = balgo.evaluate(X0, feats, balgo.draw_seeds(gens))
-        self.stats.admission_evals += len(picked) * balgo.pop_size
-        idx = free[:len(picked)]
-        # new tensors: views taken for harvest keep the old rows
-        X, F, targets = self.state.X.clone(), self.state.F.clone(), balgo.targets.clone()
-        gen = list(self.state.gen)
-        for j, (i, (ticket, _, n_gen)) in enumerate(zip(idx, picked)):
-            X[i], F[i], targets[i], gen[i] = X0[j], F0[j], feats[j], 0
-            self._gens[i] = gens[j]
-            self._slots[i].ticket, self._slots[i].remaining = ticket, n_gen
-        self.state = GAState(X, F, tuple(gen))
-        balgo.targets = targets
+        with TRACER.span("serve.admit", tickets=[t for t, _, _ in picked]):
+            now = now_ns()
+            for ticket, _, _ in picked:
+                self.times[ticket][1] = now
+                self.stats.queue_wait_ns += now - self.times[ticket][0]
+            self.stats.admissions += len(picked)
+            balgo = self.balgo
+            feats = self.problem.generator.encode_targets([tgt for _, tgt, _ in picked])
+            gens = [search_generator(self.seed, t, balgo.device) for t, _, _ in picked]
+            X0 = torch.stack([balgo.sample(g) for g in gens])
+            F0 = balgo.evaluate(X0, feats, balgo.draw_seeds(gens))
+            self.stats.admission_evals += len(picked) * balgo.pop_size
+            idx = free[:len(picked)]
+            # new tensors: views taken for harvest keep the old rows
+            X, F, targets = self.state.X.clone(), self.state.F.clone(), balgo.targets.clone()
+            gen = list(self.state.gen)
+            for j, (i, (ticket, _, n_gen)) in enumerate(zip(idx, picked)):
+                X[i], F[i], targets[i], gen[i] = X0[j], F0[j], feats[j], 0
+                self._gens[i] = gens[j]
+                self._slots[i].ticket, self._slots[i].remaining = ticket, n_gen
+            self.state = GAState(X, F, tuple(gen))
+            balgo.targets = targets

@@ -82,7 +82,8 @@ def _npz(path):
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_cli_tiny_end_to_end(tmp_path, config):
-    """The artifact set, and with --profile a Chrome trace of the search."""
+    """The artifact set, and with --profile a Chrome trace of the search
+    that holds the program's spans: a search.step a generation."""
     import json
 
     from PIL import Image
@@ -90,8 +91,9 @@ def test_cli_tiny_end_to_end(tmp_path, config):
     trace = tmp_path.parent / f"{tmp_path.name}_trace"
     _run(tmp_path, config, 4, "--profile", str(trace))
     with open(trace / "trace.json") as f:
-        assert any(e.get("name", "").startswith("aten::")
-                   for e in json.load(f)["traceEvents"])
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert sum(e.get("name") == "search.step" for e in events) >= 4
     n_obj = CONFIGS[config]
     assert set(os.listdir(tmp_path)) == ARTIFACTS | ({"F.jpg"} if n_obj == 2 else set())
     res = _result(tmp_path)
@@ -383,6 +385,28 @@ def test_cli_no_verbose_is_quiet(tmp_path, capsys):
     _run(tmp_path, "StyleGAN2_ffhq_nod", 2, "--no-verbose")
     assert capsys.readouterr().out == ""
     assert (tmp_path / "output.jpg").exists()
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["tracer_on", "tracer_off"])
+def test_cli_wallclock_line(tmp_path, capsys, monkeypatch, traced):
+    """The wallclock line gives the phases' spans in the format that
+    scripts/bench_wallclock_torch.py parses; with the tracer off it gives
+    the total and says that the phases were not recorded."""
+    import re
+
+    from clip_glass_torch.core.profiling import TRACER
+
+    monkeypatch.setattr(TRACER, "enabled", traced)
+    _run(tmp_path, "StyleGAN2_ffhq_nod", 2)
+    line, = [s for s in capsys.readouterr().out.splitlines() if s.startswith("wallclock:")]
+    phases = "  ".join(f"{p}=[0-9]+\\.[0-9]{{3}}s" for p in
+                       ("imports", "setup", r"init\(gen0\)", r"search\+dumps", "final_artifacts"))
+    want = (rf"total=[0-9]+\.[0-9]{{3}}s  {phases}" if traced
+            else r"total=[0-9]+\.[0-9]{3}s  \(no phases: the tracer is off\)")
+    assert re.fullmatch(f"wallclock: {want}", line), line
+    if traced:   # the phases add up to no more than the total
+        total, *parts = map(float, re.findall(r"=([0-9.]+)s", line))
+        assert 0 < sum(parts) <= total + 0.005
 
 
 def test_cli_without_a_card_raises(tmp_path, monkeypatch):

@@ -14,6 +14,7 @@ package's server to the same contract.
 import dataclasses
 import io
 import os
+import re
 import threading
 import time
 
@@ -24,6 +25,7 @@ import torch
 
 from clip_glass_torch import cli
 from clip_glass_torch.config import get_config
+from clip_glass_torch.core.profiling import TRACER
 from clip_glass_torch.evolve.algorithm import minimize
 from clip_glass_torch.evolve.batched import search_generator
 from clip_glass_torch.fitness.problem import GenerationProblem
@@ -184,16 +186,31 @@ def _serve(tmp_path, source, *extra):
 
 def test_cli_serve_file(tmp_path, capsys):
     """--serve FILE: each non-empty line is a request; each gets
-    request-NNNN/ with target.txt and the result artifacts."""
+    request-NNNN/ with target.txt and the result artifacts. With --profile
+    the trace holds the server's ticks, each with its slots' tickets."""
+    import json
+
     prompts = tmp_path / "prompts.txt"
     prompts.write_text("a red flower\na blue car\n\nan old house\n")
-    assert _serve(tmp_path, str(prompts)) == 0
+    trace = tmp_path / "trace"
+    TRACER.reset()   # the trace holds the ring: this serve's spans alone
+    assert _serve(tmp_path, str(prompts), "--profile", str(trace)) == 0
+    with open(trace / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ticks = [e for e in events if e.get("name") == "serve.tick"]
+    assert ticks and {t for e in ticks for t in e["args"]["tickets"]} >= {0, 1, 2}
+    assert any(e.get("name") == "serve.admit" for e in events)
     out = tmp_path / "out"
     assert sorted(os.listdir(out)) == [f"request-{i:04d}" for i in range(3)]
     for i, target in enumerate(["a red flower", "a blue car", "an old house"]):
         assert set(os.listdir(out / f"request-{i:04d}")) == FINAL
         assert (out / f"request-{i:04d}" / "target.txt").read_text() == target
-    assert "slot occupancy" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "slot occupancy" in printed and "mean queue wait" in printed
+    # each finished request's line gives its queue wait and service time
+    done = [line for line in printed.splitlines() if line.startswith("[serve] done #")]
+    assert len(done) == 3 and all(re.search(r"\(queued [0-9.]+s, served [0-9.]+s\)$", line)
+                                  for line in done)
 
 
 def test_cli_serve_stdin(tmp_path, monkeypatch):

@@ -1,10 +1,9 @@
 """The port's host utilities against the JAX package's (numpy and Pillow on
 both sides, so the results are equal, not close): `utils/misc.py`,
 `utils/data.py` (image files, one image, the shuffled batch source with its
-prefetch thread) and `core/profiling.py`'s ValueTracker / ProgressWriter."""
+prefetch thread)."""
 
 import argparse
-import io
 import pickle
 import threading
 import time
@@ -12,11 +11,9 @@ import time
 import numpy as np
 import pytest
 
-from clip_glass_tpu.core import profiling as jprof
 from clip_glass_tpu.utils import data as jdata
 from clip_glass_tpu.utils import misc as jmisc
 
-from clip_glass_torch.core import profiling as tprof
 from clip_glass_torch.utils import AttributeDict, bool_type, range_type, to_list
 from clip_glass_torch.utils import data as tdata
 
@@ -120,29 +117,3 @@ def test_misc_helpers_equal_the_jax_package(value):
         got = globals()[name](value)
         assert type(got) is type(want) and list(got if hasattr(got, "__iter__") else [got]) == \
             list(want if hasattr(want, "__iter__") else [want])
-
-
-def test_value_tracker_equals_the_jax_package():
-    got, want = tprof.ValueTracker(beta=0.5), jprof.ValueTracker(beta=0.5)
-    for name, v in (("loss", 1.0), ("loss", 0.0), ("fid", 3.5), ("loss", 2.0)):
-        got.add(name, v)
-        want.add(name, v)
-    assert got.names() == want.names() == ["fid", "loss"]
-    assert got.value("loss") == want.value("loss") == pytest.approx(1.25)
-    assert got.raw("loss") == want.raw("loss") == 2.0
-    assert got.format() == want.format()
-
-
-def test_progress_writer_lines():
-    buf = io.StringIO()
-    pw = tprof.ProgressWriter(total=3, label="gen", stream=buf)
-    pw.update(1, best=0.5)
-    pw.update(2)
-    out = buf.getvalue()
-    assert out.startswith("\rgen 1/3 (33%) ") and "best=0.5" in out
-    assert "3/3 (100%)" in out and out.endswith("\n")
-    short = io.StringIO()
-    pw = tprof.ProgressWriter(total=5, stream=short)
-    pw.update(2)
-    pw.close()
-    assert short.getvalue().endswith("\n") and "2/5 (40%)" in short.getvalue()
