@@ -106,7 +106,7 @@ def kernel_wrappers() -> dict:
 
     return {k.__name__: k for k in (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
                                     modulated_conv.modulated_matmul, s2d.s2d_conv2x2,
-                                    conv_s8.conv_s8)}
+                                    upfirdn.fir, conv_s8.conv_s8)}
 
 
 def _targets(config, n_targets: int) -> list:

@@ -28,6 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      inference_mode, and in fp32 a second derivative equal to the plain
      version's; the TINY G's latent gradient (plain domain) on the card
      against the CPU; conv_s8 raising under grad;
+  3c. fir (`phase_fir`, alone: `python3 chip_smoke.py --fir`, after phases
+     1-2): the FIR kernel (csrc/fir.cu) against its plain version at the
+     calls of one flagship evaluation (pop 16, bf16) at config-f's widths
+     (18, the benchmark's) and on both paths of the port's CONFIG_F (18 on
+     the s2d path, 24 on the plain one, with its 513 and 1025 px levels):
+     per call and summed per path, `kernel_ms` and `device_ms` as phase 3
+     times them, the plain version, cuDNN's grouped conv alone
+     (`library_ms`, the route the port no longer takes) and the byte bound
+     with its share, and the variants the paths launch; the
+     largest call in fp32 and odd shapes (asymmetric pads, C = 16, 12, 20
+     and 3, odd widths) in both types and both variants; then one flagship
+     evaluation whose G and D run under set_sync_debug_mode("error") with
+     the kernel at all 18 calls (`fir.launches` and the tracer's
+     `kernels.fir`), and the whole evaluation's synchronizing lines under
+     "warn";
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
      domain (TINY with s2d_min_res=8);
@@ -175,16 +190,18 @@ convert CLI:
      kernels against the plain route; one first step, card against CPU, on
      config-f cut to 256 px;
  26. ppl: `PPL.evaluate`, 2 batches of 8 pairs, epsilon 1e-4, LPIPS: the
-     value, s a batch, kernels 1-4 launched (kernel 4 at 512 and 1024 px);
+     value, s a batch, kernels 1-4 and the FIR launched (kernel 4 at 512 and
+     1024 px, the FIR at 8-256 px);
  27. fid: `FID` over 2 x 64 G samples: s an Inception batch and a G batch,
      FID(A, A) about 0, FID(A, B).
 Then the trainer (`training/trainer.py`), fp32, from the reference's resume
 files (G.pth, Gs.pth and D.pth that weights/synthesize.py writes, seed 0):
  28. trainer: config-f 1024 px, batch 4, `TrainerConfig` defaults, 5 steps
      (R1 and the path length penalty at step 0, the penalty at step 4): per
-     step its seconds, phases, peak memory, the launches of kernels 1-3, those
-     under grad and the backward passes that kept their graph (the
-     penalty's second derivative through kernels 2 and 3), the five logs
+     step its seconds, phases, peak memory, the launches of kernels 1-3 and
+     the FIR (G's and D's), those under grad and the backward passes that
+     kept their graph (the penalty's second derivative through kernels 2
+     and 3 and G's FIRs, R1's through D's FIRs), the five logs
      (finite); G and D moved, Gs less than G; a checkpoint round trip,
      bitwise; one TrainLogger grid from Gs (kernel 4); the penalty's G
      gradient through the kernels vs the plain route; step 0 card vs CPU on
@@ -206,9 +223,10 @@ from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
      mesh, CLIP split over them (12 -> 6 heads, 3072 -> 1536 MLP columns;
      text 8 -> 4 heads): the hinge bitwise the one-process hinge, the CLIP
      objective within BATCHED_BF16_TOL, fp32 image features within 1e-4 of
-     the whole tower's, kernels 1-4 in each rank; (b) one process whose
-     mesh lists the card 4 times, a (2, 2) mesh: F within BATCHED_BF16_TOL,
-     init + 2 generations, kernels 1-4 in each position; then the flagship
+     the whole tower's, kernels 1-4 and the FIR in each rank; (b) one
+     process whose mesh lists the card 4 times, a (2, 2) mesh: F within
+     BATCHED_BF16_TOL, init + 2 generations, kernels 1-4 and the FIR in
+     each position; then the flagship
      with --quantize int8 on that mesh (an int8 scope a position): F within
      BATCHED_BF16_TOL of the one-process int8 F, conv_s8 at every live
      site in each position, kernel 4 at none; (c)
@@ -219,7 +237,8 @@ from phase 28's config-f files, the flagship at pop 16, bf16, s2d path:
      what the tracker did not see on the same run.
 Then the port's contract entry point and its bench, on the flagship:
  31. bench: (a) `clip_glass_torch.entry.entry()` on the card, F [4, 2]
-     finite with kernels 1-4's launches of one evaluation; (b)
+     finite with the launches of kernels 1-4 and the FIR in one evaluation;
+     (b)
      `bench_torch.py` twice, each in its own process (BENCH_GENS=3,
      BENCH_REPEATS=2, BENCH_CHECKSUM=1): bench.py's fields, 0 < mfu <= 1,
      the FLOP count of core/flops.py, the launches a timed evaluation; (c)
@@ -233,7 +252,8 @@ Then the pretrained-checkpoint harness and the search-dynamics A/B:
      transcribed HF module in fp32, LPIPS and Inception against their state
      dicts, the TF pickles' renders) and the CLI drive (StyleGAN2_ffhq_d at
      1024 px, GPT2); every check PASSes but those that need the reference's
-     source tree or an official hash, kernels 1-4 each launch; each check's
+     source tree or an official hash, kernels 1-4 and the FIR each launch;
+     each check's
      seconds and the BigGAN oracle's errors; then
      scripts/search_dynamics_ab_torch.py (TINY, 4 seeds x 10 generations:
      its table and max Welch z), a TINY stochastic GPT2 search twice from
@@ -529,7 +549,7 @@ def _ups_previous(args):
     from clip_glass_torch.ops import upfirdn
 
     (x,) = args
-    taps = upfirdn.polyphase_taps()
+    taps = upfirdn.fir_taps(gain=4.0)
     return lambda: upfirdn.upsample2x_launch(x, taps, "rows")
 
 
@@ -651,7 +671,7 @@ def _ups_library(args):
 
     (x,) = args
     B, H, W, C = x.shape
-    k1 = upfirdn.polyphase_taps()
+    k1 = upfirdn.fir_taps(gain=4.0)
     fir_t = torch.tensor([[a * b for b in k1] for a in k1], device="cuda")
     wt = fir_t.flip(0, 1).to(x.dtype)[None, None].expand(C, 1, 4, 4)
     xn = x.permute(0, 3, 1, 2)
@@ -855,6 +875,238 @@ def phase_host():
     return out
 
 
+# ------------------------------------------------------------ phase 3c
+
+# config-f's widths, 1024 px down to 4 px (benchmark/configs/StyleGAN2_ffhq_d.json;
+# the port's CONFIG_F is narrower at 64-512 px)
+CONFIG_F_CHANNELS = (32, 64, 128, 256, 512, 512, 512, 512, 512)
+# the FIR's odd shapes, (shape, pad0, pad1, gain): asymmetric pads, C = 16
+# (TINY), C of no whole 16-byte vector in bf16 (12, 20) or in either (3),
+# odd widths, one output pixel
+FIR_ODD = [((2, 9, 7, 16), 0, 2, 1.0), ((3, 10, 11, 12), 3, 1, 4.0),
+           ((1, 6, 5, 20), 1, 2, 1.0), ((2, 4, 4, 8), 0, 0, 1.0),
+           ((1, 33, 70, 64), 2, 1, 4.0), ((2, 13, 5, 3), 1, 3, 1.0)]
+
+
+def config_f_widths(**changes):
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    return dataclasses.replace(sg2.CONFIG_F, channels=CONFIG_F_CHANNELS, **changes)
+
+
+def fir_calls(cfg, pop: int = POP) -> list:
+    """One evaluation's `fir` calls for StyleGAN2 config `cfg` (3x3 convs),
+    (shape, pad0, pad1, gain), at the levels below s2d_min_res: G's up
+    levels (the transposed conv's [B, 2h+1, 2h+1, C], pads (1, 1), gain 4)
+    and D's blocks (conv1's pads (2, 2) and the skip's (1, 1) on
+    [B, r, r, C], gain 1)."""
+    calls = []
+    res = cfg.base_size
+    for _, out_ch, up, _ in cfg.block_channels():
+        if up:
+            res *= 2
+            if res < cfg.s2d_min_res:
+                calls.append(((pop, res + 1, res + 1, out_ch), 1, 1, 4.0))
+    res = cfg.resolution
+    for c in cfg.channels[:-1]:
+        if res < cfg.s2d_min_res:
+            calls += [((pop, res, res, c), 2, 2, 1.0), ((pop, res, res, c), 1, 1, 1.0)]
+        res //= 2
+    return calls
+
+
+def _fir_args(call, dtype, gen):
+    shape, pad0, pad1, gain = call
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return x, (1, 3, 3, 1), gain, pad0, pad1
+
+
+def _fir_cost(args):
+    """Bytes of x and the output; 8 multiply-adds an output value."""
+    x, _, _, pad0, pad1 = args
+    B, H, W, C = x.shape
+    n_out = B * (H + pad0 + pad1 - 3) * (W + pad0 + pad1 - 3) * C
+    return nbytes(x) + n_out * x.element_size(), 16 * n_out
+
+
+def _fir_library(args):
+    """cuDNN's grouped direct conv on the same call, the route the port no
+    longer takes: one F.conv2d (groups=C) on the NCHW view of x padded
+    beforehand, with the 2-D taps on the card beforehand."""
+    from clip_glass_torch.ops import upfirdn
+
+    x, taps, gain, pad0, pad1 = args
+    C = x.shape[-1]
+    k = torch.as_tensor(upfirdn.setup_filter_kernel(taps, gain), dtype=x.dtype, device="cuda")
+    w = k[None, None].expand(C, 1, *k.shape)
+    xn = upfirdn.pad_hw(x.permute(0, 3, 1, 2), pad0, pad1)
+
+    def fn():
+        return F.conv2d(xn, w, groups=C)
+
+    def check(got):
+        _check("conv2d groups=C", fn().permute(0, 2, 3, 1), got, x.dtype, tuple(x.shape))
+    return fn, check
+
+
+class sync_debug:
+    """`torch.cuda.set_sync_debug_mode(mode)` inside the block; with "warn",
+    `sites` counts the synchronizing calls by the innermost line of the
+    package (or of this script) that made them."""
+
+    def __init__(self, mode: str):
+        import warnings
+
+        self.mode, self.sites, self._warnings = mode, {}, warnings.catch_warnings()
+
+    def _record(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "clip_glass_torch" in f.filename or f.filename == __file__]
+        site = (f"{os.path.relpath(frames[-1].filename, ROOT)}:{frames[-1].lineno}"
+                if frames else "outside the package")
+        self.sites[site] = self.sites.get(site, 0) + 1
+
+    def __enter__(self):
+        import warnings
+
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._record
+        torch.cuda.set_sync_debug_mode(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        return False
+
+
+def fir_evaluation(model_cfg, tiny: bool = False, pop: int = POP) -> dict:
+    """One StyleGAN2_ffhq_d evaluation on the card (random:0 weights, bf16;
+    TINY CLIP and 32 genes with `tiny`) after a first one that fills the
+    per-device constants (core.device.constant): its G and D under
+    set_sync_debug_mode("error"), so that any synchronizing call raises,
+    with the FIR kernel's launches and the tracer's `kernels.fir` count;
+    then the whole evaluation under "warn", with the lines that
+    synchronized (after a known sync, `.item()`, has shown that "warn"
+    finds one)."""
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.core.profiling import TRACER
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.ops import upfirdn
+
+    config = get_config("StyleGAN2_ffhq_d").replace(target=TARGET, weights="random:0",
+                                                    pop_size=pop)
+    if tiny:
+        config = config.replace(dim_z=32, n_var=32)
+    g = GenerationProblem(config, device="cuda", model_cfg=model_cfg,
+                          clip_cfg=clip_model.TINY if tiny else None).generator
+    X = torch.randn((pop, config.n_var), generator=torch.Generator().manual_seed(1)).cuda()
+    g.eval_population(X)
+    torch.cuda.synchronize()
+
+    def counts():
+        return upfirdn.fir.launches, TRACER.counters().get("kernels.fir", 0)
+    before = counts()
+    with sync_debug("error"):
+        if g._s2d_active:
+            g.discriminate_packed(g.generate_packed(X))
+        else:
+            g.discriminate(g.generate(X))
+    torch.cuda.synchronize()
+    g_and_d = counts()
+    with sync_debug("warn") as probe:
+        torch.ones(1, device="cuda").sum().item()
+    if not probe.sites:
+        raise AssertionError("sync_debug('warn') did not see the sync of .item()")
+    with sync_debug("warn") as whole:
+        g.eval_population(X)
+    torch.cuda.synchronize()
+    after = counts()
+    rec = {"fir_launches_g_and_d": g_and_d[0] - before[0],
+           "kernels_fir_g_and_d": g_and_d[1] - before[1],
+           "fir_launches_evaluation": after[0] - g_and_d[0],
+           "evaluation_sync_sites": whole.sites}
+    del g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fir(kind: str, smi: str) -> dict:
+    """The FIR kernel (csrc/fir.cu) against its plain version at the calls
+    of one flagship evaluation (pop 16, bf16) on each path: config-f's
+    widths on the s2d path ("config_f", the benchmark's) and the port's
+    CONFIG_F on the s2d and the plain path ("s2d", "plain"). Per call
+    `kernel_ms` and `device_ms` as phase 3 times them, the plain
+    version (the grouped conv route with its pad pass and tap copy), cuDNN's
+    grouped conv alone (`library_ms`) and the bound, each call on the
+    variant "vector" (every flagship width holds whole 16-byte vectors);
+    per path their sums over the evaluation and the launches by variant.
+    Then the largest call in fp32 and the odd shapes in both types (both
+    variants where C allows "vector"), and one evaluation at config-f's
+    widths: its G and D synchronize nothing and launch the kernel at every
+    call. Returns the per-path sums (the kernel phase's summary entry) and
+    the rest."""
+    from clip_glass_torch.ops import upfirdn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    paths = {"config_f": fir_calls(config_f_widths()),
+             **{p: fir_calls(_model_cfg(p)) for p in PER_EVAL}}
+    counts = {p: _counts(calls) for p, calls in paths.items()}
+    recs = {}
+    for call in dict.fromkeys(c for calls in paths.values() for c in calls):
+        args = _fir_args(call, torch.bfloat16, gen)
+        n_bytes, n_ops = _fir_cost(args)
+        rec = _measure(upfirdn.fir, upfirdn.fir_plain, args, torch.bfloat16, call[0],
+                       n_bytes, n_ops, _fir_library(args), device_time=True)
+        rec.update(pads=list(call[1:3]), gain=call[3], variant=_variant_of(upfirdn.fir, args))
+        if rec["variant"] != "vector":
+            raise AssertionError(f"fir {call}: took {rec['variant']}, not vector")
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        rec["launches_per_evaluation"] = {p: counts[p].get(call, 0) for p in paths}
+        log(rec)
+        recs[call] = (rec, n_bytes, n_ops)
+        del args
+        torch.cuda.empty_cache()
+    out = {}
+    for p, calls in paths.items():
+        tot = out[p] = _path_sum(counts[p], recs, PEAK_FP32_OPS_PER_S)
+        tot["bound_share"] = tot["bound_ms"] / tot["device_ms"]
+        tot["launches_per_evaluation"] = len(calls)
+        by = tot["launches_by_variant"] = {}
+        for call, n in counts[p].items():
+            by[recs[call][0]["variant"]] = by.get(recs[call][0]["variant"], 0) + n
+    worst = 0.0
+    largest = max(recs, key=lambda c: math.prod(c[0]))
+    for call, dtype in [(largest, torch.float32)] + [
+            (c, dt) for c in FIR_ODD for dt in (torch.bfloat16, torch.float32)]:
+        args = _fir_args(call, dtype, gen)
+        want = upfirdn.fir_plain(*args)
+        variants = ["vector", "scalar"] if upfirdn.fir_variant(dtype, call[0][-1]) == "vector" \
+            else ["scalar"]
+        for variant in variants:
+            got = upfirdn.fir_launch(args[0], upfirdn.fir_taps(args[1], args[2]), *call[1:3],
+                                     variant)
+            torch.cuda.synchronize()
+            worst = max(worst, _check(f"fir {variant}", got, want, dtype, call))
+            del got
+        del args, want
+        torch.cuda.empty_cache()
+    evaluation = fir_evaluation(config_f_widths())
+    n = len(paths["config_f"])
+    if not (evaluation["fir_launches_g_and_d"] == evaluation["kernels_fir_g_and_d"]
+            == evaluation["fir_launches_evaluation"] == n):
+        raise AssertionError(f"fir: {evaluation} launches an evaluation, not {n}")
+    out.update(odd_shapes_max_abs_err=worst, **evaluation)
+    log({"phase": "fir", "device": kind, "nvidia_smi": smi, **out})
+    return out
+
+
 # ------------------------------------------------------------ phase 3b
 
 # one flagship call shape of each kernel (s2d path at 1024 px for kernel 4,
@@ -1050,10 +1302,21 @@ GRAD_G_TOL = 1e-4
 
 
 def _kernels():
+    """Kernels 1-4 and the FIR, each wrapper counting its launches."""
     from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
 
     return (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
-            modulated_conv.modulated_matmul, s2d.s2d_conv2x2)
+            modulated_conv.modulated_matmul, s2d.s2d_conv2x2, upfirdn.fir)
+
+
+def _kernel_names() -> tuple:
+    return tuple(k.__name__ for k in _kernels())
+
+
+def _variants(kernels) -> dict:
+    """The launches by variant of each kernel that has variants."""
+    return {k.__name__: dict(k.launches_by_variant) for k in kernels
+            if hasattr(k, "launches_by_variant")}
 
 
 def _zero_counts(kernels) -> None:
@@ -1065,8 +1328,9 @@ def _zero_counts(kernels) -> None:
 
 def _agreement(family: str, cfg, X, models: dict, bundle=None) -> None:
     """The fitness of `X` on the GPU (kernels) against the CPU (plain
-    versions) for each model config of `models` (label -> (config, the four
-    kernels' launches per GPU evaluation)); the CPU evaluation launches none.
+    versions) for each model config of `models` (label -> (config, the
+    launches of kernels 1-4 and the FIR per GPU evaluation)); the CPU
+    evaluation launches none.
     fp32 on both sides with TF32 off: cuDNN/cuBLAS sum in another order than
     the CPU kernels over ~20 layers, hence rtol 1e-3, atol 1e-4."""
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -1081,7 +1345,7 @@ def _agreement(family: str, cfg, X, models: dict, bundle=None) -> None:
             before = [k.launches for k in kernels]
             Fs[dev] = p.generator.eval_population(X.to(dev)).cpu()
             moved = tuple(k.launches - n for k, n in zip(kernels, before))
-            if moved != (want if dev == "cuda" else (0, 0, 0, 0)):
+            if moved != (want if dev == "cuda" else (0,) * len(kernels)):
                 raise AssertionError(f"{family} {label} {dev}: kernel launches {moved}")
         err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
         if not torch.allclose(Fs["cuda"], Fs["cpu"], rtol=1e-3, atol=1e-4):
@@ -1105,21 +1369,25 @@ def phase_agreement():
         compute_dtype="float32")
     X = torch.randn((8, 32), generator=torch.Generator().manual_seed(1))
     # launches per evaluation. TINY (plain): 5 synthesis layers, 2 skip
-    # upsamples, 3 ToRGB. TINY_S2D (levels 8 and 16 in the s2d domain): 5
-    # layer epilogues, ToRGB at 4 px only, two [2,2] folds in G and two in D
+    # upsamples, 3 ToRGB, 6 FIRs (G's 2 up levels, D's 2 blocks' conv1 and
+    # skip). TINY_S2D (levels 8 and 16 in the s2d domain): 5 layer
+    # epilogues, ToRGB at 4 px only, two [2,2] folds in G and two in D, the
+    # FIRs folded into the s2d convs
     _agreement("StyleGAN2", cfg, X, {
-        "TINY": (sg2.TINY, (5, 2, 3, 0)),
-        "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))})
+        "TINY": (sg2.TINY, (5, 2, 3, 0, 6)),
+        "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4, 0))})
 
 
 # ------------------------------------------------------------ phase 5
 
-# launches per evaluation of the flagship on each path
+# launches per evaluation of the flagship on each path; the FIR's are
+# len(fir_calls(_model_cfg(path))): G's up levels and D's blocks below
+# s2d_min_res (tests/test_torch_ops.py holds them to it)
 PER_EVAL = {
     "s2d": {"noise_bias_lrelu": 17, "upsample2x": 6, "modulated_matmul": 7,
-            "s2d_conv2x2": 4},
+            "s2d_conv2x2": 4, "fir": 18},
     "plain": {"noise_bias_lrelu": 17, "upsample2x": 8, "modulated_matmul": 9,
-              "s2d_conv2x2": 0},
+              "s2d_conv2x2": 0, "fir": 24},
 }
 
 
@@ -1134,8 +1402,8 @@ def _model_cfg(path: str):
 def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
     """The flagship search on one path; returns the kernels' launch counts
     of that run (counts set to 0 just before it, read just after). Each
-    kernel with variants must have launched them as the kernel phase saw
-    the wrapper choose at the path's call shapes (`summary`)."""
+    kernel with variants must have launched them as the kernel phases (3
+    and 3c) saw the wrapper choose at the path's call shapes (`summary`)."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.algorithm import minimize
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -1168,8 +1436,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
                    save_each=1, state=state)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
-    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
-                if k.__name__ in FIRST_DESIGN}
+    variants = _variants(kernels)
 
     Fp = res.pop_F
     if tuple(Fp.shape) != (POP, 2) or not torch.isfinite(Fp).all():
@@ -1183,9 +1450,9 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
         if launches[name] != n * n_eval:
             raise AssertionError(f"{path}: {name}: {launches[name]} launches, "
                                  f"expected {n} x {n_eval} evaluations")
-    for name in FIRST_DESIGN:
+    for name in variants:
         want = {v: n * n_eval
-                for v, n in summary[name][path]["launches_by_variant"].items()}
+                for v, n in summary[name][path]["launches_by_variant"].items() if n}
         if {v: n for v, n in variants[name].items() if n} != want:
             raise AssertionError(f"{path}: {name} launches by variant "
                                  f"{variants[name]}, expected {want}")
@@ -1344,8 +1611,7 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
         if set(res) != {"X", "F", "G", "CV"}:
             raise AssertionError(f"cli {label}: genetic_result holds {sorted(res)}")
     launches = {k.__name__: k.launches for k in kernels}
-    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
-                if k.__name__ in FIRST_DESIGN}
+    variants = _variants(kernels)
     for name, n in launches.items():
         if bool(n) != (name in want_variants):
             raise AssertionError(f"cli {label}: {name} launched {n} times, expected "
@@ -1358,7 +1624,7 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
         served = next(line for line in lines if "slot occupancy" in line)
         rec = {"phase": "cli", "run": label, "config": config, "extra_args": list(extra),
                "generations": generations, "serve": served,
-               "occupancy": float(served.rsplit(" ", 1)[1].rstrip("%")) / 100,
+               "occupancy": float(served.split("slot occupancy ")[1].split("%")[0]) / 100,
                "launches": {k.__name__: k.launches for k in kernels},
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
         log(rec)
@@ -1378,13 +1644,15 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
 
 
 def _flagship_variants(summary: dict, batched: bool = False) -> dict:
-    """Every kernel, on the variants phase 3 (or, `batched`, phase 17) saw
-    the flagship's s2d path take."""
+    """Every kernel, on the variants phases 3 and 3c (or, `batched`, phase
+    17) saw the flagship's s2d path take; the FIR's variant follows its
+    dtype and channels alone, which the rows do not change."""
     def by(name):
-        rec = summary[name]["batched"] if batched else summary[name]
+        rec = summary[name]["batched"] if batched and name != "fir" else summary[name]
         return rec["s2d"]["launches_by_variant"]
-    return {name: ({v for v, n in by(name).items() if n} if name in FIRST_DESIGN else None)
-            for name in KERNEL_META}
+    return {name: ({v for v, n in by(name).items() if n}
+                   if name in FIRST_DESIGN or name == "fir" else None)
+            for name in _kernel_names()}
 
 
 def phase_cli(summary: dict) -> None:
@@ -1548,8 +1816,8 @@ def phase_agreement_biggan() -> None:
     bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
               "g": lively_biggan(bg.TINY, 1)}
     _agreement("BigGAN", cfg, X, {
-        "TINY": (bg.TINY, (0, 0, 0, 0)),
-        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3))}, bundle)
+        "TINY": (bg.TINY, (0, 0, 0, 0, 0)),
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0))}, bundle)
 
 
 def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
@@ -1557,7 +1825,7 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
     random weights from seed 0), init + BIGGAN_GENERATIONS generations,
     with kernel 4's counts set to 0 just before and read just after: it must
     launch as phase 8 saw the wrapper choose at the config's call shapes,
-    and kernels 1-3 never. Then the G and CLIP stage times of one
+    and kernels 1-3 and the FIR never. Then the G and CLIP stage times of one
     evaluation of the final population (CUDA events, mean of 3)."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.algorithm import minimize
@@ -1603,7 +1871,7 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
     if {v: n for v, n in variants.items() if n} != want:
         raise AssertionError(f"{name}: s2d_conv2x2 launches by variant {variants}, "
                              f"expected {want}")
-    if any(launches[k.__name__] for k in kernels[:3]):
+    if any(n for k, n in launches.items() if k != "s2d_conv2x2"):
         raise AssertionError(f"{name}: a StyleGAN2 kernel launched: {launches}")
 
     X = res.pop_X.cuda()
@@ -2281,7 +2549,8 @@ def _batched_agreement(family: str, cfg, Xb, targets, models: dict, bundle=None)
     """Each model config's batched fitness of Xb [K, pop, n_var] against
     `targets` on the GPU (kernels) against the CPU (plain versions), fp32,
     TF32 off, at _agreement's tolerance (rtol 1e-3, atol 1e-4; GPT-2 1e-6),
-    with the four kernels' launches of one batched GPU evaluation."""
+    with the launches of kernels 1-4 and the FIR in one batched GPU
+    evaluation."""
     from clip_glass_torch.fitness.problem import GenerationProblem
     from clip_glass_torch.models.clip import model as clip_model
 
@@ -2295,7 +2564,7 @@ def _batched_agreement(family: str, cfg, Xb, targets, models: dict, bundle=None)
             feats = gen.encode_targets(targets)
             Fs[dev] = gen.eval_population_batched(Xb.to(dev), feats).cpu()
             moved = tuple(k.launches - n for k, n in zip(kernels, before))
-            if moved != (want if dev == "cuda" else (0, 0, 0, 0)):
+            if moved != (want if dev == "cuda" else (0,) * len(kernels)):
                 raise AssertionError(f"batched {family} {label} {dev}: launches {moved}")
         err = (Fs["cuda"] - Fs["cpu"]).abs().max().item()
         tol = dict(rtol=1e-6, atol=1e-6) if family == "GPT2" else dict(rtol=1e-3, atol=1e-4)
@@ -2328,9 +2597,11 @@ def phase_agreement_batched() -> None:
     for name in ("StyleGAN2_ffhq_d", "StyleGAN2_ffhq_nod"):
         cfg = get_config(name).replace(pop_size=8, dim_z=32, n_var=32, weights="random:0",
                                        target=targets[0], compute_dtype="float32")
-        models = {"TINY": (sg2.TINY, (5, 2, 3, 0))}
+        # the FIR: G's 2 up levels, and D's 2 blocks (conv1 and skip) with D
+        models = {"TINY": (sg2.TINY, (5, 2, 3, 0, 6 if name.endswith("_d") else 2))}
         if name.endswith("_d"):
-            models["TINY_S2D"] = (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))
+            models["TINY_S2D"] = (dataclasses.replace(sg2.TINY, s2d_min_res=8),
+                                  (5, 0, 1, 4, 0))
         _batched_agreement(name, cfg, torch.randn((3, 8, 32), generator=g), targets, models)
     cfg = get_config("DeepMindBigGAN512").replace(
         pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8, weights="random:0",
@@ -2339,11 +2610,12 @@ def phase_agreement_batched() -> None:
     bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
               "g": lively_biggan(bg.TINY, 1)}
     _batched_agreement("BigGAN", cfg, Xb, targets, {
-        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3))}, bundle)
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0))}, bundle)
     dogs = [DOG, os.path.join(ROOT, "examples", "gpt2_images", "goldfish.jpeg"),
             os.path.join(ROOT, "examples", "gpt2_images", "zebra.jpeg")]
     Xb = torch.stack([int_random_sampling(g, 8, 6, 0, 50256) for _ in range(3)])
-    _batched_agreement("GPT2", _gpt2_tiny_config(), Xb, dogs, {"TINY": (g2.TINY, (0, 0, 0, 0))})
+    _batched_agreement("GPT2", _gpt2_tiny_config(), Xb, dogs,
+                       {"TINY": (g2.TINY, (0, 0, 0, 0, 0))})
 
 
 def _close_to_scale(label: str, got, want, tol: float) -> dict:
@@ -2405,19 +2677,19 @@ def phase_main_batched(kind: str, smi: str, summary: dict, single: dict) -> tupl
     X0 = state.X
     state, gen_s = _timed_generations(lambda s: balgo.step(s, gens), state, 2)
     launches = {k.__name__: k.launches for k in kernels}
-    variants = {k.__name__: dict(k.launches_by_variant) for k in kernels
-                if k.__name__ in FIRST_DESIGN}
+    variants = _variants(kernels)
     peak = torch.cuda.max_memory_allocated()
     for name, n in PER_EVAL["s2d"].items():
         if launches[name] != 3 * n:
             raise AssertionError(f"batched main: {name} {launches[name]} launches, expected "
                                  f"{n} x 3 batched evaluations")
-    for name in FIRST_DESIGN:
-        want = {v: 3 * n for v, n in
-                summary[name]["batched"]["s2d"]["launches_by_variant"].items()}
+    for name in variants:
+        # the FIR's variant follows its dtype and channels, not the rows
+        rec = summary[name] if name == "fir" else summary[name]["batched"]
+        want = {v: 3 * n for v, n in rec["s2d"]["launches_by_variant"].items() if n}
         if {v: n for v, n in variants[name].items() if n} != want:
             raise AssertionError(f"batched main: {name} by variant {variants[name]}, "
-                                 f"expected phase 17's {want}")
+                                 f"expected phases 3c and 17's {want}")
     for i in range(K_SEARCH):
         if not torch.equal(X0[i], balgo.sample(search_generator(0, i, "cuda"))):
             raise AssertionError(f"batched main: search {i}'s X0 is not its generator's")
@@ -2559,7 +2831,7 @@ def phase_main_batched_biggan(kind: str, smi: str, summary: dict) -> None:
     launches = {k.__name__: k.launches for k in kernels}
     variants = {v: n for v, n in kernels[3].launches_by_variant.items() if n}
     want = summary["s2d_conv2x2"]["biggan"]["DeepMindBigGAN512"]["launches_by_variant"]
-    if variants != want or any(launches[k.__name__] for k in kernels[:3]):
+    if variants != want or any(n for k, n in launches.items() if k != "s2d_conv2x2"):
         raise AssertionError(f"batched biggan: launches {launches}, {variants}; expected "
                              f"s2d_conv2x2 {want} only")
     if tuple(state.F.shape) != (2, 32, 1) or not torch.isfinite(state.F).all():
@@ -3340,7 +3612,7 @@ def projector_step_card_vs_cpu(g_params, cfg, lpips_params, seed: int = 3) -> di
 
 def projector_grad_kernels_vs_plain(proj, target01, seed: int = 4) -> float:
     """d loss / d dlatents of one projector loss on the card through kernels
-    1-3 (`cuda.with_grad`) against the same with every wrapper taking its
+    1-3 and the FIR (`cuda.with_grad`) against the same with every wrapper taking its
     plain version (`cuda.takes_plain` forced), twice: returns the largest
     difference of the kernels' gradient from the first plain one, and of
     the second plain one from the first (the card's own spread), each
@@ -3356,7 +3628,7 @@ def projector_grad_kernels_vs_plain(proj, target01, seed: int = 4) -> float:
     grads, recorded = {}, {}
     for route in ("kernels", "plain", "plain again"):
         leaf = dl.clone().requires_grad_(True)
-        before = dict(cuda.with_grad.recorded)
+        before = _grad_counts(cuda.with_grad.recorded)
         saved = cuda.takes_plain
         if route != "kernels":
             cuda.takes_plain = lambda t: True
@@ -3365,10 +3637,11 @@ def projector_grad_kernels_vs_plain(proj, target01, seed: int = 4) -> float:
             (grads[route],) = torch.autograd.grad(loss, [leaf])
         finally:
             cuda.takes_plain = saved
-        recorded[route] = {k: v - before.get(k, 0) for k, v in cuda.with_grad.recorded.items()
+        recorded[route] = {k: v - before.get(k, 0)
+                           for k, v in _grad_counts(cuda.with_grad.recorded).items()
                            if v != before.get(k, 0)}
-    if set(recorded["kernels"]) != {"noise_bias_lrelu", "upsample2x", "modulated_matmul"} \
-            or recorded["plain"] or recorded["plain again"]:
+    if set(recorded["kernels"]) != {"noise_bias_lrelu", "upsample2x", "modulated_matmul",
+                                    "fir"} or recorded["plain"] or recorded["plain again"]:
         raise AssertionError(f"gradients recorded through the kernels: {recorded}")
     return (_rel(grads["kernels"], grads["plain"]),
             _rel(grads["plain again"], grads["plain"]))
@@ -3400,18 +3673,59 @@ def _grad_cases(label: str, shapes, seed: int) -> dict:
 
 
 def synthesis_launches(cfg) -> dict:
-    """The four kernels' launches in one synthesis of `cfg` (any batch):
-    flagship_shapes' G part (kernel 4: G's modulated folds)."""
+    """The launches of kernels 1-4 and the FIR in one synthesis of `cfg`
+    (any batch): flagship_shapes' G part (kernel 4: G's modulated folds)
+    and fir_calls' (the up levels below s2d_min_res)."""
     nbl, ups, rgb, s2d = flagship_shapes(cfg, pop=1)
     n = {"noise_bias_lrelu": len(nbl), "upsample2x": len(ups), "modulated_matmul": len(rgb),
-         "s2d_conv2x2": sum(1 for shape in s2d if shape[4])}
+         "s2d_conv2x2": sum(1 for shape in s2d if shape[4]),
+         "fir": sum(1 for call in fir_calls(cfg, 1) if call[3] == 4.0)}
     return {k: v for k, v in n.items() if v}
+
+
+def discriminator_launches(cfg) -> dict:
+    """The kernels' launches in one D pass on NCHW images (the trainer's;
+    the plain domain throughout): the FIR of each block's conv1 and skip."""
+    plain = dataclasses.replace(cfg, s2d_min_res=2 ** 30)
+    return {"fir": sum(1 for call in fir_calls(plain, 1) if call[3] == 1.0)}
+
+
+def _add_counts(*parts) -> dict:
+    """sum of n * counts over the (n, counts) of `parts`, without zeros."""
+    out = {}
+    for n, counts in parts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + n * v
+    return {k: v for k, v in out.items() if v}
+
+
+def train_step_counts(plain_cfg, r1: bool, pl: bool) -> tuple:
+    """(launches, launches under grad, backward passes that kept their
+    graph) of one `Trainer.train_step` of `plain_cfg`, one subdivision. The
+    D phase: a synthesis without a gradient, D on reals and on fakes under
+    grad; R1 (`r1`): D on reals under grad, each backward keeping its graph;
+    the G phase: a synthesis and D on fakes under grad; the path length
+    penalty (`pl`): a synthesis without noise under grad, each backward
+    keeping its graph."""
+    syn = synthesis_launches(plain_cfg)
+    no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+    d = discriminator_launches(plain_cfg)
+    return (_add_counts((2, syn), (pl, no_noise), (3 + r1, d)),
+            _add_counts((1, syn), (pl, no_noise), (3 + r1, d)),
+            _add_counts((pl, no_noise), (r1, d)))
+
+
+def _grad_counts(counter: dict) -> dict:
+    """A `cuda.with_grad` counter's entries of kernels 1-4 and the FIR."""
+    names = _kernel_names()
+    return {k: v for k, v in counter.items() if k in names}
 
 
 def _counters():
     from clip_glass_torch.ops import cuda
 
-    return ({k.__name__: k.launches for k in _kernels()}, dict(cuda.with_grad.recorded))
+    return ({k.__name__: k.launches for k in _kernels()},
+            _grad_counts(cuda.with_grad.recorded))
 
 
 def _delta(a, b) -> dict:
@@ -3474,7 +3788,7 @@ def phase_projector(kind: str, smi: str, root: str, g_params, cfg, lpips_params)
     with torch.inference_mode():
         d_last = proj.distance(images01, target01).sum().item()
         inside = ((images01 > 0) & (images01 < 1)).float().mean().item()
-    # one plain-domain synthesis a step (config-f: 17, 8 and 9)
+    # one plain-domain synthesis a step (config-f: 17, 8 and 9, 8 FIRs)
     per_step = synthesis_launches(proj.plain_cfg)
     for i, st in enumerate(steps):
         if st["launches"] != per_step or st["recorded"] != per_step:
@@ -3841,9 +4155,10 @@ def trainer_grad_kernels_vs_plain(trainer, phase: str, g_params=None, d_params=N
     plain one, and of the second plain one from the first, relative to the
     gradient's scale; and the counts of the kernels' run (launches under
     grad, backward passes that kept their graph), which the plain runs must
-    not have: a synthesis's launches of kernels 1-3 under grad, none keeping
-    its graph, for "g"; kernels 2 and 3 (no noise) under grad and keeping
-    their graph (the second derivative) for "pl".
+    not have: a synthesis's launches of kernels 1-3 and the FIR and D's
+    FIRs under grad, none keeping its graph, for "g"; kernels 2 and 3 and
+    the FIR (no noise) under grad and keeping their graph (the second
+    derivative) for "pl".
 
     Only "g" holds the kernels' outputs: the fakes go through D, which is
     not linear in them. The penalty's gradient does not see them: without
@@ -3872,7 +4187,7 @@ def trainer_grad_kernels_vs_plain(trainer, phase: str, g_params=None, d_params=N
             return trainer.g_reg(p, draw, pl_avg)[0]
     grads, counts = {}, {}
     for route in ("kernels", "plain", "plain again"):
-        before = (dict(cuda.with_grad.recorded), dict(cuda.with_grad.double))
+        before = (_grad_counts(cuda.with_grad.recorded), _grad_counts(cuda.with_grad.double))
         saved = cuda.takes_plain
         if route != "kernels":
             cuda.takes_plain = lambda t: True
@@ -3880,12 +4195,12 @@ def trainer_grad_kernels_vs_plain(trainer, phase: str, g_params=None, d_params=N
             _, grads[route] = value_and_grad(fn, g_params)
         finally:
             cuda.takes_plain = saved
-        counts[route] = [_delta(b, dict(a)) for b, a in
+        counts[route] = [_delta(b, _grad_counts(a)) for b, a in
                          zip(before, (cuda.with_grad.recorded, cuda.with_grad.double))]
         torch.cuda.empty_cache()
     syn = synthesis_launches(trainer.plain_cfg)
     if phase == "g":
-        want = [syn, {}]
+        want = [_add_counts((1, syn), (1, discriminator_launches(trainer.plain_cfg))), {}]
     else:
         no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
         want = [no_noise, no_noise]
@@ -3904,11 +4219,13 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
     files (`trainer_weights`), reals seeded uniform noise in [-1, 1].
     TRAIN_STEPS steps: step 0 runs R1 and the path length penalty, step 4
     the penalty again. Per step its seconds, the phases it ran, the peak
-    memory, the launches of kernels 1-3 (a plain-domain synthesis under
-    no_grad for D's fakes, one under grad for G's loss, one without noise
-    under grad for the penalty: 17/8/9, 17/8/9, 0/8/9), those through
-    `cuda._KernelGrad` and the backward passes of those that kept their
-    graph (the penalty's second derivative: 8 and 9), and the five logs,
+    memory, the launches of kernels 1-3 and the FIR (a plain-domain
+    synthesis under no_grad for D's fakes, one under grad for G's loss, one
+    without noise under grad for the penalty: 17/8/9/8, 17/8/9/8, 0/8/9/8;
+    D's 16 FIRs on reals and fakes, on fakes for G's loss, on reals for R1:
+    `train_step_counts`), those through `cuda._KernelGrad` and the backward
+    passes of those that kept their graph (the penalty's second derivative:
+    8, 9 and 8; R1's: 16 FIRs), and the five logs,
     which must be finite. Then: G's and D's parameters moved and Gs less
     than G; a checkpoint written and read back bitwise; one TrainLogger grid
     from Gs (the default domain: kernel 4 at 512 and 1024 px); kernels 1-3
@@ -3943,8 +4260,7 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
 
     before = {k: leaves(k) for k in ("g_params", "d_params", "gs_params")}
     plain = dataclasses.replace(cfg, s2d_min_res=2 ** 30)
-    syn = synthesis_launches(plain)                       # 17/8/9 at 1024 px
-    no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+    syn = synthesis_launches(plain)                       # 17/8/9/8 at 1024 px
     steps = []
     _zero_counts(_kernels())
     for i in range(TRAIN_STEPS):
@@ -3952,7 +4268,7 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
             (["pl"] if i % tcfg.g_reg_interval == 0 else [])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        c0, d0 = _counters(), dict(cuda.with_grad.double)
+        c0, d0 = _counters(), _grad_counts(cuda.with_grad.double)
         t0 = time.perf_counter()
         logs = tr.train_step(reals)
         torch.cuda.synchronize()
@@ -3961,17 +4277,16 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
         rec = {"step": i, "s": s, "phases": phases,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "launches": _delta(c0[0], c1[0]), "under_grad": _delta(c0[1], c1[1]),
-               "under_double_grad": _delta(d0, dict(cuda.with_grad.double)),
+               "under_double_grad": _delta(d0, _grad_counts(cuda.with_grad.double)),
                "logs": {k: v.item() for k, v in logs.items()}}
         steps.append(rec)
-        pl = "pl" in phases
-        want = {k: 2 * syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
-        want_grad = {k: syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+        want, want_grad, want_double = train_step_counts(plain, "r1" in phases,
+                                                         "pl" in phases)
         if rec["launches"] != want or rec["under_grad"] != want_grad \
-                or rec["under_double_grad"] != (no_noise if pl else {}) \
+                or rec["under_double_grad"] != want_double \
                 or not all(math.isfinite(v) for v in rec["logs"].values()):
             raise AssertionError(f"trainer step {i}: {rec}; expected launches {want}, under "
-                                 f"grad {want_grad}, kept the graph {no_noise if pl else {}}")
+                                 f"grad {want_grad}, kept the graph {want_double}")
     moved = {k: max((a - b).abs().max().item() for a, b in zip(leaves(k), before[k]))
              for k in before}
     if not (moved["g_params"] > 0 and moved["d_params"] > 0
@@ -4053,7 +4368,7 @@ def phase_trainer(kind: str, smi: str, root: str) -> dict:
     out = {name: {f: sum(r[f].get(name, 0) for r in steps)
                   for f in ("launches", "under_grad", "under_double_grad")} for name in syn}
     for name in syn:
-        out[name].update(kernel_errs[name])
+        out[name].update(kernel_errs.get(name, {}))
     out["s2d_conv2x2"] = {"launches": 0, "grid_launches": grid_launches["s2d_conv2x2"]}
     return out
 
@@ -4211,7 +4526,7 @@ def sharded_rank(argv) -> int:
         tr = Trainer(small, TrainerConfig(checkpoint_every=0), g, d, mesh=mesh)
         steps = []
         for i, (reals, draws) in enumerate(zip(inp["reals"], inp["draws"])):
-            c0, d0 = _counters(), dict(cuda.with_grad.double)
+            c0, d0 = _counters(), _grad_counts(cuda.with_grad.double)
             torch.cuda.synchronize()
             t = time.perf_counter()
             logs = tr.train_step(tr.local_rows(reals), draws)
@@ -4219,7 +4534,7 @@ def sharded_rank(argv) -> int:
             c1 = _counters()
             steps.append({"s": time.perf_counter() - t, "launches": _delta(c0[0], c1[0]),
                           "under_grad": _delta(c0[1], c1[1]),
-                          "under_double_grad": _delta(d0, dict(cuda.with_grad.double)),
+                          "under_double_grad": _delta(d0, _grad_counts(cuda.with_grad.double)),
                           "logs": {k: v.item() for k, v in logs.items()}})
             tr.save_checkpoint(os.path.join(args.out, "train", f"step-{i + 1}"))
         rec["train"] = steps
@@ -4396,13 +4711,11 @@ def phase_sharded(kind: str, smi: str, root: str) -> dict:
          "artifacts": sorted(files), "writes_rank0": w0, "writes_rank1": w1})
 
     plain_small = dataclasses.replace(small, s2d_min_res=2 ** 30)
-    syn = synthesis_launches(plain_small)
-    no_noise = {k: v for k, v in syn.items() if k != "noise_bias_lrelu"}
+    tcfg = TrainerConfig()
     for r in ranks:
         for i, step in enumerate(r["train"]):
-            pl = i % TrainerConfig().g_reg_interval == 0
-            want_l = {k: 2 * syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
-            want_g = {k: syn[k] + (no_noise.get(k, 0) if pl else 0) for k in syn}
+            want_l, want_g, _ = train_step_counts(plain_small, i % tcfg.d_reg_interval == 0,
+                                                  i % tcfg.g_reg_interval == 0)
             if step["launches"] != want_l or step["under_grad"] != want_g \
                     or not all(math.isfinite(v) for v in step["logs"].values()):
                 raise AssertionError(f"sharded (e) rank {r['rank']} step {i}: {step}; expected "
@@ -4484,7 +4797,7 @@ def _tp_rank_case(inp: dict, rec: dict, kernels) -> None:
 
 
 def _count_by_shard(kernels):
-    """Wrap each kernel's checked launch (kernels 1-4 and conv_s8) so that it
+    """Wrap each kernel's checked launch (kernels 1-4, the FIR and conv_s8) so that it
     counts by the mesh position of the calling thread; returns (counts,
     undo)."""
     import importlib
@@ -4499,6 +4812,7 @@ def _count_by_shard(kernels):
                                  (upfirdn, "_upsample2x_cuda", "upsample2x"),
                                  (modulated_conv, "_modulated_matmul_cuda", "modulated_matmul"),
                                  (s2d, "_s2d_conv2x2_cuda", "s2d_conv2x2"),
+                                 (upfirdn, "_fir_cuda", "fir"),
                                  (conv_s8_module, "conv_s8_launch", "conv_s8")):
         real = getattr(module, name)
 
@@ -4832,7 +5146,8 @@ def phase_bench(kind: str, smi: str, int8_main: dict) -> dict:
     """Phase 31: the port's contract entry point and its bench (clip_glass_torch/
     entry.py, bench_torch.py), on the flagship at full width:
       (a) `entry()` on the card: F of its pop-4 bf16 evaluation is [4, 2]
-          and finite, with kernels 1-4's launches of one s2d evaluation;
+          and finite, with the launches of kernels 1-4 and the FIR in one
+          s2d evaluation;
       (b) `bench_torch.py` twice, each in a process of its own, with
           BENCH_ENV: each JSON line holds bench.py's fields, device_kind the
           card's name, 0 < mfu <= 1, model_gflops_per_candidate equal to
@@ -4923,11 +5238,11 @@ HARNESS_HASH_CHECKS = ("clip/ViT-B/32: sha256", "clip/RN50: sha256")
 # the kernels that a check must launch
 HARNESS_CHECK_KERNELS = {
     "stylegan2/ffhq-config-f: TF convert + render":
-        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2"),
+        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2", "fir"),
     "biggan/biggan-deep-256: convert + HF-oracle parity + render": ("s2d_conv2x2",),
     "biggan/biggan-deep-512: convert + HF-oracle parity + render": ("s2d_conv2x2",),
     "CLI drive: StyleGAN2_ffhq_d txt2img":
-        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2")}
+        ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2", "fir")}
 
 
 def _stochastic_gpt2_runs(runs: int = 2) -> dict:
@@ -5072,10 +5387,10 @@ def phase_harness(smi: str, kind: str) -> dict:
       (b) every check whose inputs are present and that needs no reference
           tree PASSes; the only SKIPs are the reference-tree checks and the
           synthetic files' sha256 checks; any FAIL fails the phase;
-      (c) kernels 1-4 each launched during the harness, and each check of
-          HARNESS_CHECK_KERNELS launched its kernels (the 1024 px render
-          and the CLI drive: 1-4; BigGAN against the HF oracle: kernel 4's
-          fp32 route);
+      (c) kernels 1-4 and the FIR each launched during the harness, and
+          each check of HARNESS_CHECK_KERNELS launched its kernels (the
+          1024 px render and the CLI drive: 1-4 and the FIR; BigGAN against
+          the HF oracle: kernel 4's fp32 route);
       (d) each check's seconds, and the BigGAN oracle's max abs error at 256
           and 512 px;
       (e) scripts/search_dynamics_ab_torch.py at TINY size, HARNESS_AB_SEEDS
@@ -5115,7 +5430,7 @@ def phase_harness(smi: str, kind: str) -> dict:
     if idle:
         raise AssertionError(f"harness: kernels {idle} never launched: {launches}")
     by = {r["name"]: r for r in results}
-    # the render at 1024 px runs kernels 1-4 (fp32); BigGAN's s2d mid
+    # the render at 1024 px runs kernels 1-4 and the FIR (fp32); BigGAN's s2d mid
     # segments run kernel 4's fp32 route against the HF oracle
     for name, want in HARNESS_CHECK_KERNELS.items():
         got = by[name].get("launches", {})
@@ -5173,9 +5488,14 @@ def main() -> int:
     kind = phase_device()
     smi = smi_line()
     phase_build()
+    if sys.argv[1:2] == ["--fir"]:
+        phase_fir(kind, smi)
+        log({"script_s": time.perf_counter() - t0})
+        return 0
     summary = phase_kernels()
     host = phase_host()
     grads = phase_gradients()
+    summary["fir"] = fir = phase_fir(kind, smi)
     phase_agreement()
     launches, variants, single = phase_main(kind, smi, "s2d", GENERATIONS, summary)
     plain_launches, _, _ = phase_main(kind, smi, "plain", GENERATIONS, summary)
@@ -5347,6 +5667,48 @@ def main() -> int:
                  f"bf16 path's conv at the same sites (cuDNN, kernel 4 at the [2,2] "
                  f"folds); tp: launches_per_position, one int8 flagship evaluation on a "
                  f"(2, 2) mesh of the card listed 4 times"})
+    keys = [k for k in fir["s2d"] if k.endswith("ms") or k in ("bound_by", "bound_share")]
+    kernels.append({
+        "name": "fir", "route": "cuda", "source": "clip_glass_torch/csrc/fir.cu",
+        "replaces": "none: XLA's grouped conv, clip_glass_tpu/ops/upfirdn.py:39-51",
+        "launches": launches["fir"], "launches_by_variant": variants["fir"],
+        "max_abs_err": max(fir[p]["max_abs_err"] for p in ("config_f", "s2d", "plain")),
+        "odd_shapes_max_abs_err": fir["odd_shapes_max_abs_err"],
+        **{k: fir["s2d"][k] for k in keys},
+        "plain_path": {"launches": plain_launches["fir"], **{k: fir["plain"][k] for k in keys}},
+        "config_f": {k: fir["config_f"][k] for k in
+                     (*keys, "launches_per_evaluation", "launches_by_variant")},
+        "evaluation": {k: fir[k] for k in ("fir_launches_g_and_d", "kernels_fir_g_and_d",
+                                           "fir_launches_evaluation",
+                                           "evaluation_sync_sites")},
+        "gradient": "the plain version's backward (cuda.with_grad)",
+        "batched": {"launches": batched["fir"], "launches_by_variant": batched_variants["fir"]},
+        "int8": {"launches": int8_main["launches"]["fir"]},
+        "projector": {"launches": projector["launches"]["fir"],
+                      "under_grad": projector["under_grad"].get("fir", 0)},
+        "ppl": {"launches": ppl_launches.get("fir", 0)},
+        "trainer": trainer["fir"],
+        "sharded": sharded["fir"],
+        "tp": tp["fir"],
+        "bench": bench["fir"],
+        "harness": {"launches": harness["launches"]["fir"],
+                    "launches_by_variant": harness["launches_by_variant"].get("fir"),
+                    "launches_by_check": {check: n["fir"] for check, n in
+                                          harness["launches_by_check"].items() if "fir" in n}},
+        "scope": f"launches: init + {GENERATIONS} generations of each path (main: s2d, G's "
+                 f"up levels and D's blocks at 8-256 px; plain_path: s2d_min_res=2**30, at "
+                 f"8-1024 px), the other phases as for kernels 1-4 (trainer: G's and D's "
+                 f"FIRs; under_double_grad: the path length penalty's and R1's); times: "
+                 f"sums over the calls of one evaluation (pop {POP}, bf16) of the port's "
+                 f"CONFIG_F on each path, and at config-f's widths on the s2d path "
+                 f"(config_f, the benchmark's); ms: back-to-back wrapper calls; device_ms: "
+                 f"replayed from a CUDA graph; plain_ms: fir_plain (pad pass, tap copy, "
+                 f"cuDNN's grouped conv); library_ms: cuDNN's grouped conv alone on a "
+                 f"padded NCHW view; bound_ms: bytes of x and the output over 3.35 TB/s; "
+                 f"max_abs_err: over the three paths' calls; evaluation: one evaluation at "
+                 f"config-f's widths, its G and D under set_sync_debug_mode('error') "
+                 f"counted by fir.launches and the tracer's kernels.fir; "
+                 f"evaluation_sync_sites: the whole evaluation under 'warn'"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

@@ -22,7 +22,8 @@ stamp the same clock (`now_ns`), so the two line up in one trace
   cli.imports, cli.setup, cli.init,       cli.main's phases
   cli.search, cli.final
 
-and the one counter, kernels.builds: the runs of nvcc (ops.cuda.build).
+and the counters kernels.builds, the runs of nvcc (ops.cuda.build), and
+kernels.fir, the launches of the FIR kernel (ops.upfirdn.fir_launch).
 
 The reference's only instrumentation is a pretty-printing context Timer and
 an EMA value tracker (reference stylegan2/utils.py:69-104, 474-504); its GA

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from clip_glass_torch.core.device import constant
 from clip_glass_torch.ops import cuda, quant
 from clip_glass_torch.ops.conv_s8 import conv_s8
-from clip_glass_torch.ops.upfirdn import fir, pad_hw, setup_filter_kernel
+from clip_glass_torch.ops.upfirdn import fir, pad_hw
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad0=0, pad1=0,
@@ -126,9 +126,9 @@ def modulated_conv2d_up(x, w, style, *, demodulate: bool = True,
     else:
         y = F.conv_transpose2d(xs.permute(0, 3, 1, 2), w.transpose(0, 1), stride=2)
         y = y.permute(0, 2, 3, 1)
-    fk = setup_filter_kernel(tuple(filter_taps), gain=1.0, up_factor=2)
-    pad = (fk.shape[-1] - 2) - (k - 1)
-    y = fir(y, fk, pad0=(pad + 1) // 2 + 1, pad1=pad // 2 + 1)
+    pad = (len(filter_taps) - 2) - (k - 1)
+    # the FIR's gain is up_factor ** 2
+    y = fir(y.contiguous(), filter_taps, 4.0, (pad + 1) // 2 + 1, pad // 2 + 1)
     if demodulate:
         y = y * demod_coef(w, style, eps).to(y.dtype)[:, None, None, :]
     return y
@@ -177,9 +177,10 @@ def conv2d_down(x, w, *, filter_taps=(1, 3, 3, 1)):
     modules.py:1197-1232): FIR pad = (fk-2)+(k-1), split ((pad+1)//2,
     pad//2), then a stride-2 VALID conv."""
     k = w.shape[-1]
-    fk = setup_filter_kernel(tuple(filter_taps), gain=1.0, up_factor=1)
-    pad = (fk.shape[-1] - 2) + (k - 1)
-    y = fir(x, fk, pad0=(pad + 1) // 2, pad1=pad // 2)
+    pad = (len(filter_taps) - 2) + (k - 1)
+    # the FIR kernel takes contiguous NHWC: a copy only where D's input is
+    # a view (the plain domain's first block reads the NCHW image)
+    y = fir(x.contiguous(), filter_taps, 1.0, (pad + 1) // 2, pad // 2)
     return _conv(y, w, stride=2)
 
 

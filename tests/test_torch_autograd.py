@@ -1,8 +1,8 @@
 """Gradients through the hand-written kernels' wrappers (ops/cuda.with_grad),
 on the CPU.
 
-On the card each of the four kernel wrappers (noise_bias_lrelu, upsample2x,
-modulated_matmul, s2d_conv2x2) records a gradient through
+On the card each of the five kernel wrappers (noise_bias_lrelu, upsample2x,
+modulated_matmul, s2d_conv2x2, fir) records a gradient through
 `cuda._KernelGrad` when grad mode is on and an input requires grad: the
 forward launches the kernel, the backward is the gradient of the plain
 version. Here there is no card, so the wrappers are driven down their CUDA
@@ -82,6 +82,10 @@ def _ups_args(gen):
     return _r(gen, 2, 4, 5, 3), (1, 3, 3, 1), 1.0
 
 
+def _fir_args(gen, gain, pad0, pad1):
+    return _r(gen, 2, 5, 6, 3), (1, 3, 3, 1), gain, pad0, pad1, 1
+
+
 def _rgb_args(gen, modulated=True):
     style = _r(gen, 2, 4, scale=0.5, offset=1.0) if modulated else None
     demod = _r(gen, 2, 3, scale=0.2, offset=1.0) if modulated else None
@@ -111,6 +115,11 @@ CASES = {
     "s2d_conv2x2_pad0_shared": (s2d.s2d_conv2x2, s2d, "_s2d_conv2x2_cuda",
                                 s2d.s2d_conv2x2_plain,
                                 lambda g: _s2d_args(g, 0, modulated=False)),
+    # G's up levels and D's down convs
+    "fir_up": (upfirdn.fir, upfirdn, "_fir_cuda", upfirdn.fir_plain,
+               lambda g: _fir_args(g, 4.0, 1, 1)),
+    "fir_down": (upfirdn.fir, upfirdn, "_fir_cuda", upfirdn.fir_plain,
+                 lambda g: _fir_args(g, 1.0, 2, 2)),
 }
 
 

@@ -15,6 +15,7 @@ import pytest
 
 import torch
 
+import chip_smoke
 from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
 
 pytestmark = pytest.mark.gpu
@@ -90,7 +91,7 @@ def test_upsample2x_tiled_kernel(gpu, dtype, shape):
     """The tiled variant across its tile, segment and vector edges."""
     x = _randn(gpu, *shape, dtype=dtype)
     v0 = upfirdn.upsample2x.launches_by_variant["tiled"]
-    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(), "tiled")
+    got = upfirdn.upsample2x_launch(x, upfirdn.fir_taps(gain=4.0), "tiled")
     assert upfirdn.upsample2x.launches_by_variant["tiled"] == v0 + 1
     _close(got, upfirdn.upsample2x_plain(x), dtype)
 
@@ -114,7 +115,7 @@ def test_upsample2x_variants_agree_with_plain(gpu, dtype, taps, gain, variant):
     """Both variants on one input, through `upsample2x_launch`, with an
     asymmetric filter and a gain; "rows" is also what long rows take."""
     x = _randn(gpu, 2, 6, 10, 3, dtype=dtype)
-    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(taps, gain), variant)
+    got = upfirdn.upsample2x_launch(x, upfirdn.fir_taps(taps, 4.0 * gain), variant)
     _close(got, upfirdn.upsample2x_plain(x, taps, gain), dtype)
 
 
@@ -124,13 +125,134 @@ def test_upsample2x_edges_stay_exact_beside_infinities(gpu):
     x = _randn(gpu, 1, 4, 4, 3)
     x[0, 0, 0, 0] = float("inf")
     x[0, 2, 3, 1] = float("-inf")
-    got = upfirdn.upsample2x_launch(x, upfirdn.polyphase_taps(), "tiled")
+    got = upfirdn.upsample2x_launch(x, upfirdn.fir_taps(gain=4.0), "tiled")
     # every tap is positive: the outputs an infinity reaches are those that
     # the indicator of the infinities reaches
     reached = upfirdn.upsample2x_plain(torch.isinf(x).float()) > 0
     torch.cuda.synchronize()
     assert not torch.isnan(got).any()
     assert torch.equal(torch.isinf(got), reached)
+
+
+# ------------------------------------------------------------ the FIR kernel
+#
+# Its tolerances are TOL's: in fp32 the kernel sums each row's 4 taps and
+# then 4 rows, the plain version's grouped conv the 16 products in its own
+# order (1e-5); in bf16 both sum in fp32 and round once, so they differ by
+# one bf16 ulp where the two fp32 sums fall on either side of a rounding
+# boundary (2e-2 at values near 1).
+
+def _fir_id(call):
+    shape, pad0, pad1, gain = call
+    return f"{'x'.join(map(str, shape))}-pad{pad0}{pad1}-gain{gain:g}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("call", chip_smoke.fir_calls(chip_smoke.config_f_widths()),
+                         ids=_fir_id)
+def test_fir_kernel_at_the_flagship_calls(gpu, dtype, call):
+    """One flagship evaluation's calls at config-f's widths, pop 16: G's up
+    levels at 8-256 px, then D's blocks at 256-8 px."""
+    shape, pad0, pad1, gain = call
+    x = _randn(gpu, *shape, dtype=dtype)
+    n0, v0 = upfirdn.fir.launches, upfirdn.fir.launches_by_variant["vector"]
+    got = upfirdn.fir(x, (1, 3, 3, 1), gain, pad0, pad1)
+    assert (upfirdn.fir.launches, upfirdn.fir.launches_by_variant["vector"]) == (n0 + 1, v0 + 1)
+    _close(got, upfirdn.fir_plain(x, (1, 3, 3, 1), gain, pad0, pad1), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("taps", [(1, 3, 3, 1), (1, 2, 4, 1)])
+@pytest.mark.parametrize("shape,pad0,pad1,gain", [
+    ((2, 9, 7, 16), 0, 2, 1.0),      # C = 16 (TINY), asymmetric pads
+    ((3, 10, 11, 12), 3, 1, 4.0),    # C = 12: scalar in bf16, vector in fp32
+    ((1, 6, 5, 20), 1, 2, 1.0),      # C = 20, odd width
+    ((2, 4, 4, 8), 0, 0, 1.0),       # one output pixel
+    ((1, 33, 70, 64), 2, 1, 4.0),    # 73 output columns: 3 tiles of 25
+    ((2, 13, 5, 3), 1, 3, 2.0),      # C = 3: scalar in both types
+])
+def test_fir_kernel_at_odd_shapes(gpu, dtype, taps, shape, pad0, pad1, gain):
+    """Both variants where C holds whole 16-byte vectors, the scalar one
+    otherwise; an asymmetric filter fixes the orientation of the taps."""
+    x = _randn(gpu, *shape, dtype=dtype)
+    want = upfirdn.fir_plain(x, taps, gain, pad0, pad1)
+    _close(upfirdn.fir(x, taps, gain, pad0, pad1), want, dtype)
+    for variant in {upfirdn.fir_variant(dtype, shape[-1]), "scalar"}:
+        got = upfirdn.fir_launch(x, upfirdn.fir_taps(taps, gain), pad0, pad1, variant)
+        _close(got, want, dtype)
+
+
+def test_fir_variants_agree_on_one_input(gpu):
+    """The vector and scalar variants on one bf16 input: both round the
+    same fp32 sums, so they agree bitwise."""
+    x = _randn(gpu, 2, 17, 17, 64, dtype=torch.bfloat16)
+    taps = upfirdn.fir_taps((1, 3, 3, 1), 4.0)
+    v0 = dict(upfirdn.fir.launches_by_variant)
+    a = upfirdn.fir_launch(x, taps, 1, 1, "vector")
+    b = upfirdn.fir_launch(x, taps, 1, 1, "scalar")
+    assert upfirdn.fir.launches_by_variant == {k: n + 1 for k, n in v0.items()}
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_fir_rejects_what_the_kernel_does_not_take(gpu):
+    x = _randn(gpu, 2, 6, 6, 8)
+    for taps, pads, stride in [((1, 2, 1), (1, 1), 1), ((1, 3, 3, 1), (1, 1), 2),
+                               ((1, 3, 3, 1), (-1, 2), 1), ((1, 3, 3, 1), (0, 0), 1)]:
+        with pytest.raises(ValueError, match="fir"):
+            upfirdn.fir(x[:, :3, :3] if pads == (0, 0) else x, taps, 1.0, *pads, stride)
+    with pytest.raises(ValueError, match="contiguous"):
+        upfirdn.fir(x.transpose(1, 2), (1, 3, 3, 1), 1.0, 2, 2)
+    with pytest.raises(TypeError):
+        upfirdn.fir(x.half(), (1, 3, 3, 1), 1.0, 2, 2)
+    # contiguous, but 4 bytes past a 16-byte boundary: the vector variant's
+    # loads would fault
+    skewed = torch.empty(2 * 6 * 6 * 8 + 1, device="cuda")[1:].view(2, 6, 6, 8)
+    with pytest.raises(ValueError, match="alignment"):
+        upfirdn.fir(skewed, (1, 3, 3, 1), 1.0, 2, 2)
+    with pytest.raises(ValueError, match="variant"):
+        upfirdn.fir_launch(_randn(gpu, 2, 6, 6, 12, dtype=torch.bfloat16),
+                           upfirdn.fir_taps(), 1, 1, "vector")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fir_gradient_is_the_plain_versions(gpu, dtype):
+    """Under grad the kernel's forward, and plain autograd's gradient."""
+    x = _randn(gpu, 2, 9, 9, 16, dtype=dtype).requires_grad_(True)
+    out = upfirdn.fir(x, (1, 3, 3, 1), 1.0, 2, 2)
+    assert type(out.grad_fn).__name__ == "_KernelGradBackward"
+    r = _randn(gpu, *out.shape, dtype=dtype)
+    (got,) = torch.autograd.grad((out * r).sum(), [x])
+    (want,) = torch.autograd.grad((upfirdn.fir_plain(x, (1, 3, 3, 1), 1.0, 2, 2) * r).sum(), [x])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model", ["tiny", "config_f"])
+def test_stylegan2_g_and_d_synchronize_nothing(gpu, model):
+    """One StyleGAN2_ffhq_d evaluation's G and D on the card under
+    set_sync_debug_mode("error") (any synchronizing call raises): TINY in
+    the plain domain, and config-f's widths on the s2d path at pop 16, the
+    FIR kernel at each of their calls (6 and 18), counted by `fir.launches`
+    and by the tracer's `kernels.fir`, in G and D and in the whole
+    evaluation."""
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = sg2.TINY if model == "tiny" else chip_smoke.config_f_widths()
+    rec = chip_smoke.fir_evaluation(cfg, tiny=model == "tiny")
+    want = len(chip_smoke.fir_calls(cfg))
+    assert want == {"tiny": 6, "config_f": 18}[model]
+    assert rec["fir_launches_g_and_d"] == rec["kernels_fir_g_and_d"] == want
+    assert rec["fir_launches_evaluation"] == want
+
+
+def test_biggan_launches_no_fir(gpu):
+    """BigGAN-deep never calls the FIR: the TINY BigGAN agreement phase
+    (both domains, on the card) moves neither count."""
+    from clip_glass_torch.core.profiling import TRACER
+
+    before = (upfirdn.fir.launches, TRACER.counters().get("kernels.fir", 0))
+    chip_smoke.phase_agreement_biggan()
+    assert (upfirdn.fir.launches, TRACER.counters().get("kernels.fir", 0)) == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -760,7 +882,7 @@ def test_sharded_tiny_fitness_on_gpu_matches_unsharded(gpu):
     that card (one thread each, D's minibatch-std gathered across them)
     against the unsharded evaluation, both domains, fp32, TF32 off: cuDNN may
     take other algorithms at 4 rows than at 8, hence rtol 1e-4, atol 1e-5;
-    each kernel launches once a shard a call site."""
+    each kernel (1-4 and the FIR) launches once a shard a call site."""
     import dataclasses
 
     import chip_smoke
@@ -774,8 +896,8 @@ def test_sharded_tiny_fitness_on_gpu_matches_unsharded(gpu):
         pop_size=8, dim_z=32, n_var=32, weights="random:0", target="a face",
         compute_dtype="float32")
     X = torch.randn((8, 32), generator=torch.Generator().manual_seed(1)).cuda()
-    for model_cfg, per_eval in ((sg2.TINY, (5, 2, 3, 0)),
-                                (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4))):
+    for model_cfg, per_eval in ((sg2.TINY, (5, 2, 3, 0, 6)),
+                                (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4, 0))):
         F = {}
         for label, mesh in (("whole", None), ("sharded", make_mesh(["cuda:0", "cuda:0"]))):
             p = GenerationProblem(cfg, device="cuda", clip_cfg=clip_model.TINY,
@@ -839,12 +961,13 @@ def _kernel_operands(gen, dtype):
                              (r(2, 1024, 64), r(2, 64), r(64, 3), r(2, 3), r(3))),
         "s2d_conv2x2": (s2d.s2d_conv2x2, (r(2, 9, 9, 64), r(2, 2, 64, 64), r(2, 64),
                                           r(2, 64), 1)),
+        "fir": (upfirdn.fir, (r(2, 17, 17, 64), (1, 3, 3, 1), 4.0, 1, 1)),
     }
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", ["noise_bias_lrelu", "upsample2x", "modulated_matmul",
-                                  "s2d_conv2x2"])
+                                  "s2d_conv2x2", "fir"])
 def test_meta_rule_equals_the_kernels_output(gpu, dtype, name):
     """A wrapper on meta operands (core.memory's estimates) allocates what
     its kernel returns on the card: shape, dtype and strides."""

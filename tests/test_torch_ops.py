@@ -58,7 +58,8 @@ def test_fir_matches_jax(rng, pad0, pad1, stride):
     x = _x(rng, 2, 9, 8, 3)
     k = tup.setup_filter_kernel((1, 3, 3, 1), 1.0, 2)
     want = np.asarray(jup.fir(jnp.asarray(x), k, pad0, pad1, stride))
-    np.testing.assert_allclose(N(tup.fir(T(x), k, pad0, pad1, stride)), want, **TOL)
+    got = N(tup.fir(T(x), (1, 3, 3, 1), 4.0, pad0, pad1, stride))
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("act,gain", [("linear", None), ("lrelu", None),
@@ -158,10 +159,11 @@ def test_upsample2x_plain_matches_pallas_blocked_rows(rng):
 
 
 def test_polyphase_taps_reproduce_filter_kernel():
-    """The CUDA kernel's per-axis factors are the 2-D kernel's separable
-    factors (checked here, where the kernel itself cannot run)."""
+    """The upsample kernel's per-axis factors, `fir_taps` at the upsample's
+    gain x4, are the 2-D kernel's separable factors (checked here, where the
+    kernel itself cannot run)."""
     for taps, gain in [((1, 3, 3, 1), 1.0), ((1, 3, 3, 1), 2.0), ((1, 2, 2, 1), 1.0)]:
-        k = np.asarray(tup.polyphase_taps(taps, gain))
+        k = np.asarray(tup.fir_taps(taps, 4.0 * gain))
         np.testing.assert_allclose(np.outer(k, k),
                                    tup.setup_filter_kernel(taps, gain, 2), rtol=1e-6)
 
@@ -198,12 +200,13 @@ def test_modulated_matmul_plain_matches_pallas(rng, demod):
     ((1, 2, 4, 1), 4.0, (0.5, 1.0, 2.0, 0.5)),
 ])
 def test_polyphase_taps_cached_values(taps, gain, want):
-    """The cached factors are normalized taps * 2 * sqrt(gain), whether the
-    taps come as a tuple or a list and the gain as an int or a float, and a
-    second call hands back the same tuple."""
-    got = tup.polyphase_taps(taps, gain)
+    """The upsample's cached factors (`fir_taps` at its gain x4) are
+    normalized taps * 2 * sqrt(gain), whether the taps come as a tuple or a
+    list and the gain as an int or a float, and a second call hands back the
+    same tuple."""
+    got = tup.fir_taps(taps, 4.0 * gain)
     assert got == pytest.approx(want, rel=1e-12)
-    assert tup.polyphase_taps(list(taps), int(gain)) is got
+    assert tup.fir_taps(list(taps), 4 * int(gain)) is got
     k1 = np.asarray(taps, np.float64)
     assert got == tuple(float(v) for v in k1 / k1.sum() * 2.0 * gain ** 0.5)
 
@@ -248,23 +251,180 @@ def test_modulated_matmul_variant_rule(dtype, P, I, O, vec, want):
     assert want in tmc.modulated_matmul.launches_by_variant
 
 
+# the FIR calls of modulated_conv2d_up (gain 4 = up_factor ** 2, pads (1, 1)
+# at k = 3) and of conv2d_down (gain 1; pads (2, 2) at k = 3, (1, 1) at k = 1)
+FIR_CALLS = [(4.0, 2, 1, 1), (1.0, 1, 2, 2), (1.0, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("taps", [(1, 3, 3, 1), (1, 2, 4, 1)])
+@pytest.mark.parametrize("gain,up,pad0,pad1", FIR_CALLS)
+def test_fir_taps_reproduce_filter_kernel(taps, gain, up, pad0, pad1):
+    """The kernel's per-axis factors are the 2-D kernel's separable factors
+    for both callers' gains (checked here, where the kernel cannot run);
+    for (1, 3, 3, 1) exactly, and each factor a bf16 value."""
+    k = np.asarray(tup.fir_taps(taps, gain), np.float32)
+    want = tup.setup_filter_kernel(taps, 1.0, up)
+    if taps == (1, 3, 3, 1):
+        np.testing.assert_array_equal(np.outer(k, k), want)
+        assert torch.equal(torch.tensor(k).bfloat16().float(), torch.tensor(k))
+    else:
+        np.testing.assert_allclose(np.outer(k, k), want, rtol=1e-6)
+    assert tup.fir_taps(list(taps), gain) is tup.fir_taps(taps, float(gain))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gain,up,pad0,pad1", FIR_CALLS + [(1.0, 1, 0, 3)])
+def test_fir_on_the_cpu_is_the_depthwise_route(rng, dtype, gain, up, pad0, pad1):
+    """`fir` on a CPU tensor is the route it took before its kernel, the
+    grouped conv with setup_filter_kernel's 2-D kernel, bitwise; and it
+    equals the separable sum (rows of 4-tap sums, then 4 of those rows) in
+    float64 within fp32's rounding, or bf16's."""
+    x = T(_x(rng, 2, 9, 7, 5)).to(dtype)
+    got = tup.fir(x, (1, 3, 3, 1), gain, pad0, pad1)
+    want = tup._depthwise(x, tup.setup_filter_kernel((1, 3, 3, 1), 1.0, up),
+                          pad0=pad0, pad1=pad1)
+    assert got.dtype == dtype and torch.equal(got, want)
+    k = np.asarray(tup.fir_taps((1, 3, 3, 1), gain))
+    xp = np.pad(x.double().numpy(), ((0, 0), (pad0, pad1), (pad0, pad1), (0, 0)))
+    Ho, Wo = xp.shape[1] - 3, xp.shape[2] - 3
+    rows = sum(k[j] * xp[:, :, j:j + Wo] for j in range(4))
+    ref = sum(k[i] * rows[:, i:i + Ho] for i in range(4))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.double().numpy(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad0,pad1,want", [
+    ((16, 17, 17, 512), 1, 1, (16, 16, 16, 512)),        # G at 16 px
+    ((16, 257, 257, 128), 1, 1, (16, 256, 256, 128)),    # G at 256 px
+    ((16, 256, 256, 128), 2, 2, (16, 257, 257, 128)),    # D's conv1 at 256 px
+    ((16, 8, 8, 512), 1, 1, (16, 7, 7, 512)),            # D's skip at 8 px
+    ((3, 5, 9, 7), 0, 2, (3, 4, 8, 7)),                  # asymmetric, C odd
+])
+def test_fir_meta_rule_is_the_kernels_shape(dtype, shape, pad0, pad1, want):
+    """On meta operands (core.memory's estimates) `fir` allocates the
+    kernel's output, [B, H+pad0+pad1-3, W+pad0+pad1-3, C] in x's dtype,
+    contiguous, and launches nothing."""
+    before = (tup.fir.launches, dict(tup.fir.launches_by_variant))
+    got = tup.fir(torch.empty(shape, dtype=dtype, device="meta"), (1, 3, 3, 1), 1.0,
+                  pad0, pad1)
+    assert got.is_meta and tuple(got.shape) == want and got.dtype == dtype
+    assert got.is_contiguous()
+    assert before == (tup.fir.launches, tup.fir.launches_by_variant)
+
+
+@pytest.mark.parametrize("taps,pad0,pad1,stride", [
+    ((1, 2, 1), 1, 1, 1), ((1, 3, 3, 3, 1), 2, 2, 1), ((1, 3, 3, 1), 1, 1, 2),
+    ((1, 3, 3, 1), -1, 2, 1), ((1, 3, 3, 1), 0, 0, 1),
+])
+def test_fir_meta_rule_refuses_what_the_kernel_does_not_take(taps, pad0, pad1, stride):
+    """The shape rule raises where the kernel's wrapper does: other tap
+    counts, a stride, a negative pad, no output pixel (3 px unpadded)."""
+    x = torch.empty((2, 3, 3, 8), device="meta")
+    with pytest.raises(ValueError, match="fir"):
+        tup.fir(x, taps, 1.0, pad0, pad1, stride)
+    tup.fir_plain(torch.zeros(2, 3, 3, 8), (1, 3, 3, 1), 1.0, 1, 1, 2)  # the CPU takes all
+
+
+@pytest.mark.parametrize("model,calls,g_values,d_values", [
+    ("config_f", 18, 30_992_768, 61_477_632),     # the s2d path: 8-256 px
+    ("config_f_plain", 24, 131_787_232, 262_804_416),
+    ("tiny", 6, 11_040, 20_544),
+])
+def test_fir_calls_of_one_evaluation(model, calls, g_values, d_values):
+    """chip_smoke.fir_calls, which the smoke run and the card's tests time
+    and count: an evaluation's FIR calls and the values they read and
+    write a candidate (config-f's widths on the s2d path: G about 31 M, D
+    about 61.5 M, 185 MB in bf16, 55 us at 3.35 TB/s)."""
+    import chip_smoke
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    cfg = {"config_f": chip_smoke.config_f_widths(),
+           "config_f_plain": chip_smoke.config_f_widths(s2d_min_res=2 ** 30),
+           "tiny": sg2.TINY}[model]
+    got = chip_smoke.fir_calls(cfg, pop=1)
+    assert len(got) == calls
+    values = {4.0: 0, 1.0: 0}
+    for (_, H, W, C), pad0, pad1, gain in got:
+        values[gain] += H * W * C + (H + pad0 + pad1 - 3) * (W + pad0 + pad1 - 3) * C
+    assert (values[4.0], values[1.0]) == (g_values, d_values)
+
+
+@pytest.mark.parametrize("config,s2d_min_res", [
+    ("StyleGAN2_ffhq_d", 512),      # the plain domain throughout
+    ("StyleGAN2_ffhq_d", 16),       # 8 px plain, 16 px in the s2d domain
+    ("StyleGAN2_ffhq_nod", 512),    # G alone
+])
+def test_fir_calls_are_an_evaluations(monkeypatch, config, s2d_min_res):
+    """chip_smoke.fir_calls, from which the smoke run takes the FIR's
+    launches on every StyleGAN2 path, lists the `fir` calls of one TINY
+    evaluation on the CPU in order, (shape, pad0, pad1, gain): G's up levels
+    and D's blocks below s2d_min_res, G's alone without D; and PER_EVAL, the
+    flagship's launches an evaluation, holds their number on both paths."""
+    import dataclasses
+
+    import chip_smoke
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.problem import GenerationProblem
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.stylegan2 import model as sg2
+
+    calls = []
+    plain = tup.fir_plain
+
+    def counted(x, filter_taps, gain, pad0, pad1, stride=1):
+        calls.append((tuple(x.shape), pad0, pad1, gain))
+        return plain(x, filter_taps, gain, pad0, pad1, stride)
+    monkeypatch.setattr(tup, "fir_plain", counted)
+    cfg = get_config(config).replace(pop_size=4, dim_z=32, n_var=32, weights="random:0",
+                                     target="a red flower", compute_dtype="float32")
+    model_cfg = dataclasses.replace(sg2.TINY, s2d_min_res=s2d_min_res)
+    gen = GenerationProblem(cfg, device="cpu", clip_cfg=clip_model.TINY,
+                            model_cfg=model_cfg).generator
+    gen.eval_population(torch.randn((4, 32), generator=torch.Generator().manual_seed(0)))
+    want = chip_smoke.fir_calls(model_cfg, pop=4)
+    if config.endswith("_nod"):
+        want = [c for c in want if c[3] == 4.0]
+    assert calls == want and len(calls) == {16: 3, 512: 6 if cfg.n_obj == 2 else 2}[
+        s2d_min_res]
+    assert {p: n["fir"] for p, n in chip_smoke.PER_EVAL.items()} == {
+        p: len(chip_smoke.fir_calls(chip_smoke._model_cfg(p))) for p in ("s2d", "plain")}
+
+
+@pytest.mark.parametrize("dtype,C,want", [
+    (torch.bfloat16, 512, "vector"), (torch.bfloat16, 128, "vector"),
+    (torch.bfloat16, 16, "vector"), (torch.bfloat16, 8, "vector"),
+    (torch.bfloat16, 12, "scalar"), (torch.bfloat16, 3, "scalar"),
+    (torch.float32, 4, "vector"), (torch.float32, 20, "vector"), (torch.float32, 6, "scalar"),
+])
+def test_fir_variant_rule(dtype, C, want):
+    """A thread of the kernel owns 16 bytes of channels where C holds whole
+    16-byte vectors (every flagship call, and TINY's 16), one value else."""
+    assert tup.fir_variant(dtype, C) == want
+    assert want in tup.fir.launches_by_variant
+
+
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu(rng):
     """A CPU tensor goes to the plain version, counts no launch and needs no
     contiguous input (the skip accumulator of the CPU path is a permuted
     view)."""
     before = (tup.upsample2x.launches, dict(tup.upsample2x.launches_by_variant),
               tmc.modulated_matmul.launches,
-              dict(tmc.modulated_matmul.launches_by_variant))
+              dict(tmc.modulated_matmul.launches_by_variant),
+              tup.fir.launches, dict(tup.fir.launches_by_variant))
     y = T(_x(rng, 2, 3, 4, 4)).permute(0, 2, 3, 1)      # NHWC view of NCHW
     assert not y.is_contiguous()
     np.testing.assert_array_equal(N(tup.upsample2x(y)),
                                   N(tup.upsample2x_plain(y.contiguous())))
+    np.testing.assert_array_equal(N(tup.fir(y, (1, 3, 3, 1), 1.0, 2, 2)),
+                                  N(tup.fir_plain(y.contiguous(), (1, 3, 3, 1), 1.0, 2, 2)))
     x, s, w, b = T(_x(rng, 2, 9, 8)), T(_x(rng, 2, 8)), T(_x(rng, 8, 3)), T(_x(rng, 3))
     np.testing.assert_array_equal(N(tmc.modulated_matmul(x, s, w, None, b)),
                                   N(tmc.modulated_matmul_plain(x, s, w, None, b)))
     assert before == (tup.upsample2x.launches, tup.upsample2x.launches_by_variant,
                       tmc.modulated_matmul.launches,
-                      tmc.modulated_matmul.launches_by_variant)
+                      tmc.modulated_matmul.launches_by_variant,
+                      tup.fir.launches, tup.fir.launches_by_variant)
 
 
 def test_require_cuda_refuses_cpu_tensors_in_one_pass():

@@ -90,7 +90,8 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
     counts = (bias_act.noise_bias_lrelu.launches, upfirdn.upsample2x.launches,
-              modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches)
+              modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches,
+              upfirdn.fir.launches)
     x = torch.from_numpy(rng.normal(size=(2, 4, 5, 8)).astype(np.float32))
     noise, ns, b = torch.randn(4, 5), torch.tensor(0.3), torch.randn(8)
     torch.testing.assert_close(bias_act.noise_bias_lrelu(x, noise, ns, b),
@@ -98,6 +99,8 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
                                rtol=0, atol=0)
     torch.testing.assert_close(upfirdn.upsample2x(x), upfirdn.upsample2x_plain(x),
                                rtol=0, atol=0)
+    torch.testing.assert_close(upfirdn.fir(x, (1, 3, 3, 1), 4.0, 1, 1),
+                               upfirdn.fir_plain(x, (1, 3, 3, 1), 4.0, 1, 1), rtol=0, atol=0)
     xm, s, w, d, bo = (torch.randn(2, 20, 8), torch.randn(2, 8), torch.randn(8, 3),
                        torch.randn(2, 3), torch.randn(3))
     torch.testing.assert_close(modulated_conv.modulated_matmul(xm, s, w, d, bo),
@@ -110,7 +113,8 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
                                    s2d.s2d_conv2x2_plain(xs, K, st, dm, pad0),
                                    rtol=0, atol=0)
     assert counts == (bias_act.noise_bias_lrelu.launches, upfirdn.upsample2x.launches,
-                      modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches)
+                      modulated_conv.modulated_matmul.launches, s2d.s2d_conv2x2.launches,
+                      upfirdn.fir.launches)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

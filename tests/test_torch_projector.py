@@ -237,8 +237,9 @@ def test_projector_step_synthesizes_in_the_plain_domain(tiny, monkeypatch):
 def test_step_through_the_kernels_grad_function_equals_the_plain_route(tiny, card_branch):
     """The card's route on the CPU: the wrappers take their CUDA branch (each
     launch its plain version, tests/test_torch_autograd.py's `card_branch`),
-    so kernels 1-3 record the step's gradient through `cuda._KernelGrad` (5
-    epilogues, 2 skip upsamples, 3 ToRGB on TINY; kernel 4 none), and the
+    so kernels 1-3 and the FIR record the step's gradient through
+    `cuda._KernelGrad` (5 epilogues, 2 skip upsamples, 3 ToRGB, 2 up levels'
+    FIRs on TINY; kernel 4 none), and the
     step's state equals the plain route's: bitwise but for the dlatents and
     their moments, whose gradient autograd sums from its per-layer parts in
     another order through the Function (within 1e-6 of their scale; 3.2e-7
@@ -268,7 +269,7 @@ def test_step_through_the_kernels_grad_function_equals_the_plain_route(tiny, car
                  if v != before.get(k, 0)}
         results[route] = (vars_, state, loss, dist, moved)
     assert results["kernels"][4] == {"noise_bias_lrelu": 5, "upsample2x": 2,
-                                     "modulated_matmul": 3}
+                                     "modulated_matmul": 3, "fir": 2}
     assert results["plain"][4] == {}
     (kv, ks, kl, kd, _), (pv, ps, pl, pd, _) = results["kernels"], results["plain"]
     for a, b in zip([*kv[1], *ks.mu[1:], *ks.nu[1:], kl, kd],

@@ -721,7 +721,8 @@ def test_path_length_step_through_the_card_branch_equals_the_plain_route(
     """The path length phase's G gradient with every wrapper on its CUDA
     branch (each launch its plain version, through `cuda._KernelGrad`, whose
     second derivative the penalty takes) against the plain route: kernels 2
-    and 3 under the Function (no noise: kernel 1 is not on this path)."""
+    and 3 and the FIR under the Function (no noise: kernel 1 is not on this
+    path)."""
     tr = _trainer(weights)
     draw = _pl_chunk(jax.random.PRNGKey(9), 2)
 
@@ -733,7 +734,7 @@ def test_path_length_step_through_the_card_branch_equals_the_plain_route(
     launched = dict(card_branch)
     assert launched["function"] > 0 and launched.get("_upsample2x_cuda", 0) > 0 \
         and launched.get("_modulated_matmul_cuda", 0) > 0 \
-        and "_noise_bias_lrelu_cuda" not in launched
+        and launched.get("_fir_cuda", 0) > 0 and "_noise_bias_lrelu_cuda" not in launched
     from clip_glass_torch.ops import cuda
     cuda.takes_plain = lambda t: True   # restored by the fixture's monkeypatch
     want, plain = run()
