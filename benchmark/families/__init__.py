@@ -7,13 +7,24 @@ Each module gives:
   beside them by the harness), drawn from `gen` (harness/weights.py);
 - `model_config(config)`: the port's model config of the file's geometry;
 - `block_rows(config, pop, block)`: the rows the reference scores at once;
-- `targets(config, weights, prompts, device)`: each search's target as the
+- `targets(config, weights, targets, device)`: each search's target as the
   reference encodes it;
 - `score(config, weights, x, target)`: the reference's fitness columns of
   the genomes x against one search's target, the share of the image's
   pixels at the clip limits and D's logits (or None);
 - `flops_per_candidate(config)`: the frozen model FLOPs to score a candidate
   (benchmark/yardstick/flops.py).
+
+and may give, where it departs from a text-to-image family:
+- `draw_targets(config, rng, n, workdir)`: the run's n targets, which the
+  port is handed and `targets` later reads, drawn from `rng` (files go
+  into `workdir`); without it, n text prompts (harness/prompts.py);
+- `GENERATOR_OUTPUT`: (module, class, attribute) of the port's call whose
+  results are kept beside each evaluation of the window
+  (harness/trace.py) and handed to `score` as `outputs`, that search's
+  rows of them; `score` then judges them (its result's `margins`), and
+  without them makes its own (`outputs`). A family with no image gives
+  `clipped` None.
 """
 
 from __future__ import annotations

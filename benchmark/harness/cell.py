@@ -7,6 +7,11 @@ names its model family's module, `benchmark/families/<family>.py`) and
 traffic mix (`benchmark/traffic/<traffic>.json`); the cell's limits are in
 `benchmark/limits/<workload>.json`; each per-layer metric's reader is
 `benchmark/metrics/<metric>.py`.
+
+A model family may add (benchmark/families/__init__.py): `draw_targets`,
+the run's targets in place of text prompts (image files, written into a
+directory the run owns and removes when it ends), and `GENERATOR_OUTPUT`,
+the port's call whose results the window keeps for the output check.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import importlib.util
 import json
 import random
+import tempfile
 import time
 from contextlib import nullcontext
 from pathlib import Path
@@ -68,6 +74,17 @@ def make_weights(config: dict, seed: int, device, log=None) -> dict:
     return out
 
 
+def draw_targets(config: dict, seed: int, n: int, workdir: Path) -> list:
+    """The run's n targets, from the seed's "prompts" stream: the family's
+    `draw_targets(config, rng, n, workdir)` where it has one, else n text
+    prompts (harness/prompts.py)."""
+    rng = random.Random(sub_seed(seed, "prompts"))
+    fam = family(config)
+    if hasattr(fam, "draw_targets"):
+        return fam.draw_targets(config, rng, n, workdir)
+    return prompts.draw(rng, n)
+
+
 def build_problem(config: dict, traffic: dict, bundle: dict, target: str, seed: int, device):
     """The port's GenerationProblem of `config` at the traffic's population,
     its weights handed in as a bundle; every field of the port's search
@@ -115,21 +132,31 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
     """One run. Each of `controls` (reference precisions, "fp8") puts the
     reference at that precision in the port's place on the same genomes,
     its numbers judged alike (`Run.controls`): the readings the limits are
-    set from."""
+    set from. The run's target files live in a temporary directory that
+    is removed when the run ends."""
+    with tempfile.TemporaryDirectory(prefix="benchmark-targets-") as workdir:
+        return _run_cell(bench, workload, seed, seconds, trace, t_start, device, bench_dir,
+                         log, controls, Path(workdir))
+
+
+def _run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool,
+              t_start: float, device: torch.device, bench_dir: Path, log, controls,
+              workdir: Path) -> Run:
     config = load_json(bench_dir / "configs" / f"{workload['config']}.json")
     traffic = load_json(bench_dir / "traffic" / f"{workload['traffic']}.json")
     limits = load_json(bench_dir / "limits" / f"{workload['name']}.json")
+    fam = family(config)
     search_seed = sub_seed(seed, "search")
-    texts = prompts.draw(random.Random(sub_seed(seed, "prompts")), traffic.get("requests", 1))
+    targets = draw_targets(config, seed, traffic.get("requests", 1), workdir)
 
     trees = make_weights(config, seed, device, log)
-    problem = build_problem(config, traffic, trees, texts[0], search_seed, device)
+    problem = build_problem(config, traffic, trees, targets[0], search_seed, device)
     # the reference's copy waits on the host, so that the window holds only
     # what the port holds
     ref_weights = check.to_device(trees, "cpu")
     del trees
     tap = Tap(device)
-    driver = DRIVERS[traffic["kind"]](problem, traffic, texts, search_seed, tap)
+    driver = DRIVERS[traffic["kind"]](problem, traffic, targets, search_seed, tap)
     driver.setup()
     tap.sync()
     X_start = driver.population().clone()
@@ -139,7 +166,8 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
 
     tap.recording = True
     units = cands = 0
-    with tap.phase("timed") if trace else nullcontext():
+    with tap.phase("timed") if trace else nullcontext(), \
+            tap.capture(getattr(fam, "GENERATOR_OUTPUT", None)):
         t0 = time.perf_counter()
         setup_s = t0 - t_start
         while True:
@@ -155,7 +183,7 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
     X_end = driver.population().clone()
     rate = cands / window_s
     ctx = {"rate": rate, "counters": counters, "gens": tap.gens, "mem_peak": mem_peak,
-           "fpc": family(config).flops_per_candidate(config),
+           "fpc": fam.flops_per_candidate(config),
            "peak": peaks.bf16_peak(torch.cuda.get_device_name(device))
            if device.type == "cuda" else None}
     breakdown = None
@@ -167,16 +195,15 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
     # the output check, on a sample of the window's evaluations
     rng = random.Random(sub_seed(seed, "check"))
     n = len(tap.evals)
-    attempted = sum(F.shape[0] * (F.shape[1] if F.dim() == 3 else 1) for _, F, _ in tap.evals)
-    failed = sum(int((~torch.isfinite(F).all(-1)).sum()) for _, F, _ in tap.evals)
+    attempted = sum(F.shape[0] * (F.shape[1] if F.dim() == 3 else 1) for _, F, *_ in tap.evals)
+    failed = sum(int((~torch.isfinite(F).all(-1)).sum()) for _, F, *_ in tap.evals)
     # evaluations drawn from the seed among the window's first
     # `check_window`, so that the generations checked do not depend on how
     # fast the port is (the gaps grow as a search moves); none when the
     # window evaluated nothing, and then no number compares
     reach = min(n, traffic["check_window"])
     picked = sorted(rng.sample(range(reach), min(traffic["check_evaluations"], reach)))
-    sample = [(_searches(tap.evals[i][0]).cpu(), _searches(tap.evals[i][1]).cpu(),
-               tap.evals[i][2]) for i in picked]
+    sample = [_checked(*tap.evals[i]) for i in picked]
     moved = check.moved_rows(X_start, X_end)
     tap.evals = None
     driver.close()
@@ -190,26 +217,32 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
     control_rows: Dict[str, Dict[str, list]] = {c: {} for c in controls}
     share = []
     logit = []
-    for X, F_prog, per_search in sample:
-        out = check.reference_fitness(config, ref, X.to(device), per_search,
-                                      traffic["check_block"])
+    block = traffic["check_block"]
+    for X, F_prog, per_search, outputs in sample:
+        X = X.to(device)
+        out = check.reference_fitness(config, ref, X, per_search, block,
+                                      outputs=None if outputs is None else outputs.to(device))
         F_ref = out["F"].cpu()
-        for k, v in check.row_gaps(F_prog, F_ref).items():
-            rows.setdefault(k, []).append(v)
+        _gather(rows, check.row_gaps(F_prog, F_ref), out["margins"])
         for c in controls:
-            F_c = check.reference_fitness(config, ref, X.to(device), per_search,
-                                          traffic["check_block"], precision=c)["F"]
-            for k, v in check.row_gaps(F_c.cpu(), F_ref).items():
-                control_rows[c].setdefault(k, []).append(v)
-        share.append(out["clip_share"].item())
+            out_c = check.reference_fitness(config, ref, X, per_search, block, precision=c)
+            base, margins = F_ref, None
+            if out_c["outputs"] is not None:
+                # the control's own generator outputs, judged as the port's are
+                judged = check.reference_fitness(config, ref, X, per_search, block,
+                                                 outputs=out_c["outputs"])
+                base, margins = judged["F"].cpu(), judged["margins"]
+            _gather(control_rows[c], check.row_gaps(out_c["F"].cpu(), base), margins)
+        if out["clip_share"] is not None:
+            share.append(out["clip_share"].item())
         if out["logit_max"] is not None:
             logit.append(out["logit_max"].item())
     del ref
-    clip_share = sum(share) / len(share) if share else 0.0
+    clip_share = sum(share) / len(share) if share else None
     logit_max = max(logit) if logit else None
     log(json.dumps({"draw": {"clip_share": clip_share, "d_logit_max": logit_max,
                              "saturated": check.saturated(clip_share, logit_max)}}))
-    if share and check.saturated(clip_share, logit_max):
+    if check.saturated(clip_share, logit_max):
         raise RuntimeError(f"the weights drawn from seed {seed} saturate: {clip_share} of "
                            f"the pixels at the clip limits, D's largest logit {logit_max}")
     row_gaps = {k: torch.cat(v) for k, v in rows.items()}
@@ -238,9 +271,8 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
                    "setup_s": {"value": setup_s, "unit": "s"}}
     return Run(metrics=metrics, checks=checks, attempted=attempted, failed=failed, device=dev,
                breakdown=breakdown, values=values, controls=control_values,
-               rows={"port": {k: v.tolist() for k, v in row_gaps.items()},
-                     **{c: {k: v.tolist() for k, v in g.items()}
-                        for c, g in control_row_gaps.items()}},
+               rows={"port": _per_row(row_gaps),
+                     **{c: _per_row(g) for c, g in control_row_gaps.items()}},
                notes={"window_s": window_s, "units": units, "setup_s": setup_s,
                       "evaluations": n, "checked": len(sample)})
 
@@ -260,6 +292,31 @@ def result_line(run: Run) -> dict:
 def _searches(t: torch.Tensor) -> torch.Tensor:
     """An evaluation's tensor with a leading search axis."""
     return t if t.dim() == 3 else t[None]
+
+
+def _checked(X, F, targets, outputs):
+    """A recorded evaluation on the host for the check: X and F with a
+    leading search axis, the targets, and the generator outputs joined and
+    laid out [K, pop, ...] (None where none were captured)."""
+    X, F = _searches(X).cpu(), _searches(F).cpu()
+    if outputs is not None:
+        outputs = torch.cat(outputs).reshape(*X.shape[:2], -1).cpu()
+    return X, F, targets, outputs
+
+
+def _gather(rows: Dict[str, list], gaps: Dict[str, torch.Tensor], margins) -> None:
+    """Add an evaluation's row gaps, and its decode margins [rows, steps]
+    where the family judges generator outputs, to `rows`."""
+    for k, v in gaps.items():
+        rows.setdefault(k, []).append(v)
+    if margins is not None:
+        rows.setdefault("margin", []).append(
+            torch.nan_to_num(margins.cpu().double(), nan=float("inf")))
+
+
+def _per_row(gaps: Dict[str, torch.Tensor]) -> Dict[str, list]:
+    """Each row's gaps, a row's decode margin its largest step's."""
+    return {k: (v.amax(-1) if k == "margin" else v).tolist() for k, v in gaps.items()}
 
 
 def _profiled(driver, tap: Tap, traffic: dict) -> dict:

@@ -5,8 +5,10 @@ and weights.
 The reference runs once the window has closed and the port's state is
 freed, in float32 with TF32 off, one search's population at a time (D's
 minibatch groups are a search's own rows, as in the port). It reads the
-benchmark's weights, tokenizes each prompt itself and works out every
-image, feature and logit again.
+benchmark's weights, tokenizes each prompt (or reads each target image)
+itself and works out every image, feature and logit again. Of an
+image-to-text family it takes the port's generator outputs, the decoded
+ids, and judges them (families/gpt2.py).
 
 Numbers, each compared where `benchmark/limits/<cell>.json` gives it a
 limit (the others are reported to the readings that place the limits):
@@ -16,16 +18,25 @@ limit (the others are reported to the readings that place the limits):
   still move: one row off by 0.05 among 256 reads 0.0031 or more);
 - `hinge_gap`, `hinge_gap_mean`, `hinge_gap_rms` (with D): the same of D's
   hinge relu(1 - D), each row's gap over max(1, |reference hinge|);
+- `decode_margin`, `decode_margin_rms` (image to text): the reference
+  teacher-forced on the port's decoded tokens, at each step its largest
+  logit minus its logit of the port's token, over the standard deviation
+  of the step's logits: the largest over the rows and steps checked, and
+  the root mean square (a served token's logit below the reference's
+  best, which rounding leaves near 0 and a wrong model or token does not);
+  with these, `sim_gap*` hold the port's fitness against the reference's
+  for the port's own captions;
 - `moved_rows`: the rows of the population that the window replaced; a
   step that leaves its state unchanged reads 0 (limit: at least 1).
 Besides, each run prints the draw's saturation (the share of image pixels
-at the clip limits, D's largest logit) and fails when the draw saturates.
+at the clip limits, D's largest logit; a family with no image gives no
+share) and fails when the draw saturates.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -49,29 +60,42 @@ def to_device(tree, device):
 
 
 @torch.no_grad()
-def reference_fitness(config: dict, weights: dict, X: torch.Tensor, prompts: List[str],
-                      block: int, precision: str = "fp32") -> Dict[str, torch.Tensor]:
+def reference_fitness(config: dict, weights: dict, X: torch.Tensor, targets: List[str],
+                      block: int, precision: str = "fp32",
+                      outputs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """F [K, pop, n_obj] of genomes X [K, pop, n_var], search k scored
-    against prompts[k], with the images' clip share and D's logits.
-    `precision` "fp8": the control, computed in e4m3
-    (reference/numerics.py)."""
+    against targets[k], with the images' clip share (None without images)
+    and D's logits. `precision` "fp8": the control, computed in e4m3
+    (reference/numerics.py). `outputs` [K, pop, ...]: the port's generator
+    outputs, handed to the family's `score`, which judges them (`margins`
+    [rows, steps]); a family that makes such outputs and is handed none
+    makes its own (`outputs`)."""
     fam = family(config)
     block = fam.block_rows(config, X.shape[1], block)
     with fp32_exact(precision):
-        text = fam.targets(config, weights, prompts, X.device)
-        F_rows, clipped, logits = [], [], []
+        feats = fam.targets(config, weights, targets, X.device)
+        F_rows, clipped, logits, margins, own = [], [], [], [], []
         for k in range(X.shape[0]):
             cols = []
             for r in range(0, X.shape[1], block):
-                out = fam.score(config, weights, X[k, r:r + block], text[k:k + 1])
+                given = {} if outputs is None else {"outputs": outputs[k, r:r + block]}
+                out = fam.score(config, weights, X[k, r:r + block], feats[k:k + 1], **given)
                 cols.append(torch.stack(out["cols"], dim=1))
-                clipped.append(out["clipped"])
+                if out["clipped"] is not None:
+                    clipped.append(out["clipped"])
                 if out["logits"] is not None:
                     logits.append(out["logits"])
+                if out.get("margins") is not None:
+                    margins.append(out["margins"])
+                if out.get("outputs") is not None:
+                    own.append(out["outputs"])
                 del out
             F_rows.append(torch.cat(cols))
-    return {"F": torch.stack(F_rows), "clip_share": torch.stack(clipped).mean(),
-            "logit_max": torch.cat(logits).abs().max() if logits else None}
+    return {"F": torch.stack(F_rows),
+            "clip_share": torch.stack(clipped).mean() if clipped else None,
+            "logit_max": torch.cat(logits).abs().max() if logits else None,
+            "margins": torch.cat(margins) if margins else None,
+            "outputs": torch.cat(own).reshape(*X.shape[:2], -1) if own else None}
 
 
 def row_gaps(F_prog: torch.Tensor, F_ref: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -87,9 +111,14 @@ def row_gaps(F_prog: torch.Tensor, F_ref: torch.Tensor) -> Dict[str, torch.Tenso
 
 def summarize(gaps: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The widest gap of each objective over the rows checked, the mean and
-    the root mean square."""
+    the root mean square; of the decode margins ("margin", [rows, steps])
+    the largest and the root mean square."""
     out = {}
     for k, v in gaps.items():
+        if k == "margin":
+            out["decode_margin"] = v.max().item()
+            out["decode_margin_rms"] = v.square().mean().sqrt().item()
+            continue
         out[f"{k}_gap"] = v.max().item()
         out[f"{k}_gap_mean"] = v.mean().item()
         out[f"{k}_gap_rms"] = v.square().mean().sqrt().item()
@@ -103,8 +132,9 @@ def moved_rows(X_start: torch.Tensor, X_end: torch.Tensor) -> int:
     return int((~same).sum().item())
 
 
-def saturated(clip_share: float, logit_max) -> bool:
-    if not math.isfinite(clip_share) or clip_share > SATURATED_SHARE:
+def saturated(clip_share: Optional[float], logit_max) -> bool:
+    if clip_share is not None and (not math.isfinite(clip_share)
+                                   or clip_share > SATURATED_SHARE):
         return True
     return logit_max is not None and not (logit_max <= SATURATED_LOGIT)
 

@@ -2,7 +2,11 @@
 
 `Tap` wraps the two calls every traffic mix drives, a generation's step
 and its evaluation, and keeps the window's evaluations (their genomes and
-fitness, by reference) for the output check. In a traced run it also:
+fitness, by reference) for the output check. Where the model family names
+a generator output (an image-to-text family's decoded ids,
+`GENERATOR_OUTPUT`), `capture` replaces that call of the port for the
+window's length and keeps what it returns beside each evaluation, by
+reference: no copy and no synchronize. In a traced run it also:
 
 - "timed" phase: fences the step and the evaluation with a synchronize and
   reads the host clock around both (a generation's host time is its wall
@@ -57,7 +61,10 @@ class Tap:
         self.device = device
         self.mode = "off"            # off | timed | profiled
         self.recording = False
-        self.evals: List[Tuple] = []  # (X, F, prompts) of the window's evaluations
+        # (X, F, targets, generator outputs or None) of the window's evaluations
+        self.evals: List[Tuple] = []
+        self._capturing = False
+        self._outputs: Optional[List[torch.Tensor]] = None   # the evaluation's, while capturing
         # timed phase
         self.gens: List[Tuple[float, float]] = []   # (step seconds, its eval seconds)
         self._eval_s = 0.0
@@ -113,12 +120,14 @@ class Tap:
             return fn(*a, **k)
         return step
 
-    def wrap_eval(self, fn: Callable, prompts: Callable,
+    def wrap_eval(self, fn: Callable, targets: Callable,
                   checked: Callable = lambda *a, **k: True) -> Callable:
         """The evaluation, timed or spanned by phase; while recording, each
-        evaluation that `checked(X, ...)` admits is kept with `prompts()`,
-        the prompt of each of its searches."""
+        evaluation that `checked(X, ...)` admits is kept with `targets()`,
+        the target of each of its searches, and the generator outputs
+        captured while it ran (None when nothing is captured)."""
         def evaluate(X, *a, **k):
+            self._outputs = [] if self._capturing else None
             rows = X.shape[0] * X.shape[1] if X.dim() == 3 else X.shape[0]
             if self.mode == "timed":
                 self.sync()
@@ -132,9 +141,36 @@ class Tap:
             else:
                 F = fn(X, *a, **k)
             if self.recording and checked(X, *a, **k):
-                self.evals.append((X, F, prompts()))
+                self.evals.append((X, F, targets(), self._outputs))
+            self._outputs = None
             return F
         return evaluate
+
+    @contextlib.contextmanager
+    def capture(self, output: Optional[Tuple[str, str, str]]):
+        """Keep, beside each evaluation, what the port's `output` (module,
+        class, attribute) returns while it runs, with that attribute
+        replaced for the block's length; None captures nothing."""
+        if output is None:
+            yield
+            return
+        module_name, owner, attr = output
+        obj = getattr(importlib.import_module(module_name), owner)
+        original = getattr(obj, attr)
+
+        def kept(*a, **k):
+            out = original(*a, **k)
+            if self._outputs is not None:
+                self._outputs.append(out)
+            return out
+
+        setattr(obj, attr, kept)
+        self._capturing = True
+        try:
+            yield
+        finally:
+            self._capturing = False
+            setattr(obj, attr, original)
 
     @contextlib.contextmanager
     def phase(self, mode: str):

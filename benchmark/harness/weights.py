@@ -21,6 +21,10 @@ source fixes):
   width^-0.5, output projections and c_proj width^-0.5 (2 layers)^-0.5,
   c_fc (2 width)^-0.5, token embedding 0.02, text positions 0.01, ViT class
   token, positions and projection width^-0.5.
+- GPT-2 (the published init, Hugging Face's `GPT2PreTrainedModel`): every
+  weight and both embeddings N(0, 0.02), the two output projections of a
+  block (`c_proj`) N(0, 0.02 / sqrt(2 n_layer)); biases and LayerNorm
+  affines drawn around their init values (0, and 1 for the gains).
 - BigGAN-deep (spectral normalization): each weight matrix [out, in*k*k]
   drawn with std 1/(sqrt(out) + sqrt(in*k*k)), the largest singular value
   of such a Gaussian matrix being about 1; the batch norms' running
@@ -191,6 +195,30 @@ def clip_spec(geo: dict, init: dict):
             "ln_final": layer_norm(tw),
             "text_projection": Leaf((tw, geo["embed_dim"]), tw ** -0.5)}
     return {"visual": visual, "text": text, "logit_scale": Leaf((), 0.0, math.log(1 / 0.07))}
+
+
+# ----------------------------------------------------------------- GPT-2
+
+def gpt2_spec(geo: dict, init: dict):
+    """GPT-2 of the geometry `geo` (the config file's `gpt2` group), in the
+    port's layout (reference/gpt2.py)."""
+    d, std = geo["n_embd"], 0.02
+    proj = std / math.sqrt(2 * geo["n_layer"])
+    bias, ln = init["bias_std"], init["layernorm_std"]
+
+    def layer_norm():
+        return {"g": Leaf((d,), ln, 1.0), "b": Leaf((d,), ln)}
+
+    def block():
+        return {"ln_1": layer_norm(),
+                "attn": {"c_attn_w": Leaf((d, 3 * d), std), "c_attn_b": Leaf((3 * d,), bias),
+                         "c_proj_w": Leaf((d, d), proj), "c_proj_b": Leaf((d,), bias)},
+                "ln_2": layer_norm(),
+                "mlp": {"c_fc_w": Leaf((d, 4 * d), std), "c_fc_b": Leaf((4 * d,), bias),
+                        "c_proj_w": Leaf((4 * d, d), proj), "c_proj_b": Leaf((d,), bias)}}
+
+    return {"wte": Leaf((geo["vocab_size"], d), std), "wpe": Leaf((geo["n_positions"], d), std),
+            "blocks": [block() for _ in range(geo["n_layer"])], "ln_f": layer_norm()}
 
 
 # ---------------------------------------------------------------- BigGAN

@@ -3,6 +3,11 @@ writes it: the stride-32 patch conv, the class token, pre-LN residual
 attention blocks (QuickGELU), the projection of the class token, and the
 text tower pooled at the end-of-text token under a causal mask.
 
+An image target goes through CLIP's own preprocessing (`clip.py`'s
+`_transform`): RGB, the shorter side resized to the input size (bicubic),
+the centre cropped, scaled to [0, 1] and normalized by CLIP's mean and
+standard deviation.
+
 Parameters are the benchmark's tree (`harness/weights.py`): dense weights
 right-multiply ([in, out]); the patch embedding is [3*P*P, width] with the
 (channel, row, column) flatten order, which is reshaped here to the conv
@@ -11,11 +16,15 @@ weight [width, 3, P, P].
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from benchmark.reference import numerics as num
 from benchmark.reference.tokenizer import tokenize
+
+MEAN = (0.48145466, 0.4578275, 0.40821073)
+STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def _ln(x, p):
@@ -85,3 +94,29 @@ def image_cosine(params, images, geo: dict, text: torch.Tensor) -> torch.Tensor:
     small = F.interpolate(images, size=geo["image_resolution"], mode="bilinear",
                           align_corners=False, antialias=False)
     return cosine(encode_image(params, small, geo), text)
+
+
+def preprocess(path: str, size: int) -> torch.Tensor:
+    """The image file at `path` as CLIP's input [1, 3, size, size]
+    (torchvision's Resize(size, BICUBIC), CenterCrop, ToTensor, Normalize)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        img = im.convert("RGB")
+    w, h = img.size
+    if min(w, h) != size:
+        short, long = (w, h) if w <= h else (h, w)
+        other = int(size * long / short)
+        img = img.resize((size, other) if w <= h else (other, size), Image.BICUBIC)
+    w, h = img.size
+    left, top = int(round((w - size) / 2.0)), int(round((h - size) / 2.0))
+    img = img.crop((left, top, left + size, top + size))
+    x = torch.from_numpy(np.asarray(img, dtype=np.float32) / 255.0).permute(2, 0, 1)
+    return ((x - torch.tensor(MEAN)[:, None, None]) / torch.tensor(STD)[:, None, None])[None]
+
+
+def encode_images(params, paths, geo: dict, device) -> torch.Tensor:
+    """Image features [len(paths), embed] of the image files, preprocessed
+    here."""
+    x = torch.cat([preprocess(p, geo["image_resolution"]) for p in paths])
+    return encode_image(params, x.to(device), geo)

@@ -1,14 +1,20 @@
 """The inputs a run makes come from its seed alone: the same seed gives the
-same prompts, weights and search, another seed other ones."""
+same targets (prompts or image files), weights and search, another seed
+other ones; the committed cells' prompts are those they had before the
+target hook."""
 
 from __future__ import annotations
 
+import json
 import random
 
+import numpy as np
+import pytest
 import torch
 
 from benchmark.harness import prompts
-from benchmark.harness.cell import build_problem, make_weights, sub_seed
+from benchmark.harness.cell import BENCH, ROOT, build_problem, draw_targets, make_weights, \
+    sub_seed
 from benchmark.harness.drivers import SearchDriver, ServeDriver
 from benchmark.harness.trace import Tap
 from benchmark.tests import tiny
@@ -38,8 +44,47 @@ def test_prompts_repeat_per_seed_and_are_distinct_ascii():
     assert len(set(a)) == 4 and all(p.isascii() for p in a)
 
 
+@pytest.mark.parametrize("name", ["sg2_ffhq_d.serve4", "sg2_ffhq_d.search16",
+                                  "biggan512.search32"])
+def test_a_committed_cells_targets_are_the_prompts_it_drew_before(tmp_path, name):
+    """A family without `draw_targets` gets prompts.draw on the seed's
+    "prompts" stream: byte for byte the prompts of the harness before the
+    hook, for several seeds, and no file is written."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    workload = next(w for w in bench["workloads"] if w["name"] == name)
+    config = json.loads((BENCH / "configs" / f"{workload['config']}.json").read_text())
+    traffic = json.loads((BENCH / "traffic" / f"{workload['traffic']}.json").read_text())
+    n = traffic.get("requests", 1)
+    for seed in (SEED, 0, 7, 2 ** 40 + 3):
+        got = draw_targets(config, seed, n, tmp_path)
+        want = prompts.draw(random.Random(sub_seed(seed, "prompts")), n)
+        assert [t.encode() for t in got] == [t.encode() for t in want]
+    assert not any(tmp_path.iterdir())
+
+
+def test_image_targets_repeat_per_seed(tmp_path):
+    """An image-to-text family's targets: PNG files of uint8 pixels at
+    CLIP's input size, distinct, byte for byte the same for the same seed
+    and other for another."""
+    from PIL import Image
+
+    dirs = [tmp_path / d for d in ("a", "b", "c")]
+    paths = []
+    for d, seed in zip(dirs, (SEED, SEED, SEED + 1)):
+        d.mkdir()
+        paths.append(draw_targets(tiny.GPT2, seed, 3, d))
+    read = [[open(p, "rb").read() for p in ps] for ps in paths]
+    assert read[0] == read[1] and read[0] != read[2] and len(set(read[0])) == 3
+    size = tiny.GPT2["clip"]["image_resolution"]
+    for p in paths[0]:
+        with Image.open(p) as im:
+            assert im.format == "PNG" and im.size == (size, size) and im.mode == "RGB"
+            pixels = np.asarray(im)
+        assert pixels.dtype == np.uint8 and pixels.std() > 0
+
+
 def test_weights_repeat_per_seed():
-    for cfg in (tiny.SG2, tiny.BIGGAN):
+    for cfg in (tiny.SG2, tiny.BIGGAN, tiny.GPT2):
         a, b = make_weights(cfg, SEED, CPU), make_weights(cfg, SEED, CPU)
         c = make_weights(cfg, SEED + 1, CPU)
         la, lb, lc = _leaves(a), _leaves(b), _leaves(c)

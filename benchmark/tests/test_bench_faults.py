@@ -1,7 +1,8 @@
 """The output check catches a broken timed path: each fault a cell can have
 is planted underneath a whole run on the CPU (the card's look skipped), and
 `correct` comes out false. The control, the reference with fp8 operands in
-the port's place, fails the limits too."""
+the port's place (for image to text, decoding its own ids in e4m3), fails
+the limits too."""
 
 from __future__ import annotations
 
@@ -11,37 +12,43 @@ import torch
 from benchmark.harness.check import judge
 from benchmark.tests.helpers import run_tiny, tiny_bench
 
-CELLS = ["tiny_sg2.search8", "tiny_sg2.serve2", "tiny_biggan.search8"]
+CELLS = ["tiny_sg2.search8", "tiny_sg2.serve2", "tiny_biggan.search8", "tiny_gpt2.search8",
+         "tiny_gpt2.serve2"]
+
+
+def _on_fitness(monkeypatch, change):
+    """`change(F)` on the fitness [rows, n_obj] of every batch, where it is
+    made: the image families' `_eval_batch` and image to text's
+    `_eval_img2txt` (F [K, pop, 1])."""
+    from clip_glass_torch.fitness import generator
+
+    for name in ("_eval_batch", "_eval_img2txt"):
+        original = getattr(generator.Generator, name)
+
+        def planted(self, X, *a, original=original, **k):
+            F = original(self, X, *a, **k).clone()
+            change(F.view(-1, F.shape[-1]))
+            return F
+
+        monkeypatch.setattr(generator.Generator, name, planted)
 
 
 def _altered_answer(monkeypatch):
     """One row of every evaluation's fitness altered where it is made."""
-    from clip_glass_torch.fitness import generator
-
-    original = generator.Generator._eval_batch
-
-    def altered(self, X, *a, **k):
-        F = original(self, X, *a, **k).clone()
+    def altered(F):
         F[0, 0] += 0.05
-        return F
 
-    monkeypatch.setattr(generator.Generator, "_eval_batch", altered)
+    _on_fitness(monkeypatch, altered)
 
 
 def _half_batch(monkeypatch):
     """Half of every evaluation's rows scored, the other half given their
     fitness."""
-    from clip_glass_torch.fitness import generator
-
-    original = generator.Generator._eval_batch
-
-    def half(self, X, *a, **k):
-        F = original(self, X, *a, **k).clone()
+    def half(F):
         n = F.shape[0] // 2
-        F[n:] = F[:F.shape[0] - n]
-        return F
+        F[n:] = F[:F.shape[0] - n].clone()
 
-    monkeypatch.setattr(generator.Generator, "_eval_batch", half)
+    _on_fitness(monkeypatch, half)
 
 
 def _unchanged_state(monkeypatch):
@@ -67,6 +74,31 @@ def test_a_planted_fault_makes_the_run_incorrect(tmp_path, monkeypatch, cell, fa
     run = run_tiny(root, bench, cell)
     assert not run.correct
     assert not run.checks[number]["ok"]
+
+
+@pytest.mark.parametrize("cell", ["tiny_gpt2.search8", "tiny_gpt2.serve2"])
+def test_a_swapped_decoded_token_fails_the_decode_margin(tmp_path, monkeypatch, cell):
+    """At the fifth step of every decode, the first row takes its
+    lowest-logit token: the reference, teacher-forced on the port's ids,
+    finds that step's token far below its best."""
+    from clip_glass_torch.models.gpt2 import model as g2
+
+    original, calls = g2._select_next, []
+
+    def swapped(logits, *a, **k):
+        tok = original(logits, *a, **k)
+        calls.append(None)
+        if len(calls) % 30 == 5:
+            tok = tok.clone()
+            tok[0] = logits[0].float().argmin()
+        return tok
+
+    monkeypatch.setattr(g2, "_select_next", swapped)
+    root, bench = tiny_bench(tmp_path)
+    run = run_tiny(root, bench, cell)
+    assert calls and not run.correct
+    assert not run.checks["decode_margin"]["ok"]
+    assert run.values["decode_margin"] > 1.0
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -1,20 +1,25 @@
 """The plain reference against the port at small widths on the CPU, both in
-float32 and given the same tensors: the tokenizer, CLIP's towers, StyleGAN2's
-G and D (the port's s2d path at the top levels), BigGAN-deep's G (its s2d
-mid segments), and the draw, which saturates neither image nor logit."""
+float32 and given the same tensors: the tokenizer (on prompts and on
+decoded captions of any script), CLIP's towers and image preprocessing,
+StyleGAN2's G and D (the port's s2d path at the top levels), BigGAN-deep's
+G (its s2d mid segments), GPT-2's logits, decode and captions, and the
+draw, which saturates neither image nor logit."""
 
 from __future__ import annotations
 
 import dataclasses
+import random
+import tempfile
 
 import pytest
 import torch
 
-from benchmark.harness import weights
+from benchmark.harness import images, weights
 from benchmark.families import replace_fields
 from benchmark.harness.cell import make_weights
 from benchmark.reference import biggan as ref_biggan
 from benchmark.reference import clip as ref_clip
+from benchmark.reference import gpt2 as ref_gpt2
 from benchmark.reference import stylegan2 as ref_sg2
 from benchmark.reference.numerics import fp32_exact
 from benchmark.reference.tokenizer import tokenize
@@ -112,3 +117,142 @@ def test_the_draw_saturates_neither_image_nor_logit():
         assert not check.saturated(out["clip_share"].item(),
                                    None if out["logit_max"] is None else out["logit_max"].item())
         assert torch.isfinite(out["F"]).all()
+
+
+def test_tokenizer_matches_the_port_on_decoded_captions():
+    """Captions of random GPT-2 ids, any script, cut at 50 characters."""
+    import numpy as np
+
+    from clip_glass_torch.tokenizers import get_gpt2_tokenizer
+    from clip_glass_torch.tokenizers import tokenize as port_tokenize
+
+    enc, rng = get_gpt2_tokenizer(), np.random.default_rng(5)
+    texts = [enc.decode(rng.integers(0, 50257, size=rng.integers(1, 12)).tolist())[:50]
+             for _ in range(600)]
+    texts += ["caf\u00c3\u00a9 &amp;amp; \u2019s x\u00b2 \u00bd \u0130 \ufb01",
+              "a\x1c b\u3000c  \t d", "<|endoftext|>'s 's'S"]
+    assert sum(not t.isascii() for t in texts) > 20
+    for t in texts:
+        try:
+            want = port_tokenize([t])
+        except RuntimeError:
+            with pytest.raises(ValueError):
+                tokenize([t])
+            continue
+        assert (tokenize([t]) == want).all(), repr(t)
+
+
+def test_the_pattern_reads_a_special_token_as_the_published_regex_does():
+    """`regex.findall` of CLIP's pattern (`simple_tokenizer.py`) takes a run
+    of other characters whole, a special token's text in it included; the
+    port's scanner breaks the run where the special begins (PERF.md)."""
+    from benchmark.reference.tokenizer import _pieces
+
+    assert _pieces("!<|endoftext|> 's's") == ["!<|", "endoftext", "|>", "'s", "'s"]
+    assert _pieces("<|endoftext|>x2") == ["<|endoftext|>", "x", "2"]
+
+
+def test_clip_preprocessing_matches_the_port(tmp_path):
+    from PIL import Image
+
+    from clip_glass_torch.ops.resize import clip_preprocess_pil
+
+    (path,) = images.draw(random.Random(3), 1, 32, tmp_path)
+    with Image.open(path) as im:
+        want = torch.from_numpy(clip_preprocess_pil(im, 32))
+    # the port normalizes in float64, the reference in float32: one rounding
+    assert (ref_clip.preprocess(path, 32) - want).abs().max().item() < 1e-6
+
+
+def _gpt2(seed=SEED):
+    from clip_glass_torch.models.gpt2 import model as g2
+
+    cfg = replace_fields(g2.GPT2_124M, tiny.GPT2["gpt2"])
+    return g2, cfg, make_weights(tiny.GPT2, seed, CPU)["g"]
+
+
+def test_gpt2_spec_lays_out_the_ports_tree():
+    g2, cfg, w = _gpt2()
+    port = g2.init(torch.Generator().manual_seed(0), cfg)
+
+    def shapes(t):
+        if isinstance(t, torch.Tensor):
+            return tuple(t.shape)
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        return [shapes(v) for v in t]
+
+    assert shapes(w) == shapes(port)
+    big = weights.gpt2_spec({**tiny.GPT2["gpt2"], "n_layer": 12}, tiny.GPT2["assumed"])
+    assert big["blocks"][0]["mlp"]["c_proj_w"].std == pytest.approx(0.02 / 24 ** 0.5)
+    assert big["blocks"][0]["attn"]["c_attn_w"].std == 0.02 == big["wte"].std
+
+
+def test_gpt2_logits_match_the_port():
+    """Teacher-forced logits of the reference against the port's forward,
+    float32, within 1e-4 of the largest logit (summation order alone)."""
+    g2, cfg, w = _gpt2()
+    ids = torch.randint(0, 50257, (4, 40), generator=torch.Generator().manual_seed(8))
+    with fp32_exact():
+        want, _ = g2.forward(w, ids, cfg)
+        got = ref_gpt2.head(w, ref_gpt2.hidden(w, ids, tiny.GPT2["gpt2"]))
+    _close(got, want)
+
+
+def test_gpt2_decode_agrees_with_the_port_where_no_near_tie_is():
+    """The port's cached argmax decode and the reference's uncached one:
+    every port token within rounding of the reference's best, and the same
+    ids in every row whose steps all have a clear best."""
+    g2, cfg, w = _gpt2()
+    geo = tiny.GPT2["gpt2"]
+    context = torch.randint(0, 50257, (8, 23), generator=torch.Generator().manual_seed(9))
+    with fp32_exact():
+        port = g2.sample_sequence(w, context, 30, cfg).long()
+        ref = ref_gpt2.decode(w, context, 30, geo)
+        margin = ref_gpt2.margins(w, port, 23, geo)
+        logits = ref_gpt2.head(w, ref_gpt2.hidden(w, ref[:, :-1], geo)[:, 22:])
+    assert margin.abs().max().item() < 1e-4
+    top2 = logits.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) / logits.std(-1) > 1e-3).all(-1)
+    assert clear.sum() >= 4
+    assert torch.equal(port[clear], ref[clear])
+
+
+def test_gpt2_captions_and_init_ids_match_the_port():
+    from types import SimpleNamespace
+
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.fitness.generator import Generator
+    from clip_glass_torch.tokenizers import get_gpt2_tokenizer
+
+    cfg = get_config("GPT2")
+    assert ref_gpt2.encode(cfg.init_text) == get_gpt2_tokenizer().encode(cfg.init_text)
+    ids = torch.randint(0, 50257, (64, 53), generator=torch.Generator().manual_seed(10))
+    ids[1, 30], ids[2, 5], ids[3, 52] = 50256, 50256, 50256
+    want = Generator.decode_texts(SimpleNamespace(config=cfg), ids.numpy())
+    assert ref_gpt2.captions(ids, cfg.n_var, cfg.max_text_len) == want
+    assert want[2] == ""
+
+
+def test_the_gpt2_reference_runs_with_tf32_off(monkeypatch):
+    """The check runs the GPT-2 reference inside fp32_exact: TF32 off for
+    every forward."""
+    from benchmark.harness import check
+
+    seen = []
+    original = ref_gpt2.hidden
+
+    def hidden(*a, **k):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        return original(*a, **k)
+
+    monkeypatch.setattr(ref_gpt2, "hidden", hidden)
+    w = make_weights(tiny.GPT2, SEED, CPU)
+    X = torch.randint(0, 50257, (1, 4, 20), generator=torch.Generator().manual_seed(11)).float()
+    with tempfile.TemporaryDirectory() as d:
+        paths = images.draw(random.Random(1), 1, 32, d)
+        out = check.reference_fitness(tiny.GPT2, w, X, paths, 4)
+    assert seen and all(s == (False, False, "highest") for s in seen)
+    assert out["outputs"].shape == (1, 4, 53) and out["clip_share"] is None
+    assert torch.isfinite(out["F"]).all()

@@ -33,6 +33,27 @@ def test_flops_per_candidate_match_the_port_for_both_configurations():
         get_config("DeepMindBigGAN512"), bg.BIGGAN_DEEP_512, clip_model.VIT_B_32)
 
 
+def test_gpt2_flops_are_the_ports_count_less_its_extra_position_and_head():
+    """The decode's count (yardstick/flops.py's `gpt2_decode`) runs the blocks
+    at 52 positions of the 53 and the head at the 30 that pick a token; the
+    port's `gpt2_decode_flops` counts 53 and 31."""
+    from benchmark.tests import tiny
+    from clip_glass_torch.config import get_config
+    from clip_glass_torch.core import flops as port_flops
+    from clip_glass_torch.models.clip import model as clip_model
+    from clip_glass_torch.models.gpt2 import model as g2
+
+    geo = {"vocab_size": 50257, "n_positions": 1024, "n_embd": 768, "n_layer": 12, "n_head": 12,
+           "layer_norm_epsilon": 1e-5}
+    clip = _config("StyleGAN2_ffhq_d")["clip"]
+    cfg = {**tiny.GPT2, "gpt2": geo, "clip": clip}
+    w, n = 768, 53
+    extra = 12 * (4 * 2 * w * w + 2 * 2 * w * 4 * w) + 12 * 2 * 2 * n * w + 2 * w * 50257
+    assert family(cfg).flops_per_candidate(cfg) + extra == \
+        port_flops.fitness_flops_per_candidate(get_config("GPT2"), g2.GPT2_124M,
+                                               clip_model.VIT_B_32)
+
+
 def config_f_channels(resolution: int = 1024) -> list:
     """NVlabs/stylegan2 config-f's feature maps, 1024 px first: nf(stage) =
     min(fmap_base / 2**stage, fmap_max), fmap_base 16 << 10, fmap_max 512,

@@ -1,5 +1,6 @@
 """A throwaway copy of the benchmark's data at tiny sizes, for CPU tests:
-configuration files of the two families at test widths, small traffic
+configuration files of the three families at test widths (GPT-2 at the
+port's `models.gpt2.model.TINY`), small traffic
 mixes, wide limits, and the metric readers copied from the benchmark."""
 
 from __future__ import annotations
@@ -37,6 +38,15 @@ BIGGAN = {"name": "tiny_biggan", "family": "biggan", "registry": "DeepMindBigGAN
           "assumed": {"bias_std": 0.1, "layernorm_std": 0.1, "embedding_std": 1.0,
                       "attention_gamma_mean": 0.5, "attention_gamma_std": 0.1,
                       "standing_stats_rows": 4}}
+GPT2 = {"name": "tiny_gpt2", "family": "gpt2", "registry": "GPT2", "source": "test",
+        "dtype": "float32", "reduced": [],
+        "gpt2": {"vocab_size": 50257, "n_positions": 128, "n_embd": 64, "n_layer": 2,
+                 "n_head": 2, "layer_norm_epsilon": 1e-5},
+        "clip": CLIP,
+        "search": {"algorithm": "ga", "n_var": 20, "dim_z": 20, "n_constr": 20,
+                   "init_text": "the picture of", "max_tokens_len": 30, "max_text_len": 50,
+                   "use_discriminator": False},
+        "assumed": {"bias_std": 0.02, "layernorm_std": 0.1}}
 TRAFFIC = {
     "search8": {"kind": "search", "pop": 8, "warmup_generations": 1, "profile_units": 1,
                 "check_evaluations": 2, "check_window": 100, "check_block": 4},
@@ -48,6 +58,8 @@ WORKLOADS = [
     {"name": "tiny_sg2.search8", "config": "tiny_sg2", "traffic": "search8", "chips": 1},
     {"name": "tiny_sg2.serve2", "config": "tiny_sg2", "traffic": "serve2", "chips": 1},
     {"name": "tiny_biggan.search8", "config": "tiny_biggan", "traffic": "search8", "chips": 1},
+    {"name": "tiny_gpt2.search8", "config": "tiny_gpt2", "traffic": "search8", "chips": 1},
+    {"name": "tiny_gpt2.serve2", "config": "tiny_gpt2", "traffic": "serve2", "chips": 1},
 ]
 # the committed cell each tiny cell stands in for
 STANDS_FOR = {"sg2_ffhq_d.serve4": "tiny_sg2.serve2", "sg2_ffhq_d.search16": "tiny_sg2.search8",
@@ -55,6 +67,8 @@ STANDS_FOR = {"sg2_ffhq_d.serve4": "tiny_sg2.serve2", "sg2_ffhq_d.search16": "ti
 # float32 on both sides: the port and the reference differ by summation order
 LIMITS = {"sim_gap": {"max": 1e-3}, "sim_gap_rms": {"max": 1e-3}, "hinge_gap_rms": {"max": 1e-3},
           "moved_rows": {"min": 1}}
+# image to text's too: the port and the reference take the same argmax
+DECODE_LIMITS = {"decode_margin": {"max": 1e-3}}
 
 
 def write(root: Path) -> dict:
@@ -63,13 +77,15 @@ def write(root: Path) -> dict:
     for sub in ("configs", "traffic", "limits"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(BENCH / "metrics", root / "metrics", dirs_exist_ok=True)
-    for cfg in (SG2, BIGGAN):
+    for cfg in (SG2, BIGGAN, GPT2):
         (root / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     for name, t in TRAFFIC.items():
         (root / "traffic" / f"{name}.json").write_text(json.dumps(t))
     for w in WORKLOADS:
         lim = {k: v for k, v in LIMITS.items()
                if not k.startswith("hinge") or w["config"] == "tiny_sg2"}
+        if w["config"] == "tiny_gpt2":
+            lim.update(DECODE_LIMITS)
         (root / "limits" / f"{w['name']}.json").write_text(json.dumps(lim))
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
     per_layer = [{**m, "workloads": [STANDS_FOR[w] for w in m["workloads"]]}

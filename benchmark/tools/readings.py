@@ -45,6 +45,8 @@ def main(argv=None) -> int:
         print(json.dumps({"workload": args.workload, "seed": seed, "correct": run.correct,
                           "values": run.values, "controls": run.controls,
                           "cand_per_s": run.metrics["cand_per_s"]["value"],
+                          "setup_s": run.metrics["setup_s"]["value"],
+                          "memory_peak_bytes": run.device["memory_peak_bytes"],
                           "seconds": time.perf_counter() - t0}), flush=True)
         if args.rows:
             with open(args.rows, "a") as f:

@@ -6,7 +6,8 @@ geometry groups instead of the port's config objects; each model family
 
 It counts the reference-defined computation: matmul and conv MACs x 2 at
 the reference's own inventory (plain dense convs, no space-to-depth fold
-redundancy, BigGAN's conv_to_rgb at its 3 live channels). Elementwise work
+redundancy, BigGAN's conv_to_rgb at its 3 live channels, GPT-2's decode at
+the positions and logits it needs: `gpt2_decode`). Elementwise work
 and the evolutionary engine are not counted. So `step.mfu` credits useful
 work only.
 """
@@ -106,3 +107,24 @@ def biggan(b: dict) -> int:
         total += 2 * _conv(res, res, m_ch, m_ch, 3)
         total += _conv(res, res, m_ch, o_ch, 1)
     return total + _conv(res, res, b["layers"][-1][2] * ch, 3, 3)
+
+
+def clip_text(c: dict) -> int:
+    """CLIP's text tower on one text, at the full 77-token context that it
+    always runs."""
+    w = c["transformer_width"]
+    return (c["transformer_layers"] * _transformer_layer(c["context_length"], w)
+            + _dense(w, c["embed_dim"]))
+
+
+def gpt2_decode(g: dict, context_len: int, steps: int) -> int:
+    """GPT-2's argmax decode of `steps` tokens after a context of
+    `context_len`: the blocks at every position but the last decoded one,
+    which is never fed back (position t attends to t keys), and the tied
+    head at each position that picks a token. The port's own count
+    (`core/flops.gpt2_decode_flops`) adds one position and one head."""
+    w = g["n_embd"]
+    positions = context_len + steps - 1
+    total = positions * g["n_layer"] * (4 * _dense(w, w) + 2 * _dense(w, 4 * w))
+    total += g["n_layer"] * 2 * 2 * (positions * (positions + 1) // 2) * w
+    return total + steps * _dense(w, g["vocab_size"])
