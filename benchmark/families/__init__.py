@@ -24,7 +24,12 @@ and may give, where it departs from a text-to-image family:
   (harness/trace.py) and handed to `score` as `outputs`, that search's
   rows of them; `score` then judges them (its result's `margins`), and
   without them makes its own (`outputs`). A family with no image gives
-  `clipped` None.
+  `clipped` None;
+- `LAYER_FUNCTIONS`: (module, function, span) entries of the port's
+  functions that a traced run of the family's cells wraps beside the
+  harness's own (harness/trace.py), with the same wrapper: CUDA events in
+  the timed phase, host spans in the profiled one, the rows from the first
+  argument after the weights, the attribute restored after.
 """
 
 from __future__ import annotations

@@ -9,7 +9,9 @@ records (`GENERATOR_OUTPUT`, harness/trace.py), and the reference judges
 them: teacher-forced on the port's decoded tokens after the reference's
 own context (the genome and the init text), it gives each step's margin
 (reference/gpt2.py), and it scores the port's captions itself. Without the
-port's ids (the control) it decodes its own.
+port's ids (the control) it decodes its own. A traced run times the
+port's decode and CLIP's text tower (`LAYER_FUNCTIONS`) as `models.G` and
+`models.CLIP`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ from benchmark.yardstick import flops
 # (module, class, attribute) of the port's call whose result is the decode's
 # ids [rows, n_var + init + max_tokens_len]
 GENERATOR_OUTPUT = ("clip_glass_torch.fitness.generator", "Generator", "_decode_rows")
+# the port's functions a traced run times beside the harness's own: the
+# decode of a chunk of contexts [rows, n_var + init] and CLIP's text tower
+# on the captions' tokens [rows, 77]
+LAYER_FUNCTIONS = (
+    ("clip_glass_torch.models.gpt2.model", "sample_sequence", "models.G"),
+    ("clip_glass_torch.models.clip.model", "encode_text", "models.CLIP"),
+)
 
 
 @lru_cache(maxsize=4)

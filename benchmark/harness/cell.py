@@ -10,8 +10,10 @@ traffic mix (`benchmark/traffic/<traffic>.json`); the cell's limits are in
 
 A model family may add (benchmark/families/__init__.py): `draw_targets`,
 the run's targets in place of text prompts (image files, written into a
-directory the run owns and removes when it ends), and `GENERATOR_OUTPUT`,
-the port's call whose results the window keeps for the output check.
+directory the run owns and removes when it ends), `GENERATOR_OUTPUT`,
+the port's call whose results the window keeps for the output check, and
+`LAYER_FUNCTIONS`, the port's functions whose device time a traced run
+reads beside the harness's own (harness/trace.py).
 """
 
 from __future__ import annotations
@@ -155,7 +157,7 @@ def _run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: boo
     # what the port holds
     ref_weights = check.to_device(trees, "cpu")
     del trees
-    tap = Tap(device)
+    tap = Tap(device, getattr(fam, "LAYER_FUNCTIONS", ()))
     driver = DRIVERS[traffic["kind"]](problem, traffic, targets, search_seed, tap)
     driver.setup()
     tap.sync()

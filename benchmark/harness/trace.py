@@ -11,8 +11,9 @@ reference: no copy and no synchronize. In a traced run it also:
 - "timed" phase: fences the step and the evaluation with a synchronize and
   reads the host clock around both (a generation's host time is its wall
   time minus its evaluation's), and puts CUDA events around the port's
-  module functions of each layer (`LAYER_FUNCTIONS`), replaced for the
-  phase only and restored after;
+  module functions of each layer (`LAYER_FUNCTIONS`, and those the cell's
+  model family declares beside them), replaced for the phase only and
+  restored after;
 - "profiled" phase: a short `torch.profiler` window with CUDA activity only
   (no host-side operator records, which would slow the host), the host
   spans the benchmark was in (to name the device's idle gaps), and the
@@ -34,7 +35,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 # (module, function, span): the layers' entry points whose device time the
-# timed phase reads; the first argument after the weights holds the rows
+# timed phase reads, in every cell; the first argument after the weights
+# holds the rows. A model family may declare more (benchmark/families/).
 LAYER_FUNCTIONS = (
     ("clip_glass_torch.models.stylegan2.model", "generator_apply", "models.G"),
     ("clip_glass_torch.models.biggan.model", "apply", "models.G"),
@@ -57,8 +59,11 @@ def _kernel_record(name: str, args) -> Optional[tuple]:
 
 
 class Tap:
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, layers: Tuple[Tuple[str, str, str], ...] = ()):
         self.device = device
+        # the (module, function, span) entries a traced phase wraps: the
+        # harness's own, then the family's `layers`
+        self.layers = LAYER_FUNCTIONS + tuple(layers)
         self.mode = "off"            # off | timed | profiled
         self.recording = False
         # (X, F, targets, generator outputs or None) of the window's evaluations
@@ -175,7 +180,7 @@ class Tap:
     @contextlib.contextmanager
     def phase(self, mode: str):
         """Run a traced phase: `mode` "timed" or "profiled", with the
-        port's module functions replaced for its length."""
+        port's module functions (`self.layers`) replaced for its length."""
         saved = []
 
         def replace(module_name, attr, wrapper_of):
@@ -184,7 +189,7 @@ class Tap:
             saved.append((module, attr, original))
             setattr(module, attr, wrapper_of(original))
 
-        for module_name, attr, span in LAYER_FUNCTIONS:
+        for module_name, attr, span in self.layers:
             replace(module_name, attr, lambda f, span=span: self._layer(f, span))
         if mode == "profiled":
             replace(*DISPATCH, self._dispatch)

@@ -1,6 +1,9 @@
-"""models.g_us_per_cand: CUDA events around every call of the generator
-(StyleGAN2's generator_apply, BigGAN's apply) in the traced window: their
-device time over the rows they scored, in us a candidate."""
+"""models.g_us_per_cand: CUDA events around every call of the generator in
+the traced window: their device time over the rows they scored, in us a
+candidate. The generator is StyleGAN2's generator_apply, BigGAN's apply
+(harness/trace.py), and GPT-2's sample_sequence, the whole argmax decode of
+a chunk of contexts, prefill and every step, as the host issues it
+(families/gpt2.py)."""
 
 
 def read(ctx):

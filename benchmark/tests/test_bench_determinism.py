@@ -5,20 +5,19 @@ target hook."""
 
 from __future__ import annotations
 
-import json
 import random
 
 import numpy as np
 import pytest
 import torch
 
+from benchmark.families import family
 from benchmark.harness import prompts
-from benchmark.harness.cell import BENCH, ROOT, build_problem, draw_targets, make_weights, \
-    sub_seed
+from benchmark.harness.cell import build_problem, draw_targets, make_weights, sub_seed
 from benchmark.harness.drivers import SearchDriver, ServeDriver
 from benchmark.harness.trace import Tap
 from benchmark.tests import tiny
-from benchmark.tests.helpers import SEED
+from benchmark.tests.helpers import SEED, committed
 
 CPU = torch.device("cpu")
 
@@ -44,16 +43,13 @@ def test_prompts_repeat_per_seed_and_are_distinct_ascii():
     assert len(set(a)) == 4 and all(p.isascii() for p in a)
 
 
-@pytest.mark.parametrize("name", ["sg2_ffhq_d.serve4", "sg2_ffhq_d.search16",
-                                  "biggan512.search32"])
+@pytest.mark.parametrize("name", [w["name"] for w, cfg, _ in committed()
+                                  if not hasattr(family(cfg), "draw_targets")])
 def test_a_committed_cells_targets_are_the_prompts_it_drew_before(tmp_path, name):
     """A family without `draw_targets` gets prompts.draw on the seed's
     "prompts" stream: byte for byte the prompts of the harness before the
     hook, for several seeds, and no file is written."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    workload = next(w for w in bench["workloads"] if w["name"] == name)
-    config = json.loads((BENCH / "configs" / f"{workload['config']}.json").read_text())
-    traffic = json.loads((BENCH / "traffic" / f"{workload['traffic']}.json").read_text())
+    config, traffic = next((c, t) for w, c, t in committed() if w["name"] == name)
     n = traffic.get("requests", 1)
     for seed in (SEED, 0, 7, 2 ** 40 + 3):
         got = draw_targets(config, seed, n, tmp_path)

@@ -1,15 +1,24 @@
 """The harness finds every configuration, model family, traffic mix, limit
 and per-layer reader by name: a throwaway configuration of a throwaway
 family, a mix and a metric added as files run without an edit to an
-existing file."""
+existing file; the tiny benchmark finds each committed cell's stand-in by
+its family and traffic kind, so a cell added by files alone needs no edit
+of it either."""
 
 from __future__ import annotations
 
 import json
+import shutil
 
 import benchmark.families
+from benchmark.harness.cell import BENCH, ROOT
 from benchmark.tests import tiny
 from benchmark.tests.helpers import run_tiny, tiny_bench
+
+# the stand-ins of the committed cells, as the tiny benchmark named them
+# before it found them
+STOOD_FOR = {"sg2_ffhq_d.serve4": "tiny_sg2.serve2", "sg2_ffhq_d.search16": "tiny_sg2.search8",
+             "biggan512.search32": "tiny_biggan.search8"}
 
 READER = '''"""tiny.units: the window's generations or ticks a second."""
 
@@ -71,3 +80,56 @@ def test_every_committed_cell_names_files_that_exist():
         assert (BENCH / "limits" / f"{w['name']}.json").is_file()
     for m in bench["per_layer"]:
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+
+
+def _with_added_cells(tmp_path):
+    """A copy of the committed benchmark's BENCHMARK.json, configurations,
+    mixes and readers, with three cells added as files and entries, each
+    listed in every per-layer metric: a GPT-2 search, a second StyleGAN2
+    search, and a cell of a family the tiny benchmark lacks."""
+    src = tmp_path / "src" / "benchmark"
+    for sub in ("configs", "traffic", "metrics"):
+        shutil.copytree(BENCH / sub, src / sub, ignore=shutil.ignore_patterns("__pycache__"))
+    for cfg in ({**tiny.GPT2, "name": "gpt2_added"}, {**tiny.SG2, "name": "sg2_added"},
+                {**tiny.SG2, "name": "other_added", "family": "no_tiny_family"}):
+        (src / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
+    (src / "traffic" / "added.json").write_text(json.dumps(tiny.TRAFFIC["search8"]))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    added = [{"name": f"{c}.added", "config": c, "traffic": "added", "chips": 1}
+             for c in ("gpt2_added", "sg2_added", "other_added")]
+    bench["workloads"] += added
+    for m in bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] += [w["name"] for w in added]
+    (src.parent / "BENCHMARK.json").write_text(json.dumps(bench))
+    return src, bench
+
+
+def test_committed_cells_map_to_the_stand_ins_they_had(tmp_path):
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    stands = tiny.stand_ins(bench)
+    assert {k: stands[k] for k in STOOD_FOR} == STOOD_FOR
+    _, written = tiny_bench(tmp_path)
+    for m, w in zip(bench["per_layer"], written["per_layer"]):
+        old = [STOOD_FOR[c] for c in m["workloads"] if c in STOOD_FOR]
+        assert w["name"] == m["name"] and w["workloads"][:len(old)] == old
+
+
+def test_tiny_benchmark_finds_stand_ins_of_cells_added_as_files(tmp_path):
+    src, bench = _with_added_cells(tmp_path)
+    committed = json.loads((ROOT / "BENCHMARK.json").read_text())
+    base = tiny.stand_ins(committed)
+    assert tiny.stand_ins(bench, src) == {**base, "gpt2_added.added": "tiny_gpt2.search8",
+                                          "sg2_added.added": "tiny_sg2.search8"}
+    root = tmp_path / "tiny" / "benchmark"
+    written = tiny.write(root, src)
+    assert json.loads((root.parent / "BENCHMARK.json").read_text()) == written
+    assert [w["name"] for w in written["workloads"]] == [w["name"] for w in tiny.WORKLOADS]
+    lists = {m["name"]: m["workloads"] for m in committed["per_layer"]}
+    for m in written["per_layer"]:
+        # the committed cells' stand-ins in their order, then the added
+        # cells' that are new to the list: none for the family without one
+        mapped = [base[w] for w in lists[m["name"]] if w in base]
+        want = list(dict.fromkeys(mapped + ["tiny_gpt2.search8", "tiny_sg2.search8"]))
+        assert m["workloads"] == want, m["name"]
+        assert (root / "metrics" / f"{m['name']}.py").is_file()

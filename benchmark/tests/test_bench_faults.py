@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from benchmark.harness.check import judge
-from benchmark.tests.helpers import run_tiny, tiny_bench
+from benchmark.tests.helpers import committed, run_tiny, tiny_bench
 
 CELLS = ["tiny_sg2.search8", "tiny_sg2.serve2", "tiny_biggan.search8", "tiny_gpt2.search8",
          "tiny_gpt2.serve2"]
@@ -116,21 +116,16 @@ def test_the_fp8_control_fails_the_limits(tmp_path, cell):
     assert not all(c["ok"] for c in judge(run.controls["fp8"], limits).values())
 
 
-@pytest.mark.parametrize("name", ["sg2_ffhq_d.serve4", "sg2_ffhq_d.search16",
-                                  "biggan512.search32"])
+@pytest.mark.parametrize("name", [w["name"] for w, _, _ in committed()])
 def test_one_altered_row_in_a_committed_cells_sample_fails_its_limits(name):
     """An answer altered by 0.05 in one row of all that a committed cell
     checks a run fails its limits, all the other rows exact: no number
     compared dilutes one row below its limit."""
-    import json
-
-    from benchmark.harness.cell import BENCH
+    from benchmark.harness.cell import BENCH, load_json
     from benchmark.harness.check import summarize
 
-    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
-    workload = next(w for w in bench["workloads"] if w["name"] == name)
-    traffic = json.loads((BENCH / "traffic" / f"{workload['traffic']}.json").read_text())
-    limits = json.loads((BENCH / "limits" / f"{name}.json").read_text())
+    traffic = next(t for w, _, t in committed() if w["name"] == name)
+    limits = load_json(BENCH / "limits" / f"{name}.json")
     rows = traffic["check_evaluations"] * traffic["pop"] * traffic.get("slots", 1)
     gaps = {"sim": torch.zeros(rows, dtype=torch.float64)}
     gaps["sim"][rows // 2] = 0.05

@@ -1,13 +1,19 @@
 """A throwaway copy of the benchmark's data at tiny sizes, for CPU tests:
 configuration files of the three families at test widths (GPT-2 at the
 port's `models.gpt2.model.TINY`), small traffic
-mixes, wide limits, and the metric readers copied from the benchmark."""
+mixes, wide limits, and the metric readers copied from the benchmark.
+
+Each committed cell has the tiny cell of its configuration's `family` and
+its traffic's `kind` as its stand-in (`stand_ins`), found from the
+committed files: a cell added by files alone gets one without an edit
+here, and one whose family or kind has no tiny cell gets none."""
 
 from __future__ import annotations
 
 import json
 import shutil
 from pathlib import Path
+from typing import Dict
 
 BENCH = Path(__file__).resolve().parents[1]
 
@@ -54,6 +60,9 @@ TRAFFIC = {
                "generations": 1000, "warmup_ticks": 1, "profile_units": 1,
                "check_evaluations": 2, "check_window": 100, "check_block": 8},
 }
+# the tiny configuration of each family and the tiny mix of each traffic kind
+FAMILIES = {cfg["family"]: cfg["name"] for cfg in (SG2, BIGGAN, GPT2)}
+MIXES = {t["kind"]: name for name, t in TRAFFIC.items()}
 WORKLOADS = [
     {"name": "tiny_sg2.search8", "config": "tiny_sg2", "traffic": "search8", "chips": 1},
     {"name": "tiny_sg2.serve2", "config": "tiny_sg2", "traffic": "serve2", "chips": 1},
@@ -61,9 +70,6 @@ WORKLOADS = [
     {"name": "tiny_gpt2.search8", "config": "tiny_gpt2", "traffic": "search8", "chips": 1},
     {"name": "tiny_gpt2.serve2", "config": "tiny_gpt2", "traffic": "serve2", "chips": 1},
 ]
-# the committed cell each tiny cell stands in for
-STANDS_FOR = {"sg2_ffhq_d.serve4": "tiny_sg2.serve2", "sg2_ffhq_d.search16": "tiny_sg2.search8",
-              "biggan512.search32": "tiny_biggan.search8"}
 # float32 on both sides: the port and the reference differ by summation order
 LIMITS = {"sim_gap": {"max": 1e-3}, "sim_gap_rms": {"max": 1e-3}, "hinge_gap_rms": {"max": 1e-3},
           "moved_rows": {"min": 1}}
@@ -71,12 +77,30 @@ LIMITS = {"sim_gap": {"max": 1e-3}, "sim_gap_rms": {"max": 1e-3}, "hinge_gap_rms
 DECODE_LIMITS = {"decode_margin": {"max": 1e-3}}
 
 
-def write(root: Path) -> dict:
+def stand_ins(bench: dict, source: Path = BENCH) -> Dict[str, str]:
+    """Each cell of `bench` (read from the benchmark directory `source`)
+    that has a stand-in, mapped to it: the tiny cell of the same family
+    and traffic kind."""
+    tiny = {(w["config"], w["traffic"]): w["name"] for w in WORKLOADS}
+    out = {}
+    for w in bench["workloads"]:
+        fam = json.loads((source / "configs" / f"{w['config']}.json").read_text())["family"]
+        kind = json.loads((source / "traffic" / f"{w['traffic']}.json").read_text())["kind"]
+        key = (FAMILIES.get(fam), MIXES.get(kind))
+        if key in tiny:
+            out[w["name"]] = tiny[key]
+    return out
+
+
+def write(root: Path, source: Path = BENCH) -> dict:
     """The tiny benchmark under `root` (a `benchmark/` directory's layout)
-    and its BENCHMARK.json contents, which it also writes beside it."""
+    and its BENCHMARK.json contents, which it also writes beside it: the
+    benchmark of the directory `source` (its metrics, readers and
+    `BENCHMARK.json`) with its cells replaced by the tiny ones, each
+    per-layer metric's list naming the stand-ins of its cells."""
     for sub in ("configs", "traffic", "limits"):
         (root / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", root / "metrics", dirs_exist_ok=True)
+    shutil.copytree(source / "metrics", root / "metrics", dirs_exist_ok=True)
     for cfg in (SG2, BIGGAN, GPT2):
         (root / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     for name, t in TRAFFIC.items():
@@ -87,8 +111,10 @@ def write(root: Path) -> dict:
         if w["config"] == "tiny_gpt2":
             lim.update(DECODE_LIMITS)
         (root / "limits" / f"{w['name']}.json").write_text(json.dumps(lim))
-    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
-    per_layer = [{**m, "workloads": [STANDS_FOR[w] for w in m["workloads"]]}
+    bench = json.loads((source.parent / "BENCHMARK.json").read_text())
+    stands = stand_ins(bench, source)
+    per_layer = [{**m, "workloads": list(dict.fromkeys(stands[w] for w in m["workloads"]
+                                                       if w in stands))}
                  if "workloads" in m else m for m in bench["per_layer"]]
     bench = {**bench, "workloads": WORKLOADS, "per_layer": per_layer}
     (root.parent / "BENCHMARK.json").write_text(json.dumps(bench))
