@@ -102,11 +102,11 @@ def bench_config(name: str = FLAGSHIP, pop: Optional[int] = None, quant: str = "
 
 def kernel_wrappers() -> dict:
     """The hand-written kernels' wrappers by name (each counts its launches)."""
-    from clip_glass_torch.ops import bias_act, conv_s8, modulated_conv, s2d, upfirdn
+    from clip_glass_torch.ops import bias_act, conv_s8, modulated_conv, norms, s2d, upfirdn
 
     return {k.__name__: k for k in (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
                                     modulated_conv.modulated_matmul, s2d.s2d_conv2x2,
-                                    upfirdn.fir, conv_s8.conv_s8)}
+                                    upfirdn.fir, conv_s8.conv_s8, norms.cond_bn_relu)}
 
 
 def _targets(config, n_targets: int) -> list:

@@ -43,6 +43,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      the kernel at all 18 calls (`fir.launches` and the tracer's
      `kernels.fir`), and the whole evaluation's synchronizing lines under
      "warn";
+  3d. cond_bn (`phase_cond_bn`, alone: `python3 chip_smoke.py --cond-bn`,
+     after phases 1-2): BigGAN-deep's batch norm + ReLU kernel
+     (csrc/cond_bn_relu.cu) at the 57 calls of one DeepMindBigGAN512
+     evaluation (pop 32, bf16, `cond_bn_calls`), bitwise against its plain
+     version (the eager chain the model ran before it): per call and summed,
+     `kernel_ms` and `device_ms` as phase 3 times them, the eager chain's
+     `plain_ms` and `plain_device_ms` (replayed from a CUDA graph), the byte
+     bound (x read, the output written, the vectors) and its share; then one
+     BigGAN-deep-512 G forward at pop 32 on the card with the kernel (57
+     launches, `cond_bn_relu.launches` and the tracer's `kernels.cond_bn`)
+     and through the eager chain, bitwise equal, each timed;
   4. agreement: the TINY search's fitness on the GPU (kernels) against the
      CPU (plain versions), fp32, in the plain domain (TINY) and in the s2d
      domain (TINY with s2d_min_res=8);
@@ -65,8 +76,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      must write the artifact set, and launch every kernel on the variants
      phase 3 saw the main path take; one line per run with the `wallclock:`
      phases, seconds per generation and the periodic dumps' times.
-Then the BigGAN-deep paths, whose one kernel is kernel 4 at the bottleneck
-blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample):
+Then the BigGAN-deep paths, whose kernels are kernel 4 at the bottleneck
+blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample)
+and the batch norm (phase 3d; 57 launches a DeepMindBigGAN512 evaluation,
+49 a DeepMindBigGAN256 one):
   8. biggan kernels: kernel 4 at every call shape of DeepMindBigGAN256
      (pop 64) and DeepMindBigGAN512 (pop 32) (`biggan_shapes`), bf16, as
      phase 3 measures the flagship's, on the variant `expected_variant`
@@ -74,10 +87,12 @@ blocks' s2d mid segments (C' = 4 * mid, one weight set for every sample):
      wmma, beside each as `previous_*`, and at no fold of either config);
   9. biggan agreement: the TINY BigGAN GA fitness on the GPU against the
      CPU, fp32, plain (bg.TINY) and with both blocks' mid segments in the
-     s2d domain (s2d_min_res=4);
+     s2d domain (s2d_min_res=4), the batch norm at its 9 calls in both;
  10. biggan main: both configs' GA at full width (bf16, CLIP ViT-B/32,
      random weights from seed 0), init + 2 generations each, with kernel
-     4's launches by variant, then G and CLIP stage times (CUDA events);
+     4's launches by variant and the batch norm's launches (the wrapper's
+     and `kernels.cond_bn`, counts set to 0 just before), then G and CLIP
+     stage times (CUDA events);
  11. biggan domains: one fp32 DeepMindBigGAN256 evaluation of one
      population in both domains, and their largest difference (printed);
  12. biggan cli: `cli.main` with no --config (DeepMindBigGAN512), random
@@ -113,7 +128,7 @@ a temporary directory):
      H1's ga_state.npz equal to H2's bitwise; (c) the same search with
      RN50.pt (I), and both towers' CLIP stage (CUDA events); (d) one
      full-width evaluation of DeepMindBigGAN512 from its .bin (kernel 4
-     launches, F finite) and of GPT2 from its .bin (no kernel launches),
+     and the batch norm launch, F finite) and of GPT2 from its .bin (no kernel launches),
      with BigGAN's largest F difference between its final-BN affine staged
      in bf16 and kept in fp32 (printed).
 Then K searches of one config batched in one evaluation a generation
@@ -136,7 +151,8 @@ Then K searches of one config batched in one evaluation a generation
      kernel, F finite; the difference from per-search evaluation and the
      rows whose ids differ, printed; the decode and round trip in one group
      and in groups of one search); DeepMindBigGAN512 as 2 searches x pop 32
-     (one batched evaluation: kernel 4, 1 wgmma_stream + 3 wgmma);
+     (one batched evaluation: kernel 4, 1 wgmma_stream + 3 wgmma, and the
+     batch norm 57 times);
  20. batched and serve cli: `cli.main` at full width, M1 StyleGAN2_ffhq_d
      with 4 --target for 2 generations, M2 resumed to 4, M3 4 straight (M2's
      ga_state.npz equal to M3's bitwise; every search-NN/ with target.txt
@@ -1107,6 +1123,166 @@ def phase_fir(kind: str, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 3d
+
+def cond_bn_calls(model_cfg, pop: int) -> list:
+    """One BigGAN-deep G forward's `cond_bn_relu` calls for config
+    `model_cfg` at `pop` rows, in order: (x's shape, C, per-sample affine,
+    with the conv bias); phases = x's channels / C. Read from a bf16 forward
+    on meta tensors, so they are the model's own calls."""
+    from clip_glass_torch.core import memory
+    from clip_glass_torch.core.dtypes import BF16
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.ops import norms
+
+    with memory.abstract_construction():
+        params = bg.init(torch.Generator(), model_cfg)
+        z = torch.zeros(pop, model_cfg.z_dim)
+        cv = torch.zeros(pop, model_cfg.num_classes)
+    calls, real = [], norms.cond_bn_relu
+
+    def spy(x, mean, rstd, weight, bias, b_conv=None, phases=1):
+        calls.append((tuple(x.shape), mean.shape[0], weight.dim() == 2, b_conv is not None))
+        return real(x, mean, rstd, weight, bias, b_conv, phases)
+
+    norms.cond_bn_relu = spy
+    try:
+        bg.apply(params, z, cv, 1.0, model_cfg, BF16)
+    finally:
+        norms.cond_bn_relu = real
+    return calls
+
+
+def cond_bn_args(call, dtype, gen) -> tuple:
+    """`cond_bn_relu`'s operands for one call of `cond_bn_calls`, drawn from
+    `gen` on its device: x in `dtype`; mean 0.3 N(0, 1) and rstd of
+    variances in [0.5, 1.5), fp32; a per-sample affine in x's dtype (as
+    the conditional BN's) or a shared one in fp32 (as the final BN's raw
+    parameters), gains 1 + 0.2 N(0, 1), biases 0.3 N(0, 1); the conv bias
+    0.3 N(0, 1) in x's dtype."""
+    shape, C, per_sample, with_bias = call
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=gen.device)
+
+    x = randn(*shape).to(dtype)
+    mean = 0.3 * randn(C)
+    rstd = torch.rsqrt(0.5 + torch.rand(C, generator=gen, device=gen.device))
+    size, adt = ((shape[0], C), dtype) if per_sample else ((C,), torch.float32)
+    weight = (1 + 0.2 * randn(*size)).to(adt)
+    bias = (0.3 * randn(*size)).to(adt)
+    b_conv = (0.3 * randn(C)).to(dtype) if with_bias else None
+    return x, mean, rstd, weight, bias, b_conv, shape[-1] // C
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bit patterns (-0.0 is not 0.0)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[want.dtype]
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.view(as_int), want.view(as_int)))
+
+
+def _cond_bn_cost(args):
+    """Bytes of x, the output and the vectors; 5 fp32 operations an element,
+    6 with the conv bias."""
+    x, mean, rstd, weight, bias, b_conv, _ = args
+    return (2 * nbytes(x) + nbytes(mean, rstd, weight, bias, b_conv),
+            (5 + (b_conv is not None)) * x.numel())
+
+
+def _cond_bn_g(cfg, pop: int, plain: bool):
+    """One BigGAN-deep G forward on the card (bf16, random weights drawn from
+    seed 0 on the CPU, pop rows), with `norms.cond_bn_relu` as it is or, with `plain`, its
+    plain version (the eager chain): the images, the wrapper's launches
+    (counts set to 0 just before) and the tracer's `kernels.cond_bn` over
+    it, the wrapper's launches by variant, and its time (CUDA events, mean
+    of 3)."""
+    from clip_glass_torch.core.dtypes import BF16, map_tree
+    from clip_glass_torch.core.profiling import TRACER
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.ops import norms
+
+    params = map_tree(lambda _, t: t.cuda(), bg.init(torch.Generator().manual_seed(0), cfg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = bg.truncated_noise_sample(gen, pop, cfg.z_dim)
+    cv = torch.softmax(2.0 * torch.randn((pop, cfg.num_classes), generator=gen,
+                                         device="cuda"), dim=1)
+    real = norms.cond_bn_relu
+    norms.cond_bn_relu = norms.cond_bn_relu_plain if plain else real
+    try:
+        with torch.inference_mode():
+            _zero_counts((real,))
+            before = TRACER.counters().get("kernels.cond_bn", 0)
+            imgs = bg.apply(params, z, cv, 1.0, cfg, BF16)
+            torch.cuda.synchronize()
+            launches = (real.launches, TRACER.counters().get("kernels.cond_bn", 0) - before)
+            variants = {v: n for v, n in real.launches_by_variant.items() if n}
+            ms = time_ms(lambda: bg.apply(params, z, cv, 1.0, cfg, BF16), 3, warmup=1)
+    finally:
+        norms.cond_bn_relu = real
+    return imgs, launches, variants, ms
+
+
+def phase_cond_bn(kind: str, smi: str) -> dict:
+    """BigGAN-deep's batch norm + ReLU kernel (csrc/cond_bn_relu.cu) at the
+    57 calls of one DeepMindBigGAN512 evaluation (pop 32, bf16), each
+    bitwise against its plain version and timed as phase 3 times the
+    flagship's kernels, the plain version (the eager chain) also replayed
+    from a CUDA graph (`plain_device_ms`); per call the byte bound's share
+    of `device_ms`; the evaluation's sums. Then one BigGAN-deep-512 G
+    forward at pop 32 with the kernel (57 launches) and through the eager
+    chain: bitwise equal images, and both times. Returns the sums."""
+    from clip_glass_torch.models.biggan import model as bg
+    from clip_glass_torch.ops import norms
+
+    pop = BIGGAN_POP["DeepMindBigGAN512"]
+    calls = cond_bn_calls(bg.BIGGAN_DEEP_512, pop)
+    if len(calls) != 57:
+        raise AssertionError(f"cond_bn: {len(calls)} calls a BigGAN-deep-512 forward, not 57")
+    counts = _counts(calls)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernel, plain = norms.cond_bn_relu, norms.cond_bn_relu_plain
+    recs, not_bitwise = {}, []
+    for call in counts:
+        args = cond_bn_args(call, torch.bfloat16, gen)
+        n_bytes, n_ops = _cond_bn_cost(args)
+        rec = _measure(kernel, plain, args, torch.bfloat16, call[0], n_bytes, n_ops,
+                       device_time=True)
+        if not same_bits(kernel(*args), plain(*args)):
+            not_bitwise.append(call)
+        rec["plain_device_ms"] = graph_ms(lambda: plain(*args), _iters(n_bytes))
+        rec.update(C=call[1], phases=args[-1], per_sample_affine=call[2], conv_bias=call[3],
+                   elements=args[0].numel(), variant=_variant_of(kernel, args),
+                   bound_share=rec["bound_ms"] / rec["device_ms"],
+                   launches_per_evaluation=counts[call])
+        log(rec)
+        recs[call] = (rec, n_bytes, n_ops)
+        del args
+        torch.cuda.empty_cache()
+    tot = _path_sum(counts, recs, PEAK_FP32_OPS_PER_S)
+    tot["plain_device_ms"] = sum(n * recs[c][0]["plain_device_ms"] for c, n in counts.items())
+    tot["bound_share"] = tot["bound_ms"] / tot["device_ms"]
+    tot["launches_per_evaluation"] = len(calls)
+    big = [recs[c][0]["bound_share"] for c in counts if recs[c][0]["elements"] >= 8 * 2 ** 20]
+    tot["least_bound_share_at_8M_elements_or_more"] = min(big)
+    g_kernel, launches, tot["g_launches_by_variant"], tot["g_ms"] = _cond_bn_g(
+        bg.BIGGAN_DEEP_512, pop, plain=False)
+    g_eager, eager_launches, _, tot["g_eager_ms"] = _cond_bn_g(bg.BIGGAN_DEEP_512, pop,
+                                                               plain=True)
+    tot["g_launches"], tot["g_eager_launches"] = launches, eager_launches
+    tot["g_bitwise"] = same_bits(g_kernel, g_eager)
+    tot["g_max_abs_diff"] = (g_kernel.float() - g_eager.float()).abs().max().item()
+    del g_kernel, g_eager
+    torch.cuda.empty_cache()
+    log({"phase": "cond_bn", "device": kind, "nvidia_smi": smi, **tot})
+    if not_bitwise:
+        raise AssertionError(f"cond_bn: kernel and plain version differ at {not_bitwise}")
+    if launches != (57, 57) or eager_launches != (0, 0) or not tot["g_bitwise"]:
+        raise AssertionError(f"cond_bn: G launches {launches} (eager {eager_launches}), "
+                             f"bitwise {tot['g_bitwise']}")
+    return tot
+
+
 # ------------------------------------------------------------ phase 3b
 
 # one flagship call shape of each kernel (s2d path at 1024 px for kernel 4,
@@ -1302,11 +1478,12 @@ GRAD_G_TOL = 1e-4
 
 
 def _kernels():
-    """Kernels 1-4 and the FIR, each wrapper counting its launches."""
-    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+    """Kernels 1-4, the FIR and BigGAN-deep's batch norm (`cond_bn_relu`),
+    each wrapper counting its launches."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, norms, s2d, upfirdn
 
     return (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
-            modulated_conv.modulated_matmul, s2d.s2d_conv2x2, upfirdn.fir)
+            modulated_conv.modulated_matmul, s2d.s2d_conv2x2, upfirdn.fir, norms.cond_bn_relu)
 
 
 def _kernel_names() -> tuple:
@@ -1329,8 +1506,8 @@ def _zero_counts(kernels) -> None:
 def _agreement(family: str, cfg, X, models: dict, bundle=None) -> None:
     """The fitness of `X` on the GPU (kernels) against the CPU (plain
     versions) for each model config of `models` (label -> (config, the
-    launches of kernels 1-4 and the FIR per GPU evaluation)); the CPU
-    evaluation launches none.
+    launches of kernels 1-4, the FIR and the batch norm per GPU
+    evaluation)); the CPU evaluation launches none.
     fp32 on both sides with TF32 off: cuDNN/cuBLAS sum in another order than
     the CPU kernels over ~20 layers, hence rtol 1e-3, atol 1e-4."""
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -1372,23 +1549,27 @@ def phase_agreement():
     # upsamples, 3 ToRGB, 6 FIRs (G's 2 up levels, D's 2 blocks' conv1 and
     # skip). TINY_S2D (levels 8 and 16 in the s2d domain): 5 layer
     # epilogues, ToRGB at 4 px only, two [2,2] folds in G and two in D, the
-    # FIRs folded into the s2d convs
+    # FIRs folded into the s2d convs; no batch norm
     _agreement("StyleGAN2", cfg, X, {
-        "TINY": (sg2.TINY, (5, 2, 3, 0, 6)),
-        "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4, 0))})
+        "TINY": (sg2.TINY, (5, 2, 3, 0, 6, 0)),
+        "TINY_S2D": (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4, 0, 0))})
 
 
 # ------------------------------------------------------------ phase 5
 
 # launches per evaluation of the flagship on each path; the FIR's are
 # len(fir_calls(_model_cfg(path))): G's up levels and D's blocks below
-# s2d_min_res (tests/test_torch_ops.py holds them to it)
+# s2d_min_res (tests/test_torch_ops.py holds them to it); StyleGAN2 runs no
+# batch norm
 PER_EVAL = {
     "s2d": {"noise_bias_lrelu": 17, "upsample2x": 6, "modulated_matmul": 7,
-            "s2d_conv2x2": 4, "fir": 18},
+            "s2d_conv2x2": 4, "fir": 18, "cond_bn_relu": 0},
     "plain": {"noise_bias_lrelu": 17, "upsample2x": 8, "modulated_matmul": 9,
-              "s2d_conv2x2": 0, "fir": 24},
+              "s2d_conv2x2": 0, "fir": 24, "cond_bn_relu": 0},
 }
+# BigGAN-deep's batch norms a G forward: 4 a block and the final one
+# (tests/test_torch_biggan.py holds the forward to them)
+COND_BN_PER_EVAL = {"DeepMindBigGAN256": 49, "DeepMindBigGAN512": 57}
 
 
 def _model_cfg(path: str):
@@ -1450,7 +1631,7 @@ def phase_main(kind: str, smi: str, path: str, generations: int, summary: dict):
         if launches[name] != n * n_eval:
             raise AssertionError(f"{path}: {name}: {launches[name]} launches, "
                                  f"expected {n} x {n_eval} evaluations")
-    for name in variants:
+    for name in (k for k in variants if PER_EVAL[path][k]):   # the others launched none
         want = {v: n * n_eval
                 for v, n in summary[name][path]["launches_by_variant"].items() if n}
         if {v: n for v, n in variants[name].items() if n} != want:
@@ -1644,15 +1825,16 @@ def _cli_run(label: str, folder: str, config, generations: int, want_variants: d
 
 
 def _flagship_variants(summary: dict, batched: bool = False) -> dict:
-    """Every kernel, on the variants phases 3 and 3c (or, `batched`, phase
-    17) saw the flagship's s2d path take; the FIR's variant follows its
-    dtype and channels alone, which the rows do not change."""
+    """Every kernel of the flagship's s2d path, on the variants phases 3 and
+    3c (or, `batched`, phase 17) saw it take; the FIR's variant follows its
+    dtype and channels alone, which the rows do not change. The batch norm
+    is not among them: StyleGAN2 has none, so `_cli_run` holds it to 0."""
     def by(name):
         rec = summary[name]["batched"] if batched and name != "fir" else summary[name]
         return rec["s2d"]["launches_by_variant"]
     return {name: ({v for v, n in by(name).items() if n}
                    if name in FIRST_DESIGN or name == "fir" else None)
-            for name in _kernel_names()}
+            for name in _kernel_names() if PER_EVAL["s2d"][name]}
 
 
 def phase_cli(summary: dict) -> None:
@@ -1800,9 +1982,10 @@ def lively_biggan(cfg, seed: int):
 
 def phase_agreement_biggan() -> None:
     """The TINY BigGAN GA fitness on the GPU (kernels) against the CPU
-    (plain versions), fp32, on lively weights: plain (bg.TINY, no kernel)
-    and with both blocks' mid segments in the s2d domain (s2d_min_res=4:
-    kernel 4 twice in the 4 px block, once in the up block).
+    (plain versions), fp32, on lively weights: plain (bg.TINY: the batch
+    norm kernel at its 9 calls) and with both blocks' mid segments in the
+    s2d domain (s2d_min_res=4: kernel 4 twice in the 4 px block, once in the
+    up block, and the batch norm's 9 calls).
     tests/test_torch_cuda.py runs this same check."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.sampling import mixed_biggan_sampling
@@ -1816,18 +1999,21 @@ def phase_agreement_biggan() -> None:
     bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
               "g": lively_biggan(bg.TINY, 1)}
     _agreement("BigGAN", cfg, X, {
-        "TINY": (bg.TINY, (0, 0, 0, 0, 0)),
-        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0))}, bundle)
+        "TINY": (bg.TINY, (0, 0, 0, 0, 0, 9)),
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0, 9))}, bundle)
 
 
 def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
     """The config's GA at full width (its own population, bf16, ViT-B/32,
     random weights from seed 0), init + BIGGAN_GENERATIONS generations,
-    with kernel 4's counts set to 0 just before and read just after: it must
-    launch as phase 8 saw the wrapper choose at the config's call shapes,
-    and kernels 1-3 and the FIR never. Then the G and CLIP stage times of one
-    evaluation of the final population (CUDA events, mean of 3)."""
+    with the kernels' counts set to 0 just before and read just after:
+    kernel 4 must launch as phase 8 saw the wrapper choose at the config's
+    call shapes, the batch norm COND_BN_PER_EVAL times an evaluation, and
+    kernels 1-3 and the FIR never. Then the G and CLIP stage times of one
+    evaluation of the final population (CUDA events, mean of 3). Returns
+    kernel 4's and the batch norm's launches and launches by variant."""
     from clip_glass_torch.config import get_config
+    from clip_glass_torch.core.profiling import TRACER
     from clip_glass_torch.evolve.algorithm import minimize
     from clip_glass_torch.fitness.problem import GenerationProblem
 
@@ -1843,6 +2029,7 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
     torch.cuda.reset_peak_memory_stats()
     gen = algorithm.generator(0)
     _zero_counts(kernels)
+    traced = TRACER.counters().get("kernels.cond_bn", 0)
     t = time.perf_counter()
     state = algorithm.init(gen)
     torch.cuda.synchronize()
@@ -1857,7 +2044,9 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
                    state=state)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    traced = TRACER.counters().get("kernels.cond_bn", 0) - traced
     variants = dict(kernels[3].launches_by_variant)
+    bn_variants = {v: n for v, n in kernels[5].launches_by_variant.items() if n}
     peak = torch.cuda.max_memory_allocated()
 
     Fp = res.pop_F
@@ -1871,7 +2060,11 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
     if {v: n for v, n in variants.items() if n} != want:
         raise AssertionError(f"{name}: s2d_conv2x2 launches by variant {variants}, "
                              f"expected {want}")
-    if any(n for k, n in launches.items() if k != "s2d_conv2x2"):
+    if not launches["cond_bn_relu"] == traced == COND_BN_PER_EVAL[name] * n_eval:
+        raise AssertionError(f"{name}: cond_bn_relu {launches['cond_bn_relu']} launches "
+                             f"(kernels.cond_bn {traced}), expected {COND_BN_PER_EVAL[name]} "
+                             f"x {n_eval} evaluations")
+    if any(n for k, n in launches.items() if k not in ("s2d_conv2x2", "cond_bn_relu")):
         raise AssertionError(f"{name}: a StyleGAN2 kernel launched: {launches}")
 
     X = res.pop_X.cuda()
@@ -1891,12 +2084,12 @@ def phase_main_biggan(name: str, kind: str, smi: str, summary: dict):
          "generation_s": gen_s, "candidates_per_s": [pop / s for s in gen_s],
          "stage_ms": stage_ms, "max_memory_allocated_bytes": peak,
          "best_cos": -Fp[:, 0].min().item(), "launches": launches,
-         "launches_by_variant": {"s2d_conv2x2": variants},
+         "launches_by_variant": {"s2d_conv2x2": variants, "cond_bn_relu": bn_variants},
          "launches_by_variant_per_evaluation": {v: n // n_eval for v, n in want.items()},
          "device": kind, "nvidia_smi": smi})
     del problem, algorithm, res, state, X, imgs
     torch.cuda.empty_cache()
-    return launches["s2d_conv2x2"], variants
+    return launches["s2d_conv2x2"], variants, launches["cond_bn_relu"], bn_variants
 
 
 def phase_domains_biggan() -> None:
@@ -1929,13 +2122,14 @@ def phase_domains_biggan() -> None:
 
 def phase_cli_biggan() -> None:
     """`cli.main` with no --config: DeepMindBigGAN512 at full width, its
-    pop 32, random weights from seed 0, 2 generations; only kernel 4
-    launches, on both variants."""
+    pop 32, random weights from seed 0, 2 generations; only kernel 4 (on
+    both variants) and the batch norm launch."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         folder = os.path.join(tmp, "e")
-        _cli_run("E", folder, None, 2, {"s2d_conv2x2": {"wgmma_stream", "wgmma"}}, pop=None)
+        _cli_run("E", folder, None, 2, {"s2d_conv2x2": {"wgmma_stream", "wgmma"},
+                                        "cond_bn_relu": None}, pop=None)
         ls = _npz(os.path.join(folder, "ls_result.npz"))
         shapes = {k: v.shape for k, v in ls.items()}
         if shapes != {"z": (32, 128), "class_labels": (32, 1000)}:
@@ -2406,7 +2600,8 @@ def phase_checkpoints(kind: str, smi: str, summary: dict) -> None:
     evaluation of DeepMindBigGAN512 from its .bin (kernel 4 launches) and of
     GPT2 from its .bin (no kernel launches), and the largest difference in
     BigGAN's F between its final-BN affine staged in bf16 (the rule of both
-    packages) and kept in fp32 (printed, not asserted)."""
+    packages) and kept in fp32 (printed, not asserted; the batch norm kernel
+    takes the fp32 affine beside bf16 x)."""
     import tempfile
 
     from clip_glass_torch.config import get_config
@@ -2442,8 +2637,9 @@ def phase_checkpoints(kind: str, smi: str, summary: dict) -> None:
         config = get_config(name).replace(target=TARGET, weights=bin_path)
         X = mixed_biggan_sampling(torch.Generator().manual_seed(4), config.pop_size)
         gen, Fp, launches = _one_evaluation(config, paths["clip/ViT-B-32.pt"], X, name)
-        if not launches["s2d_conv2x2"] or any(
-                n for k, n in launches.items() if k != "s2d_conv2x2"):
+        if not launches["s2d_conv2x2"] or launches["cond_bn_relu"] != COND_BN_PER_EVAL[name] \
+                or any(n for k, n in launches.items() if k not in ("s2d_conv2x2",
+                                                                   "cond_bn_relu")):
             raise AssertionError(f"{name} from its .bin: launches {launches}")
         raw = from_jax.convert_biggan(
             convert_biggan.load_torch_checkpoint(bin_path, "biggan-deep-512")[0])["bn"]
@@ -2549,8 +2745,8 @@ def _batched_agreement(family: str, cfg, Xb, targets, models: dict, bundle=None)
     """Each model config's batched fitness of Xb [K, pop, n_var] against
     `targets` on the GPU (kernels) against the CPU (plain versions), fp32,
     TF32 off, at _agreement's tolerance (rtol 1e-3, atol 1e-4; GPT-2 1e-6),
-    with the launches of kernels 1-4 and the FIR in one batched GPU
-    evaluation."""
+    with the launches of kernels 1-4, the FIR and the batch norm in one
+    batched GPU evaluation."""
     from clip_glass_torch.fitness.problem import GenerationProblem
     from clip_glass_torch.models.clip import model as clip_model
 
@@ -2598,10 +2794,10 @@ def phase_agreement_batched() -> None:
         cfg = get_config(name).replace(pop_size=8, dim_z=32, n_var=32, weights="random:0",
                                        target=targets[0], compute_dtype="float32")
         # the FIR: G's 2 up levels, and D's 2 blocks (conv1 and skip) with D
-        models = {"TINY": (sg2.TINY, (5, 2, 3, 0, 6 if name.endswith("_d") else 2))}
+        models = {"TINY": (sg2.TINY, (5, 2, 3, 0, 6 if name.endswith("_d") else 2, 0))}
         if name.endswith("_d"):
             models["TINY_S2D"] = (dataclasses.replace(sg2.TINY, s2d_min_res=8),
-                                  (5, 0, 1, 4, 0))
+                                  (5, 0, 1, 4, 0, 0))
         _batched_agreement(name, cfg, torch.randn((3, 8, 32), generator=g), targets, models)
     cfg = get_config("DeepMindBigGAN512").replace(
         pop_size=8, dim_z=16, num_classes=10, n_var=26, resolution=8, weights="random:0",
@@ -2610,12 +2806,12 @@ def phase_agreement_batched() -> None:
     bundle = {"clip": clip_model.init(torch.Generator().manual_seed(0), clip_model.TINY),
               "g": lively_biggan(bg.TINY, 1)}
     _batched_agreement("BigGAN", cfg, Xb, targets, {
-        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0))}, bundle)
+        "TINY_S2D": (dataclasses.replace(bg.TINY, s2d_min_res=4), (0, 0, 0, 3, 0, 9))}, bundle)
     dogs = [DOG, os.path.join(ROOT, "examples", "gpt2_images", "goldfish.jpeg"),
             os.path.join(ROOT, "examples", "gpt2_images", "zebra.jpeg")]
     Xb = torch.stack([int_random_sampling(g, 8, 6, 0, 50256) for _ in range(3)])
     _batched_agreement("GPT2", _gpt2_tiny_config(), Xb, dogs,
-                       {"TINY": (g2.TINY, (0, 0, 0, 0, 0))})
+                       {"TINY": (g2.TINY, (0, 0, 0, 0, 0, 0))})
 
 
 def _close_to_scale(label: str, got, want, tol: float) -> dict:
@@ -2683,7 +2879,7 @@ def phase_main_batched(kind: str, smi: str, summary: dict, single: dict) -> tupl
         if launches[name] != 3 * n:
             raise AssertionError(f"batched main: {name} {launches[name]} launches, expected "
                                  f"{n} x 3 batched evaluations")
-    for name in variants:
+    for name in (k for k in variants if PER_EVAL["s2d"][k]):   # the others launched none
         # the FIR's variant follows its dtype and channels, not the rows
         rec = summary[name] if name == "fir" else summary[name]["batched"]
         want = {v: 3 * n for v, n in rec["s2d"]["launches_by_variant"].items() if n}
@@ -2812,8 +3008,9 @@ def phase_main_batched_gpt2(kind: str, smi: str) -> None:
 def phase_main_batched_biggan(kind: str, smi: str, summary: dict) -> None:
     """Phase 19c: DeepMindBigGAN512 at full width (bf16, ViT-B/32, random
     weights from seed 0) as 2 searches x its pop 32: one batched evaluation
-    of the initial populations, kernel 4 alone launching on phase 8's
-    variants (1 wgmma_stream + 3 wgmma), F finite."""
+    of the initial populations (one G forward of 64 rows), kernel 4 launching
+    on phase 8's variants (1 wgmma_stream + 3 wgmma) and the batch norm 57
+    times, no other kernel, F finite."""
     from clip_glass_torch.config import get_config
     from clip_glass_torch.evolve.batched import make_batched
     from clip_glass_torch.fitness.problem import GenerationProblem
@@ -2831,9 +3028,11 @@ def phase_main_batched_biggan(kind: str, smi: str, summary: dict) -> None:
     launches = {k.__name__: k.launches for k in kernels}
     variants = {v: n for v, n in kernels[3].launches_by_variant.items() if n}
     want = summary["s2d_conv2x2"]["biggan"]["DeepMindBigGAN512"]["launches_by_variant"]
-    if variants != want or any(n for k, n in launches.items() if k != "s2d_conv2x2"):
+    if variants != want or launches["cond_bn_relu"] != COND_BN_PER_EVAL["DeepMindBigGAN512"] \
+            or any(n for k, n in launches.items() if k not in ("s2d_conv2x2", "cond_bn_relu")):
         raise AssertionError(f"batched biggan: launches {launches}, {variants}; expected "
-                             f"s2d_conv2x2 {want} only")
+                             f"s2d_conv2x2 {want} and cond_bn_relu "
+                             f"{COND_BN_PER_EVAL['DeepMindBigGAN512']} only")
     if tuple(state.F.shape) != (2, 32, 1) or not torch.isfinite(state.F).all():
         raise AssertionError(f"batched biggan: bad fitness {tuple(state.F.shape)}")
     log({"phase": "batched_main", "config": "DeepMindBigGAN512", "searches": 2,
@@ -5005,7 +5204,7 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
     finally:
         restore()
     launches_b = {k.__name__: k.launches for k in kernels}
-    per_shard = {name: n * (TP_GENERATIONS + 1) for name, n in PER_EVAL["s2d"].items()}
+    per_shard = {name: n * (TP_GENERATIONS + 1) for name, n in PER_EVAL["s2d"].items() if n}
     if sorted(counts) != [0, 1, 2, 3] or any(counts[i] != per_shard for i in counts) or \
             not torch.isfinite(res.pop_F).all():
         raise AssertionError(f"tp (b): launches by position {counts}, expected {per_shard} "
@@ -5105,7 +5304,7 @@ def phase_tp(kind: str, smi: str, root: str) -> dict:
         raise AssertionError(f"tp (c): estimate / measured peak outside {ESTIMATE_RANGE}: {bad}")
     log({"phase": "tp", "seconds": time.perf_counter() - t_phase})
     out = {name: {"launches_per_rank": ranks[0]["tp_launches"][name],
-                  "launches_per_position": counts[0][name]} for name in PER_EVAL["s2d"]}
+                  "launches_per_position": counts[0].get(name, 0)} for name in PER_EVAL["s2d"]}
     out["conv_s8"] = {"launches_per_rank": 0, "launches_per_position": counts8[0]["conv_s8"]}
     return out
 
@@ -5239,8 +5438,10 @@ HARNESS_HASH_CHECKS = ("clip/ViT-B/32: sha256", "clip/RN50: sha256")
 HARNESS_CHECK_KERNELS = {
     "stylegan2/ffhq-config-f: TF convert + render":
         ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2", "fir"),
-    "biggan/biggan-deep-256: convert + HF-oracle parity + render": ("s2d_conv2x2",),
-    "biggan/biggan-deep-512: convert + HF-oracle parity + render": ("s2d_conv2x2",),
+    "biggan/biggan-deep-256: convert + HF-oracle parity + render": ("s2d_conv2x2",
+                                                                     "cond_bn_relu"),
+    "biggan/biggan-deep-512: convert + HF-oracle parity + render": ("s2d_conv2x2",
+                                                                     "cond_bn_relu"),
     "CLI drive: StyleGAN2_ffhq_d txt2img":
         ("noise_bias_lrelu", "upsample2x", "modulated_matmul", "s2d_conv2x2", "fir")}
 
@@ -5390,7 +5591,7 @@ def phase_harness(smi: str, kind: str) -> dict:
       (c) kernels 1-4 and the FIR each launched during the harness, and
           each check of HARNESS_CHECK_KERNELS launched its kernels (the
           1024 px render and the CLI drive: 1-4 and the FIR; BigGAN against
-          the HF oracle: kernel 4's fp32 route);
+          the HF oracle: kernel 4's fp32 route and the batch norm in fp32);
       (d) each check's seconds, and the BigGAN oracle's max abs error at 256
           and 512 px;
       (e) scripts/search_dynamics_ab_torch.py at TINY size, HARNESS_AB_SEEDS
@@ -5431,7 +5632,8 @@ def phase_harness(smi: str, kind: str) -> dict:
         raise AssertionError(f"harness: kernels {idle} never launched: {launches}")
     by = {r["name"]: r for r in results}
     # the render at 1024 px runs kernels 1-4 and the FIR (fp32); BigGAN's s2d mid
-    # segments run kernel 4's fp32 route against the HF oracle
+    # segments run kernel 4's fp32 route, and its batch norms the kernel in
+    # fp32, against the HF oracle
     for name, want in HARNESS_CHECK_KERNELS.items():
         got = by[name].get("launches", {})
         if not all(got.get(k) for k in want):
@@ -5492,6 +5694,10 @@ def main() -> int:
         phase_fir(kind, smi)
         log({"script_s": time.perf_counter() - t0})
         return 0
+    if sys.argv[1:2] == ["--cond-bn"]:
+        phase_cond_bn(kind, smi)
+        log({"script_s": time.perf_counter() - t0})
+        return 0
     summary = phase_kernels()
     host = phase_host()
     grads = phase_gradients()
@@ -5502,6 +5708,7 @@ def main() -> int:
     phase_domains()
     phase_cli(summary)
     phase_kernels_biggan(summary)
+    cond_bn = phase_cond_bn(kind, smi)
     phase_agreement_biggan()
     biggan = {name: phase_main_biggan(name, kind, smi, summary) for name in BIGGAN_POP}
     phase_domains_biggan()
@@ -5709,6 +5916,44 @@ def main() -> int:
                  f"config-f's widths, its G and D under set_sync_debug_mode('error') "
                  f"counted by fir.launches and the tracer's kernels.fir; "
                  f"evaluation_sync_sites: the whole evaluation under 'warn'"})
+    keys = [k for k in cond_bn if k.endswith("ms") or k in ("bound_by", "bound_share")]
+    name = "cond_bn_relu"
+    kernels.append({
+        "name": name, "route": "cuda", "source": "clip_glass_torch/csrc/cond_bn_relu.cu",
+        "replaces": "none: XLA fuses BigGAN-deep's batch norm, "
+                    "clip_glass_tpu/models/biggan/model.py:198-215",
+        "launches": biggan["DeepMindBigGAN512"][2],
+        "launches_by_variant": biggan["DeepMindBigGAN512"][3],
+        "max_abs_err": cond_bn["max_abs_err"], **{k: cond_bn[k] for k in keys},
+        **{k: cond_bn[k] for k in ("launches_per_evaluation",
+                                   "least_bound_share_at_8M_elements_or_more", "g_launches",
+                                   "g_launches_by_variant", "g_bitwise")},
+        "gradient": "the plain version's backward (cuda.with_grad)",
+        "biggan": {cfg: {"launches": b[2], "launches_by_variant": b[3],
+                         "launches_per_evaluation": COND_BN_PER_EVAL[cfg]}
+                   for cfg, b in biggan.items()},
+        "flagship": {"launches": launches[name], "plain_path": plain_launches[name],
+                     "batched": batched[name], "int8": int8_main["launches"][name]},
+        "projector": {"launches": projector["launches"][name]},
+        "ppl": {"launches": ppl_launches.get(name, 0)},
+        "trainer": trainer.get(name, {"launches": 0}),
+        "sharded": sharded[name],
+        "tp": tp[name],
+        "bench": bench[name],
+        "harness": {"launches": harness["launches"][name],
+                    "launches_by_variant": harness["launches_by_variant"].get(name),
+                    "launches_by_check": {check: n[name] for check, n in
+                                          harness["launches_by_check"].items() if name in n}},
+        "scope": f"launches: init + {BIGGAN_GENERATIONS} generations of DeepMindBigGAN512's GA "
+                 f"(biggan: each config's; {COND_BN_PER_EVAL} an evaluation), the other "
+                 f"phases as for kernels 1-4 (StyleGAN2 and GPT-2 run none); times: sums over "
+                 f"the 57 calls of one DeepMindBigGAN512 evaluation (pop 32, bf16); ms: "
+                 f"back-to-back wrapper calls; device_ms: replayed from a CUDA graph; "
+                 f"plain_ms, plain_device_ms: cond_bn_relu_plain (the eager chain) the same "
+                 f"two ways; bound_ms: bytes of x, the output and the vectors over 3.35 TB/s; "
+                 f"max_abs_err: over the calls (any difference fails the run); g_*: one "
+                 f"BigGAN-deep-512 G forward at pop 32 (launches: the wrapper's and "
+                 f"kernels.cond_bn)"})
     log({"script_s": time.perf_counter() - t0})
     log({"kernels": kernels})
     log(smi)

@@ -16,8 +16,10 @@ blocks' inputs and outputs stay plain. `dataclasses.replace(cfg,
 s2d_min_res=2**30)` runs everything plain. The [2,2] folds of that segment
 (the same-resolution 3x3 convs between opposite lattices) are the
 hand-written kernel `s2d_conv2x2` on a GPU tensor, with one weight set
-shared by every sample; self-attention, the conditional BN and the dense
-layers are stock PyTorch, as the JAX package leaves them to XLA.
+shared by every sample; each batch norm with the ReLU after it (and the
+preceding conv's bias) is the hand-written kernel `cond_bn_relu`
+(ops/norms.py) on a GPU tensor; self-attention and the dense layers are
+stock PyTorch, as the JAX package leaves them to XLA.
 
 Activations are NHWC; parameters come from `weights.from_jax` (OIHW convs,
 right-multiply dense weights, [n_stats, C] running statistics).
@@ -33,6 +35,7 @@ import torch
 
 from clip_glass_torch.core.dtypes import FP32, Policy
 from clip_glass_torch.evolve.sampling import truncnorm_core
+from clip_glass_torch.ops import norms
 from clip_glass_torch.ops import s2d as S
 from clip_glass_torch.ops.modulated_conv import _conv_float
 from clip_glass_torch.weights import from_jax
@@ -191,36 +194,39 @@ def _interp_stats(means, variances, truncation: float, n_stats: int):
             variances[lo] * coef + variances[lo + 1] * (1 - coef))
 
 
-def _cond_bn_apply(p, x, cond, truncation, cfg, policy: Policy, phases: int = 1):
-    """Conditional BN: the gain 1 + cond @ scale and the bias cond @ offset
-    in the compute dtype, the normalization in fp32 from the raw fp32
-    statistics, one rounding back to x's dtype. `phases` = 4 applies it to
-    an s2d tensor (the per-channel vectors tiled across the phases)."""
+def _bn_stats(p, truncation, cfg):
+    """The batch norm's fp32 statistics: the interpolated running mean and
+    rsqrt(running var + eps)."""
     mean, var = _interp_stats(p["running_means"], p["running_vars"], truncation,
                               cfg.n_stats)
+    return mean, torch.rsqrt(var + cfg.eps)
+
+
+def _cond_bn_relu(p, x, cond, truncation, cfg, policy: Policy, b_conv=None,
+                  phases: int = 1):
+    """Conditional BN + ReLU (ops/norms.cond_bn_relu): the gain 1 + cond @
+    scale and the bias cond @ offset in the compute dtype, the preceding
+    conv's bias `b_conv` added to x in x's dtype, the normalization in fp32
+    from the raw fp32 statistics, one rounding back to x's dtype. `phases`
+    = 4 applies it to an s2d tensor."""
     weight = 1.0 + cond @ policy.cast_compute(p["scale"]["w"])
     bias = cond @ policy.cast_compute(p["offset"]["w"])
-    if phases > 1:
-        mean, var, weight, bias = (S.tile_channels(t, phases)
-                                   for t in (mean, var, weight, bias))
-    y = (x.float() - mean) * torch.rsqrt(var + cfg.eps)
-    y = y * weight.float()[:, None, None, :] + bias.float()[:, None, None, :]
-    return y.to(x.dtype)
+    return norms.cond_bn_relu(x, *_bn_stats(p, truncation, cfg), weight, bias, b_conv,
+                              phases)
 
 
-def _plain_bn_apply(p, x, truncation, cfg):
-    mean, var = _interp_stats(p["running_means"], p["running_vars"], truncation,
-                              cfg.n_stats)
-    y = (x.float() - mean) * torch.rsqrt(var + cfg.eps)
-    return (y * p["weight"] + p["bias"]).to(x.dtype)
+def _conv(p, x, policy: Policy):
+    """Stride-1 conv with the package's padding, (k-1)//2 on each side, and
+    no bias; never quantized, as the JAX package's lax.conv_general_dilated
+    call here."""
+    w = policy.cast_compute(p["w"])
+    pad = (w.shape[-1] - 1) // 2
+    return _conv_float(x, w, pad0=pad, pad1=pad)
 
 
 def _conv_apply(p, x, policy: Policy):
-    """Stride-1 conv with the package's padding, (k-1)//2 on each side; never
-    quantized, as the JAX package's lax.conv_general_dilated call here."""
-    w = policy.cast_compute(p["w"])
-    pad = (w.shape[-1] - 1) // 2
-    y = _conv_float(x, w, pad0=pad, pad1=pad)
+    """`_conv` and the conv's bias."""
+    y = _conv(p, x, policy)
     if "b" in p:
         y = y + policy.cast_compute(p["b"])
     return y
@@ -255,23 +261,23 @@ def _block_mid_s2d(p, h, cond, truncation, up: bool, cfg, policy: Policy, skip=N
     BN + ReLU that precedes it, read by nothing else."""
     cc = policy.cast_compute
 
-    def bn_relu(name, t):
-        return torch.relu(_cond_bn_apply(p[name], t, cond, truncation, cfg, policy, 4))
+    def bn_relu(name, t, conv):
+        return _cond_bn_relu(p[name], t, cond, truncation, cfg, policy, cc(p[conv]["b"]), 4)
 
     hs = S.s2d_enter_conv1x1(h, cc(p["conv_0"]["w"]))
-    hs = bn_relu("bn_1", hs + S.tile_channels(cc(p["conv_0"]["b"])))
+    hs = bn_relu("bn_1", hs, "conv_0")
     if up:
         off = -1 if skip is not None else 0
         hs = S.s2d_nearest_up_conv(hs, cc(p["conv_1"]["w"]), in_off=0, out_off=off)
     else:
         hs = S.s2d_conv2d(hs, cc(p["conv_1"]["w"]), 0, -1)
         off = -1
-    hs = bn_relu("bn_2", hs + S.tile_channels(cc(p["conv_1"]["b"])))
+    hs = bn_relu("bn_2", hs, "conv_1")
     if off:
         hs = S.mask_phantoms_(hs)
     off2 = 0 if off else -1
     hs = S.s2d_conv2d(hs, cc(p["conv_2"]["w"]), off, off2)
-    hs = bn_relu("bn_3", hs + S.tile_channels(cc(p["conv_2"]["b"])))
+    hs = bn_relu("bn_3", hs, "conv_2")
     if off2:
         hs = S.mask_phantoms_(hs)
     if skip is not None:
@@ -283,7 +289,7 @@ def _block_mid_s2d(p, h, cond, truncation, up: bool, cfg, policy: Policy, skip=N
 
 def _gen_block_apply(p, x, cond, truncation, up: bool, cfg, policy: Policy):
     x0 = x
-    h = torch.relu(_cond_bn_apply(p["bn_0"], x, cond, truncation, cfg, policy))
+    h = _cond_bn_relu(p["bn_0"], x, cond, truncation, cfg, policy)
     mid = p["conv_0"]["w"].shape[0]
     out_res = 2 * x.shape[1] if up else x.shape[1]
     if out_res >= cfg.s2d_min_res and 4 * mid <= 512:
@@ -295,14 +301,15 @@ def _gen_block_apply(p, x, cond, truncation, up: bool, cfg, policy: Policy):
                                   skip=x0[..., :out_ch])
         h = _block_mid_s2d(p, h, cond, truncation, up, cfg, policy)
     else:
-        h = _conv_apply(p["conv_0"], h, policy)
-        h = torch.relu(_cond_bn_apply(p["bn_1"], h, cond, truncation, cfg, policy))
+        cc = policy.cast_compute
+        h = _conv(p["conv_0"], h, policy)
+        h = _cond_bn_relu(p["bn_1"], h, cond, truncation, cfg, policy, cc(p["conv_0"]["b"]))
         if up:
             h = _upsample_nearest(h)
-        h = _conv_apply(p["conv_1"], h, policy)
-        h = torch.relu(_cond_bn_apply(p["bn_2"], h, cond, truncation, cfg, policy))
-        h = _conv_apply(p["conv_2"], h, policy)
-        h = torch.relu(_cond_bn_apply(p["bn_3"], h, cond, truncation, cfg, policy))
+        h = _conv(p["conv_1"], h, policy)
+        h = _cond_bn_relu(p["bn_2"], h, cond, truncation, cfg, policy, cc(p["conv_1"]["b"]))
+        h = _conv(p["conv_2"], h, policy)
+        h = _cond_bn_relu(p["bn_3"], h, cond, truncation, cfg, policy, cc(p["conv_2"]["b"]))
         h = _conv_apply(p["conv_3"], h, policy)
 
     out_ch = h.shape[-1]
@@ -351,7 +358,8 @@ def apply(params, z, class_vector, truncation: float = 1.0,
                                  cfg, policy)
             li += 1
 
-    h = torch.relu(_plain_bn_apply(params["bn"], h, truncation, cfg))
+    bn = params["bn"]
+    h = norms.cond_bn_relu(h, *_bn_stats(bn, truncation, cfg), bn["weight"], bn["bias"])
     # The package's conv_to_rgb maps ch -> ch and KEEPS ONLY the first 3
     # channels; slicing the kernel's outputs gives the same numbers for 3/ch
     # of the products. The checkpoint keeps the full weight.

@@ -38,7 +38,7 @@ from clip_glass_torch.core.profiling import TRACER
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("noise_bias_lrelu.cu", "upsample2x.cu", "modulated_matmul.cu",
-           "s2d_conv2x2.cu", "conv_s8.cu", "fir.cu")
+           "s2d_conv2x2.cu", "conv_s8.cu", "fir.cu", "cond_bn_relu.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,6 +90,11 @@ _SIGNATURES = {
     # x, out, B, H, W, C, pad0, pad1, k0, k1, k2, k3, dtype, vec, stream (the
     # stride-1 4-tap FIR of ops/upfirdn.py; vec 16 / itemsize or 1)
     "cg_fir": (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _F, _F, _F, _F, _INT, _INT, _P),
+    # x, b_conv (or null), mean, rstd, weight, bias, out, B, H, W, Cx, C, x's
+    # strides b, h, w, the affine's row stride (C or 0), dtype, the affine's
+    # dtype, vec, stream (BigGAN-deep's batch norm + ReLU of ops/norms.py)
+    "cg_cond_bn_relu": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                        _I64, _I64, _I64, _INT, _INT, _INT, _P),
 }
 
 _lock = threading.Lock()

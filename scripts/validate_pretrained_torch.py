@@ -77,13 +77,14 @@ def record(name, status, detail="", seconds=0.0, **numbers):
 
 
 def kernel_launches() -> dict:
-    """The launch counters of the port's kernels 1-4 and the FIR (each
-    wrapper counts the launches of its CUDA kernel; none on the CPU)."""
-    from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+    """The launch counters of the port's kernels 1-4, the FIR and BigGAN's
+    batch norm (each wrapper counts the launches of its CUDA kernel; none
+    on the CPU)."""
+    from clip_glass_torch.ops import bias_act, modulated_conv, norms, s2d, upfirdn
 
     return {k.__name__: k.launches for k in (bias_act.noise_bias_lrelu, upfirdn.upsample2x,
                                              modulated_conv.modulated_matmul, s2d.s2d_conv2x2,
-                                             upfirdn.fir)}
+                                             upfirdn.fir, norms.cond_bn_relu)}
 
 
 def check(name):

@@ -30,7 +30,7 @@ from clip_glass_torch.fitness.problem import GenerationProblem
 from clip_glass_torch.models.biggan import model as tbg
 from clip_glass_torch.models.clip import model as tclip
 from clip_glass_torch.models.stylegan2 import model as tsg2
-from clip_glass_torch.ops import bias_act, conv_s8, cuda, modulated_conv, s2d, upfirdn
+from clip_glass_torch.ops import bias_act, conv_s8, cuda, modulated_conv, norms, s2d, upfirdn
 from clip_glass_torch.parallel import distributed as dist
 from clip_glass_torch.parallel.dryrun import dryrun_multichip, fullsize_estimates
 from clip_glass_torch.parallel.mesh import abstract_mesh, make_mesh
@@ -146,7 +146,7 @@ def test_meta_rules_match_the_plain_versions(monkeypatch, case):
                                     "modulated_matmul_plain"},
                 "stylegan2_s2d": {"noise_bias_lrelu_plain", "modulated_matmul_plain",
                                   "s2d_conv2x2_plain"},
-                "biggan": {"s2d_conv2x2_plain"}}[case]
+                "biggan": {"s2d_conv2x2_plain", "cond_bn_relu_plain"}}[case]
     assert expected <= seen, seen
 
 
@@ -176,6 +176,9 @@ def _wrapper_cases():
                               torch.randn(2, 3), torch.randn(3))),
         "s2d_conv2x2": (s2d, s2d.s2d_conv2x2, (x4, torch.randn(2, 2, 8, 8), torch.randn(2, 8),
                                                torch.randn(2, 8), 1)),
+        "cond_bn_relu": (norms, norms.cond_bn_relu,
+                         (torch.randn(2, 4, 4, 8), torch.randn(2), torch.rand(2) + 0.5,
+                          torch.randn(2, 2), torch.randn(2, 2), torch.randn(2), 4)),
     }
 
 

@@ -205,3 +205,74 @@ def test_output_shape_range_and_class_dependence(trees):
                  1.0, bg.TINY)
     assert a.shape == (1, 3, 8, 8) and a.abs().max() <= 1.0
     assert not torch.allclose(a, b)
+
+
+@pytest.mark.parametrize("name,calls", [("biggan-deep-512", 57), ("biggan-deep-256", 49),
+                                        ("biggan-deep-128", 41)])
+def test_batch_norms_of_one_forward(name, calls):
+    """chip_smoke.cond_bn_calls, from which the smoke run and the card's
+    tests take the batch norm's calls: four in each block and the final
+    one, read from a forward on meta tensors; the s2d mid segments' with
+    phases 4 and the conv's bias, the final one with a shared affine."""
+    import chip_smoke
+
+    cfg = bg.CONFIGS[name]
+    got = chip_smoke.cond_bn_calls(cfg, 2)
+    assert len(got) == 4 * len(cfg.layers) + 1 == calls
+    assert [per_sample for _, _, per_sample, _ in got] == [True] * (calls - 1) + [False]
+    assert sum(shape[-1] == 4 * C for shape, C, _, _ in got) == 3 * sum(
+        2 * res >= cfg.s2d_min_res if up else res >= cfg.s2d_min_res
+        for (up, _, _), res in zip(cfg.layers, _block_resolutions(cfg)))
+    assert got[-1] == ((2, cfg.output_dim, cfg.output_dim, cfg.channel_width), 128, False, False)
+
+
+def _block_resolutions(cfg):
+    res, out = 4, []
+    for up, _, _ in cfg.layers:
+        out.append(res)
+        res *= 2 if up else 1
+    return out
+
+
+def _eager_bn_relu(x, mean, var, eps, weight, bias, b_conv, phases):
+    """The batch norm + ReLU as the model computed it before the kernel, step
+    by step: the conv bias added in x's dtype, the vectors tiled across the
+    phases, the normalization in fp32, one rounding, the ReLU."""
+    if b_conv is not None:
+        x = x + S.tile_channels(b_conv, phases)
+    if phases > 1:
+        mean, var, weight, bias = (S.tile_channels(t, phases) for t in (mean, var, weight, bias))
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    if weight.dim() == 2:
+        y = y * weight.float()[:, None, None, :] + bias.float()[:, None, None, :]
+    else:
+        y = y * weight + bias
+    return torch.relu(y.to(x.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phases,per_sample,with_bias", [(1, True, False), (1, True, True),
+                                                         (4, True, True), (1, False, False)])
+def test_cond_bn_relu_on_the_cpu_is_the_eager_chain(dtype, phases, per_sample, with_bias):
+    """On the CPU the wrapper takes its plain version, bitwise the model's
+    eager chain before the kernel (the oracle the card's tests hold the
+    kernel to), and launches nothing."""
+    from clip_glass_torch.core.profiling import TRACER
+    from clip_glass_torch.ops import norms
+
+    g = torch.Generator().manual_seed(7)
+    C, B = 12, 3
+    x = torch.randn((B, 5, 6, phases * C), generator=g).to(dtype)
+    mean = 0.3 * torch.randn(C, generator=g)
+    var = 0.5 + torch.rand(C, generator=g)
+    size, adt = ((B, C), dtype) if per_sample else ((C,), torch.float32)
+    weight = (1 + 0.2 * torch.randn(size, generator=g)).to(adt)
+    bias = (0.3 * torch.randn(size, generator=g)).to(adt)
+    b_conv = (0.3 * torch.randn(C, generator=g)).to(dtype) if with_bias else None
+    before = (norms.cond_bn_relu.launches, TRACER.counters().get("kernels.cond_bn", 0))
+    got = norms.cond_bn_relu(x, mean, torch.rsqrt(var + 1e-4), weight, bias, b_conv, phases)
+    assert (norms.cond_bn_relu.launches, TRACER.counters().get("kernels.cond_bn", 0)) == before
+    want = _eager_bn_relu(x, mean, var, 1e-4, weight, bias, b_conv, phases)
+    assert got.dtype == dtype and (got > 0).any() and (got == 0).any()
+    as_int = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(as_int), want.view(as_int))

@@ -9,6 +9,7 @@ Tolerances: fp32 1e-5 (summation order and FMA contraction only); bf16
 other places). Kernel 4's outputs are sums of 4C' products: its absolute
 tolerance is taken relative to the output's scale."""
 
+import dataclasses
 import math
 
 import pytest
@@ -16,7 +17,9 @@ import pytest
 import torch
 
 import chip_smoke
-from clip_glass_torch.ops import bias_act, modulated_conv, s2d, upfirdn
+from clip_glass_torch.core.profiling import TRACER
+from clip_glass_torch.models.biggan import model as bg
+from clip_glass_torch.ops import bias_act, modulated_conv, norms, s2d, upfirdn
 
 pytestmark = pytest.mark.gpu
 
@@ -253,6 +256,126 @@ def test_biggan_launches_no_fir(gpu):
     before = (upfirdn.fir.launches, TRACER.counters().get("kernels.fir", 0))
     chip_smoke.phase_agreement_biggan()
     assert (upfirdn.fir.launches, TRACER.counters().get("kernels.fir", 0)) == before
+
+
+# every distinct batch-norm call of a BigGAN-deep-512 forward at 32 rows
+# (plain and s2d, per-sample and shared affines, with and without the conv
+# bias), then TINY's in both domains (C = 4: one value a thread in bf16)
+COND_BN_CALLS = list(dict.fromkeys(
+    chip_smoke.cond_bn_calls(bg.BIGGAN_DEEP_512, 32)
+    + chip_smoke.cond_bn_calls(bg.TINY, 3)
+    + chip_smoke.cond_bn_calls(dataclasses.replace(bg.TINY, s2d_min_res=4), 3)))
+
+
+def _bn_id(call):
+    shape, C, per_sample, with_bias = call
+    return (f"{'x'.join(map(str, shape))}-C{C}-{'sample' if per_sample else 'shared'}"
+            f"{'-bconv' if with_bias else ''}")
+
+
+def _cond_bn_counts():
+    return norms.cond_bn_relu.launches, TRACER.counters().get("kernels.cond_bn", 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("call", COND_BN_CALLS, ids=_bn_id)
+def test_cond_bn_kernel_at_the_biggan512_calls(gpu, dtype, call):
+    """One launch a call, counted by the wrapper and the tracer's
+    `kernels.cond_bn`, bitwise the plain version's output (the eager chain
+    of the model before the kernel)."""
+    args = chip_smoke.cond_bn_args(call, dtype, gpu)
+    n0, k0 = _cond_bn_counts()
+    got = norms.cond_bn_relu(*args)
+    assert _cond_bn_counts() == (n0 + 1, k0 + 1)
+    want = norms.cond_bn_relu_plain(*args)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("view,variant", [("crop", "vector"), ("crop_odd", "scalar"),
+                                          ("hw_swapped", "vector"),
+                                          ("channels_strided", "vector")])
+def test_cond_bn_kernel_takes_strided_x(gpu, dtype, view, variant):
+    """x as a crop of a larger NHWC buffer (its own b, h and w strides; an
+    odd channel count in the buffer leaves one value a thread), with h and
+    w swapped, and with channels not contiguous (copied first): bitwise the
+    plain version's output, on the variant the strides allow."""
+    _, mean, rstd, weight, bias, b_conv, _ = chip_smoke.cond_bn_args(
+        ((3, 7, 9, 64), 16, True, True), dtype, gpu)
+    x = {"crop": lambda: _randn(gpu, 3, 10, 12, 72, dtype=dtype)[:, 1:8, 2:11, :64],
+         "crop_odd": lambda: _randn(gpu, 3, 10, 12, 66, dtype=dtype)[:, 1:8, 2:11, :64],
+         "hw_swapped": lambda: _randn(gpu, 3, 9, 7, 64, dtype=dtype).transpose(1, 2),
+         "channels_strided": lambda: _randn(gpu, 3, 64, 7, 9, dtype=dtype).permute(0, 2, 3, 1),
+         }[view]()
+    v0 = norms.cond_bn_relu.launches_by_variant[variant]
+    got = norms.cond_bn_relu(x, mean, rstd, weight, bias, b_conv, 4)
+    assert norms.cond_bn_relu.launches_by_variant[variant] == v0 + 1
+    assert got.is_contiguous()
+    want = norms.cond_bn_relu_plain(x, mean, rstd, weight, bias, b_conv, 4)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got, want)
+
+
+def test_cond_bn_rejects_what_the_kernel_does_not_take(gpu):
+    args = chip_smoke.cond_bn_args(((2, 4, 4, 32), 8, True, True), torch.float32, gpu)
+    x, mean, rstd, weight, bias, b_conv, phases = args
+    with pytest.raises(ValueError, match="shapes"):
+        norms.cond_bn_relu(x, mean, rstd, weight, bias, b_conv, 2)
+    with pytest.raises(ValueError, match="shapes"):
+        norms.cond_bn_relu(x, mean, rstd, weight[:1], bias[:1], b_conv, phases)
+    for bad in [(x.half(), mean, rstd, weight, bias, b_conv),
+                (x, mean.bfloat16(), rstd, weight, bias, b_conv),
+                (x, mean, rstd, weight, bias.bfloat16(), b_conv),
+                (x, mean, rstd, weight, bias, b_conv.bfloat16()),
+                (x, mean, rstd, weight.bfloat16(), bias.bfloat16(), b_conv)]:
+        with pytest.raises(TypeError):
+            norms.cond_bn_relu(*bad, phases)
+    with pytest.raises(ValueError, match="cpu"):
+        norms.cond_bn_relu(x, mean.cpu(), rstd.cpu(), weight, bias, b_conv, phases)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cond_bn_gradient_is_the_plain_versions(gpu, dtype):
+    """Under grad the kernel's forward, and plain autograd's gradient."""
+    x, mean, rstd, weight, bias, b_conv, phases = chip_smoke.cond_bn_args(
+        ((2, 5, 5, 32), 8, True, True), dtype, gpu)
+    x.requires_grad_(True)
+    weight.requires_grad_(True)
+    out = norms.cond_bn_relu(x, mean, rstd, weight, bias, b_conv, phases)
+    assert type(out.grad_fn).__name__ == "_KernelGradBackward"
+    r = _randn(gpu, *out.shape, dtype=dtype)
+    got = torch.autograd.grad((out * r).sum(), [x, weight])
+    plain = norms.cond_bn_relu_plain(x, mean, rstd, weight, bias, b_conv, phases)
+    want = torch.autograd.grad((plain * r).sum(), [x, weight])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_biggan256_g_on_the_kernel_is_the_eager_route(gpu, monkeypatch):
+    """BigGAN-deep-256's G on the card at 2 rows, bf16, in its s2d domain,
+    lively weights: its 49 batch norms launch the kernel (the wrapper's
+    count and the tracer's `kernels.cond_bn`), and the images equal
+    bitwise those of the same forward with the wrapper replaced by its
+    plain version, the eager chain (which launches none)."""
+    from clip_glass_torch.core.dtypes import BF16, map_tree
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = bg.BIGGAN_DEEP_256
+    params = map_tree(lambda _, t: t.cuda(), chip_smoke.lively_biggan(cfg, 1))
+    g = torch.Generator().manual_seed(2)
+    z = bg.truncated_noise_sample(g, 2, cfg.z_dim).cuda()
+    cv = torch.softmax(2.0 * torch.randn((2, cfg.num_classes), generator=g), dim=1).cuda()
+    with torch.inference_mode():
+        n0, k0 = _cond_bn_counts()
+        got = bg.apply(params, z, cv, 1.0, cfg, BF16)
+        n1, k1 = _cond_bn_counts()
+        monkeypatch.setattr(norms, "cond_bn_relu", norms.cond_bn_relu_plain)
+        want = bg.apply(params, z, cv, 1.0, cfg, BF16)
+        torch.cuda.synchronize()
+    assert (n1 - n0, k1 - k0) == (49, 49)
+    assert TRACER.counters().get("kernels.cond_bn", 0) == k1
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 256, 256)
+    assert chip_smoke.same_bits(got, want)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -882,7 +1005,8 @@ def test_sharded_tiny_fitness_on_gpu_matches_unsharded(gpu):
     that card (one thread each, D's minibatch-std gathered across them)
     against the unsharded evaluation, both domains, fp32, TF32 off: cuDNN may
     take other algorithms at 4 rows than at 8, hence rtol 1e-4, atol 1e-5;
-    each kernel (1-4 and the FIR) launches once a shard a call site."""
+    each kernel (1-4 and the FIR) launches once a shard a call site, the
+    batch norm never."""
     import dataclasses
 
     import chip_smoke
@@ -896,8 +1020,9 @@ def test_sharded_tiny_fitness_on_gpu_matches_unsharded(gpu):
         pop_size=8, dim_z=32, n_var=32, weights="random:0", target="a face",
         compute_dtype="float32")
     X = torch.randn((8, 32), generator=torch.Generator().manual_seed(1)).cuda()
-    for model_cfg, per_eval in ((sg2.TINY, (5, 2, 3, 0, 6)),
-                                (dataclasses.replace(sg2.TINY, s2d_min_res=8), (5, 0, 1, 4, 0))):
+    for model_cfg, per_eval in ((sg2.TINY, (5, 2, 3, 0, 6, 0)),
+                                (dataclasses.replace(sg2.TINY, s2d_min_res=8),
+                                 (5, 0, 1, 4, 0, 0))):
         F = {}
         for label, mesh in (("whole", None), ("sharded", make_mesh(["cuda:0", "cuda:0"]))):
             p = GenerationProblem(cfg, device="cuda", clip_cfg=clip_model.TINY,
